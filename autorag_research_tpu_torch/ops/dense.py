@@ -1,0 +1,518 @@
+"""Dense exact similarity scoring + top-k on an NVIDIA GPU (PyTorch + CUDA).
+
+Counterpart of ``autorag_research_tpu/ops/dense.py``. The corpus lives in
+device memory as an ``[N, d]`` tensor and a whole query batch is scored at
+once. Method names map to the JAX package's as follows:
+
+- ``full`` (``dense_topk_xla_full``): one ``torch.matmul`` plus
+  :func:`topk_ordered` over the materialized [Q, N] scores.
+- ``scan`` (``dense_topk_xla``): a loop over corpus tiles with a running
+  ``(-score, id)`` merge, bounded memory.
+- ``kernel`` (``dense_topk_pallas``): :func:`dense_topk_stream`, the
+  hand-written CUDA kernel ``csrc/dense_topk_stream.cu`` that never
+  materializes the scores; on CPU tensors its plain version
+  :func:`dense_topk_plain`.
+
+The verified-exact path (:func:`dense_topk_verified`) runs its prescreen
+through :func:`seg_stats_bf16`, the CUDA kernel ``csrc/seg_stats.cu``
+(``_seg_stats_kernel`` in the JAX package), with :func:`_seg_stats_plain` as
+its plain version.
+
+Exact paths are true f32: the entry points switch TF32 off for matmuls and
+check it (the counterpart of ``precision=HIGHEST``), since the verified
+proof's error bound assumes an exact f32 rescore. Scores are raw dot
+products: with L2-normalized inputs, cosine similarity.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from autorag_research_tpu_torch.ops import cuda_build
+from autorag_research_tpu_torch.ops.topk import (  # noqa: F401 - re-exported
+    INT_MAX,
+    NEG_INF,
+    merge_topk,
+    pad_to_k,
+    sort_topk,
+    topk_ordered,
+)
+
+# Kernel launches per wrapper: each wrapper adds one where it launches its
+# kernel and nowhere else, so a run can show which kernels it went through.
+LAUNCHES = {"seg_stats_bf16": 0, "dense_topk_stream": 0}
+
+# Score-matrix budget (bytes) for the ``full`` path; beyond it the scores are
+# never materialized.
+FULL_MATERIALIZE_BUDGET = 2 << 30
+
+# Results per row the streaming kernel holds: each block keeps a k-entry list
+# per query row in shared memory (64 rows x k x 8 bytes).
+STREAM_K_MAX = 256
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _require_exact_f32() -> None:
+    """Pin f32 matmuls to true f32 (no TF32) and check that it holds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("exact dense paths need true f32 matmuls (TF32 is on)")
+
+
+def _scores(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """f32 scores [Q, N]; bf16 inputs multiply exactly in f32 and sum in f32."""
+    return torch.matmul(queries.float(), corpus.float().T)
+
+
+def _masked_scores(qf, corpus, base: int, n_valid: int):
+    scores = _scores(qf, corpus)
+    col = base + torch.arange(scores.shape[1], device=scores.device)
+    return scores.masked_fill(col[None, :] >= n_valid, NEG_INF)
+
+
+def _check_cuda_operand(x: torch.Tensor, name: str, dtypes: tuple) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if x.dtype not in dtypes:
+        raise ValueError(f"{name} dtype {x.dtype} not in {dtypes}")
+    if x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 2-D tensor")
+    if x.shape[1] % 8 or x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel needs d % 8 == 0 and 16-byte alignment")
+
+
+# --------------------------------------------------------------- exact paths
+def dense_topk_full(
+    queries: torch.Tensor, corpus: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact dense top-k over the materialized [Q, N] scores (JAX
+    ``dense_topk_xla_full``). Returns (scores f32 [Q, k], ids int32 [Q, k])
+    in ``(-score, id)`` order."""
+    _require_exact_f32()
+    k_eff = min(k, corpus.shape[0])
+    top_s, top_i = topk_ordered(_scores(queries, corpus), k_eff)
+    return pad_to_k(top_s, top_i, k, k_eff)
+
+
+def _scan_topk(queries, corpus, k_eff: int, tile_n: int, n_valid: int):
+    """Top-k over corpus tiles of ``tile_n`` rows with a running
+    ``(-score, id)`` merge; rows >= n_valid never surface."""
+    q = queries.shape[0]
+    scores = torch.full((q, k_eff), NEG_INF, dtype=torch.float32, device=queries.device)
+    ids = torch.full((q, k_eff), INT_MAX, dtype=torch.int32, device=queries.device)
+    for base in range(0, corpus.shape[0], tile_n):
+        tile = _masked_scores(queries, corpus[base : base + tile_n], base, n_valid)
+        tile_s, tile_local = topk_ordered(tile, min(k_eff, tile.shape[1]))
+        scores, ids = sort_topk(
+            torch.cat([scores, tile_s], dim=1),
+            torch.cat([ids, tile_local + base], dim=1),
+            k_eff,
+        )
+    return scores, ids
+
+
+def dense_topk_scan(
+    queries: torch.Tensor, corpus: torch.Tensor, k: int, tile_n: int = 131072
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact dense top-k as a loop over corpus tiles with a running
+    ``(-score, id)`` merge (JAX ``dense_topk_xla``): bounded memory."""
+    _require_exact_f32()
+    n = corpus.shape[0]
+    k_eff = min(k, n)
+    scores, ids = _scan_topk(queries, corpus, k_eff, tile_n, n)
+    return pad_to_k(scores, ids, k, k_eff)
+
+
+def _stream_parts(q: int, n: int, device: torch.device) -> tuple[int, int]:
+    """(part_rows, parts) for the streaming kernel: split the corpus so the
+    grid holds about eight 64-query x part blocks per SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    parts = max(1, min(-(-n // 64), -(-8 * sms // -(-q // 64))))
+    part_rows = _round_up(-(-n // parts), 64)
+    return part_rows, -(-n // part_rows)
+
+
+def _bounded_tile_n(q: int) -> int:
+    """Corpus rows per step of a tiled scan: a [q, tile] f32 score tile of
+    about 512 MB at any q."""
+    return max(8192, min(131072, ((512 << 20) // max(1, q * 4)) // 128 * 128))
+
+
+def dense_topk_plain(
+    queries: torch.Tensor, corpus: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`dense_topk_stream`: the same
+    ``(-score, id)`` top-k by a tiled scan with bounded score tiles."""
+    return dense_topk_scan(queries, corpus, k, tile_n=_bounded_tile_n(queries.shape[0]))
+
+
+def dense_topk_stream(
+    queries: torch.Tensor, corpus: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming exact dense top-k (JAX ``dense_topk_pallas``): queries and
+    corpus both f32 or both bf16, f32 accumulation, the [Q, N] scores never
+    materialized. CUDA tensors launch ``csrc/dense_topk_stream.cu``; CPU
+    tensors take :func:`dense_topk_plain`. Returns (scores [Q, k], ids
+    [Q, k]) in ``(-score, id)`` order."""
+    if queries.dtype != corpus.dtype:
+        raise ValueError("queries and corpus must share a dtype")
+    n = corpus.shape[0]
+    k_eff = min(k, n)
+    if k_eff > STREAM_K_MAX:
+        raise ValueError(f"the streaming kernel holds at most {STREAM_K_MAX} results per row")
+    if not queries.is_cuda:
+        return dense_topk_plain(queries, corpus, k)
+    _require_exact_f32()
+    dtypes = (torch.float32, torch.bfloat16)
+    _check_cuda_operand(queries, "queries", dtypes)
+    _check_cuda_operand(corpus, "corpus", dtypes)
+    if queries.device != corpus.device or queries.shape[1] != corpus.shape[1]:
+        raise ValueError("queries and corpus must share a device and a width")
+    q, d = queries.shape
+    part_rows, parts = _stream_parts(q, n, queries.device)
+    out_s = torch.empty((q, parts, k_eff), dtype=torch.float32, device=queries.device)
+    out_i = torch.empty((q, parts, k_eff), dtype=torch.int32, device=queries.device)
+    lib = cuda_build.load("dense_topk_stream")
+    fn = (
+        lib.dense_topk_stream_f32_launch
+        if queries.dtype == torch.float32
+        else lib.dense_topk_stream_bf16_launch
+    )
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(
+        queries.data_ptr(), corpus.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        q, n, d, k_eff, part_rows, parts,
+        torch.cuda.current_stream(queries.device).cuda_stream,
+    )
+    cuda_build.check_launch(rc, "dense_topk_stream")
+    LAUNCHES["dense_topk_stream"] += 1
+    scores, ids = merge_topk(out_s, out_i, k_eff)
+    return pad_to_k(scores, ids, k, k_eff)
+
+
+def dense_topk(
+    queries: torch.Tensor, corpus: torch.Tensor, k: int, method: str = "auto"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch by shape: ``full`` while the [Q, N] f32 scores fit
+    ``FULL_MATERIALIZE_BUDGET``; beyond it ``kernel`` (the streaming CUDA
+    kernel, or its plain version for CPU tensors), which holds at most
+    ``STREAM_K_MAX`` results per row and raises ``ValueError`` beyond that
+    (``method="scan"`` takes any k)."""
+    if method == "auto":
+        if queries.shape[0] * corpus.shape[0] * 4 <= FULL_MATERIALIZE_BUDGET:
+            method = "full"
+        else:
+            method = "kernel"
+    if method == "full":
+        return dense_topk_full(queries, corpus, k)
+    if method == "scan":
+        return dense_topk_scan(queries, corpus, k)
+    if method == "kernel":
+        return dense_topk_stream(queries, corpus, k)
+    raise ValueError(f"unknown dense_topk method: {method}")
+
+
+# ------------------------------------------------------- verified exact fast
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization: ``x ~= q * scale[:, None]``.
+
+    Returns (q int8 [N, d], scale f32 [N]); zero rows get scale 0."""
+    absmax = torch.amax(torch.abs(x), dim=1)
+    scale = absmax / 127.0
+    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(x / safe[:, None]), -127, 127).to(torch.int8)
+    return q, scale.float()
+
+
+def build_verified_sidecar(corpus, rep: str = "int8", pad_rows_to: int | None = None) -> dict:
+    """Host-side prescreen sidecar for :func:`dense_topk_verified`.
+
+    Returns ``{"corpus_lo", "corpus_scale", "nd_max", "r_max"}`` with
+    ``corpus_lo`` a CPU tensor: per-row int8 (``rep="int8"``, with per-row
+    f32 ``corpus_scale``) or bf16 (``rep="bf16"``, ``corpus_scale`` None).
+    ``nd_max`` = max ||d|| and ``r_max`` = max ||d - dequant(lo(d))|| are
+    computed in float64 and rounded UP, so they bound the device's f32
+    arithmetic. ``pad_rows_to`` zero-pads ``corpus_lo`` to a row multiple;
+    the prescreen masks pad rows by the valid-row count."""
+    c = np.asarray(corpus, dtype=np.float32)
+    if c.size == 0:
+        raise ValueError("cannot build a verified sidecar for an empty corpus")
+    c64 = c.astype(np.float64)
+    if rep == "int8":
+        corpus_lo, corpus_scale = quantize_int8(torch.from_numpy(c))
+        deq = corpus_lo.double().numpy() * corpus_scale.double().numpy()[:, None]
+    elif rep == "bf16":
+        corpus_lo = torch.from_numpy(c).to(torch.bfloat16)
+        corpus_scale = None
+        deq = corpus_lo.float().numpy().astype(np.float64)
+    else:
+        raise ValueError(f"unknown verified prescreen rep: {rep}")
+
+    def _up(x: float) -> float:
+        x32 = np.float32(x * (1.0 + 1e-6))
+        return float(np.nextafter(x32, np.float32(np.inf)))
+
+    r_max = _up(float(np.linalg.norm(c64 - deq, axis=1).max()))
+    nd_max = _up(float(np.linalg.norm(c64, axis=1).max()))
+    if pad_rows_to:
+        pad = _round_up(corpus_lo.shape[0], pad_rows_to) - corpus_lo.shape[0]
+        if pad:
+            corpus_lo = torch.cat(
+                [corpus_lo, corpus_lo.new_zeros((pad, corpus_lo.shape[1]))]
+            )
+            if corpus_scale is not None:
+                corpus_scale = torch.cat([corpus_scale, corpus_scale.new_zeros(pad)])
+    return {
+        "corpus_lo": corpus_lo,
+        "corpus_scale": corpus_scale,
+        "nd_max": nd_max,
+        "r_max": r_max,
+    }
+
+
+def _prescreen_query_side(qf, corpus_lo, corpus_scale):
+    """Low-precision query representation + the prescreen error bound inputs."""
+    if corpus_lo.dtype == torch.int8:
+        q_q, q_scale = quantize_int8(qf)
+        q_hat = q_q.float() * q_scale[:, None]
+        return (q_q, q_scale), q_hat
+    q_lo = qf.to(corpus_lo.dtype)
+    return (q_lo, None), q_lo.float()
+
+
+def _prescreen_eps(qf, q_hat, nd_max: float, r_max: float):
+    """Provable per-query error bound: |true(q,d) - shat(q,d)| <= eps for
+    EVERY doc d. By Cauchy-Schwarz eps = ||q - q_hat||·nd_max +
+    ||q_hat||·r_max; the 1.001 factor and the d·2^-23 term cover the f32
+    evaluation rounding (norms, dequant multiplies, the f32 accumulation of
+    the low-precision prescreen)."""
+    d = qf.shape[1]
+    nd = torch.tensor(nd_max, dtype=torch.float32, device=qf.device)
+    rm = torch.tensor(r_max, dtype=torch.float32, device=qf.device)
+    eq = qf - q_hat
+    eqn = torch.sqrt(torch.sum(eq * eq, dim=1))
+    qn = torch.sqrt(torch.sum(q_hat * q_hat, dim=1))
+    return (eqn * nd + qn * rm) * 1.001 + (d * 2.0**-23) * qn * (nd + rm) + 1e-30
+
+
+def _seg_stats_plain(q_rep, corpus_lo, corpus_scale, n: int, seg: int):
+    """Segment statistics over the materialized prescreen scores (JAX
+    ``_seg_stats_xla``) -> (max1 f32, loc1 int32, max2 f32), each [Q, S] with
+    S = ceil(rows / seg). Columns >= n are masked to NEG_INF.
+
+    The plain version of :func:`seg_stats_bf16` for a bf16 corpus, and the
+    int8 prescreen's only path (neither package has an int8 kernel): int8
+    products and their sums are integers, computed exactly in float64."""
+    q_lo, q_scale = q_rep
+    if corpus_lo.dtype == torch.int8:
+        s = torch.matmul(q_lo.double(), corpus_lo.double().T).to(torch.int32)
+        shat = s.float() * corpus_scale[None, :] * q_scale[:, None]
+    else:
+        shat = _scores(q_lo, corpus_lo)
+    q_cnt, n_lo = shat.shape
+    col = torch.arange(n_lo, device=shat.device)
+    shat = shat.masked_fill(col[None, :] >= n, NEG_INF)
+    s_cnt = -(-n_lo // seg)
+    if s_cnt * seg != n_lo:
+        shat = torch.nn.functional.pad(shat, (0, s_cnt * seg - n_lo), value=NEG_INF)
+    segv = shat.view(q_cnt, s_cnt, seg)
+    max1 = torch.amax(segv, dim=2)
+    lane = torch.arange(seg, dtype=torch.int32, device=shat.device).expand_as(segv)
+    is_max = segv == max1[:, :, None]
+    loc1 = torch.amin(torch.where(is_max, lane, INT_MAX), dim=2)
+    max2 = torch.amax(segv.masked_fill(lane == loc1[:, :, None], NEG_INF), dim=2)
+    return max1, loc1, max2
+
+
+def seg_stats_bf16(q_lo: torch.Tensor, corpus_lo: torch.Tensor, n: int, seg: int = 128):
+    """Fused bf16 prescreen + per-segment (max1, loc1, max2), each [Q, S],
+    S = ceil(rows / seg) (JAX ``_seg_stats_pallas``). CUDA tensors launch
+    ``csrc/seg_stats.cu`` (seg must be 128); CPU tensors take
+    :func:`_seg_stats_plain`."""
+    if not q_lo.is_cuda:
+        return _seg_stats_plain((q_lo, None), corpus_lo, None, n, seg)
+    if seg != 128:
+        raise ValueError("the seg_stats kernel takes seg=128 only")
+    _check_cuda_operand(q_lo, "q_lo", (torch.bfloat16,))
+    _check_cuda_operand(corpus_lo, "corpus_lo", (torch.bfloat16,))
+    if q_lo.device != corpus_lo.device or q_lo.shape[1] != corpus_lo.shape[1]:
+        raise ValueError("q_lo and corpus_lo must share a device and a width")
+    q, d = q_lo.shape
+    rows = corpus_lo.shape[0]
+    if not 0 <= n <= rows:
+        raise ValueError(f"valid-row count {n} outside [0, {rows}]")
+    s_cnt = -(-rows // seg)
+    dev = q_lo.device
+    max1 = torch.empty((q, s_cnt), dtype=torch.float32, device=dev)
+    loc1 = torch.empty((q, s_cnt), dtype=torch.int32, device=dev)
+    max2 = torch.empty((q, s_cnt), dtype=torch.float32, device=dev)
+    fn = cuda_build.load("seg_stats").seg_stats_bf16_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(
+        q_lo.data_ptr(), corpus_lo.data_ptr(), max1.data_ptr(), loc1.data_ptr(),
+        max2.data_ptr(), q, rows, d, n, s_cnt, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check_launch(rc, "seg_stats_bf16")
+    LAUNCHES["seg_stats_bf16"] += 1
+    return max1, loc1, max2
+
+
+def _exact_scan_masked(qf, corpus, n_valid: int, k_eff: int):
+    """Exact f32 top-k as a corpus-tiled loop with an n_valid row mask: the
+    bounded-memory exact fallback of the verified path."""
+    return _scan_topk(qf, corpus, k_eff, _bounded_tile_n(qf.shape[0]), n_valid)
+
+
+def _exact_topk_masked(qf, corpus, n_valid: int, k_eff: int):
+    """Exact f32 fallback: flat while the scores fit the budget, else the
+    tiled scan."""
+    if qf.shape[0] * corpus.shape[0] * 4 > FULL_MATERIALIZE_BUDGET:
+        return _exact_scan_masked(qf, corpus, n_valid, k_eff)
+    return topk_ordered(_masked_scores(qf, corpus, 0, n_valid), k_eff)
+
+
+def _dense_topk_verified(
+    queries, corpus, corpus_lo, corpus_scale, nd_max: float, r_max: float,
+    k: int, m: int, j: int, seg: int, second_chance: int, n_valid: int | None = None,
+):
+    q_cnt = queries.shape[0]
+    n = corpus.shape[0]
+    # rows >= n_valid (zero padding) are masked out of stats, candidates and
+    # the exact fallbacks: they can never surface
+    n_valid = n if n_valid is None else int(n_valid)
+    k_eff = min(k, n)
+    f_cap = min(second_chance, q_cnt)
+    qf = queries.float()
+    dev = qf.device
+
+    # ---- pass 1: prescreen scores -> per-segment statistics. No large-k
+    # selection runs at corpus width: the corpus splits into S segments and
+    # three cheap per-segment reductions (max1, its min-lane argmax loc1,
+    # runner-up max2) feed a top-k over [Q, S] only.
+    q_rep, q_hat = _prescreen_query_side(qf, corpus_lo, corpus_scale)
+    eps = _prescreen_eps(qf, q_hat, nd_max, r_max)
+    if corpus_lo.dtype == torch.int8:
+        max1, loc1, max2 = _seg_stats_plain(q_rep, corpus_lo, corpus_scale, n_valid, seg)
+    else:
+        max1, loc1, max2 = seg_stats_bf16(q_rep[0], corpus_lo, n_valid, seg)
+    s_cnt = max1.shape[1]
+
+    m_eff = min(m, s_cnt)
+    j_eff = min(j, s_cnt)
+    neg = torch.full((q_cnt,), NEG_INF, dtype=torch.float32, device=dev)
+    if s_cnt > m_eff:
+        top1_s, top1_i = topk_ordered(max1, m_eff + 1)
+        boundary = top1_s[:, m_eff]  # (m+1)-th largest segment max
+        sel_seg, sel_val = top1_i[:, :m_eff], top1_s[:, :m_eff]
+    else:
+        sel_val, sel_seg = topk_ordered(max1, m_eff)
+        boundary = neg
+    if s_cnt > j_eff:
+        top2_s, top2_i = topk_ordered(max2, j_eff + 1)
+        m2bound = top2_s[:, j_eff]  # (j+1)-th largest runner-up
+        r_seg = top2_i[:, :j_eff]
+    else:
+        _, r_seg = topk_ordered(max2, j_eff)
+        m2bound = neg
+
+    # argmax candidates: drop segments rescored in full below (their argmax
+    # would duplicate) and NEG_INF pad segments
+    in_r = torch.any(sel_seg[:, :, None] == r_seg[:, None, :], dim=2)
+    arg_ids = sel_seg * seg + torch.gather(loc1, 1, sel_seg.long())
+    arg_valid = (~in_r) & (sel_val > NEG_INF) & (arg_ids < n_valid)
+    # full-segment candidates: every doc of the top-j runner-up segments
+    seg_iota = torch.arange(seg, dtype=torch.int32, device=dev)
+    full_ids = (r_seg[:, :, None] * seg + seg_iota[None, None, :]).reshape(q_cnt, j_eff * seg)
+    full_valid = full_ids < n_valid
+
+    cand_i = torch.cat([arg_ids, full_ids], dim=1)
+    cand_valid = torch.cat([arg_valid, full_valid], dim=1)
+    safe_i = torch.clamp(cand_i, 0, n - 1).long()
+    # gather [Q, m + j*seg, d] f32 rows (about 1 GB at Q=1024, d=768) and
+    # rescore them in true f32
+    rows = corpus[safe_i].float()
+    e = torch.bmm(rows, qf[:, :, None])[:, :, 0]
+    e = e.masked_fill(~cand_valid, NEG_INF)
+    sort_ids = cand_i.masked_fill(~cand_valid, INT_MAX)
+    out_s, out_i = sort_topk(e, sort_ids, k_eff)
+
+    # ---- verification: a doc with true >= e_(k) has shat >= theta =
+    # e_(k) - eps. A non-candidate doc is in a non-selected segment (shat <=
+    # boundary) or a non-argmax doc of a segment not rescored in full (shat <=
+    # m2bound), so two strict comparisons prove the true top-k, tie order
+    # included, lies inside the exactly ranked rescore set.
+    theta = out_s[:, k_eff - 1] - eps
+    ok_q = (boundary < theta) & (m2bound < theta)
+    fail_q = ~ok_q
+
+    # ---- second chance: full exact scan for up to f_cap failed queries
+    if f_cap > 0:
+        ar = torch.arange(q_cnt, dtype=torch.int64, device=dev)
+        prio = torch.where(ok_q, q_cnt + ar, ar)
+        order = torch.argsort(prio)[:f_cap]
+        fs, fi = _exact_topk_masked(qf[order], corpus, n_valid, k_eff)
+        take = fail_q[order][:, None]
+        out_s[order] = torch.where(take, fs, out_s[order])
+        out_i[order] = torch.where(take, fi, out_i[order])
+
+    # ---- batch fallback: more failures than the second chance covers. One
+    # host sync per batch reads the failure count (the JAX package decides
+    # this inside the device program with lax.cond).
+    n_fail = int(fail_q.sum())
+    covered = n_fail <= f_cap
+    if not covered:
+        out_s, out_i = _exact_topk_masked(qf, corpus, n_valid, k_eff)
+    out_s, out_i = pad_to_k(out_s, out_i, k, k_eff)
+    return out_s, out_i, n_fail, covered
+
+
+def dense_topk_verified(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    sidecar: dict,
+    k: int,
+    m: int = 64,
+    j: int = 2,
+    seg: int = 128,
+    second_chance: int = 0,
+    return_stats: bool = False,
+):
+    """GUARANTEED-EXACT dense top-k at prescreen speed.
+
+    Pass 1 scores the whole corpus in low precision (bf16 through
+    :func:`seg_stats_bf16`, or int8) and reduces each ``seg``-doc segment to
+    its max, min-lane argmax and runner-up. Pass 2 gathers the argmaxes of
+    the top-``m`` segments and every doc of the top-``j`` runner-up segments
+    from the f32 corpus, rescores them in true f32 and selects by
+    ``(-score, doc_id)``. A provable per-query error bound (see
+    :func:`build_verified_sidecar`) then checks that no other doc could
+    reach the top-k; queries that fail re-run as a full exact scan (up to
+    ``second_chance`` per batch; more than that falls back to the whole
+    batch). Results equal the full exact scan, tie order included.
+
+    ``sidecar`` holds device tensors (``corpus_lo`` on the corpus's device).
+    Returns (scores [Q, k], ids [Q, k]); with ``return_stats=True`` also
+    (n_fail, covered) as a Python int and bool.
+    """
+    _require_exact_f32()
+    out_s, out_i, n_fail, covered = _dense_topk_verified(
+        queries, corpus, sidecar["corpus_lo"], sidecar["corpus_scale"],
+        sidecar["nd_max"], sidecar["r_max"], k, m, j, seg, second_chance,
+    )
+    if return_stats:
+        return out_s, out_i, n_fail, covered
+    return out_s, out_i

@@ -1,0 +1,4 @@
+from autorag_research_tpu_torch.pipelines.retrieval.base import BaseRetrievalPipeline
+from autorag_research_tpu_torch.pipelines.retrieval.vector_search import VectorSearchPipeline
+
+__all__ = ["BaseRetrievalPipeline", "VectorSearchPipeline"]

@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Drives the port's dense retrieval path (``autorag_research_tpu_torch``) at
+the flagship's full width and fails (non-zero exit) on any fault:
+
+1. the card's name and power limit, then a parallel build of every CUDA
+   kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source);
+2. each kernel against its plain PyTorch version on the card, at the shapes
+   the main path gives it, with its time, the plain version's, one PyTorch
+   library yardstick's and the least time the card could take; the
+   streaming kernel also at k = 100, and the ``full`` path (scores within
+   the 2 GiB budget) at Q = 1024 with its peak memory;
+3. the main path with every launch count at 0 just before it: the encoder
+   (hidden 512, 6 layers, 8 heads, seq 128, out 768, random weights from the
+   seed) embeds 1024 query texts on the device and ``DenseIndex`` verified
+   mode searches a seeded 500,000 x 768 f32 corpus with them (seg-stats
+   kernel); 2048 embedded queries then go through ``DenseIndex`` exact mode,
+   whose [Q, N] scores exceed the 2 GiB budget (streaming top-k kernel).
+   Verified ids must equal the exact ones (sub-ulp near-ties aside) and every
+   kernel must have launched;
+4. a SciFact-size catalog run (5,183 chunks, 300 queries, one planted gold
+   chunk each) through ``VectorSearchPipeline`` verified, persisted and
+   scored with recall@10 / ndcg@10, its rows held against an exact search.
+
+Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+{...}}``. Exits non-zero, printing neither, without a CUDA device or without
+the package beside it. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+N_DOCS, DIM, K, K_LONG = 500_000, 768, 10, 100
+Q_VERIFIED, Q_EXACT = 1024, 2048
+ENCODER = dict(hidden=512, layers=6, heads=8, max_len=128, out_dim=768, vocab_size=32768)
+SCIFACT_CHUNKS, SCIFACT_QUERIES = 5183, 300
+
+# published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
+# non-tensor FLOP/s, HBM bytes/s
+PEAKS = {
+    "sxm": {"bf16": 989e12, "f32": 67e12, "hbm": 3.35e12},
+    "pcie": {"bf16": 756e12, "f32": 51e12, "hbm": 2.0e12},
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def bound(flops: float, bytes_: float, peak_flops: float, peak_bw: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops * 1e3, bytes_ / peak_bw * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ids_agree(ids, scores, ref_ids, ref_scores) -> tuple[int, bool]:
+    """(mismatches, all explained): an id mismatch is allowed only between
+    scores within f32 reduction-order resolution, 4e-7 * (1 + |s|)."""
+    mism = ids != ref_ids
+    diff = np.abs(scores[mism] - ref_scores[mism])
+    return int(mism.sum()), bool((diff <= 4e-7 * (1 + np.abs(ref_scores[mism]))).all())
+
+
+def make_texts(rng, vocab: list[str], n: int, lo: int, hi: int) -> list[str]:
+    lens = rng.integers(lo, hi, size=n)
+    return [" ".join(rng.choice(vocab, size=int(m))) for m in lens]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device: this smoke run measures the GPU port", file=sys.stderr)
+        return 1
+    try:
+        from autorag_research_tpu_torch.ops import cuda_build
+    except ImportError as exc:
+        print(f"FAIL: the port package is not beside this script: {exc}", file=sys.stderr)
+        return 2
+    from autorag_research_tpu_torch.embeddings.torch_encoder import TorchEncoderEmbedding
+    from autorag_research_tpu_torch.evaluation.metrics.retrieval import (
+        retrieval_ndcg,
+        retrieval_recall,
+    )
+    from autorag_research_tpu_torch.index.dense import DenseIndex
+    from autorag_research_tpu_torch.models.encoder import EncoderConfig
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.pipelines.retrieval.vector_search import (
+        VectorSearchPipeline,
+    )
+    from autorag_research_tpu_torch.schema import MetricInput
+    from autorag_research_tpu_torch.store.catalog import Catalog
+    from autorag_research_tpu_torch.store.gt import build_retrieval_gt_from_relations
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(card)
+    log(f"device: {kind}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    peak = PEAKS["pcie" if "PCIe" in kind else "sxm"]
+
+    # ---- 1. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    secs = cuda_build.build_all()
+    log(f"kernel build: {json.dumps({n: round(s, 2) for n, s in secs.items()})} "
+        f"({time.perf_counter() - t0:.2f} s in all)")
+
+    # ---- data and indexes ---------------------------------------------------
+    rng = np.random.default_rng(args.seed)
+    corpus = rng.standard_normal((N_DOCS, DIM), dtype=np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    doc_ids = list(range(N_DOCS))
+    t0 = time.perf_counter()
+    index_v = DenseIndex(doc_ids, corpus, mode="verified", device=dev).to_device()
+    index_e = DenseIndex(doc_ids, corpus, mode="exact", device=dev).to_device()
+    torch.cuda.synchronize()
+    log(f"indexes on device: {N_DOCS} x {DIM} f32 + bf16 sidecar "
+        f"({time.perf_counter() - t0:.2f} s)")
+    vocab = [f"tok{i}" for i in range(20000)]
+    query_texts = make_texts(rng, vocab, Q_EXACT, 8, 33)
+    embedder = TorchEncoderEmbedding(
+        EncoderConfig(**ENCODER), seed=args.seed, batch_size=512, device=dev
+    )
+
+    # ---- 2. kernels vs plain at main-path shapes ----------------------------
+    kernels = []
+    with torch.inference_mode():
+        q_emb = embedder.embed_texts_device(query_texts)
+        q_norm = q_emb / torch.linalg.vector_norm(q_emb, dim=1, keepdim=True)
+    side = index_v._sidecar
+    q_lo = q_norm[:Q_VERIFIED].to(torch.bfloat16).contiguous()
+    c_lo = side["corpus_lo"]
+    got = td.seg_stats_bf16(q_lo, c_lo, N_DOCS)
+    ref = td._seg_stats_plain((q_lo, None), c_lo, None, N_DOCS, 128)
+    torch.cuda.synchronize()
+    qn = torch.linalg.vector_norm(q_lo.float(), dim=1, keepdim=True)
+    cn = torch.linalg.vector_norm(c_lo.float(), dim=1).max()
+    tol = DIM * 2.0**-23 * qn * cn  # f32 reduction-order bound per query row
+    err1 = (got[0] - ref[0]).abs()
+    err2 = (got[2] - ref[2]).abs()
+    seg_err = max(err1.max().item(), err2.max().item())
+    if not (bool((err1 <= tol).all()) and bool((err2 <= tol).all())):
+        fail(f"seg_stats_bf16 max1/max2 beyond the reduction-order bound: {seg_err}")
+    loc_mism = got[1] != ref[1]
+    near_tie = (ref[0] - ref[2]) <= 2 * tol
+    unexplained = int((loc_mism & ~near_tie).sum())
+    log(f"seg_stats_bf16 vs plain @ Q={Q_VERIFIED} x N_pad={c_lo.shape[0]} x d={DIM}: "
+        f"max|d max1,max2| = {seg_err:.3e} (bound {tol.max().item():.3e}), "
+        f"loc1 mismatches {int(loc_mism.sum())}/{loc_mism.numel()}, "
+        f"{unexplained} not near-ties")
+    if unexplained:
+        fail("seg_stats_bf16 loc1 disagrees with the plain version beyond near-ties")
+    s_cnt = got[0].shape[1]
+
+    # yardstick: one cuBLAS GEMM of the same bf16 operands with f32 output
+    # (``mm`` with ``out_dtype`` where this PyTorch has it, else the operands
+    # upcast to f32 with TF32 off, the same products summed in f32)
+    td._require_exact_f32()
+    if hasattr(torch.ops.aten.mm, "dtype"):
+        lib_name = "mm(bf16, bf16, out_dtype=f32)"
+
+        def seg_gemm():
+            return torch.mm(q_lo, c_lo.T, out_dtype=torch.float32)
+    else:
+        lib_name = "matmul(f32(bf16), f32(bf16)), TF32 off"
+
+        def seg_gemm():
+            return torch.matmul(q_lo.float(), c_lo.float().T)
+    ref_gemm = td._scores(q_lo[:64], c_lo[:4096])
+    if not torch.allclose(seg_gemm()[:64, :4096], ref_gemm, rtol=1e-6, atol=1e-5):
+        fail(f"seg_stats yardstick {lib_name} does not give f32 scores of the bf16 operands")
+    log(f"seg_stats_bf16 library yardstick: {lib_name} + [Q, S, 128] reductions")
+
+    def seg_library():
+        s = seg_gemm().view(Q_VERIFIED, s_cnt, 128)
+        m1, l1 = s.max(dim=2)
+        return m1, l1, s.scatter(2, l1[:, :, None], td.NEG_INF).amax(dim=2)
+
+    seg_ms = cuda_ms(lambda: td.seg_stats_bf16(q_lo, c_lo, N_DOCS), 10)
+    seg_plain_ms = cuda_ms(lambda: td._seg_stats_plain((q_lo, None), c_lo, None, N_DOCS, 128), 3)
+    seg_lib_ms = cuda_ms(seg_library, 3)
+    n_pad = c_lo.shape[0]
+    seg_bound, seg_by = bound(
+        2.0 * Q_VERIFIED * n_pad * DIM,
+        (Q_VERIFIED + n_pad) * DIM * 2 + 3 * Q_VERIFIED * s_cnt * 4,
+        peak["bf16"], peak["hbm"],
+    )
+    kernels.append({
+        "name": "seg_stats_bf16", "route": "cuda",
+        "source": "autorag_research_tpu_torch/csrc/seg_stats.cu",
+        "replaces": "autorag_research_tpu/ops/dense.py:690",
+        "max_abs_err": seg_err, "ms": seg_ms, "plain_ms": seg_plain_ms,
+        "bound_ms": seg_bound, "bound_by": seg_by, "library_ms": seg_lib_ms,
+    })
+    del got, ref, err1, err2
+
+    q_ex = q_norm.contiguous()
+    c_f32 = index_e._device
+    s_k, i_k = td.dense_topk_stream(q_ex, c_f32, K)
+    s_p, i_p = td.dense_topk_plain(q_ex, c_f32, K)
+    s_k, i_k, s_p, i_p = (t.cpu().numpy() for t in (s_k, i_k, s_p, i_p))
+    n_mism, explained = ids_agree(i_k, s_k, i_p, s_p)
+    stream_err = float(np.abs(s_k - s_p).max())
+    log(f"dense_topk_stream vs plain @ Q={Q_EXACT} x N={N_DOCS} x d={DIM} f32: "
+        f"ids mismatches {n_mism}/{i_k.size} (all sub-ulp: {explained}), "
+        f"max|d score| = {stream_err:.3e}")
+    if not explained or not (np.abs(s_k - s_p) <= 1e-6 * np.abs(s_p) + 4e-7).all():
+        fail("dense_topk_stream disagrees with its plain version")
+    # a list longer than a warp (recall@100) through the same kernel
+    s_k, i_k = td.dense_topk_stream(q_ex, c_f32, K_LONG)
+    s_p, i_p = td.dense_topk_plain(q_ex, c_f32, K_LONG)
+    s_k, i_k, s_p, i_p = (t.cpu().numpy() for t in (s_k, i_k, s_p, i_p))
+    n_mism, explained = ids_agree(i_k, s_k, i_p, s_p)
+    long_err = float(np.abs(s_k - s_p).max())
+    long_ms = cuda_ms(lambda: td.dense_topk_stream(q_ex, c_f32, K_LONG), 2)
+    log(f"dense_topk_stream vs plain @ Q={Q_EXACT} x N={N_DOCS} x d={DIM} f32, k={K_LONG}: "
+        f"ids mismatches {n_mism}/{i_k.size} (all sub-ulp: {explained}), "
+        f"max|d score| = {long_err:.3e}, kernel {long_ms:.3f} ms")
+    if not explained or not (np.abs(s_k - s_p) <= 1e-6 * np.abs(s_p) + 4e-7).all():
+        fail(f"dense_topk_stream disagrees with its plain version at k={K_LONG}")
+    del s_k, i_k, s_p, i_p
+    stream_ms = cuda_ms(lambda: td.dense_topk_stream(q_ex, c_f32, K), 3)
+    stream_plain_ms = cuda_ms(lambda: td.dense_topk_plain(q_ex, c_f32, K), 2)
+    stream_lib_ms = cuda_ms(lambda: torch.topk(torch.matmul(q_ex, c_f32.T), K), 2)
+    stream_bound, stream_by = bound(
+        2.0 * Q_EXACT * N_DOCS * DIM,
+        (Q_EXACT + N_DOCS) * DIM * 4 + Q_EXACT * K * 8,
+        peak["f32"], peak["hbm"],
+    )
+    kernels.append({
+        "name": "dense_topk_stream", "route": "cuda",
+        "source": "autorag_research_tpu_torch/csrc/dense_topk_stream.cu",
+        "replaces": "autorag_research_tpu/ops/dense.py:166",
+        "max_abs_err": stream_err, "ms": stream_ms, "plain_ms": stream_plain_ms,
+        "bound_ms": stream_bound, "bound_by": stream_by, "library_ms": stream_lib_ms,
+    })
+
+    # the ``full`` path (scores within the 2 GiB budget): time and peak memory
+    q_full = q_ex[:Q_VERIFIED]
+    fs, fi = td.dense_topk_full(q_full, c_f32, K)
+    ks, ki = td.dense_topk_stream(q_full, c_f32, K)
+    n_mism, explained = ids_agree(
+        fi.cpu().numpy(), fs.cpu().numpy(), ki.cpu().numpy(), ks.cpu().numpy()
+    )
+    if not explained:
+        fail("dense_topk_full disagrees with the streaming kernel")
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full_ms = cuda_ms(lambda: td.dense_topk_full(q_full, c_f32, K), 3)
+    full_peak = torch.cuda.max_memory_allocated() - base_mem
+    log(f"dense_topk_full @ Q={Q_VERIFIED} x N={N_DOCS} x d={DIM} f32: {full_ms:.3f} ms, "
+        f"peak {full_peak / 2**30:.3f} GiB above the resident tensors "
+        f"(scores {Q_VERIFIED * N_DOCS * 4 / 2**30:.3f} GiB); vs kernel {n_mism} id "
+        f"mismatches (all sub-ulp: {explained})")
+    del fs, fi, ks, ki
+
+    # ---- 3. main path, launch counts from 0 ---------------------------------
+    td.reset_launch_counts()
+    t0 = time.perf_counter()
+    emb_v = embedder.embed_texts_device(query_texts[:Q_VERIFIED])
+    sv, rv = index_v.topk_rows(emb_v, K)
+    ver_stats = index_v.last_stats
+    emb_e = embedder.embed_texts_device(query_texts)
+    se, re = index_e.topk_rows(emb_e, K)
+    main_s = time.perf_counter() - t0
+    launches = dict(td.LAUNCHES)
+    log(f"main path launches: {json.dumps(launches)} ({main_s:.2f} s, first calls)")
+    if min(launches.values()) < 1:
+        fail(f"a kernel of the main path never launched: {launches}")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    n_fail, covered = ver_stats
+    n_mism, explained = ids_agree(rv, sv, re[:Q_VERIFIED], se[:Q_VERIFIED])
+    log(f"verified vs exact ids: {n_mism}/{rv.size} mismatches (all sub-ulp: {explained}); "
+        f"n_fail {n_fail}/{Q_VERIFIED}, covered {covered}")
+    if not explained:
+        fail("verified ids diverge from the exact scan beyond sub-ulp near-ties")
+    if not (np.isfinite(sv).all() and sv.shape == (Q_VERIFIED, K)):
+        fail("verified scores are not finite [Q, k]")
+    embed_ms = wall_ms(lambda: embedder.embed_texts_device(query_texts[:Q_VERIFIED]), 3)
+    ver_ms = wall_ms(lambda: index_v.topk_rows(emb_v, K), 5)
+    ex_ms = wall_ms(lambda: index_e.topk_rows(emb_e, K), 2)
+    log(f"embed {Q_VERIFIED} texts: {embed_ms:.3f} ms/batch ({Q_VERIFIED / embed_ms * 1e3:.1f} texts/s)")
+    log(f"verified search Q={Q_VERIFIED}: {ver_ms:.3f} ms/batch, {Q_VERIFIED / ver_ms * 1e3:.1f} QPS")
+    log(f"exact search Q={Q_EXACT} (streaming kernel): {ex_ms:.3f} ms/batch, "
+        f"{Q_EXACT / ex_ms * 1e3:.1f} QPS")
+    del index_e, c_f32, q_ex, emb_e
+
+    # ---- 4. SciFact-size catalog run ---------------------------------------
+    crng = np.random.default_rng(args.seed + 1)
+    chunk_texts = make_texts(crng, vocab, SCIFACT_CHUNKS, 40, 121)
+    gold = crng.choice(SCIFACT_CHUNKS, size=SCIFACT_QUERIES, replace=False)
+    q_texts = [" ".join(crng.choice(chunk_texts[g].split(), size=12)) for g in gold]
+    chunk_emb = embedder.embed_texts(chunk_texts)
+    query_emb = embedder.embed_texts(q_texts)
+    with tempfile.TemporaryDirectory() as tmp:
+        cat = Catalog(f"{tmp}/scifact.db", embedding_dim=DIM)
+        cat.add_chunks(
+            {"id": i, "contents": t, "embedding": e}
+            for i, (t, e) in enumerate(zip(chunk_texts, chunk_emb))
+        )
+        cat.add_queries(
+            {"id": j, "contents": t, "embedding": e}
+            for j, (t, e) in enumerate(zip(q_texts, query_emb))
+        )
+        for j, g in enumerate(gold):
+            cat.add_retrieval_gt(j, int(g))
+        td.reset_launch_counts()
+        pipe = VectorSearchPipeline(
+            cat, name="dense_verified", index_options={"mode": "verified"}, device=dev
+        )
+        stats = pipe.run(top_k=K)
+        cat_launches = dict(td.LAUNCHES)
+        rows = {
+            j: cat.get_retrieved(j, pipe.pipeline_id) for j in range(SCIFACT_QUERIES)
+        }
+        inputs = []
+        for j in range(SCIFACT_QUERIES):
+            gt, _ = build_retrieval_gt_from_relations(
+                [dict(r) for r in cat.get_relations_by_query(j)]
+            )
+            inputs.append(MetricInput(
+                retrieval_gt=gt, retrieved_ids=[f"chunk_{r['doc_id']}" for r in rows[j]]
+            ))
+        cat.close()
+    recall = float(np.mean(retrieval_recall(inputs)))
+    ndcg = float(np.mean(retrieval_ndcg(inputs)))
+    got_ids = np.array([[r["doc_id"] for r in rows[j]] for j in range(SCIFACT_QUERIES)])
+    got_s = np.array([[r["rel_score"] for r in rows[j]] for j in range(SCIFACT_QUERIES)])
+    ref_s, ref_i = DenseIndex(
+        list(range(SCIFACT_CHUNKS)), chunk_emb, device=dev
+    ).topk_rows(query_emb, K)
+    n_mism, explained = ids_agree(got_ids, got_s.astype(np.float32), ref_i, ref_s)
+    log(f"SciFact-size catalog run: {stats['total_results']} rows persisted for "
+        f"{stats['total_queries']} queries, launches {json.dumps(cat_launches)}, "
+        f"recall@10 {recall:.4f}, ndcg@10 {ndcg:.4f}, "
+        f"vs exact search {n_mism} id mismatches (all sub-ulp: {explained})")
+    if stats["total_results"] != SCIFACT_QUERIES * K or stats["failed_queries"]:
+        fail(f"catalog run persisted {stats['total_results']} rows, failed "
+             f"{stats['failed_queries']}")
+    if not explained or cat_launches["seg_stats_bf16"] < 1:
+        fail("catalog run diverged from the exact search or skipped the kernel")
+    if not (0.0 <= recall <= 1.0 and 0.0 <= ndcg <= 1.0 and math.isfinite(ndcg)):
+        fail(f"metrics out of range: recall {recall}, ndcg {ndcg}")
+
+    log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
