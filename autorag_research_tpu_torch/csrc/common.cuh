@@ -72,3 +72,43 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* s, int ld,
     *reinterpret_cast<uint4*>(s + r * ld + kc) = val;
   }
 }
+
+// k-best list of one query row in shared memory: k entries (ls scores, li
+// ids) sorted in (-score, id) order, filled with (-inf, INT_MAX) at the start.
+// Insert (cs, cid), which beats the k-th score, so its rank is < k. Called by
+// all 32 lanes of a warp. The rank is the number of entries >= cs (a prefix of
+// the list, found 32 entries per ballot); the entries below it shift down by
+// one, highest 32 first. A caller that offers ids in increasing order gets
+// ties resolved to the lower id: an equal score never outranks an entry
+// already held.
+__device__ __forceinline__ void list_insert(float* ls, int* li, int k, float cs, int cid,
+                                            int lane) {
+  const unsigned full = 0xffffffffu;
+  int pos = 0;
+  for (int c0 = 0; c0 < k; c0 += 32) {
+    const unsigned ge = __ballot_sync(full, c0 + lane < k && ls[c0 + lane] >= cs);
+    pos += __popc(ge);
+    if (ge != full) break;
+  }
+  for (int c0 = ((k - 1) >> 5) << 5; c0 + 31 > pos; c0 -= 32) {
+    const int i = c0 + lane;
+    const bool mv = i > pos && i < k;
+    float v = 0.f;
+    int id = 0;
+    if (mv) {
+      v = ls[i - 1];
+      id = li[i - 1];
+    }
+    __syncwarp();
+    if (mv) {
+      ls[i] = v;
+      li[i] = id;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    ls[pos] = cs;
+    li[pos] = cid;
+  }
+  __syncwarp();
+}

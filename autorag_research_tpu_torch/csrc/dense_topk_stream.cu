@@ -25,8 +25,9 @@
 // in a register. A ballot finds the tile's columns that beat the row's k-th
 // score; when there are none (the usual case once the list is warm) the row
 // costs one ballot, which is the merge skip of the Pallas kernel. Each
-// winner is placed by a ballot-count rank over the list and a warp-wide
-// shift of the entries below it, 32 at a time. Corpus rows increase along a
+// winner is placed by list_insert (common.cuh, shared with maxsim_v2.cu): a
+// ballot-count rank over the list and a warp-wide shift of the entries below
+// it, 32 at a time. Corpus rows increase along a
 // block's walk, so an equal score never outranks an entry already held and
 // ties resolve to the lower id.
 
@@ -141,42 +142,6 @@ __device__ __forceinline__ void score_tile(const __nv_bfloat16* q, const __nv_bf
     St[(row + 8) * LDT + col] = acc[ni][2];
     St[(row + 8) * LDT + col + 1] = acc[ni][3];
   }
-}
-
-// Insert (cs, cid) into a row's sorted list (ls, li) of k entries. cs beats
-// the k-th score, so its rank is < k. Called by all 32 lanes of a warp.
-__device__ __forceinline__ void list_insert(float* ls, int* li, int k, float cs, int cid,
-                                            int lane) {
-  const unsigned full = 0xffffffffu;
-  // rank = number of entries >= cs; they form a prefix of the sorted list
-  int pos = 0;
-  for (int c0 = 0; c0 < k; c0 += 32) {
-    const unsigned ge = __ballot_sync(full, c0 + lane < k && ls[c0 + lane] >= cs);
-    pos += __popc(ge);
-    if (ge != full) break;
-  }
-  // shift entries [pos, k-1) down by one, highest 32 first
-  for (int c0 = ((k - 1) >> 5) << 5; c0 + 31 > pos; c0 -= 32) {
-    const int i = c0 + lane;
-    const bool mv = i > pos && i < k;
-    float v = 0.f;
-    int id = 0;
-    if (mv) {
-      v = ls[i - 1];
-      id = li[i - 1];
-    }
-    __syncwarp();
-    if (mv) {
-      ls[i] = v;
-      li[i] = id;
-    }
-    __syncwarp();
-  }
-  if (lane == 0) {
-    ls[pos] = cs;
-    li[pos] = cid;
-  }
-  __syncwarp();
 }
 
 template <typename T, typename Smem>

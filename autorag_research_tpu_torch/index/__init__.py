@@ -1,4 +1,5 @@
 from autorag_research_tpu_torch.index.base import SearchHit
 from autorag_research_tpu_torch.index.dense import DenseIndex
+from autorag_research_tpu_torch.index.multi_vector import MultiVectorIndex
 
-__all__ = ["SearchHit", "DenseIndex"]
+__all__ = ["SearchHit", "DenseIndex", "MultiVectorIndex"]

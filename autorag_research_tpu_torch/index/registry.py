@@ -29,6 +29,7 @@ _CACHE: dict[tuple, Any] = {}
 # left alone (the JAX package's loaders cover them)
 _LOADERS = {
     "dense": ("autorag_research_tpu_torch.index.dense", "DenseIndex"),
+    "multi_vector": ("autorag_research_tpu_torch.index.multi_vector", "MultiVectorIndex"),
 }
 
 

@@ -6,6 +6,11 @@ from autorag_research_tpu_torch.ops.dense import (
     dense_topk_stream,
     dense_topk_verified,
 )
+from autorag_research_tpu_torch.ops.maxsim import (
+    maxsim_rerank,
+    maxsim_topk,
+    maxsim_topk_verified,
+)
 
 __all__ = [
     "merge_topk",
@@ -16,4 +21,7 @@ __all__ = [
     "dense_topk_scan",
     "dense_topk_stream",
     "dense_topk_verified",
+    "maxsim_rerank",
+    "maxsim_topk",
+    "maxsim_topk_verified",
 ]

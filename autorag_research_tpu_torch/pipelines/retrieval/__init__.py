@@ -1,4 +1,7 @@
 from autorag_research_tpu_torch.pipelines.retrieval.base import BaseRetrievalPipeline
+from autorag_research_tpu_torch.pipelines.retrieval.image_vector_search import (
+    ImageVectorSearchPipeline,
+)
 from autorag_research_tpu_torch.pipelines.retrieval.vector_search import VectorSearchPipeline
 
-__all__ = ["BaseRetrievalPipeline", "VectorSearchPipeline"]
+__all__ = ["BaseRetrievalPipeline", "ImageVectorSearchPipeline", "VectorSearchPipeline"]

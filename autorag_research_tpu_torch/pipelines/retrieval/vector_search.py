@@ -1,11 +1,17 @@
-"""Dense vector search pipeline (single-vector cosine).
+"""Vector search pipeline (single-vector cosine / multi-vector MaxSim).
 
 Counterpart of ``autorag_research_tpu/pipelines/retrieval/vector_search.py``
-in ``search_mode="single"`` over the exact :class:`DenseIndex` (modes
-``"exact"`` and ``"verified"`` through ``index_options={"mode": ...}``);
-score = cosine similarity (the reference's ``1 - distance``). The batch path
-scores every pending query of a page in one search. Multi-vector search and
-the IVF indexes arrive with later slices of the port.
+over the exact indexes (modes ``"exact"`` and ``"verified"`` through
+``index_options={"mode": ...}``):
+
+- ``search_mode="single"``: cosine top-k over the :class:`DenseIndex`; score
+  = cosine similarity (the reference's ``1 - distance``).
+- ``search_mode="multi"``: MaxSim over the :class:`MultiVectorIndex`; score =
+  MaxSim / n_query_vectors. ``maxsim_prefilter`` opts into the two-stage
+  proxy prefilter plus exact rerank.
+
+The batch path scores every pending query of a page in one search. The IVF
+indexes arrive with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from autorag_research_tpu_torch.exceptions import EmbeddingMissingError
 from autorag_research_tpu_torch.index import registry
 from autorag_research_tpu_torch.index.dense import DenseIndex
+from autorag_research_tpu_torch.index.multi_vector import MultiVectorIndex
 from autorag_research_tpu_torch.pipelines.retrieval.base import BaseRetrievalPipeline
 
 
@@ -28,17 +35,16 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
         self,
         catalog,
         name: str = "vector_search",
-        search_mode: Literal["single"] = "single",
+        search_mode: Literal["single", "multi"] = "single",
         embedding_model=None,
         table: str = "chunk",
         index_type: Literal["exact"] = "exact",
         index_options: dict | None = None,
+        maxsim_prefilter: int | None = None,
         device: str | torch.device = "cuda",
     ):
-        if search_mode != "single":
-            raise NotImplementedError(
-                "search_mode='multi' (MaxSim) is ported with the MaxSim slice"
-            )
+        if search_mode not in ("single", "multi"):
+            raise ValueError(f"unknown search_mode: {search_mode}")
         if index_type != "exact":
             raise NotImplementedError(f"index_type={index_type!r} is ported with the IVF slice")
         self.search_mode = search_mode
@@ -46,6 +52,8 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
         self.table = table
         self.index_type = index_type
         self.index_options = index_options or {}
+        # multi mode only: two-stage search over k * maxsim_prefilter candidates
+        self.maxsim_prefilter = maxsim_prefilter
         self.device = torch.device(device)
         # result persistence routes by the searched table
         self.retrieval_unit = "image_chunk" if table == "image_chunk" else "chunk"
@@ -60,16 +68,18 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
             "table": self.table,
             "index_type": self.index_type,
             "index_options": self.index_options,
-            "maxsim_prefilter": None,
+            "maxsim_prefilter": self.maxsim_prefilter,
         }
 
     # ------------------------------------------------------------------ index
-    def _index(self) -> DenseIndex:
+    def _index(self):
+        multi = self.search_mode == "multi"
+        cls = MultiVectorIndex if multi else DenseIndex
         return registry.get_or_build(
             self.catalog,
-            "dense",
+            "multi_vector" if multi else "dense",
             self.table,
-            builder=lambda: DenseIndex.from_catalog(
+            builder=lambda: cls.from_catalog(
                 self.catalog, self.table, device=self.device, **self.index_options
             ),
             device=self.device,
@@ -77,9 +87,30 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
         )
 
     # ----------------------------------------------------------------- search
+    def _query_embeddings(self, query_ids: list[Any]):
+        multi = self.search_mode == "multi"
+        embs = []
+        for qid in query_ids:
+            e = self.catalog.get_embedding("query", qid, multi=multi)
+            if e is None:
+                raise EmbeddingMissingError(
+                    f"query {qid} has no {'multi-vector ' if multi else ''}embedding"
+                )
+            embs.append(e)
+        return embs
+
+    def _multi_search(self, idx, mats, top_k):
+        if self.maxsim_prefilter:
+            return idx.search(mats, top_k, prefilter=self.maxsim_prefilter)
+        return idx.search(mats, top_k)
+
     def search_by_embedding(self, embedding, top_k: int) -> list[dict[str, Any]]:
-        """Direct dense search from a raw embedding."""
-        hits = self._index().search(np.atleast_2d(embedding), top_k)[0]
+        """Direct search from a raw embedding (a [Tq, d] matrix in multi mode)."""
+        idx = self._index()
+        if self.search_mode == "multi":
+            hits = self._multi_search(idx, [np.atleast_2d(embedding)], top_k)[0]
+        else:
+            hits = idx.search(np.atleast_2d(embedding), top_k)[0]
         return [h.as_dict() for h in hits]
 
     def _retrieve_batch_by_ids(
@@ -89,29 +120,35 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
         out: dict[Any, Any] = {}
         valid_ids, embs = [], []
         for qid in query_ids:
-            e = self.catalog.get_embedding("query", qid)
-            if e is None:
-                out[qid] = EmbeddingMissingError(f"query {qid} has no embedding")
-                continue
-            valid_ids.append(qid)
-            embs.append(e)
+            try:
+                embs.append(self._query_embeddings([qid])[0])
+                valid_ids.append(qid)
+            except EmbeddingMissingError as exc:
+                out[qid] = exc
         if valid_ids:
-            for qid, hits in zip(valid_ids, idx.search(np.stack(embs), top_k)):
+            if self.search_mode == "multi":
+                batches = self._multi_search(idx, embs, top_k)
+            else:
+                batches = idx.search(np.stack(embs), top_k)
+            for qid, hits in zip(valid_ids, batches):
                 out[qid] = [h.as_dict() for h in hits]
         return out
 
     def _retrieve_batch_by_texts(self, texts, top_k):
         """Serving hot path: one batched embed + one search for the whole
-        micro-batch; an on-device embedder chains into the search with no
-        device -> host copy in between."""
+        micro-batch; an on-device single-vector embedder chains into the
+        search with no device -> host copy in between."""
         if self.embedding_model is None:
             raise EmbeddingMissingError("no embedding model configured for text retrieval")
         idx = self._index()
-        if hasattr(self.embedding_model, "embed_texts_device"):
-            embs = self.embedding_model.embed_texts_device(list(texts))
+        if self.search_mode == "multi":
+            mats = self.embedding_model.embed_texts_multi(list(texts))
+            batches = self._multi_search(idx, mats, top_k)
+        elif hasattr(self.embedding_model, "embed_texts_device"):
+            batches = idx.search(self.embedding_model.embed_texts_device(list(texts)), top_k)
         else:
-            embs = np.asarray(self.embedding_model.embed_texts(list(texts)))
-        return [[h.as_dict() for h in hits] for hits in idx.search(embs, top_k)]
+            batches = idx.search(np.asarray(self.embedding_model.embed_texts(list(texts))), top_k)
+        return [[h.as_dict() for h in hits] for hits in batches]
 
     async def _retrieve_by_id(self, query_id, top_k):
         res = self._retrieve_batch_by_ids([query_id], top_k)[query_id]
@@ -122,5 +159,8 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
     async def _retrieve_by_text(self, query_text, top_k):
         if self.embedding_model is None:
             raise EmbeddingMissingError("no embedding model configured for text retrieval")
+        if self.search_mode == "multi":
+            mat = (await self.embedding_model.aembed_texts_multi([query_text]))[0]
+            return self.search_by_embedding(mat, top_k)
         vec = await self.embedding_model.aembed_query(query_text)
         return self.search_by_embedding(vec, top_k)

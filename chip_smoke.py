@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's dense retrieval path (``autorag_research_tpu_torch``) at
-the flagship's full width and fails (non-zero exit) on any fault:
+Drives the port's dense and MaxSim retrieval paths
+(``autorag_research_tpu_torch``) at full width and fails (non-zero exit) on
+any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source);
@@ -23,7 +24,27 @@ the flagship's full width and fails (non-zero exit) on any fault:
    kernel must have launched;
 4. a SciFact-size catalog run (5,183 chunks, 300 queries, one planted gold
    chunk each) through ``VectorSearchPipeline`` verified, persisted and
-   scored with recall@10 / ndcg@10, its rows held against an exact search.
+   scored with recall@10 / ndcg@10, its rows held against an exact search;
+5. the MaxSim path's corpora, seeded unit-norm tokens of d = 128: text scale
+   (50,000 docs of 64-128 tokens, ColBERT) in an exact ``MultiVectorIndex``,
+   page scale (10,000 pages of 512-1,024 tokens, ColPali) in a verified one,
+   and 128 query texts of up to 32 words through the multi-vector encoder
+   (hidden 512, 6 layers, 8 heads, seq 128, out 128, random weights);
+6. both MaxSim kernels (``csrc/maxsim_v2.cu``) against their plain versions
+   at those shapes: fused top-k in f32 at text scale (k = 10) and bf16 at
+   page scale, raw scores in bf16 at page scale (the verified prescreen's
+   k'+1 = 65) and f32 at text scale (k = 100), each with its time, the plain
+   version's, a chunked-matmul yardstick's and its bound;
+7. the MaxSim main path with every launch count at 0 just before it: embed
+   the 128 texts, exact search at k = 10 (fused kernel) and k = 100 (scores
+   kernel), verified page-scale search at k = 10 (scores-kernel prescreen)
+   with its own ``(n_fail, covered)``. Both kernels must have launched, no
+   plain version or scan may have run, and verified ids must equal exact
+   mode's on the same corpus (near-ties within the f32 rounding term aside);
+8. a SciFact-size multi-vector catalog run through
+   ``VectorSearchPipeline(search_mode="multi")`` verified: 3,000 rows,
+   recall@10 / ndcg@10, rows held against an exact search, the scores kernel
+   launched.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -46,6 +67,14 @@ N_DOCS, DIM, K, K_LONG = 500_000, 768, 10, 100
 Q_VERIFIED, Q_EXACT = 1024, 2048
 ENCODER = dict(hidden=512, layers=6, heads=8, max_len=128, out_dim=768, vocab_size=32768)
 SCIFACT_CHUNKS, SCIFACT_QUERIES = 5183, 300
+# MaxSim: ColBERT-scale text (scripts/bench_maxsim_verified.py) and
+# ColPali-scale pages (scripts/bench_maxsim_page.py), d = 128, 32 query tokens
+MV_ENCODER = dict(hidden=512, layers=6, heads=8, max_len=128, out_dim=128, vocab_size=32768,
+                  multi_vector=True)
+MV_Q, MV_TQ, MV_DIM = 128, 32, 128
+TEXT_N, TEXT_TD = 50_000, 128
+PAGE_N, PAGE_TD = 10_000, 1024
+K_PRESCREEN = 65
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
 # non-tensor FLOP/s, HBM bytes/s
@@ -108,6 +137,298 @@ def ids_agree(ids, scores, ref_ids, ref_scores) -> tuple[int, bool]:
 def make_texts(rng, vocab: list[str], n: int, lo: int, hi: int) -> list[str]:
     lens = rng.integers(lo, hi, size=n)
     return [" ".join(rng.choice(vocab, size=int(m))) for m in lens]
+
+
+def mv_corpus(n: int, td: int, seed: int, dev):
+    """``n`` token matrices with lengths uniform in [td/2, td], unit-norm
+    random tokens drawn on the card from ``seed``: (list of [len_i, d]
+    views, lens)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    docs = np.empty((n, td, MV_DIM), dtype=np.float32)
+    for lo in range(0, n, 2048):  # in slabs: one f32 copy on the card at a time
+        x = torch.randn((min(2048, n - lo), td, MV_DIM), generator=gen, device=dev)
+        docs[lo : lo + 2048] = (x / torch.linalg.vector_norm(x, dim=2, keepdim=True)).cpu().numpy()
+    lens = np.random.default_rng(seed).integers(td // 2, td + 1, size=n)
+    return [docs[i, : lens[i]] for i in range(n)], lens
+
+
+def mv_tol(q: "torch.Tensor", q_lens, d_max: float):
+    """Per-query f32 rounding term of the verified proof, (d + Tq) 2^-23
+    sum_t ||q_t|| max ||d_s||: kernel and plain version may split a tie
+    only between scores this close."""
+    import torch
+
+    qn = torch.linalg.vector_norm(q.float(), dim=2)
+    mask = torch.arange(q.shape[1], device=q.device)[None, :] < q_lens[:, None]
+    return (q.shape[2] + q.shape[1]) * 2.0**-23 * (qn * mask).sum(dim=1) * d_max
+
+
+def mv_agree(s, i, rs, ri, tol) -> tuple[int, bool, float]:
+    """(id mismatches, all scores within ``tol`` [B] of the reference's at
+    the same rank, max |d score|) of two [B, k] top-k results: an id may
+    differ only where two documents lie within the rounding term."""
+    import torch
+
+    s, i, rs, ri, tol = (torch.as_tensor(x).cpu().float() for x in (s, i, rs, ri, tol))
+    err = (s - rs).abs()
+    return int((i != ri).sum()), bool((err <= tol[:, None]).all()), float(err.max())
+
+
+def mv_library(q, q_lens, docs, dlens, k: int | None):
+    """One PyTorch yardstick of the MaxSim function: chunked ``torch.matmul``
+    of the same operands (f32 with TF32 off; bf16 operands with f32 output
+    where ``mm`` takes ``out_dtype``, else upcast), masked ``amax`` over doc
+    tokens, sum over query tokens, and ``torch.topk`` when ``k`` is given.
+    No single PyTorch call computes MaxSim."""
+    import torch
+
+    b, tq, d = q.shape
+    n, td, _ = docs.shape
+    q2 = q.reshape(b * tq, d)
+    qmask = torch.arange(tq, device=q.device)[None, :] < q_lens[:, None]
+    tile = max(1, (512 << 20) // (b * tq * td * 4))
+    tok = torch.arange(td, device=q.device)
+    out = []
+    for lo in range(0, n, tile):
+        c = docs[lo : lo + tile].reshape(-1, d)
+        if q.dtype == torch.bfloat16 and q.is_cuda and hasattr(torch.ops.aten.mm, "dtype"):
+            s = torch.mm(q2, c.T, out_dtype=torch.float32)
+        else:
+            s = torch.matmul(q2.float(), c.float().T)
+        s = s.view(b, tq, -1, td).masked_fill(~(tok[None, :] < dlens[lo : lo + tile, None]), -3.4e38)
+        out.append((s.amax(dim=3) * qmask[:, :, None]).sum(dim=1))
+    scores = torch.cat(out, dim=1)
+    return torch.topk(scores, k) if k else scores
+
+
+def mv_bound(q_lens, dlens, d: int, elt: int, out_bytes: int, peak_flops: float, peak_bw: float):
+    """Least time for the MaxSim work this run's data needs: the valid query
+    and document tokens only (the kernel never loads a doc token past its
+    length), each input read once, the output written once."""
+    q_tok = float(q_lens.sum())
+    d_tok = float(dlens.sum())
+    flops = 2.0 * q_tok * d_tok * d
+    bytes_ = (q_tok + d_tok) * d * elt + dlens.numel() * 4 + out_bytes
+    return bound(flops, bytes_, peak_flops, peak_bw)
+
+
+def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> None:
+    """The MaxSim path: kernels vs plain at text and page scale, the main
+    path (encoder -> exact and verified ``MultiVectorIndex``) with its own
+    launch window, and a SciFact-size multi-vector catalog run."""
+    import torch
+
+    from autorag_research_tpu_torch.embeddings.torch_encoder import (
+        TorchEncoderMultiVectorEmbedding,
+    )
+    from autorag_research_tpu_torch.evaluation.metrics.retrieval import (
+        retrieval_ndcg,
+        retrieval_recall,
+    )
+    from autorag_research_tpu_torch.index.dense import l2_normalize
+    from autorag_research_tpu_torch.index.multi_vector import MultiVectorIndex, pad_ragged
+    from autorag_research_tpu_torch.models.encoder import EncoderConfig
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.pipelines.retrieval.vector_search import (
+        VectorSearchPipeline,
+    )
+    from autorag_research_tpu_torch.schema import MetricInput
+    from autorag_research_tpu_torch.store.catalog import Catalog
+    from autorag_research_tpu_torch.store.gt import build_retrieval_gt_from_relations
+
+    # ---- 5. corpora, indexes, encoder ------------------------------------
+    t0 = time.perf_counter()
+    text_mats, text_lens = mv_corpus(TEXT_N, TEXT_TD, seed + 10, dev)
+    ids_text = list(range(TEXT_N))
+    index_text = MultiVectorIndex(ids_text, text_mats, device=dev).to_device()
+    del text_mats
+    page_mats, page_lens = mv_corpus(PAGE_N, PAGE_TD, seed + 11, dev)
+    index_page = MultiVectorIndex(list(range(PAGE_N)), page_mats, mode="verified", device=dev)
+    index_page.to_device()
+    del page_mats
+    torch.cuda.synchronize()
+    log(f"multi-vector indexes on device: text {TEXT_N} x {TEXT_TD} x {MV_DIM} f32 (lengths "
+        f"{TEXT_TD // 2}-{TEXT_TD}), page {PAGE_N} x {PAGE_TD} x {MV_DIM} f32 + bf16 sidecar "
+        f"(lengths {PAGE_TD // 2}-{PAGE_TD}); {index_text.device_bytes() / 1e9:.2f} + "
+        f"{index_page.device_bytes() / 1e9:.2f} GB ({time.perf_counter() - t0:.2f} s)")
+    rng = np.random.default_rng(seed + 12)
+    mv_texts = make_texts(rng, vocab, MV_Q, 8, MV_TQ + 1)
+    mv_embedder = TorchEncoderMultiVectorEmbedding(
+        EncoderConfig(**MV_ENCODER), seed=seed, batch_size=512, device=dev
+    )
+    q_mats = mv_embedder.embed_texts_multi(mv_texts)
+    q_np, ql_np = pad_ragged([l2_normalize(m) for m in q_mats])
+    q32 = torch.from_numpy(q_np).to(dev)
+    ql = torch.from_numpy(ql_np).to(dev)
+    q16 = q32.to(torch.bfloat16)
+    docs_t, lens_t = index_text._device
+    docs_p, lens_p = index_page._device
+    side = index_page._sidecar
+    docs_lo = side["docs_lo"]
+
+    # ---- 6. kernels vs plain at main-path shapes ---------------------------
+    def fused_case(label, q, docs, dlens, k, d_max, pk, elt):
+        s, i = tm.maxsim_topk_v2(q, ql, docs, dlens, k)
+        rs, ri = tm.maxsim_topk_v2_plain(q, ql, docs, dlens, k)
+        n_mism, ok, err = mv_agree(s, i, rs, ri, mv_tol(q, ql, d_max))
+        log(f"maxsim_topk_v2 vs plain, {label}: ids mismatches {n_mism}/{i.numel()} (all within "
+            f"the rounding term: {ok}), max|d score| = {err:.3e}")
+        if not ok:
+            fail(f"maxsim_topk_v2 disagrees with its plain version ({label})")
+        ms = cuda_ms(lambda: tm.maxsim_topk_v2(q, ql, docs, dlens, k), 3)
+        plain_ms = cuda_ms(lambda: tm.maxsim_topk_v2_plain(q, ql, docs, dlens, k), 1)
+        lib_ms = cuda_ms(lambda: mv_library(q, ql, docs, dlens, k), 1)
+        b_ms, b_by = mv_bound(ql, dlens, MV_DIM, elt, q.shape[0] * k * 8, peak[pk], peak["hbm"])
+        log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, chunked matmul + amax + topk "
+            f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        kernels.append({
+            "name": "maxsim_topk_v2", "case": label, "route": "cuda",
+            "source": "autorag_research_tpu_torch/csrc/maxsim_v2.cu",
+            "replaces": "autorag_research_tpu/ops/maxsim.py:311",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        })
+
+    def scores_case(label, q, docs, dlens, k, d_max, pk, elt):
+        got = tm.maxsim_scores_v2(q, ql, docs, dlens)
+        ref = tm.maxsim_scores_v2_plain(q, ql, docs, dlens)
+        tol = mv_tol(q, ql, d_max)
+        err_t = (got - ref).abs()
+        err = float(err_t.max())
+        s, i = tm.maxsim_topk_via_scores(q, ql, docs, dlens, k)
+        rs, ri = tm.maxsim_topk_v2_plain(q, ql, docs, dlens, k)
+        n_mism, ok, _ = mv_agree(s, i, rs, ri, tol)
+        log(f"maxsim_scores_v2 vs plain, {label}: max|d score| = {err:.3e} over [{q.shape[0]}, "
+            f"{docs.shape[0]}] (bound {float(tol.max()):.3e}); top-{k} ids mismatches "
+            f"{n_mism}/{i.numel()} (all within the rounding term: {ok})")
+        if not (bool((err_t <= tol[:, None]).all()) and ok):
+            fail(f"maxsim_scores_v2 disagrees with its plain version ({label})")
+        ms = cuda_ms(lambda: tm.maxsim_scores_v2(q, ql, docs, dlens), 3)
+        plain_ms = cuda_ms(lambda: tm.maxsim_scores_v2_plain(q, ql, docs, dlens), 1)
+        lib_ms = cuda_ms(lambda: mv_library(q, ql, docs, dlens, None), 1)
+        b_ms, b_by = mv_bound(ql, dlens, MV_DIM, elt, q.shape[0] * docs.shape[0] * 4,
+                              peak[pk], peak["hbm"])
+        log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, chunked matmul + amax "
+            f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        kernels.append({
+            "name": "maxsim_scores_v2", "case": label, "route": "cuda",
+            "source": "autorag_research_tpu_torch/csrc/maxsim_v2.cu",
+            "replaces": "autorag_research_tpu/ops/maxsim.py:442",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        })
+
+    td._require_exact_f32()
+    text = f"text scale B={MV_Q} x {TEXT_N} docs x {TEXT_TD} x {MV_DIM}"
+    page = f"page scale B={MV_Q} x {PAGE_N} pages x {PAGE_TD} x {MV_DIM}"
+    fused_case(f"f32 {text}, k={K}", q32, docs_t, lens_t, K, 1.0, "f32", 4)
+    fused_case(f"bf16 {page}, k={K}", q16, docs_lo, lens_p, K, 1.0, "bf16", 2)
+    scores_case(f"bf16 {page}, k'+1={K_PRESCREEN}", q16, docs_lo, lens_p, K_PRESCREEN, 1.0,
+                "bf16", 2)
+    scores_case(f"f32 {text}, k={K_LONG}", q32, docs_t, lens_t, K_LONG, 1.0, "f32", 4)
+
+    # ---- 7. main path, launch counts from 0 --------------------------------
+    td.reset_launch_counts()
+    tm.reset_launch_counts()
+    t0 = time.perf_counter()
+    q_mats = mv_embedder.embed_texts_multi(mv_texts)
+    se, re = index_text.topk_rows(q_mats, K)[:2]
+    sl, rl = index_text.topk_rows(q_mats, K_LONG)[:2]
+    sv, rv = index_page.topk_rows(q_mats, K)[:2]
+    n_fail, covered = index_page.last_stats
+    main_s = time.perf_counter() - t0
+    launches = {**td.LAUNCHES, **tm.LAUNCHES}
+    plain_calls = dict(tm.PLAIN_CALLS)
+    log(f"MaxSim main path launches: {json.dumps(launches)}, plain calls "
+        f"{json.dumps(plain_calls)} ({main_s:.2f} s, first calls)")
+    if min(tm.LAUNCHES.values()) < 1 or any(plain_calls.values()):
+        fail("the MaxSim main path skipped a kernel or took a plain route on the card")
+    for k in kernels:
+        if k["name"] in tm.LAUNCHES:
+            k["launches"] = tm.LAUNCHES[k["name"]]
+    # exact mode on the page corpus, the same tensors, for the verified check
+    es, ei = tm.maxsim_topk(q32, ql, docs_p, lens_p, K)
+    tol = mv_tol(q32, ql, 1.0)
+    n_mism, explained, _ = mv_agree(sv, rv, es, ei, tol)
+    log(f"verified (page scale) vs exact ids: {n_mism}/{rv.size} mismatches (all within "
+        f"the rounding term: {explained}); n_fail {n_fail}/{MV_Q}, covered {covered} (from the "
+        f"search itself)")
+    if not explained:
+        fail("verified MaxSim ids diverge from exact mode beyond sub-ulp near-ties")
+    for name, s, r, k in (("exact k=10", se, re, K), ("exact k=100", sl, rl, K_LONG),
+                          ("verified", sv, rv, K)):
+        if not (np.isfinite(s).all() and s.shape == (MV_Q, k) and (r < 2**31 - 1).all()):
+            fail(f"MaxSim {name} results are not finite [B, k] hits")
+    if not mv_agree(sl[:, :K], rl[:, :K], se, re, tol)[1]:
+        fail("MaxSim top-100 does not extend top-10 beyond the rounding term")
+    embed_ms = wall_ms(lambda: mv_embedder.embed_texts_multi(mv_texts), 3)
+    ex_ms = wall_ms(lambda: index_text.topk_rows(q_mats, K), 3)
+    ex100_ms = wall_ms(lambda: index_text.topk_rows(q_mats, K_LONG), 2)
+    ver_ms = wall_ms(lambda: index_page.topk_rows(q_mats, K), 3)
+    log(f"multi-vector embed {MV_Q} texts: {embed_ms:.3f} ms/batch")
+    log(f"MaxSim exact search, text scale, k={K} (fused kernel): {ex_ms:.3f} ms/batch, "
+        f"{MV_Q / ex_ms * 1e3:.1f} QPS; k={K_LONG} (scores kernel): {ex100_ms:.3f} ms/batch")
+    log(f"MaxSim verified search, page scale, k={K}: {ver_ms:.3f} ms/batch, "
+        f"{MV_Q / ver_ms * 1e3:.1f} QPS (n_fail {n_fail})")
+    del index_text, index_page, docs_t, lens_t, docs_p, lens_p, side, docs_lo, es, ei
+    torch.cuda.empty_cache()
+
+    # ---- 8. SciFact-size multi-vector catalog run --------------------------
+    crng = np.random.default_rng(seed + 1)
+    chunk_texts = make_texts(crng, vocab, SCIFACT_CHUNKS, 40, 121)
+    gold = crng.choice(SCIFACT_CHUNKS, size=SCIFACT_QUERIES, replace=False)
+    q_texts = [" ".join(crng.choice(chunk_texts[g].split(), size=12)) for g in gold]
+    chunk_mats = mv_embedder.embed_texts_multi(chunk_texts)
+    query_mats = mv_embedder.embed_texts_multi(q_texts)
+    with tempfile.TemporaryDirectory() as tmp:
+        cat = Catalog(f"{tmp}/scifact_mv.db", embedding_dim=MV_DIM)
+        cat.add_chunks({"id": i, "contents": t} for i, t in enumerate(chunk_texts))
+        cat.set_multi_embeddings("chunk", enumerate(chunk_mats))
+        cat.add_queries({"id": j, "contents": t} for j, t in enumerate(q_texts))
+        cat.set_multi_embeddings("query", enumerate(query_mats))
+        for j, g in enumerate(gold):
+            cat.add_retrieval_gt(j, int(g))
+        tm.reset_launch_counts()
+        pipe = VectorSearchPipeline(
+            cat, name="maxsim_verified", search_mode="multi",
+            index_options={"mode": "verified"}, device=dev,
+        )
+        stats = pipe.run(top_k=K)
+        cat_launches = dict(tm.LAUNCHES)
+        rows = {j: cat.get_retrieved(j, pipe.pipeline_id) for j in range(SCIFACT_QUERIES)}
+        inputs = []
+        for j in range(SCIFACT_QUERIES):
+            gt, _ = build_retrieval_gt_from_relations(
+                [dict(r) for r in cat.get_relations_by_query(j)]
+            )
+            inputs.append(MetricInput(
+                retrieval_gt=gt, retrieved_ids=[f"chunk_{r['doc_id']}" for r in rows[j]]
+            ))
+        cat.close()
+    recall = float(np.mean(retrieval_recall(inputs)))
+    ndcg = float(np.mean(retrieval_ndcg(inputs)))
+    got_ids = np.array([[r["doc_id"] for r in rows[j]] for j in range(SCIFACT_QUERIES)])
+    got_s = np.array([[r["rel_score"] for r in rows[j]] for j in range(SCIFACT_QUERIES)])
+    ref = MultiVectorIndex(list(range(SCIFACT_CHUNKS)), chunk_mats, device=dev)
+    ref_s, ref_i, ref_ql = ref.topk_rows(query_mats, K)
+    ref_s = ref_s / np.maximum(ref_ql[:, None], 1)
+    # normalized scores: the rounding term over the query's tokens, per token
+    cat_tol = np.full(SCIFACT_QUERIES, (MV_DIM + MV_TQ) * 2.0**-23)
+    n_mism, explained, _ = mv_agree(got_s, got_ids, ref_s, ref_i, cat_tol)
+    log(f"SciFact-size multi-vector catalog run: {stats['total_results']} rows persisted for "
+        f"{stats['total_queries']} queries, launches {json.dumps(cat_launches)}, "
+        f"recall@10 {recall:.4f}, ndcg@10 {ndcg:.4f}, vs exact search {n_mism} id mismatches "
+        f"(all within the rounding term: {explained})")
+    if stats["total_results"] != SCIFACT_QUERIES * K or stats["failed_queries"]:
+        fail(f"MaxSim catalog run persisted {stats['total_results']} rows, failed "
+             f"{stats['failed_queries']}")
+    if not explained or cat_launches["maxsim_scores_v2"] < 1:
+        fail("MaxSim catalog run diverged from the exact search or skipped the scores kernel")
+    if not (0.0 <= recall <= 1.0 and 0.0 <= ndcg <= 1.0 and math.isfinite(ndcg)):
+        fail(f"MaxSim metrics out of range: recall {recall}, ndcg {ndcg}")
 
 
 def main() -> int:
@@ -396,6 +717,12 @@ def main() -> int:
         fail("catalog run diverged from the exact search or skipped the kernel")
     if not (0.0 <= recall <= 1.0 and 0.0 <= ndcg <= 1.0 and math.isfinite(ndcg)):
         fail(f"metrics out of range: recall {recall}, ndcg {ndcg}")
+
+    del index_v, side, c_lo, q_lo, q_emb, q_norm, emb_v, embedder, chunk_emb
+    torch.cuda.empty_cache()
+
+    # ---- 5-7. the MaxSim path --------------------------------------------
+    maxsim_phases(args.seed, dev, peak, kernels, vocab)
 
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))
