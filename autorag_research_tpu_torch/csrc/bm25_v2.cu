@@ -1,0 +1,318 @@
+// bm25_v2: BM25 over the slot-padded layout with a fused streaming top-k,
+// walking the whole corpus, skipping Bloom-cleared tiles, or probing a list
+// of candidate tiles.
+//
+// Replaces autorag_research_tpu/ops/sparse.py::_bm25_kernel_v2 (Pallas,
+// wrapper bm25_topk_pallas_v2 / _launch_bm25_pallas), ::_bm25_kernel_v2_skip
+// (wrapper bm25_topk_pallas_v2_skip) and ::_bm25_kernel_probe (wrapper
+// bm25_topk_pallas_probe). All three share one scoring body, as the Pallas
+// kernels share _slot_match_scores:
+//
+//   score(b, n) = sum over t = 0..T-1, in order, of
+//                 (sum_l [doc_ids[n, l] == q_ids[b, t]] * doc_w[n, l]) * q_w[b, t]
+//
+// each product and each partial sum rounded on its own (__fmul_rn /
+// __fadd_rn forbid FMA contraction), so the kernel equals the plain PyTorch
+// version bitwise. A document's slots hold its unique terms, so the inner
+// sum is the one matching weight; pads (doc -1, query -2) never match, and
+// pads may sit anywhere in a row.
+//
+// Inputs: q_ids / q_w [B, T] int32 / f32; doc_ids / doc_w [N, L] int32 / f32,
+// read in place. The skip walk reads a [q_tiles, n_tiles] uint8 match matrix
+// (ops/sparse.py::tile_match on the device, query tiles of BQ = 8 rows, doc
+// tiles of block_n rows); the probe walk reads cand [q_tiles, cap] int32, the
+// doc tiles of each query tile in increasing order, and count [q_tiles], the
+// live entries of each row. Every walk writes per-part lists [B, P, k] in
+// (-score, row) order, merged by the wrapper with merge_topk as
+// dense_topk_stream's are.
+//
+// Bound on this card: the function is one multiply and one add per (live
+// query term, document) pair, 2 operations that the rounding keeps apart (no
+// FMA), so at most 33.5 TFLOP/s, half the FMA peak; and the id and weight
+// arrays (0.4-0.5 GB at 500,000 docs) are read once at 3.35 TB/s. Batches of
+// about 100 or more queries of 10 terms are bound by operations, smaller ones
+// by bytes.
+//
+// What this first design does instead: T x L compares per (query, document).
+// A block owns one query tile (one warp per query) and a part of the work, and
+// walks its doc tiles 32 documents per step: the step's [32, L] ids and
+// weights are staged in shared memory (16-byte loads where L % 4 == 0; the
+// row stride is padded so the 32 lanes, one per document, read 32 banks),
+// and each lane compares every slot of its document against 16 query terms
+// held in registers, the query tile's terms having been staged in shared
+// memory once. The epilogue offers the 32 scores of each query row to its
+// k-best list (list_insert, common.cuh): a ballot finds the scores above the
+// list's k-th; documents increase along a block's walk, so ties go to the
+// lower row. Lists of up to KSMEM entries live in shared memory; longer ones
+// live in place in the output (global memory, L2-cached), so any k is served.
+//
+// Walks. PART: a contiguous part of the corpus. SKIP: the part in tiles of
+// block_n documents (part boundaries are tile boundaries); a tile whose match
+// entry is 0 is neither read nor scored (positive_only), or, in v2 mode, only
+// once every list of the block holds a k-th score > 0 (bit-identical to the
+// PART walk). PROBE: entries [p * part, (p + 1) * part) of the query tile's
+// candidate list, up to its count; only those tiles are read (positive_only).
+// A per-query-tile term hash in shared memory, cp.async double-buffered tiles
+// and a persistent grid are later work.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int BQ = THREADS / 32;  // queries of a block, one warp each
+constexpr int DOCS = 32;          // documents per step, one per lane
+constexpr int TC = 16;            // query terms held in registers at once
+constexpr int LC = 128;           // slots staged at once
+constexpr int LDS = LC + 1;       // staged row stride (32-bit words)
+constexpr int KSMEM = 1024;       // longest list kept in shared memory
+constexpr int TMAX = 2048;        // query terms staged per query
+constexpr int QUERY_PAD = -2;
+
+enum Walk { PART = 0, SKIP = 1, PROBE = 2 };
+
+// Rows [base, base + nd) and slots [l0, l0 + lc) of the ids and weights into
+// shared memory, row stride LDS.
+__device__ __forceinline__ void stage(const int* __restrict__ doc_ids,
+                                      const float* __restrict__ doc_w, int base, int nd,
+                                      int L, int l0, int lc, bool vec, int* s_ids, float* s_w,
+                                      int tid) {
+  if (vec) {
+    const int v4 = lc >> 2;
+    for (int v = tid; v < nd * v4; v += THREADS) {
+      const int r = v / v4, c = (v - r * v4) * 4;
+      const size_t g = (size_t)(base + r) * L + l0 + c;
+      const int4 a = *reinterpret_cast<const int4*>(doc_ids + g);
+      const float4 w = *reinterpret_cast<const float4*>(doc_w + g);
+      int* si = s_ids + r * LDS + c;
+      float* sw = s_w + r * LDS + c;
+      si[0] = a.x;
+      si[1] = a.y;
+      si[2] = a.z;
+      si[3] = a.w;
+      sw[0] = w.x;
+      sw[1] = w.y;
+      sw[2] = w.z;
+      sw[3] = w.w;
+    }
+  } else {
+    for (int v = tid; v < nd * lc; v += THREADS) {
+      const int r = v / lc, c = v - r * lc;
+      const size_t g = (size_t)(base + r) * L + l0 + c;
+      s_ids[r * LDS + c] = doc_ids[g];
+      s_w[r * LDS + c] = doc_w[g];
+    }
+  }
+}
+
+template <int WALK, bool POS>
+__global__ void __launch_bounds__(THREADS)
+bm25_v2_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
+               const int* __restrict__ doc_ids, const float* __restrict__ doc_w,
+               const unsigned char* __restrict__ match, const int* __restrict__ cand,
+               const int* __restrict__ count, float* __restrict__ out_s,
+               int* __restrict__ out_i, int B, int T, int N, int L, int k, int part, int parts,
+               int q_tiles, int n_tiles, int cap, int block_n, int vec, int list_smem) {
+  __shared__ int s_ids[DOCS * LDS];
+  __shared__ float s_w[DOCS * LDS];
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int list_n = list_smem ? BQ * k : 0;
+  float* Ls = reinterpret_cast<float*>(dyn);                // [BQ, k] when in shared memory
+  int* Li = reinterpret_cast<int*>(Ls + list_n);            // [BQ, k]
+  int* sq_id = Li + list_n;                                 // [BQ, T]
+  float* sq_w = reinterpret_cast<float*>(sq_id + BQ * T);   // [BQ, T]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = blockIdx.x % q_tiles;
+  const int p = blockIdx.x / q_tiles;
+  const int b = qt * BQ + warp;
+  const bool active = b < B;  // warp-uniform
+  const unsigned full = 0xffffffffu;
+  // this warp's list: shared memory, or its own slice of the output
+  const size_t o = ((size_t)(active ? b : 0) * parts + p) * k;
+  float* ls = list_smem ? Ls + warp * k : out_s + o;
+  int* li = list_smem ? Li + warp * k : out_i + o;
+
+  for (int i = tid; i < BQ * T; i += THREADS) {
+    const int bb = qt * BQ + i / T;
+    sq_id[i] = bb < B ? q_ids[(size_t)bb * T + i % T] : QUERY_PAD;
+    sq_w[i] = bb < B ? q_w[(size_t)bb * T + i % T] : 0.f;
+  }
+  if (active) {
+    for (int i = lane; i < k; i += 32) {
+      ls[i] = POS ? 0.f : -INFINITY;
+      li[i] = ARTPU_INT_MAX;
+    }
+  }
+  __syncthreads();
+
+  // the tiles this block walks: PART one span, SKIP the part's block_n
+  // tiles, PROBE its slice of the candidate list
+  int begin = 0, end = 0, n_walk = 0;
+  if (WALK == PROBE) {
+    begin = p * part;
+    end = min(min(count[qt], cap), begin + part);
+    n_walk = max(0, end - begin);
+  } else {
+    begin = p * part;
+    end = min(N, begin + part);
+    n_walk = WALK == SKIP ? (end - begin + block_n - 1) / block_n : 1;
+  }
+  const int n_lc = (L + LC - 1) / LC;
+  const int* qid_row = sq_id + warp * T;
+  const float* qw_row = sq_w + warp * T;
+
+  for (int w = 0; w < n_walk; ++w) {
+    int tb, te;
+    if (WALK == PROBE) {
+      const int tile = cand[(size_t)qt * cap + begin + w];  // block-uniform
+      if (tile < 0 || tile >= n_tiles) continue;
+      tb = tile * block_n;
+      te = min(N, tb + block_n);
+    } else if (WALK == SKIP) {
+      tb = begin + w * block_n;
+      te = min(end, tb + block_n);
+      bool need = match[(size_t)qt * n_tiles + tb / block_n] != 0;
+      if (!POS) {
+        // a doc tile with no query term scores 0 everywhere: it can change
+        // no list whose k-th score is already > 0 (pad rows left out)
+        const int warm = !active || ls[k - 1] > 0.f;
+        need = __syncthreads_and(warm) == 0 || need;
+      }
+      if (!need) continue;  // block-uniform
+    } else {
+      tb = begin;
+      te = end;
+    }
+    for (int base = tb; base < te; base += DOCS) {
+      const int nd = min(DOCS, te - base);
+      const bool mine = active && lane < nd;
+      float score = 0.f;
+      for (int t0 = 0; t0 < T; t0 += TC) {
+        int qid[TC];
+        float m[TC];
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          qid[j] = t0 + j < T ? qid_row[t0 + j] : QUERY_PAD;
+          m[j] = 0.f;
+        }
+        for (int lci = 0; lci < n_lc; ++lci) {
+          const int l0 = lci * LC;
+          const int lc = min(LC, L - l0);
+          if (n_lc > 1 || t0 == 0) {
+            __syncthreads();
+            stage(doc_ids, doc_w, base, nd, L, l0, lc, vec != 0, s_ids, s_w, tid);
+            __syncthreads();
+          }
+          if (mine) {
+            const int* row = s_ids + lane * LDS;
+            const float* wr = s_w + lane * LDS;
+            for (int l = 0; l < lc; ++l) {
+              const int id = row[l];
+              const float wt = wr[l];
+#pragma unroll
+              for (int j = 0; j < TC; ++j) m[j] = __fadd_rn(m[j], id == qid[j] ? wt : 0.f);
+            }
+          }
+        }
+        if (mine) {
+#pragma unroll
+          for (int j = 0; j < TC; ++j) {
+            if (t0 + j < T) score = __fadd_rn(score, __fmul_rn(m[j], qw_row[t0 + j]));
+          }
+        }
+      }
+      if (active) {  // warp-uniform
+        // POS: the list starts at 0.0, so only scores > 0 can enter
+        const float s = lane < nd ? score : -INFINITY;
+        float kth = ls[k - 1];
+        unsigned want = __ballot_sync(full, s > kth);
+        while (want) {
+          const int src = __ffs(want) - 1;
+          want &= want - 1;
+          const float cs = __shfl_sync(full, s, src);
+          if (cs > kth) {
+            list_insert(ls, li, k, cs, base + src, lane);
+            kth = ls[k - 1];
+          }
+        }
+      }
+    }
+  }
+
+  if (active) {
+    for (int i = lane; i < k; i += 32) {
+      const float v = ls[i];
+      const int id = li[i];
+      out_s[o + i] = v == -INFINITY ? ARTPU_NEG_INF : v;
+      out_i[o + i] = id;
+    }
+  }
+}
+
+template <int WALK, bool POS>
+int launch(const void* q_ids, const void* q_w, const void* doc_ids, const void* doc_w,
+           const void* match, const void* cand, const void* count, void* out_s, void* out_i,
+           int B, int T, int N, int L, int k, int part, int parts, int q_tiles, int n_tiles,
+           int cap, int block_n, int vec, void* stream) {
+  if (B == 0 || N == 0 || parts == 0) return 0;
+  if (T < 0 || T > TMAX || L < 0 || k < 1 || part < 1 || (long long)q_tiles * BQ < B) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (WALK != PROBE && (long long)parts * part < N) return (int)cudaErrorInvalidValue;
+  if (WALK != PART && (block_n < 1 || (long long)n_tiles * block_n < N ||
+                       (long long)(n_tiles - 1) * block_n >= N)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (WALK == SKIP && (match == nullptr || part % block_n)) return (int)cudaErrorInvalidValue;
+  if (WALK == PROBE && (cand == nullptr || count == nullptr || cap < 1 ||
+                        (long long)parts * part < cap)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (vec && L % 4) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)q_tiles * parts;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  const int list_smem = k <= KSMEM;
+  const int dyn_bytes = (list_smem ? BQ * k * (int)(sizeof(float) + sizeof(int)) : 0) +
+                        BQ * T * (int)(sizeof(int) + sizeof(float));
+  auto kernel = bm25_v2_kernel<WALK, POS>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)blocks, THREADS, dyn_bytes, (cudaStream_t)stream>>>(
+      (const int*)q_ids, (const float*)q_w, (const int*)doc_ids, (const float*)doc_w,
+      (const unsigned char*)match, (const int*)cand, (const int*)count, (float*)out_s,
+      (int*)out_i, B, T, N, L, k, part, parts, q_tiles, n_tiles, cap, block_n, vec, list_smem);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q_ids / q_w [B, T]; doc_ids / doc_w [N, L], contiguous, 16-byte aligned
+// when vec != 0 (then L % 4 == 0). out_s / out_i [B, parts, k]. PART and
+// SKIP: part p covers documents [p*part, (p+1)*part), a multiple of block_n
+// for SKIP, with match [q_tiles, n_tiles] uint8. PROBE: part p covers
+// candidate entries [p*part, (p+1)*part) of cand [q_tiles, cap] int32 (tile
+// indices, increasing), count [q_tiles] int32. positive_only selects the skip
+// walk's mode; the probe walk is always positive_only. Each returns
+// cudaGetLastError().
+#define BM25_ARGS                                                                            \
+  const void *q_ids, const void *q_w, const void *doc_ids, const void *doc_w,                 \
+      const void *match, const void *cand, const void *count, void *out_s, void *out_i,       \
+      int B, int T, int N, int L, int k, int part, int parts, int q_tiles, int n_tiles,       \
+      int cap, int block_n, int vec, int positive_only, void *stream
+#define BM25_PASS                                                                              \
+  q_ids, q_w, doc_ids, doc_w, match, cand, count, out_s, out_i, B, T, N, L, k, part, parts,   \
+      q_tiles, n_tiles, cap, block_n, vec, stream
+
+extern "C" int bm25_topk_v2_launch(BM25_ARGS) {
+  return launch<PART, false>(BM25_PASS);
+}
+
+extern "C" int bm25_topk_v2_skip_launch(BM25_ARGS) {
+  return positive_only ? launch<SKIP, true>(BM25_PASS) : launch<SKIP, false>(BM25_PASS);
+}
+
+extern "C" int bm25_topk_probe_launch(BM25_ARGS) {
+  return launch<PROBE, true>(BM25_PASS);
+}

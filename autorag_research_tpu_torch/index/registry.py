@@ -30,6 +30,7 @@ _CACHE: dict[tuple, Any] = {}
 _LOADERS = {
     "dense": ("autorag_research_tpu_torch.index.dense", "DenseIndex"),
     "multi_vector": ("autorag_research_tpu_torch.index.multi_vector", "MultiVectorIndex"),
+    "sparse": ("autorag_research_tpu_torch.index.sparse", "SparseIndex"),
 }
 
 

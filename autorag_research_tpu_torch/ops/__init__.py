@@ -11,6 +11,16 @@ from autorag_research_tpu_torch.ops.maxsim import (
     maxsim_topk,
     maxsim_topk_verified,
 )
+from autorag_research_tpu_torch.ops.sparse import (
+    bm25_topk,
+    bm25_topk_probe,
+    bm25_topk_scan,
+    bm25_topk_v2,
+    bm25_topk_v2_skip,
+    bm25_topk_wand,
+    build_tile_bitmaps,
+    tile_match,
+)
 
 __all__ = [
     "merge_topk",
@@ -24,4 +34,12 @@ __all__ = [
     "maxsim_rerank",
     "maxsim_topk",
     "maxsim_topk_verified",
+    "bm25_topk",
+    "bm25_topk_probe",
+    "bm25_topk_scan",
+    "bm25_topk_v2",
+    "bm25_topk_v2_skip",
+    "bm25_topk_wand",
+    "build_tile_bitmaps",
+    "tile_match",
 ]

@@ -1,0 +1,839 @@
+"""BM25 sparse scoring on an NVIDIA GPU: the slot-padded layout.
+
+Counterpart of ``autorag_research_tpu/ops/sparse.py`` (its flat layout).
+Each document's unique terms occupy ``L`` slots of two ``[N, L]`` arrays,
+term ids (``DOC_PAD`` = -1 where empty) and precomputed BM25 term weights
+(0 where empty); a query is ``T`` (term id, idf * qtf) pairs, padded with
+``QUERY_PAD`` = -2 and weight 0, so pads never match each other.
+
+One scoring order everywhere, ``_slot_match_scores`` of the JAX package: for
+each query term t in increasing order, ``p_t = w[n, l*] * qw[b, t]``
+(rounded), then ``score = score + p_t`` (rounded), where ``l*`` is the doc
+slot holding the term (the sum over every slot, which is that one weight on
+index-built arrays). The scan, the plain versions and the kernels compute
+exactly this, so the CPU and the card rank alike bit for bit.
+
+- :func:`bm25_topk_scan` (JAX ``bm25_topk_xla``): document tiles with a
+  running ``(-score, row)`` merge; zero-score documents are candidates.
+- :func:`bm25_topk_v2` (JAX ``bm25_topk_pallas_v2``): the fused kernel of
+  ``csrc/bm25_v2.cu`` for any k.
+- :func:`bm25_topk_v2_skip` (JAX ``bm25_topk_pallas_v2_skip``): the same
+  kernel skipping (query tile, doc tile) pairs that the 4-probe Bloom
+  predicate :func:`tile_match` clears; ``positive_only`` masks scores <= 0
+  and pads under-full rows with ``(0.0, INT_MAX)``.
+- :func:`bm25_topk_probe` (JAX ``bm25_topk_pallas_probe``): the same kernel
+  over explicit per-query-tile candidate doc tiles, from the exact host
+  term -> tile lists (:func:`build_term_tile_lists`, :func:`probe_candidates`)
+  or the two-pass tile-WAND bound (:func:`bm25_topk_wand`).
+- :func:`bm25_route` / :func:`bm25_topk`: the dispatch.
+
+CPU tensors take each kernel's plain version; CUDA tensors launch the kernel
+or raise. The v1 and lane-packed kernels are not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable
+
+import numpy as np
+import torch
+
+from autorag_research_tpu_torch.ops import cuda_build
+from autorag_research_tpu_torch.ops.dense import _round_up
+from autorag_research_tpu_torch.ops.topk import (
+    INT_MAX,
+    NEG_INF,
+    merge_topk,
+    pad_to_k,
+    sort_topk,
+    topk_ordered,
+)
+
+DOC_PAD = -1
+QUERY_PAD = -2
+
+# Kernel launches per wrapper: each wrapper adds one where it launches its
+# kernel and nowhere else.
+LAUNCHES = {"bm25_topk_v2": 0, "bm25_topk_v2_skip": 0, "bm25_topk_probe": 0}
+# Calls of the plain versions and the scan, whatever the device: a run on the
+# card shows with these that its tensors never took a plain route.
+PLAIN_CALLS = {
+    "bm25_topk_scan": 0,
+    "bm25_topk_v2_plain": 0,
+    "bm25_topk_v2_skip_plain": 0,
+    "bm25_topk_probe_plain": 0,
+}
+
+# [B, tile_n, L] f32 match weights of one scan step
+SCAN_TILE_BUDGET = 512 << 20
+# query terms the kernel stages in shared memory
+KERNEL_T_MAX = 2048
+# the Bloom bitmaps', the skip kernel's and the probe's doc tile
+SKIP_BLOCK_N = 2048
+# largest k the pruned routes serve (the JAX package's pruned_ok gate)
+PRUNED_K_MAX = 2048
+# queries per block of the kernel, and of the tile predicate
+BLOCK_Q = 8
+# documents per step of the kernel (one per lane)
+_KERNEL_DOCS = 32
+
+
+def reset_launch_counts() -> None:
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for name in counts:
+            counts[name] = 0
+
+
+# ------------------------------------------------------------- plain paths
+def _slot_match_scores(q_ids, q_w, tid, tw) -> torch.Tensor:
+    """[B, n] f32 scores of a document tile, term by term in increasing t:
+    the match weight of term t (summed over slots), times its query weight,
+    added to the running score. Separate ops, so no FMA contraction."""
+    scores = torch.zeros((q_ids.shape[0], tid.shape[0]), dtype=torch.float32, device=tid.device)
+    for t in range(q_ids.shape[1]):
+        match = tid[None, :, :] == q_ids[:, t, None, None]
+        c = torch.where(match, tw[None], 0.0).sum(dim=2)
+        scores = scores + c * q_w[:, t, None]
+    return scores
+
+
+def _scan_tile_n(b: int, slots: int, n: int) -> int:
+    tile = max(32, (SCAN_TILE_BUDGET // max(b * slots * 4, 1)) // 32 * 32)
+    return min(tile, _round_up(max(n, 1), 32))
+
+
+def _prepare(q_ids, q_w, doc_ids, doc_w):
+    dev = doc_ids.device
+    return (
+        torch.as_tensor(q_ids).to(dev, torch.int32),
+        torch.as_tensor(q_w).to(dev, torch.float32),
+        doc_ids.to(torch.int32),
+        doc_w.to(torch.float32),
+    )
+
+
+def _positive_filler(scores, ids):
+    """Entries masked by ``positive_only`` (score <= 0) become the kernel's
+    ``(0.0, INT_MAX)`` filler."""
+    empty = ~(scores > 0.0)
+    return scores.masked_fill(empty, 0.0), ids.masked_fill(empty, INT_MAX)
+
+
+def _scan(q_ids, q_w, doc_ids, doc_w, k: int, tile_n: int | None, positive_only: bool = False,
+          allowed: torch.Tensor | None = None, allowed_block: int = SKIP_BLOCK_N):
+    """The tiled scan behind every plain version. ``allowed`` [B, n_tiles]
+    bool keeps, per query, only the documents of its doc tiles of
+    ``allowed_block`` rows (the probe's candidate tiles)."""
+    q_ids, q_w, doc_ids, doc_w = _prepare(q_ids, q_w, doc_ids, doc_w)
+    b = q_ids.shape[0]
+    n, slots = doc_ids.shape
+    k_eff = min(k, n)
+    dev = doc_ids.device
+    scores = torch.full((b, k_eff), NEG_INF, dtype=torch.float32, device=dev)
+    ids = torch.full((b, k_eff), INT_MAX, dtype=torch.int32, device=dev)
+    if n == 0 or b == 0:
+        return pad_to_k(scores, ids, k, k_eff)
+    tile_n = min(tile_n or _scan_tile_n(b, slots, n), _round_up(n, 32))
+    for base in range(0, n, tile_n):
+        tile_s = _slot_match_scores(q_ids, q_w, doc_ids[base : base + tile_n], doc_w[base : base + tile_n])
+        if positive_only:
+            tile_s = torch.where(tile_s > 0.0, tile_s, NEG_INF)
+        if allowed is not None:
+            cols = torch.arange(base, base + tile_s.shape[1], device=dev) // allowed_block
+            tile_s = torch.where(allowed[:, cols], tile_s, NEG_INF)
+        top_s, top_i = topk_ordered(tile_s, min(k_eff, tile_s.shape[1]))
+        scores, ids = sort_topk(
+            torch.cat([scores, top_s], dim=1), torch.cat([ids, top_i + base], dim=1), k_eff
+        )
+    if positive_only:
+        scores, ids = _positive_filler(scores, ids)
+    return pad_to_k(scores, ids, k, k_eff)
+
+
+def bm25_topk_scan(
+    q_ids: torch.Tensor,
+    q_weights: torch.Tensor,
+    doc_ids: torch.Tensor,
+    doc_weights: torch.Tensor,
+    k: int,
+    tile_n: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact BM25 top-k as a loop over document tiles of ``tile_n`` rows (JAX
+    ``bm25_topk_xla``), each step's [B, tile_n, L] match weights within
+    ``SCAN_TILE_BUDGET`` by default. Zero-score documents are candidates.
+    Returns (scores f32 [B, k], rows int32 [B, k]) in ``(-score, row)``
+    order, padded past the corpus with ``(NEG_INF, INT_MAX)``."""
+    PLAIN_CALLS["bm25_topk_scan"] += 1
+    return _scan(q_ids, q_weights, doc_ids, doc_weights, k, tile_n)
+
+
+def bm25_topk_v2_plain(q_ids, q_weights, doc_ids, doc_weights, k: int):
+    """Plain PyTorch version of :func:`bm25_topk_v2`: the same top-k, zero
+    scores included, by a tiled scan."""
+    PLAIN_CALLS["bm25_topk_v2_plain"] += 1
+    return _scan(q_ids, q_weights, doc_ids, doc_weights, k, None)
+
+
+def _check_bitmaps(bitmaps, n: int, block_n: int) -> None:
+    """The bitmaps must tile the corpus at the kernel's block_n: a re-tiled
+    corpus would let tile t's filter clear another tile's terms."""
+    n_tiles = -(-n // block_n)
+    if bitmaps.ndim != 2 or bitmaps.shape[0] != n_tiles:
+        raise ValueError(
+            f"bitmaps built for {bitmaps.shape[0]} tiles, the corpus has {n_tiles} tiles of "
+            f"block_n={block_n}; rebuild the bitmaps at this block_n"
+        )
+
+
+def bm25_topk_v2_skip_plain(
+    q_ids, q_weights, doc_ids, doc_weights, bitmaps, k: int,
+    block_n: int = SKIP_BLOCK_N, positive_only: bool = False,
+):
+    """Plain PyTorch version of :func:`bm25_topk_v2_skip`. The predicate has
+    no false negatives, so the function is the scan's: with
+    ``positive_only=False`` the v2 top-k; with ``positive_only=True`` only
+    scores > 0, under-full rows padded with ``(0.0, INT_MAX)``. The bitmaps
+    are checked against ``block_n`` as the kernel checks them."""
+    _check_bitmaps(bitmaps, doc_ids.shape[0], block_n)
+    PLAIN_CALLS["bm25_topk_v2_skip_plain"] += 1
+    return _scan(q_ids, q_weights, doc_ids, doc_weights, k, None, positive_only)
+
+
+def _check_candidates(cand, count, b: int) -> None:
+    q_tiles = -(-b // BLOCK_Q)
+    if cand.ndim != 2 or cand.shape[0] != q_tiles or count.shape != (cand.shape[0],):
+        raise ValueError(
+            f"cand {tuple(cand.shape)} / count {tuple(count.shape)} must hold one row per "
+            f"query tile of {BLOCK_Q}: {q_tiles} rows for {b} queries"
+        )
+
+
+def _candidate_mask(cand, count, b: int, n_tiles: int) -> torch.Tensor:
+    """[B, n_tiles] bool: the live, in-range candidate tiles of each
+    query's tile."""
+    q_tiles, cap = cand.shape
+    live = torch.arange(cap, device=cand.device)[None, :] < count.to(cand.device)[:, None]
+    live &= (cand >= 0) & (cand < n_tiles)
+    tile_ok = torch.zeros((q_tiles, n_tiles), dtype=torch.bool, device=cand.device)
+    rows = torch.arange(q_tiles, device=cand.device)[:, None].expand(q_tiles, cap)
+    tile_ok[rows[live], cand[live].long()] = True
+    return tile_ok[torch.arange(b, device=cand.device) // BLOCK_Q]
+
+
+def bm25_topk_probe_plain(
+    q_ids, q_weights, doc_ids, doc_weights, cand, count, k: int, block_n: int = SKIP_BLOCK_N,
+):
+    """Plain PyTorch version of :func:`bm25_topk_probe`: the positive hits
+    of each query among the documents of its query tile's candidate tiles
+    (``cand[g, :count[g]]``, tiles of ``block_n`` rows), in ``(-score, row)``
+    order, under-full rows padded with ``(0.0, INT_MAX)``."""
+    b = q_ids.shape[0]
+    _check_candidates(cand, count, b)
+    PLAIN_CALLS["bm25_topk_probe_plain"] += 1
+    dev = doc_ids.device
+    n_tiles = -(-doc_ids.shape[0] // block_n)
+    allowed = _candidate_mask(
+        torch.as_tensor(cand).to(dev, torch.int64), torch.as_tensor(count).to(dev, torch.int64),
+        b, n_tiles,
+    )
+    return _scan(q_ids, q_weights, doc_ids, doc_weights, k, None, True, allowed, block_n)
+
+
+# ------------------------------------------------------------ Bloom filters
+# Knuth-style odd multipliers of the 4 Bloom probes (the JAX package's).
+_BLOOM_MULTS = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F)
+
+
+def _bloom_positions(terms: np.ndarray, space: int) -> list[np.ndarray]:
+    t = terms.astype(np.uint64)
+    return [((t * np.uint64(m)) % np.uint64(space)).astype(np.int64) for m in _BLOOM_MULTS]
+
+
+def bitmap_words_for(doc_ids: np.ndarray, block_n: int) -> int:
+    """Words per tile filter: about 16 bits per distinct term (4 probes ->
+    ~20% fill, ~0.2% per-term false positives), distinct terms per tile
+    estimated as the max over up to 8 evenly spaced tiles, rounded up to a
+    power of two (at least 64 words)."""
+    n = doc_ids.shape[0]
+    if n == 0:
+        return 64
+    n_tiles = -(-n // block_n)
+    distinct = 1
+    for t in np.unique(np.linspace(0, n_tiles - 1, num=min(8, n_tiles), dtype=int)):
+        tile = doc_ids[t * block_n : (t + 1) * block_n]
+        distinct = max(distinct, len(np.unique(tile[tile >= 0])) or 1)
+    return max(64, int(2 ** np.ceil(np.log2(distinct * 16 / 32))))
+
+
+def build_tile_bitmaps(doc_ids: np.ndarray, block_n: int, n_words: int | None = None) -> np.ndarray:
+    """Per-doc-tile 4-probe Bloom term filters, [n_tiles, n_words] int32:
+    tile t covers doc rows [t*block_n, (t+1)*block_n), and a term is possibly
+    present iff all 4 probe bits are set. False positives only cost a missed
+    skip. The numpy path of the JAX ``build_tile_bitmaps``, bit for bit."""
+    n = doc_ids.shape[0]
+    n_tiles = -(-n // block_n)
+    if n_words is None:
+        n_words = bitmap_words_for(doc_ids, block_n)
+    space = 32 * n_words
+    if space & (space - 1):
+        raise ValueError(
+            f"n_words must make 32*n_words a power of two (got {n_words}): the "
+            "query-side probe reduces modulo 2^32 first, which agrees with these "
+            "bitmap residues only when the space divides 2^32"
+        )
+    rows, cols = np.nonzero(doc_ids >= 0)
+    keys = np.unique((rows // block_n).astype(np.int64) * (2**32) + doc_ids[rows, cols])
+    tile_of = (keys >> 32).astype(np.int64)
+    term_of = (keys & 0xFFFFFFFF).astype(np.int64)
+    total_bits = n_tiles * space
+    if total_bits <= (1 << 31):
+        # one byte per bit, then packbits
+        bits = np.zeros(total_bits, np.uint8)
+        for pos in _bloom_positions(term_of, space):
+            bits[tile_of * space + pos] = 1
+        flat = np.packbits(bits, bitorder="little").view(np.int32)
+    else:
+        flat = np.zeros(n_tiles * n_words, dtype=np.int32)
+        coords = np.unique(
+            np.concatenate([tile_of * space + pos for pos in _bloom_positions(term_of, space)])
+        )
+        np.bitwise_or.at(flat, coords // 32, (np.int64(1) << (coords % 32)).astype(np.int32))
+    return flat.reshape(n_tiles, n_words)
+
+
+def cluster_doc_order(doc_ids: np.ndarray, doc_freq: np.ndarray) -> np.ndarray:
+    """Permutation grouping documents by their rarest term (lowest df), so
+    that selective terms co-locate in few tiles and the tile predicate can
+    prune. Ties at the k boundary may then resolve to other (equally scored)
+    documents than in the unclustered layout."""
+    n, _ = doc_ids.shape
+    safe = np.where(doc_ids >= 0, doc_ids, 0)
+    dfs = np.where(doc_ids >= 0, doc_freq[safe], np.iinfo(np.int64).max)
+    rarest_slot = np.argmin(dfs, axis=1)
+    rarest_term = doc_ids[np.arange(n), rarest_slot]
+    return np.argsort(rarest_term, kind="stable")
+
+
+def tile_match(q_ids: torch.Tensor, bitmaps: torch.Tensor, bq: int = BLOCK_Q) -> torch.Tensor:
+    """(query tile x doc tile) Bloom term-presence predicate, bool
+    [ceil(B/bq), n_tiles], on the bitmaps' device (JAX ``_tile_match``): True
+    iff some query term of the tile of ``bq`` queries is possibly present in
+    the doc tile. The last query tile's pad rows replicate rows 0.. as the
+    JAX wrapper's do, so the matrix is the JAX package's bit for bit. The
+    probe ``(q * mult) mod 2^32 mod space`` runs in int64 (torch has no
+    general uint32 arithmetic)."""
+    n_tiles, n_words = bitmaps.shape
+    space = 32 * n_words
+    if space & (space - 1):
+        raise ValueError(f"32 * {n_words} words is not a power of two")
+    q = torch.as_tensor(q_ids).to(bitmaps.device, torch.int64)
+    b = q.shape[0]
+    q_tiles = -(-b // bq)
+    live = q >= 0
+    hit = None
+    for mult in _BLOOM_MULTS:
+        pos = torch.where(live, ((q * mult) & 0xFFFFFFFF) % space, 0)
+        words = bitmaps[:, pos // 32]  # [n_tiles, B, T]
+        probe = ((words >> (pos % 32).to(words.dtype)) & 1) != 0
+        hit = probe if hit is None else hit & probe
+    per_query = (hit & live[None]).any(dim=2).T  # [B, n_tiles]
+    row_src = torch.arange(q_tiles * bq, device=q.device) % max(b, 1)
+    return per_query[row_src].reshape(q_tiles, bq, n_tiles).any(dim=1)
+
+
+# ------------------------------------------------- host term -> tile lists
+def _csr_by_term(terms: np.ndarray) -> np.ndarray:
+    vocab = int(terms[-1]) + 1 if len(terms) else 1
+    return np.cumsum(np.bincount(terms + 1, minlength=vocab + 1)).astype(np.int64)
+
+
+def build_term_tile_lists(doc_ids: np.ndarray, block_n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Exact host inverted index at tile granularity: CSR (indptr, tiles)
+    mapping term id -> sorted unique doc tiles holding it, the probe's
+    candidate source. The numpy path of the JAX ``build_term_tile_lists``,
+    bit for bit."""
+    n = doc_ids.shape[0]
+    n_tiles = max(1, -(-n // block_n))
+    rows, cols = np.nonzero(doc_ids >= 0)
+    keys = np.unique(doc_ids[rows, cols].astype(np.int64) * n_tiles + (rows // block_n))
+    terms = keys // n_tiles
+    return _csr_by_term(terms), (keys % n_tiles).astype(np.int32)
+
+
+def build_term_tile_maxw(
+    doc_ids: np.ndarray, doc_weights: np.ndarray, block_n: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Exact host (term -> tile -> max BM25 weight) CSR, the WAND bound's
+    source: the keys of :func:`build_term_tile_lists` with ``maxw[i]``, the
+    largest per-document total weight of ``terms[i]`` in tile ``tiles[i]``,
+    inflated by ``1 + 1e-6`` so that the f32 bound stays above the kernel's
+    own f32 sum. Bitwise equal to the JAX ``build_term_tile_maxw``; the
+    sums and maxima run through ``bincount`` and a sort instead of
+    ``np.add.at`` / ``np.maximum.at`` (the same values, in seconds at
+    500,000 documents)."""
+    n = doc_ids.shape[0]
+    n_tiles = max(1, -(-n // block_n))
+    rows, cols = np.nonzero(doc_ids >= 0)
+    terms_all = doc_ids[rows, cols].astype(np.int64)
+    w_all = np.asarray(doc_weights, np.float64)[rows, cols]
+    # per-(term, doc) slot-weight totals, summed in slot order ...
+    keys_td, inv_td = np.unique(terms_all * n + rows, return_inverse=True)
+    sums = np.bincount(inv_td.ravel(), weights=w_all, minlength=len(keys_td))
+    terms_u = keys_td // n
+    tiles_u = (keys_td % n) // block_n
+    # ... then the per-(term, tile) maximum over documents
+    keys, inv = np.unique(terms_u * n_tiles + tiles_u, return_inverse=True)
+    inv = inv.ravel()
+    order = np.lexsort((sums, inv))
+    last = np.ones(len(order), bool)
+    last[:-1] = inv[order][1:] != inv[order][:-1]
+    maxw64 = np.zeros(len(keys), np.float64)
+    maxw64[inv[order][last]] = np.maximum(sums[order][last], 0.0)
+    maxw = (maxw64 * (1.0 + 1e-6)).astype(np.float32)
+    terms = keys // n_tiles
+    return _csr_by_term(terms), (keys % n_tiles).astype(np.int32), maxw
+
+
+def probe_candidates(
+    q_ids: np.ndarray, indptr: np.ndarray, tiles: np.ndarray, bq: int, cap: int
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Union the term -> tile lists of each query tile of ``bq`` queries:
+    (cand [q_tiles, cap] int32 in increasing order, count [q_tiles],
+    max_count). A union beyond ``cap`` is truncated, so the caller checks
+    ``max_count`` (JAX ``probe_candidates``)."""
+    bsz = q_ids.shape[0]
+    q_tiles = -(-bsz // bq)
+    vocab = len(indptr) - 1
+    cand = np.zeros((q_tiles, cap), np.int32)
+    count = np.zeros(q_tiles, np.int32)
+    max_count = 0
+    for i in range(q_tiles):
+        terms = q_ids[i * bq : min((i + 1) * bq, bsz)].ravel()
+        terms = terms[(terms >= 0) & (terms < vocab)]
+        chunks = [tiles[indptr[t] : indptr[t + 1]] for t in terms]
+        union = np.unique(np.concatenate(chunks)) if chunks else np.empty(0, np.int32)
+        max_count = max(max_count, len(union))
+        union = union[:cap]
+        cand[i, : len(union)] = union
+        count[i] = len(union)
+    return cand, count, max_count
+
+
+def wand_upper_bounds(
+    q_ids: np.ndarray,
+    q_weights: np.ndarray,
+    indptr: np.ndarray,
+    tiles: np.ndarray,
+    maxw: np.ndarray,
+    n_tiles: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Per-query per-tile WAND bounds on the host (JAX ``wand_upper_bounds``
+    with ``return_single_best``): ub [B, n_tiles] >= every score in the
+    tile (0 where no query term is), and sb, the best single-term
+    contribution ``max_t qw_t * maxw(t, tile)``, a lower bound on the best
+    score the tile attains. One vectorized step per term position t over
+    the whole batch, in the JAX loop's f32 order (a query's term lists hold
+    each tile once, so no (query, tile) pair repeats within a step): bitwise
+    the JAX result."""
+    bsz, n_terms = q_ids.shape
+    vocab = len(indptr) - 1
+    ub = np.zeros((bsz, n_tiles), np.float32)
+    sb = np.zeros((bsz, n_tiles), np.float32)
+    for t in range(n_terms):
+        tid = q_ids[:, t].astype(np.int64)
+        w = q_weights[:, t].astype(np.float32)
+        live = np.flatnonzero((tid >= 0) & (tid < vocab) & (w > 0.0))
+        lo = indptr[tid[live]]
+        lens = indptr[tid[live] + 1] - lo
+        rows = np.repeat(live, lens)
+        entries = np.repeat(lo - np.cumsum(lens) + lens, lens) + np.arange(int(lens.sum()))
+        vals = w[rows] * maxw[entries]
+        cols = tiles[entries]
+        ub[rows, cols] += vals
+        sb[rows, cols] = np.maximum(sb[rows, cols], vals)
+    return ub, sb
+
+
+# ----------------------------------------------------------------- kernels
+def _check_kernel_operands(q_ids, q_w, doc_ids, doc_w) -> None:
+    for x, name, dtype in (
+        (q_ids, "q_ids", torch.int32), (q_w, "q_weights", torch.float32),
+        (doc_ids, "doc_ids", torch.int32), (doc_w, "doc_weights", torch.float32),
+    ):
+        if not x.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if x.dtype != dtype or x.ndim != 2 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D {dtype} tensor")
+        if x.device != doc_ids.device:
+            raise ValueError("the operands must share a device")
+    if q_ids.shape != q_w.shape or doc_ids.shape != doc_w.shape:
+        raise ValueError("ids and weights must share a shape")
+    if q_ids.shape[1] > KERNEL_T_MAX:
+        raise ValueError(f"the BM25 kernel stages at most {KERNEL_T_MAX} terms per query")
+
+
+def _kernel_parts(q_tiles: int, total: int, device: torch.device, unit: int) -> tuple[int, int]:
+    """(part, parts): split ``total`` units of work (documents, or candidate
+    entries) so that the grid holds about eight blocks per SM; a part is a
+    multiple of ``unit``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    parts = max(1, min(-(-total // unit), -(-8 * sms // q_tiles)))
+    part = _round_up(-(-total // parts), unit)
+    return part, -(-total // part)
+
+
+def _launch(name: str, q_ids, q_w, doc_ids, doc_w, k_eff: int, bitmaps=None, cand=None,
+            count=None, block_n: int = SKIP_BLOCK_N, positive_only: bool = False):
+    """Launch one walk of csrc/bm25_v2.cu -> per-part lists [B, P, k_eff]
+    (scores, rows)."""
+    dev = doc_ids.device
+    q_ids = torch.as_tensor(q_ids).to(dev, torch.int32).contiguous()
+    q_w = torch.as_tensor(q_w).to(dev, torch.float32).contiguous()
+    _check_kernel_operands(q_ids, q_w, doc_ids, doc_w)
+    b, t = q_ids.shape
+    n, slots = doc_ids.shape
+    q_tiles = -(-b // BLOCK_Q)
+    n_tiles = -(-n // block_n)
+    match = None
+    cap = 0
+    if name == "bm25_topk_v2_skip":
+        _check_bitmaps(bitmaps, n, block_n)
+        match = tile_match(q_ids, bitmaps.to(dev)).to(torch.uint8).contiguous()
+        part, parts = _kernel_parts(q_tiles, n, dev, block_n)
+    elif name == "bm25_topk_probe":
+        cap = cand.shape[1]
+        part, parts = _kernel_parts(q_tiles, cap, dev, 1)
+    else:
+        part, parts = _kernel_parts(q_tiles, n, dev, _KERNEL_DOCS)
+    out_s = torch.empty((b, parts, k_eff), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, parts, k_eff), dtype=torch.int32, device=dev)
+    vec = slots % 4 == 0 and doc_ids.data_ptr() % 16 == 0 and doc_w.data_ptr() % 16 == 0
+    fn = getattr(cuda_build.load("bm25_v2"), f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(
+        q_ids.data_ptr(), q_w.data_ptr(), doc_ids.data_ptr(), doc_w.data_ptr(),
+        match.data_ptr() if match is not None else None,
+        cand.data_ptr() if cand is not None else None,
+        count.data_ptr() if count is not None else None,
+        out_s.data_ptr(), out_i.data_ptr(),
+        b, t, n, slots, k_eff, part, parts, q_tiles, n_tiles, cap, block_n,
+        int(vec), int(positive_only), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check_launch(rc, name)
+    LAUNCHES[name] += 1
+    return out_s, out_i
+
+
+def _empty_topk(b: int, k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    empty = torch.empty((b, 0), dtype=torch.float32, device=device)
+    return pad_to_k(empty, empty.to(torch.int32), k, 0)
+
+
+def bm25_topk_v2(
+    q_ids: torch.Tensor,
+    q_weights: torch.Tensor,
+    doc_ids: torch.Tensor,
+    doc_weights: torch.Tensor,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused BM25 top-k (JAX ``bm25_topk_pallas_v2``), any k. CUDA tensors
+    launch ``csrc/bm25_v2.cu``; CPU tensors take :func:`bm25_topk_v2_plain`.
+    Returns (scores [B, k], rows [B, k]) in ``(-score, row)`` order;
+    zero-score documents fill rows with fewer positive hits, in row order."""
+    if not doc_ids.is_cuda:
+        return bm25_topk_v2_plain(q_ids, q_weights, doc_ids, doc_weights, k)
+    b = q_ids.shape[0]
+    k_eff = min(k, doc_ids.shape[0])
+    if k_eff == 0 or b == 0:
+        return _empty_topk(b, k, doc_ids.device)
+    out_s, out_i = _launch("bm25_topk_v2", q_ids, q_weights, doc_ids, doc_weights, k_eff)
+    scores, ids = merge_topk(out_s, out_i, k_eff)
+    return pad_to_k(scores, ids, k, k_eff)
+
+
+def bm25_topk_v2_skip(
+    q_ids: torch.Tensor,
+    q_weights: torch.Tensor,
+    doc_ids: torch.Tensor,
+    doc_weights: torch.Tensor,
+    bitmaps: torch.Tensor,
+    k: int,
+    block_n: int = SKIP_BLOCK_N,
+    positive_only: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`bm25_topk_v2` with term-driven tile skipping (JAX
+    ``bm25_topk_pallas_v2_skip``). ``bitmaps`` [n_tiles, W] int32 must be
+    built at the same ``block_n`` (else ``ValueError``; the corpus is never
+    re-tiled). A doc tile whose (query tile, doc tile) predicate is False is
+    neither read nor scored; with ``positive_only=False`` also only once
+    every list of the block holds a k-th score > 0, so results equal v2's
+    bitwise. With ``positive_only=True`` only scores > 0 are kept, rows with
+    fewer hits padded with ``(0.0, INT_MAX)``. CPU tensors take
+    :func:`bm25_topk_v2_skip_plain`."""
+    if not doc_ids.is_cuda:
+        return bm25_topk_v2_skip_plain(
+            q_ids, q_weights, doc_ids, doc_weights, bitmaps, k, block_n, positive_only
+        )
+    b = q_ids.shape[0]
+    k_eff = min(k, doc_ids.shape[0])
+    if k_eff == 0 or b == 0:
+        _check_bitmaps(bitmaps, doc_ids.shape[0], block_n)
+        return _empty_topk(b, k, doc_ids.device)
+    out_s, out_i = _launch(
+        "bm25_topk_v2_skip", q_ids, q_weights, doc_ids, doc_weights, k_eff,
+        bitmaps=bitmaps, block_n=block_n, positive_only=positive_only,
+    )
+    scores, ids = merge_topk(out_s, out_i, k_eff)
+    return pad_to_k(scores, ids, k, k_eff)
+
+
+def bm25_topk_probe(
+    q_ids: torch.Tensor,
+    q_weights: torch.Tensor,
+    doc_ids: torch.Tensor,
+    doc_weights: torch.Tensor,
+    cand: torch.Tensor,
+    count: torch.Tensor,
+    k: int,
+    block_n: int = SKIP_BLOCK_N,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Probe-mode BM25 top-k over explicit candidate doc tiles (JAX
+    ``bm25_topk_pallas_probe``): ``cand`` [ceil(B/8), cap] int32 lists the
+    tiles of ``block_n`` rows that each query tile of 8 queries scores,
+    ``count`` [ceil(B/8)] how many entries are live. Exact only if every
+    tile holding a positive score is listed. ``positive_only``: hits in
+    ``(-score, row)`` order, rows padded with ``(0.0, INT_MAX)``. CUDA
+    tensors launch ``csrc/bm25_v2.cu`` (the live entries sorted first, so
+    the walk meets rows in increasing order); CPU tensors take
+    :func:`bm25_topk_probe_plain`."""
+    if not doc_ids.is_cuda:
+        return bm25_topk_probe_plain(q_ids, q_weights, doc_ids, doc_weights, cand, count, k, block_n)
+    b = q_ids.shape[0]
+    _check_candidates(cand, count, b)
+    k_eff = min(k, doc_ids.shape[0])
+    if k_eff == 0 or b == 0 or cand.shape[1] == 0:
+        s, i = _empty_topk(b, k_eff, doc_ids.device)
+        return pad_to_k(*_positive_filler(s, i), k, k_eff)
+    dev = doc_ids.device
+    cand = torch.as_tensor(cand).to(dev, torch.int32)
+    count = torch.as_tensor(count).to(dev, torch.int32).clamp(0, cand.shape[1]).contiguous()
+    live = torch.arange(cand.shape[1], device=dev)[None, :] < count[:, None]
+    cand = torch.where(live, cand, INT_MAX).sort(dim=1).values.contiguous()
+    out_s, out_i = _launch(
+        "bm25_topk_probe", q_ids, q_weights, doc_ids, doc_weights, k_eff,
+        cand=cand, count=count, block_n=block_n,
+    )
+    scores, ids = merge_topk(out_s, out_i, k_eff)
+    return pad_to_k(scores, ids, k, k_eff)
+
+
+# ------------------------------------------------------------- tile WAND
+def _merge_topk_host(s1, i1, s2, i2, k):
+    """Exact ``(-score, id)`` merge of two disjoint per-query top-k lists."""
+    scores = np.concatenate([np.asarray(s1), np.asarray(s2)], axis=1)
+    ids = np.concatenate([np.asarray(i1), np.asarray(i2)], axis=1)
+    order = np.lexsort((ids, -scores), axis=1)[:, :k]
+    b_idx = np.arange(scores.shape[0])[:, None]
+    return scores[b_idx, order], ids[b_idx, order]
+
+
+def candidate_cap(m: int, n_tiles: int) -> int:
+    return min(n_tiles, max(16, 1 << max(0, m - 1).bit_length()))
+
+
+def _group_any(mask: np.ndarray, bq: int) -> np.ndarray:
+    """[B, n] -> [ceil(B/bq), n]: any over each query tile's rows."""
+    q_tiles = -(-mask.shape[0] // bq)
+    return np.stack([mask[g * bq : (g + 1) * bq].any(axis=0) for g in range(q_tiles)])
+
+
+def bm25_topk_wand(
+    q_ids: torch.Tensor,
+    q_weights: torch.Tensor,
+    doc_ids: torch.Tensor,
+    doc_weights: torch.Tensor,
+    term_tiles_maxw: tuple[np.ndarray, np.ndarray, np.ndarray],
+    k: int,
+    block_n: int = SKIP_BLOCK_N,
+    pass1_tiles: int | None = None,
+    scan_fraction: float = 0.75,
+    return_stats: bool = False,
+    fallback: Callable[[], tuple[torch.Tensor, torch.Tensor]] | None = None,
+):
+    """Exact tile-WAND BM25 top-k (JAX ``bm25_topk_wand`` over the flat
+    layout): a two-pass upper-bound-pruned probe. ``term_tiles_maxw`` is
+    :func:`build_term_tile_maxw` at ``block_n``. Exits, cheapest first:
+
+    1. ``fallback_early``: a provable lower bound on each query's k-th score
+       (the k-th largest per-tile best single-term score) already leaves
+       more than ``scan_fraction`` of the tiles to scan: ``fallback`` (default
+       :func:`bm25_topk` ``auto``), no probe launched.
+    2. ``single_pass``: the tiles whose bound reaches that lower bound are
+       barely more than pass 1 would take: one probe over them.
+    3. two passes: each query's own top tiles by bound, then the remaining
+       tiles whose bound reaches the k-th pass-1 score; merged on the host.
+       ``fallback_full`` instead when both would touch more than
+       ``scan_fraction`` of the tiles.
+
+    Positive hits in ``(-score, row)`` order, as the full scan's; filler
+    has score <= 0. With ``return_stats`` also the exit and tile counts."""
+    q_np = q_ids.cpu().numpy() if torch.is_tensor(q_ids) else np.asarray(q_ids)
+    w_np = q_weights.cpu().numpy() if torch.is_tensor(q_weights) else np.asarray(q_weights)
+    dev = doc_ids.device
+    bsz = q_np.shape[0]
+    indptr, tiles, maxw = term_tiles_maxw
+    n_docs = doc_ids.shape[0]
+    n_tiles = max(1, -(-n_docs // block_n))
+    k_eff = min(k, n_docs)
+    bq = BLOCK_Q
+    q_tiles = -(-bsz // bq)
+    q_dev = torch.as_tensor(q_np).to(dev, torch.int32)
+    w_dev = torch.as_tensor(w_np).to(dev, torch.float32)
+    ub, sb = wand_upper_bounds(q_np, w_np, indptr, tiles, maxw, n_tiles)
+
+    def done(s, i, stats):
+        s, i = pad_to_k(s, i, k, k_eff)
+        return (s, i, stats) if return_stats else (s, i)
+
+    def fallback_out(stats):
+        stats["fallback_full"] = True
+        if fallback is not None:
+            s, i = fallback()
+        else:
+            s, i = bm25_topk(q_dev, w_dev, doc_ids, doc_weights, k_eff)
+        return done(s[:, :k_eff], i[:, :k_eff], stats)
+
+    def probe(cand, count, cap):
+        return bm25_topk_probe(
+            q_dev, w_dev, doc_ids, doc_weights,
+            torch.from_numpy(np.ascontiguousarray(cand[:, :cap])).to(dev),
+            torch.from_numpy(count).to(dev), k_eff, block_n,
+        )
+
+    stats = {"n_tiles": n_tiles, "pass1_tiles": 0, "pass2_tiles_max": 0, "fallback_full": False,
+             "fallback_early": False, "single_pass": False}
+    # a provable lower bound on each query's final k-th score; the (1 - 1e-5)
+    # deflation covers the builder's bound inflation and f32 rounding
+    if n_tiles > k_eff:
+        theta_lb = -np.partition(-sb, k_eff - 1, axis=1)[:, k_eff - 1]
+        theta_lb = np.maximum(theta_lb * (1.0 - 1e-5), 0.0).astype(np.float32)
+    else:
+        theta_lb = np.zeros(bsz, np.float32)
+    est = _group_any((ub > 0.0) & (ub >= theta_lb[:, None]), bq)
+    est_max = int(est.sum(axis=1).max()) if len(est) else 0
+    if est_max > scan_fraction * n_tiles:
+        stats.update(pass2_tiles_max=est_max, fallback_early=True)
+        return fallback_out(stats)
+
+    # pass 1: each query's own top tiles by bound, unioned per query tile
+    b1 = max(1, min(max(8, k_eff) if pass1_tiles is None else pass1_tiles, n_tiles))
+    sel = []
+    for q in range(bsz):
+        order = np.argsort(-ub[q], kind="stable")[:b1]
+        sel.append(order[ub[q][order] > 0.0])
+    groups = [
+        np.unique(np.concatenate(sel[g * bq : (g + 1) * bq] or [np.empty(0, np.int64)]))
+        for g in range(q_tiles)
+    ]
+    max1 = max((len(u) for u in groups), default=0)
+
+    # one pass: the lower-bound set barely exceeds pass 1's union
+    if pass1_tiles is None and est_max <= 2 * max1 + 64:
+        cap_e = candidate_cap(est_max, n_tiles)
+        cand_e = np.zeros((q_tiles, cap_e), np.int32)
+        count_e = np.zeros(q_tiles, np.int32)
+        for g in range(q_tiles):
+            live = np.flatnonzero(est[g])[:cap_e]
+            cand_e[g, : len(live)] = live
+            count_e[g] = len(live)
+        s1, i1 = probe(cand_e, count_e, cap_e)
+        stats.update(pass1_tiles=est_max, single_pass=True)
+        return done(s1, i1, stats)
+
+    cap1 = candidate_cap(max1, n_tiles)
+    cand1 = np.zeros((q_tiles, cap1), np.int32)
+    count1 = np.zeros(q_tiles, np.int32)
+    for g, u in enumerate(groups):
+        cand1[g, : len(u)] = u
+        count1[g] = len(u)
+    s1, i1 = probe(cand1, count1, cap1)
+    # per-query threshold: the k-th positive pass-1 score, raised by the
+    # lower bound (both are lower bounds on the true k-th score)
+    theta = s1[:, k_eff - 1].cpu().numpy().copy()
+    theta[~(theta > 0.0)] = 0.0
+    theta = np.maximum(theta, theta_lb)
+    in_pass1 = np.zeros((q_tiles, n_tiles), bool)
+    for g in range(q_tiles):
+        in_pass1[g, cand1[g, : count1[g]]] = True
+    need = _group_any((ub > 0.0) & (ub >= theta[:, None]), bq) & ~in_pass1
+    count2 = need.sum(axis=1).astype(np.int32)
+    max2 = int(count2.max()) if len(count2) else 0
+    p1_max = int(count1.max()) if len(count1) else 0
+    stats.update(pass1_tiles=p1_max, pass2_tiles_max=max2)
+    if max2 + p1_max > scan_fraction * n_tiles:
+        return fallback_out(stats)
+    if max2 == 0:
+        return done(s1, i1, stats)
+    cap2 = candidate_cap(max2, n_tiles)
+    cand2 = np.zeros((q_tiles, cap2), np.int32)
+    for g in range(q_tiles):
+        live = np.flatnonzero(need[g])[:cap2]
+        cand2[g, : len(live)] = live
+    s2, i2 = probe(cand2, count2, cap2)
+    sm, im = _merge_topk_host(s1.cpu().numpy(), i1.cpu().numpy(), s2.cpu().numpy(),
+                              i2.cpu().numpy(), k_eff)
+    return done(torch.from_numpy(sm).to(dev), torch.from_numpy(im).to(dev), stats)
+
+
+# -------------------------------------------------------------- dispatch
+def bm25_route(method: str, n: int, k: int, device_type: str, tile_skip: bool) -> str:
+    """The route of a ``SparseIndex`` search as a pure function:
+    ``"scan"``, ``"fused"`` (the v2 kernel) or ``"pruned"`` (the probe /
+    WAND / Bloom-skip legs of ``SparseIndex._search_pruned``).
+
+    ``auto``: on the card the pruned legs with ``tile_skip`` while
+    ``min(k, n) <= PRUNED_K_MAX`` (the JAX package's ``pruned_ok``), else the
+    v2 kernel; off the card the scan (what the JAX package does off the TPU).
+    ``xla`` pins the scan, ``pallas_v2`` the v2 kernel; ``pallas_v2_skip``,
+    ``pallas_probe`` and ``pallas_wand`` pin their pruned leg on any device
+    (plain versions on the CPU) while k allows, else fall back as ``auto``
+    without ``tile_skip``. ``pallas`` (v1) has no kernel of its own yet and
+    raises."""
+    pruned_ok = min(k, n) <= PRUNED_K_MAX
+    plain = "fused" if device_type == "cuda" else "scan"
+    if method == "auto":
+        return "pruned" if (tile_skip and pruned_ok and device_type == "cuda") else plain
+    if method == "xla":
+        return "scan"
+    if method == "pallas_v2":
+        return "fused"
+    if method in ("pallas_v2_skip", "pallas_probe", "pallas_wand"):
+        return "pruned" if pruned_ok else plain
+    if method == "pallas":
+        raise NotImplementedError(
+            "bm25 method='pallas': its kernel (_bm25_kernel, v1) is not ported yet; "
+            "use 'auto' or 'pallas_v2'"
+        )
+    raise ValueError(f"unknown bm25_topk method: {method}")
+
+
+def bm25_topk(
+    q_ids: torch.Tensor,
+    q_weights: torch.Tensor,
+    doc_ids: torch.Tensor,
+    doc_weights: torch.Tensor,
+    k: int,
+    method: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact BM25 top-k over the whole corpus (JAX ``bm25_topk``): ``auto``
+    takes the v2 kernel on the card and the scan off it; ``pallas_v2`` and
+    ``xla`` pin them; ``pallas`` (v1) raises ``NotImplementedError``. Zero
+    scores are candidates; the search layer drops them."""
+    route = bm25_route(method, doc_ids.shape[0], k, doc_ids.device.type, False)
+    if route == "scan":
+        return bm25_topk_scan(q_ids, q_weights, doc_ids, doc_weights, k)
+    if route == "fused":
+        return bm25_topk_v2(q_ids, q_weights, doc_ids, doc_weights, k)
+    raise ValueError(f"bm25_topk has no pruned route; method {method!r} is a SparseIndex pin")

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's dense and MaxSim retrieval paths
+Drives the port's dense, MaxSim and BM25 retrieval paths
 (``autorag_research_tpu_torch``) at full width and fails (non-zero exit) on
 any fault:
 
@@ -44,7 +44,26 @@ any fault:
 8. a SciFact-size multi-vector catalog run through
    ``VectorSearchPipeline(search_mode="multi")`` verified: 3,000 rows,
    recall@10 / ndcg@10, rows held against an exact search, the scores kernel
-   launched.
+   launched;
+9. the three BM25 kernels (``csrc/bm25_v2.cu``) against their plain versions
+   at the repo's BM25 benchmark shapes (500,000 docs x 128 slots of unique
+   terms, 25% padded at random places, vocabulary 200,000; 32 queries x 16
+   terms): v2 at k = 10, 100 and 1,000, the skip kernel in both modes, and
+   on a clustered variant (where tiles prune; skipped share printed) the
+   skip kernel and the probe kernel over the exact candidate tiles; each
+   bitwise equal to its plain version, with its time, the plain version's, a
+   CSR ``sparse.mm`` + ``topk`` yardstick's and its bound;
+10. the BM25 main path with every launch count at 0 just before it: a
+    ``SparseIndex`` built from 500,000 texts of 40-120 Zipf(1.1) words over a
+    200,000-word vocabulary (host build time printed), searched by 1,024
+    queries of 6-16 words at k = 10, 100 and 1,000 with ``tile_skip`` on (the
+    pruned legs: tile-WAND, falling back to the skip kernel) and off (v2
+    kernel), and by 1,024 rare-term lookups (two words of document frequency
+    <= 7, a selective batch: the probe kernel) at k = 10 and 1,000. The routes
+    give the same hits, equal to an exact scan of the same device tensors;
+    every kernel launched, no plain version or scan;
+11. a SciFact-size catalog run through ``BM25Pipeline`` (defaults): 3,000 rows,
+    recall@10 / ndcg@10, rows equal to an exact scan, a pruned leg launched.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -60,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -75,6 +95,13 @@ MV_Q, MV_TQ, MV_DIM = 128, 32, 128
 TEXT_N, TEXT_TD = 50_000, 128
 PAGE_N, PAGE_TD = 10_000, 1024
 K_PRESCREEN = 65
+# BM25: the repo's benchmark shapes (scripts/bench_bm25.py: 500k docs x 128
+# slots, 25% padded, vocabulary 200k, 32 queries x 16 terms), and a BEIR-scale
+# text corpus (Zipf(1.1) words) searched by 1,024 NQ-like short questions
+BM25_N, BM25_L, BM25_V, BM25_B, BM25_T = 500_000, 128, 200_000, 32, 16
+BM25_WINDOW = 2000  # term window of a clustered doc or query
+BM25_Q, BM25_K_LONG = 1024, 1000
+BM25_ZIPF = 1.1
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
 # non-tensor FLOP/s, HBM bytes/s
@@ -119,6 +146,21 @@ def wall_ms(fn, reps: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def timed(fn):
+    """(result, device ms) of one call of ``fn``, timed with CUDA events: for
+    plain versions whose one call takes seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(flops: float, bytes_: float, peak_flops: float, peak_bw: float) -> tuple[float, str]:
@@ -431,6 +473,435 @@ def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -
         fail(f"MaxSim metrics out of range: recall {recall}, ndcg {ndcg}")
 
 
+def unique_rows(n: int, width: int, lo, span: int, gen, dev):
+    """[n, width] int64 ids, each row ``width`` distinct values drawn from
+    ``[lo, lo + span)`` (``lo`` [n, 1]) in random order, as an index build
+    gives a document's unique terms: duplicates are redrawn until none is
+    left."""
+    import torch
+
+    ids = lo + torch.randint(0, span, (n, width), generator=gen, device=dev)
+    while True:
+        ids = ids.sort(dim=1).values
+        dup = torch.zeros_like(ids, dtype=torch.bool)
+        dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+        if not bool(dup.any()):
+            break
+        ids = torch.where(dup, lo + torch.randint(0, span, (n, width), generator=gen, device=dev), ids)
+    return ids.gather(1, torch.rand((n, width), generator=gen, device=dev).argsort(dim=1))
+
+
+def bm25_arrays(seed: int, dev, clustered: bool):
+    """Slot arrays at the benchmark shapes, drawn on the card: doc ids
+    [N, L] int32 of unique terms with 25% of slots padded at random places,
+    weights uniform in [0, 1) f32; B x T distinct query terms with weights in
+    [0.1, 2.1). ``clustered``: doc n draws from a window of BM25_WINDOW ids
+    around n V / N and each query from one random window, the layout
+    ``cluster_doc_order`` produces."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if clustered:
+        center = torch.arange(BM25_N, device=dev) * BM25_V // BM25_N
+        lo = (center - BM25_WINDOW // 2).clamp(0, BM25_V - BM25_WINDOW)[:, None]
+        q_lo = torch.randint(0, BM25_V - BM25_WINDOW, (BM25_B, 1), generator=gen, device=dev)
+        span = BM25_WINDOW
+    else:
+        lo = torch.zeros((BM25_N, 1), dtype=torch.int64, device=dev)
+        q_lo = torch.zeros((BM25_B, 1), dtype=torch.int64, device=dev)
+        span = BM25_V
+    ids = unique_rows(BM25_N, BM25_L, lo, span, gen, dev)
+    w = torch.rand((BM25_N, BM25_L), generator=gen, device=dev)
+    pad = torch.rand((BM25_N, BM25_L), generator=gen, device=dev) < 0.25
+    doc_ids = ids.masked_fill(pad, -1).to(torch.int32).contiguous()
+    doc_w = w.masked_fill(pad, 0.0).contiguous()
+    q_ids = unique_rows(BM25_B, BM25_T, q_lo, span, gen, dev).to(torch.int32).contiguous()
+    q_w = (torch.rand((BM25_B, BM25_T), generator=gen, device=dev) * 2 + 0.1).contiguous()
+    return q_ids, q_w, doc_ids, doc_w
+
+
+def bm25_library(q_ids, q_w, doc_ids, doc_w):
+    """Yardstick of the BM25 function (never called by the port): the
+    doc-term CSR [N, V] f32 by the dense [V, B] query weights with one sparse
+    product (cuSPARSE), then ``torch.topk``. Returns a callable of k (None:
+    the [B, N] scores)."""
+    import torch
+
+    n = doc_ids.shape[0]
+    ids_sorted, perm = doc_ids.sort(dim=1)
+    w_sorted = doc_w.gather(1, perm)
+    live = ids_sorted >= 0
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=doc_ids.device)
+    crow[1:] = live.sum(dim=1).cumsum(0)
+    with warnings.catch_warnings():  # PyTorch calls its CSR support beta
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(
+            crow, ids_sorted[live].long(), w_sorted[live], size=(n, BM25_V), check_invariants=False
+        )
+    qmat = torch.zeros((BM25_V, q_ids.shape[0]), dtype=torch.float32, device=doc_ids.device)
+    qb, qt = torch.nonzero(q_ids >= 0, as_tuple=True)
+    qmat[q_ids[qb, qt].long(), qb] = q_w[qb, qt]
+
+    def run(k):
+        s = (csr @ qmat).T
+        return torch.topk(s, k) if k else s
+
+    return run
+
+
+def zipf_texts(rng, words: list[str], n: int, lo: int, hi: int) -> list[str]:
+    """``n`` texts of lo..hi words drawn from ``words`` by Zipf(BM25_ZIPF) rank."""
+    cdf = np.cumsum(1.0 / np.arange(1, len(words) + 1) ** BM25_ZIPF)
+    cdf /= cdf[-1]
+    lens = rng.integers(lo, hi + 1, size=n)
+    idx = np.minimum(np.searchsorted(cdf, rng.random(int(lens.sum())), side="right"), len(words) - 1)
+    seq = list(map(words.__getitem__, idx.tolist()))
+    ends = np.cumsum(lens).tolist()
+    return [" ".join(seq[e - m : e]) for e, m in zip(ends, lens.tolist())]
+
+
+def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> None:
+    """The BM25 path: the three kernels vs their plain versions at the
+    benchmark shapes, the main path (a BEIR-scale ``SparseIndex`` built from
+    text and searched through the pruned legs and the v2 kernel) with its own
+    launch window, and a SciFact-size catalog run through ``BM25Pipeline``."""
+    import torch
+
+    from autorag_research_tpu_torch.evaluation.metrics.retrieval import (
+        retrieval_ndcg,
+        retrieval_recall,
+    )
+    from autorag_research_tpu_torch.index.sparse import SparseIndex
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.ops import sparse as ts
+    from autorag_research_tpu_torch.pipelines.retrieval.bm25 import BM25Pipeline
+    from autorag_research_tpu_torch.schema import MetricInput
+    from autorag_research_tpu_torch.store.catalog import Catalog
+    from autorag_research_tpu_torch.store.gt import build_retrieval_gt_from_relations
+
+    src = "autorag_research_tpu_torch/csrc/bm25_v2.cu"
+    replaces = {"bm25_topk_v2": "295", "bm25_topk_v2_skip": "474", "bm25_topk_probe": "722"}
+    elt_bytes = BM25_N * BM25_L * 8  # ids + weights, each read once
+    # one multiply and one add per (live query term, document), kept apart by
+    # the function's rounding (no FMA): half the f32 FMA peak
+    f32_no_fma = peak["f32"] / 2
+
+    def bm25_bound(q_ids, slots, out_bytes, tiles=None, block_n=ts.SKIP_BLOCK_N):
+        """Least time for the function on this run's data: every document
+        (or, with ``tiles`` [q_tiles, n_tiles] bool, only the doc tiles a
+        query tile must score) against each live query term; the slot
+        arrays of the documents some query reads, read once."""
+        live = (q_ids >= 0).sum(dim=1).double()
+        n = BM25_N
+        if tiles is None:
+            pair_terms, docs = float(live.sum()) * n, n
+        else:
+            sizes = torch.full((tiles.shape[1],), float(block_n), dtype=torch.float64, device=dev)
+            sizes[-1] = n - block_n * (tiles.shape[1] - 1)
+            live_tile = torch.zeros(tiles.shape[0], dtype=torch.float64, device=dev)
+            live_tile.index_add_(0, torch.arange(len(live), device=dev) // ts.BLOCK_Q, live)
+            pair_terms = float((live_tile[:, None] * tiles.double() * sizes).sum())
+            docs = float((tiles.any(dim=0).double() * sizes).sum())
+        return bound(2.0 * pair_terms, docs * slots * 8 + q_ids.numel() * 8 + out_bytes,
+                     f32_no_fma, peak["hbm"])
+
+    def record(name, case, err, ms, plain_ms, lib_ms, b_ms, b_by):
+        log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, CSR sparse.mm + topk yardstick "
+            f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        kernels.append({
+            "name": name, "case": case, "route": "cuda", "source": src,
+            "replaces": f"autorag_research_tpu/ops/sparse.py:{replaces[name]}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        })
+
+    def check_equal(label, got, ref):
+        (s, i), (rs, ri) = got, ref
+        err = float((s - rs).abs().max())
+        n_mism = int((i != ri).sum())
+        log(f"{label}: ids mismatches {n_mism}/{i.numel()}, max|d score| = {err:.3e} "
+            f"(bitwise: {bool(torch.equal(s, rs) and torch.equal(i, ri))})")
+        if not (torch.equal(s, rs) and torch.equal(i, ri)):
+            fail(f"{label}: the kernel is not bitwise equal to its plain version")
+        return err
+
+    def tile_mask(cand, count, n_tiles):
+        live = torch.arange(cand.shape[1], device=dev)[None] < count[:, None]
+        mask = torch.zeros((cand.shape[0], n_tiles), dtype=torch.bool, device=dev)
+        rows = torch.arange(cand.shape[0], device=dev)[:, None].expand_as(cand)
+        mask[rows[live], cand[live].long()] = True
+        return mask
+
+    # ---- 9. kernels vs plain at the benchmark shapes -----------------------
+    t0 = time.perf_counter()
+    uni = bm25_arrays(seed + 20, dev, clustered=False)
+    clu = bm25_arrays(seed + 21, dev, clustered=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    bm_uni = torch.from_numpy(ts.build_tile_bitmaps(uni[2].cpu().numpy(), ts.SKIP_BLOCK_N)).to(dev)
+    clu_ids_np = clu[2].cpu().numpy()
+    bm_clu = torch.from_numpy(ts.build_tile_bitmaps(clu_ids_np, ts.SKIP_BLOCK_N)).to(dev)
+    t2 = time.perf_counter()
+    indptr, tiles = ts.build_term_tile_lists(clu_ids_np, ts.SKIP_BLOCK_N)
+    log(f"BM25 slot arrays on device: 2 x {BM25_N} x {BM25_L} (ids + weights, 25% pads), "
+        f"{2 * elt_bytes / 1e9:.3f} GB, drawn in {t1 - t0:.2f} s; tile bitmaps "
+        f"{tuple(bm_uni.shape)} uniform, {tuple(bm_clu.shape)} clustered, built on the host in "
+        f"{t2 - t1:.2f} s; clustered term -> tile lists {time.perf_counter() - t2:.2f} s")
+    lib_uni = bm25_library(*uni)
+    shapes = f"B={BM25_B} x T={BM25_T} vs {BM25_N} x {BM25_L}"
+    for k in (K, K_LONG, BM25_K_LONG):
+        label = f"bm25_topk_v2 vs plain, uniform {shapes}, k={k}"
+        err = check_equal(label, ts.bm25_topk_v2(*uni, k), ts.bm25_topk_v2_plain(*uni, k))
+        record("bm25_topk_v2", f"uniform {shapes}, k={k}", err,
+               cuda_ms(lambda: ts.bm25_topk_v2(*uni, k), 10),
+               cuda_ms(lambda: ts.bm25_topk_v2_plain(*uni, k), 2),
+               cuda_ms(lambda: lib_uni(k), 5), *bm25_bound(uni[0], BM25_L, BM25_B * k * 8))
+    match_uni = ts.tile_match(uni[0], bm_uni)
+    for pos, k in ((True, K), (True, K_LONG), (False, K)):
+        case = f"uniform {shapes}, k={k}, positive_only={pos}"
+        err = check_equal(
+            f"bm25_topk_v2_skip vs plain, {case}",
+            ts.bm25_topk_v2_skip(*uni, bm_uni, k, positive_only=pos),
+            ts.bm25_topk_v2_skip_plain(*uni, bm_uni, k, positive_only=pos),
+        )
+        log(f"  (query tile, doc tile) pairs skipped: {1 - float(match_uni.float().mean()):.4f}")
+        record("bm25_topk_v2_skip", case, err,
+               cuda_ms(lambda: ts.bm25_topk_v2_skip(*uni, bm_uni, k, positive_only=pos), 10),
+               cuda_ms(lambda: ts.bm25_topk_v2_skip_plain(*uni, bm_uni, k, positive_only=pos), 2),
+               cuda_ms(lambda: lib_uni(k), 5),
+               *bm25_bound(uni[0], BM25_L, BM25_B * k * 8, tiles=match_uni))
+    # the clustered layout: the predicate prunes, the exact candidate lists more
+    match_clu = ts.tile_match(clu[0], bm_clu)
+    skipped = 1 - float(match_clu.float().mean())
+    lib_clu = bm25_library(*clu)
+    case = f"clustered {shapes}, k={K}, positive_only=True"
+    err = check_equal(f"bm25_topk_v2_skip vs plain, {case}",
+                      ts.bm25_topk_v2_skip(*clu, bm_clu, K, positive_only=True),
+                      ts.bm25_topk_v2_skip_plain(*clu, bm_clu, K, positive_only=True))
+    log(f"  (query tile, doc tile) pairs skipped: {skipped:.4f}; doc tiles some query tile "
+        f"scores: {int(match_clu.any(dim=0).sum())}/{bm_clu.shape[0]}")
+    clu_v2_ms = cuda_ms(lambda: ts.bm25_topk_v2(*clu, K), 10)
+    log(f"  v2 kernel (no skip) on the same clustered arrays: {clu_v2_ms:.3f} ms")
+    record("bm25_topk_v2_skip", case, err,
+           cuda_ms(lambda: ts.bm25_topk_v2_skip(*clu, bm_clu, K, positive_only=True), 10),
+           cuda_ms(lambda: ts.bm25_topk_v2_skip_plain(*clu, bm_clu, K, positive_only=True), 2),
+           cuda_ms(lambda: lib_clu(K), 5),
+           *bm25_bound(clu[0], BM25_L, BM25_B * K * 8, tiles=match_clu))
+    n_tiles = bm_clu.shape[0]
+    cand_np, count_np, maxc = ts.probe_candidates(clu[0].cpu().numpy(), indptr, tiles, ts.BLOCK_Q, n_tiles)
+    cand, count = torch.from_numpy(cand_np).to(dev), torch.from_numpy(count_np).to(dev)
+    probe_tiles = tile_mask(cand, count, n_tiles)
+    for k in (K, K_LONG):
+        case = f"clustered {shapes}, k={k}, exact candidate tiles"
+        err = check_equal(f"bm25_topk_probe vs plain, {case}",
+                          ts.bm25_topk_probe(*clu, cand, count, k),
+                          ts.bm25_topk_probe_plain(*clu, cand, count, k))
+        log(f"  candidate tiles per query tile: max {maxc}, mean {float(count.float().mean()):.1f} "
+            f"of {n_tiles}; (query tile, doc tile) pairs scored "
+            f"{float(probe_tiles.float().mean()):.4f} (Bloom predicate: {1 - skipped:.4f})")
+        record("bm25_topk_probe", case, err,
+               cuda_ms(lambda: ts.bm25_topk_probe(*clu, cand, count, k), 10),
+               cuda_ms(lambda: ts.bm25_topk_probe_plain(*clu, cand, count, k), 2),
+               cuda_ms(lambda: lib_clu(k), 5),
+               *bm25_bound(clu[0], BM25_L, BM25_B * k * 8, tiles=probe_tiles))
+    del uni, clu, bm_uni, bm_clu, lib_uni, lib_clu, match_uni, match_clu, cand, count, probe_tiles
+    torch.cuda.empty_cache()
+
+    # ---- 10. main path: a BEIR-scale index from text, launch counts from 0 --
+    rng = np.random.default_rng(seed + 22)
+    words = [f"t{i}" for i in range(BM25_V)]
+    t0 = time.perf_counter()
+    texts = zipf_texts(rng, words, BM25_N, 40, 120)
+    queries = zipf_texts(rng, words, BM25_Q, 6, 16)
+    t1 = time.perf_counter()
+    index = SparseIndex(list(range(BM25_N)), texts, device=dev).to_device()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    del texts
+    # rare-term lookups (names, codes): two words of document frequency <= 7,
+    # so that a query tile of 8 lists at most 112 of the 245 doc tiles
+    rare_words = np.array(list(index.vocab))[(index.doc_freq >= 1) & (index.doc_freq <= 7)]
+    lookups = [" ".join(rng.choice(rare_words, size=2, replace=False)) for _ in range(BM25_Q)]
+    log(f"BM25 index from text: {BM25_N} docs of 40-120 Zipf({BM25_ZIPF}) words over {BM25_V} "
+        f"(texts drawn in {t1 - t0:.2f} s); host build {build_s:.2f} s; {len(index.vocab)} terms, "
+        f"{index._slot_ids.shape[1]} slots, {index.device_bytes() / 1e9:.3f} GB on device; "
+        f"{len(rare_words)} words of df <= 7 for the lookups")
+    td.reset_launch_counts()
+    tm.reset_launch_counts()
+    ts.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = (("NQ-like", queries, True, (K, K_LONG, BM25_K_LONG)),
+            ("NQ-like", queries, False, (K, K_LONG, BM25_K_LONG)),
+            ("rare-term lookups", lookups, True, (K, BM25_K_LONG)))
+    hits = {}
+    for label, qs, skip, ks in runs:
+        index.tile_skip = skip
+        for k in ks:
+            before = dict(ts.LAUNCHES)
+            t1 = time.perf_counter()
+            hits[label, skip, k] = index.search(qs, k)
+            delta = {n: c - before[n] for n, c in ts.LAUNCHES.items() if c != before[n]}
+            log(f"BM25 search {label}, tile_skip={skip}, k={k}: {time.perf_counter() - t1:.2f} s "
+                f"(first call), launches {json.dumps(delta)}")
+    index.tile_skip = True
+    main_s = time.perf_counter() - t0
+    launches = dict(ts.LAUNCHES)
+    plain_calls = {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS}
+    log(f"BM25 main path launches: {json.dumps(launches)}, plain calls {json.dumps(plain_calls)} "
+        f"({main_s:.2f} s, first calls, host term -> tile lists and bitmaps included)")
+    if min(launches.values()) < 1 or any(plain_calls.values()):
+        fail("the BM25 main path skipped a kernel or took a plain route on the card")
+    for entry in kernels:
+        if entry["name"] in ts.LAUNCHES:
+            entry["launches"] = ts.LAUNCHES[entry["name"]]
+
+    def as_pairs(rows):
+        return [[(h.doc_id, h.score) for h in row] for row in rows]
+
+    # an exact scan of the same device tensors, outside the counted window
+    di, dw = index._device
+    for label, qs, ks in (("NQ-like", queries, (K, K_LONG, BM25_K_LONG)),
+                          ("rare-term lookups", lookups, (K, BM25_K_LONG))):
+        q_ids, q_w = index.encode_queries(qs)
+        ss, si = ts.bm25_topk_scan(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_w).to(dev),
+                                   di, dw, BM25_K_LONG)
+        ref = [[(index.ids[int(r)], float(s)) for s, r in zip(qs_, qr) if s > 0]
+               for qs_, qr in zip(ss.cpu().numpy(), si.cpu().numpy())]
+        for k in ks:
+            got = as_pairs(hits[label, True, k])
+            same = label != "NQ-like" or got == as_pairs(hits[label, False, k])
+            exact = got == [row[:k] for row in ref]
+            log(f"BM25 search {label} k={k}: {sum(len(r) for r in got)} hits; pruned == v2: {same}; "
+                f"== exact scan: {exact}")
+            if not (same and exact):
+                fail(f"BM25 hits of {label} at k={k} differ between routes or from the exact scan")
+    del hits
+
+    # where a search's time goes: the wall time of SparseIndex.search against
+    # its route below encode_queries (pruned legs with their host work, or
+    # the v2 kernel and merge)
+    q_ids, q_w = index.encode_queries(queries)
+    r_ids, r_w = index.encode_queries(lookups)
+    qi, qw = torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_w).to(dev)
+    enc_ms = wall_ms(lambda: index.encode_queries(queries), 3)
+    log(f"BM25 encode_queries Q={BM25_Q} (host tokenizer + idf): {enc_ms:.3f} ms")
+    for label, qs, qn, k, skip in (("NQ-like", queries, (q_ids, q_w), K, True),
+                                   ("NQ-like", queries, (q_ids, q_w), K_LONG, True),
+                                   ("NQ-like", queries, (q_ids, q_w), BM25_K_LONG, True),
+                                   ("NQ-like", queries, (q_ids, q_w), K, False),
+                                   ("NQ-like", queries, (q_ids, q_w), BM25_K_LONG, False),
+                                   ("rare-term lookups", lookups, (r_ids, r_w), K, True)):
+        index.tile_skip = skip
+        ms = wall_ms(lambda: index.search(qs, k), 3)
+        if skip:
+            route_ms = wall_ms(lambda: index._search_pruned(*qn, di, dw, k, "auto"), 3)
+            what = "pruned legs incl. host bounds"
+        else:
+            route_ms = cuda_ms(lambda: ts.bm25_topk_v2(qi, qw, di, dw, k), 3)
+            what = "v2 kernel + merge on the device"
+        log(f"BM25 search {label} Q={BM25_Q}, k={k}, tile_skip={skip}: {ms:.3f} ms/batch, "
+            f"{BM25_Q / ms * 1e3:.1f} QPS; {what} {route_ms:.3f} ms")
+    index.tile_skip = True
+
+    # each kernel at the main path's shapes against its plain version
+    slots = di.shape[1]
+    main_shape = f"main path Q={BM25_Q} x T={qi.shape[1]} vs {BM25_N} x {slots} Zipf"
+    bitmaps = index._ensure_bitmaps()
+    ri, rw = torch.from_numpy(r_ids).to(dev), torch.from_numpy(r_w).to(dev)
+    p_tiles = -(-BM25_N // index.probe_block_n)
+    cand_np, count_np, maxc = ts.probe_candidates(r_ids, *index._ensure_term_tiles(index.probe_block_n),
+                                                 ts.BLOCK_Q, p_tiles)
+    cap = ts.candidate_cap(maxc, p_tiles)
+    cand = torch.from_numpy(np.ascontiguousarray(cand_np[:, :cap])).to(dev)
+    count = torch.from_numpy(count_np).to(dev)
+    log(f"rare-term lookups: candidate tiles per query tile max {maxc}, mean "
+        f"{float(count.float().mean()):.1f} of {p_tiles}")
+    # the NQ-like pruned legs at k = 10, split: host candidate unions, host
+    # WAND bounds, then the skip kernel (tile_match, kernel, merge)
+    term_tiles = index._ensure_term_tiles(index.probe_block_n)
+    trip = index._ensure_term_tiles_maxw(index.probe_block_n)
+    cand_ms = wall_ms(lambda: ts.probe_candidates(q_ids, *term_tiles, ts.BLOCK_Q, p_tiles), 3)
+    ub_ms = wall_ms(lambda: ts.wand_upper_bounds(q_ids, q_w, *trip, p_tiles), 3)
+    skip_ms = cuda_ms(lambda: ts.bm25_topk_v2_skip(qi, qw, di, dw, bitmaps, K, positive_only=True), 3)
+    log(f"BM25 pruned legs, NQ-like Q={BM25_Q}, k={K}: host candidate unions {cand_ms:.3f} ms, "
+        f"host WAND bounds {ub_ms:.3f} ms, skip kernel + tile_match + merge {skip_ms:.3f} ms")
+    lib_main = bm25_library(qi, qw, di, dw)
+    lib_rare = bm25_library(ri, rw, di, dw)
+    cases = (
+        ("bm25_topk_v2_skip", f"{main_shape}, k={K}, positive_only=True", qi,
+         ts.tile_match(qi, bitmaps), lib_main,
+         lambda: ts.bm25_topk_v2_skip(qi, qw, di, dw, bitmaps, K, positive_only=True),
+         lambda: ts.bm25_topk_v2_skip_plain(qi, qw, di, dw, bitmaps, K, positive_only=True)),
+        ("bm25_topk_v2", f"{main_shape}, k={K}", qi, None, lib_main,
+         lambda: ts.bm25_topk_v2(qi, qw, di, dw, K), lambda: ts.bm25_topk_v2_plain(qi, qw, di, dw, K)),
+        ("bm25_topk_probe", f"main path {BM25_Q} rare-term lookups x T={ri.shape[1]} vs {BM25_N} x "
+         f"{slots} Zipf, k={K}", ri, tile_mask(cand, count, p_tiles), lib_rare,
+         lambda: ts.bm25_topk_probe(ri, rw, di, dw, cand, count, K),
+         lambda: ts.bm25_topk_probe_plain(ri, rw, di, dw, cand, count, K)),
+    )
+    for name, case, q_used, tiles_needed, lib, kern, plain in cases:
+        ref, plain_ms = timed(plain)
+        got = kern()
+        same = all(map(torch.equal, got, ref))
+        err = float((got[0] - ref[0]).abs().max())
+        log(f"{name} vs plain, {case}: bitwise equal {same}, max|d score| = {err:.3e}")
+        if not same:
+            fail(f"{name} is not bitwise equal to its plain version at the main path's shapes")
+        del got, ref
+        record(name, case, err, cuda_ms(kern, 5), plain_ms, cuda_ms(lambda: lib(K), 3),
+               *bm25_bound(q_used, slots, BM25_Q * K * 8, tiles=tiles_needed))
+        kernels[-1]["launches"] = launches[name]
+    del index, ss, si, qi, qw, ri, rw, di, dw, bitmaps, lib_main, lib_rare, cand, count
+    torch.cuda.empty_cache()
+
+    # ---- 11. SciFact-size catalog run through BM25Pipeline -------------------
+    crng = np.random.default_rng(seed + 1)
+    chunk_texts = make_texts(crng, vocab, SCIFACT_CHUNKS, 40, 121)
+    gold = crng.choice(SCIFACT_CHUNKS, size=SCIFACT_QUERIES, replace=False)
+    q_texts = [" ".join(crng.choice(chunk_texts[g].split(), size=12)) for g in gold]
+    with tempfile.TemporaryDirectory() as tmp:
+        cat = Catalog(f"{tmp}/scifact_bm25.db")
+        cat.add_chunks({"id": i, "contents": t} for i, t in enumerate(chunk_texts))
+        cat.add_queries({"id": j, "contents": t} for j, t in enumerate(q_texts))
+        for j, g in enumerate(gold):
+            cat.add_retrieval_gt(j, int(g))
+        ts.reset_launch_counts()
+        pipe = BM25Pipeline(cat, name="bm25", device=dev)
+        stats = pipe.run(top_k=K)
+        cat_launches = dict(ts.LAUNCHES)
+        rows = {j: cat.get_retrieved(j, pipe.pipeline_id) for j in range(SCIFACT_QUERIES)}
+        inputs = []
+        for j in range(SCIFACT_QUERIES):
+            gt, _ = build_retrieval_gt_from_relations(
+                [dict(r) for r in cat.get_relations_by_query(j)]
+            )
+            inputs.append(MetricInput(
+                retrieval_gt=gt, retrieved_ids=[f"chunk_{r['doc_id']}" for r in rows[j]]
+            ))
+        cat.close()
+    recall = float(np.mean(retrieval_recall(inputs)))
+    ndcg = float(np.mean(retrieval_ndcg(inputs)))
+    ref_idx = SparseIndex(list(range(SCIFACT_CHUNKS)), chunk_texts, device=dev).to_device()
+    q_ids, q_w = ref_idx.encode_queries(q_texts)
+    ss, si = ts.bm25_topk_scan(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_w).to(dev),
+                               *ref_idx._device, K)
+    ref = [[(int(r), float(s)) for s, r in zip(qs, qr) if s > 0]
+           for qs, qr in zip(ss.cpu().numpy(), si.cpu().numpy())]
+    got = [[(r["doc_id"], r["rel_score"]) for r in rows[j]] for j in range(SCIFACT_QUERIES)]
+    n_mism = sum(a != b for a, b in zip(got, ref))
+    log(f"SciFact-size BM25 catalog run: {stats['total_results']} rows persisted for "
+        f"{stats['total_queries']} queries, launches {json.dumps(cat_launches)}, recall@10 "
+        f"{recall:.4f}, ndcg@10 {ndcg:.4f}, vs exact scan {n_mism} queries differ")
+    if stats["total_results"] != SCIFACT_QUERIES * K or stats["failed_queries"]:
+        fail(f"BM25 catalog run persisted {stats['total_results']} rows, failed "
+             f"{stats['failed_queries']}")
+    if n_mism or cat_launches["bm25_topk_v2_skip"] + cat_launches["bm25_topk_probe"] < 1:
+        fail("BM25 catalog run diverged from the exact scan or took no pruned leg")
+    if not (0.0 <= recall <= 1.0 and 0.0 <= ndcg <= 1.0 and math.isfinite(ndcg)):
+        fail(f"BM25 metrics out of range: recall {recall}, ndcg {ndcg}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -721,8 +1192,11 @@ def main() -> int:
     del index_v, side, c_lo, q_lo, q_emb, q_norm, emb_v, embedder, chunk_emb
     torch.cuda.empty_cache()
 
-    # ---- 5-7. the MaxSim path --------------------------------------------
+    # ---- 5-8. the MaxSim path --------------------------------------------
     maxsim_phases(args.seed, dev, peak, kernels, vocab)
+
+    # ---- 9-11. the BM25 path ----------------------------------------------
+    bm25_phases(args.seed, dev, peak, kernels, vocab)
 
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

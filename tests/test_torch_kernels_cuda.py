@@ -302,3 +302,219 @@ def test_multi_vector_index_cuda_matches_cpu(cuda_device, opts, k):
         mism = gpu[1] != exact[1]
         assert (np.abs(gpu[0] - exact[0])[mism] <= 1e-5).all()
         assert gpu_idx.last_stats is not None
+
+
+# -------------------------------------------------------------------- BM25
+def _bm25_data(rng, b, t, n, slots, vocab=3000, clustered=False, pad_frac=0.25):
+    """Slot arrays of unique-term rows with scattered pads, as an index build
+    gives them (no repeated id in a row), and queries of distinct terms. With
+    ``clustered`` doc n draws from a window of 200 ids around n * vocab / n
+    and each query from one window, so the tile predicate prunes. Query 0 is
+    all pads, query 1 holds one unknown term only."""
+    doc_ids = np.full((n, slots), -1, np.int32)
+    for r in range(n):
+        if clustered:
+            lo = min(max(0, r * vocab // n - 100), vocab - 200)
+            doc_ids[r] = lo + rng.choice(200, size=slots, replace=False)
+        else:
+            doc_ids[r] = rng.choice(vocab, size=slots, replace=False)
+    doc_w = rng.random((n, slots)).astype(np.float32)
+    pad = rng.random((n, slots)) < pad_frac
+    doc_ids[pad] = -1
+    doc_w[pad] = 0.0
+    q_ids = np.full((b, t), -2, np.int32)
+    q_w = np.zeros((b, t), np.float32)
+    for i in range(2, b):
+        m = int(rng.integers(1, t + 1))
+        lo = int(rng.integers(0, vocab - 200)) if clustered else 0
+        q_ids[i, :m] = lo + rng.choice(200 if clustered else vocab, size=m, replace=False)
+        q_w[i, :m] = rng.uniform(0.2, 3.0, size=m).astype(np.float32)
+    if b > 1:
+        q_ids[1, 0], q_w[1, 0] = vocab + 7, 1.0
+    return q_ids, q_w, doc_ids, doc_w
+
+
+def _bm25_tensors(arrays, device):
+    return tuple(torch.from_numpy(x).to(device) for x in arrays)
+
+
+# B < 8 and several query tiles; N not a multiple of the 32-document step;
+# L % 4 != 0 (scalar staging); L > 128 (two staged slot chunks); T > 16
+BM25_SHAPES = [(5, 6, 3001, 24), (20, 9, 1000, 13), (11, 21, 700, 140)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 100, 256, 1500])
+@pytest.mark.parametrize("shape", BM25_SHAPES, ids=["tiles", "scalar-rows", "long-rows"])
+def test_bm25_v2_kernel_matches_plain(cuda_device, k, shape):
+    # k = 1500 keeps the lists in global memory where k_eff > 1024
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    args = _bm25_tensors(_bm25_data(np.random.default_rng(k), *shape), cuda_device)
+    before = ts.LAUNCHES["bm25_topk_v2"]
+    s, i = ts.bm25_topk_v2(*args, k)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["bm25_topk_v2"] == before + 1
+    rs, ri = ts.bm25_topk_v2_plain(*args, k)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positive_only", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 100, 256, 1500])
+@pytest.mark.parametrize("block_n", [128, 2048])
+def test_bm25_skip_kernel_matches_plain(cuda_device, positive_only, k, block_n):
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    arrays = _bm25_data(np.random.default_rng(k + block_n), 13, 6, 6000, 20, clustered=True)
+    args = _bm25_tensors(arrays, cuda_device)
+    bitmaps = torch.from_numpy(ts.build_tile_bitmaps(arrays[2], block_n)).to(cuda_device)
+    match = ts.tile_match(args[0], bitmaps)
+    if block_n == 128:
+        assert not bool(match.all())  # some (query tile, doc tile) pairs skip
+    before = ts.LAUNCHES["bm25_topk_v2_skip"]
+    s, i = ts.bm25_topk_v2_skip(*args, bitmaps, k, block_n=block_n, positive_only=positive_only)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["bm25_topk_v2_skip"] == before + 1
+    rs, ri = ts.bm25_topk_v2_skip_plain(
+        *args, bitmaps, k, block_n=block_n, positive_only=positive_only
+    )
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+    if not positive_only:  # bit-identical to the v2 kernel
+        vs, vi = ts.bm25_topk_v2(*args, k)
+        torch.testing.assert_close(i, vi, rtol=0, atol=0)
+        torch.testing.assert_close(s, vs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positive_only", [False, True])
+def test_bm25_skip_kernel_all_tiles_skipped(cuda_device, positive_only):
+    # empty queries (all pads): every pair of tiles is cleared
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    q_ids, q_w, doc_ids, doc_w = _bm25_data(np.random.default_rng(3), 3, 4, 2000, 16)
+    q_ids[:], q_w[:] = -2, 0.0
+    args = _bm25_tensors((q_ids, q_w, doc_ids, doc_w), cuda_device)
+    bitmaps = torch.from_numpy(ts.build_tile_bitmaps(doc_ids, 128)).to(cuda_device)
+    assert not bool(ts.tile_match(args[0], bitmaps).any())
+    s, i = ts.bm25_topk_v2_skip(*args, bitmaps, 10, block_n=128, positive_only=positive_only)
+    rs, ri = ts.bm25_topk_v2_skip_plain(*args, bitmaps, 10, block_n=128, positive_only=positive_only)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+    if positive_only:
+        assert bool((s == 0).all()) and bool((i == ts.INT_MAX).all())
+    else:  # zero-score documents in row order
+        assert i[0].tolist() == list(range(10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 100, 256, 1500])
+@pytest.mark.parametrize("block_n", [128, 2048])
+def test_bm25_probe_kernel_matches_plain(cuda_device, k, block_n):
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    arrays = _bm25_data(np.random.default_rng(k + 7 * block_n), 13, 6, 6000, 20, clustered=True)
+    args = _bm25_tensors(arrays, cuda_device)
+    n_tiles = -(-6000 // block_n)
+    indptr, tiles = ts.build_term_tile_lists(arrays[2], block_n)
+    cand, count, _ = ts.probe_candidates(arrays[0], indptr, tiles, 8, n_tiles)
+    count[0] = max(0, count[0] - 1)  # a truncated list: its last tile is not scored
+    cand[1, : count[1]] = cand[1, : count[1]][::-1].copy()  # the wrapper sorts live entries
+    cand_t, count_t = torch.from_numpy(cand).to(cuda_device), torch.from_numpy(count).to(cuda_device)
+    before = ts.LAUNCHES["bm25_topk_probe"]
+    s, i = ts.bm25_topk_probe(*args, cand_t, count_t, k, block_n)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["bm25_topk_probe"] == before + 1
+    rs, ri = ts.bm25_topk_probe_plain(*args, cand_t, count_t, k, block_n)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+    # every tile listed: the skip kernel's positive_only result
+    full = torch.arange(n_tiles, dtype=torch.int32, device=cuda_device).repeat(2, 1)
+    every = torch.full((2,), n_tiles, dtype=torch.int32, device=cuda_device)
+    bitmaps = torch.from_numpy(ts.build_tile_bitmaps(arrays[2], block_n)).to(cuda_device)
+    ps, pi = ts.bm25_topk_probe(*args, full, every, k, block_n)
+    vs, vi = ts.bm25_topk_v2_skip(*args, bitmaps, k, block_n=block_n, positive_only=True)
+    torch.testing.assert_close(pi, vi, rtol=0, atol=0)
+    torch.testing.assert_close(ps, vs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_bm25_probe_kernel_empty_lists(cuda_device):
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    args = _bm25_tensors(_bm25_data(np.random.default_rng(5), 11, 4, 3000, 16), cuda_device)
+    cand = torch.zeros((2, 4), dtype=torch.int32, device=cuda_device)
+    count = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    s, i = ts.bm25_topk_probe(*args, cand, count, 10, 128)
+    assert bool((s == 0).all()) and bool((i == ts.INT_MAX).all())
+    rs, ri = ts.bm25_topk_probe_plain(*args, cand, count, 10, 128)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_bm25_topk_auto_takes_the_v2_kernel_at_any_k(cuda_device):
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    arrays = _bm25_data(np.random.default_rng(4), 10, 5, 3000, 16)
+    args = _bm25_tensors(arrays, cuda_device)
+    ts.reset_launch_counts()
+    s256, i256 = ts.bm25_topk(*args, 256)
+    s1500, i1500 = ts.bm25_topk(*args, 1500)
+    assert ts.LAUNCHES == {"bm25_topk_v2": 2, "bm25_topk_v2_skip": 0, "bm25_topk_probe": 0}
+    assert sum(ts.PLAIN_CALLS.values()) == 0  # the card's tensors never take a plain route
+    torch.testing.assert_close(i1500[:, :256], i256, rtol=0, atol=0)
+    torch.testing.assert_close(s1500[:, :256], s256, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError):
+        ts.bm25_topk(*args, 10, method="pallas")
+    with pytest.raises(ValueError):
+        ts.bm25_topk(*args, 10, method="pallas_probe")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_skip", [True, False])
+@pytest.mark.parametrize("k", [10, 300])
+def test_sparse_index_cuda_matches_cpu(cuda_device, tile_skip, k):
+    from autorag_research_tpu_torch.index.sparse import SparseIndex
+
+    rng = np.random.default_rng(46)
+    vocab = [f"w{i}" for i in range(800)]
+    texts = [" ".join(rng.choice(vocab, size=int(rng.integers(3, 60)))) for _ in range(2500)]
+    queries = [" ".join(rng.choice(vocab, size=int(rng.integers(1, 9)))) for _ in range(37)]
+    ids = list(range(2500))
+    cpu = SparseIndex(ids, texts, tile_skip=tile_skip, device="cpu").search(queries, k)
+    gpu = SparseIndex(ids, texts, tile_skip=tile_skip, device=cuda_device).search(queries, k)
+    assert [[(h.doc_id, h.score) for h in r] for r in gpu] == [[(h.doc_id, h.score) for h in r] for r in cpu]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["selective", "common"])
+def test_sparse_index_pruned_legs_on_card(cuda_device, kind):
+    # ten regions of local words plus a common band; a batch of two regions'
+    # words is selective (probe), common words take the tile-WAND flow
+    from autorag_research_tpu_torch.index.sparse import SparseIndex
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    rng = np.random.default_rng(47)
+    n = 6000
+    texts = []
+    for i in range(n):
+        local = [f"r{i * 10 // n}x{j}" for j in rng.choice(300, size=int(rng.integers(3, 20)), replace=False)]
+        texts.append(" ".join(local + [f"c{j}" for j in rng.choice(30, size=3)]))
+    if kind == "selective":
+        queries = [" ".join(f"r{b % 2}x{j}" for j in rng.choice(300, size=3)) for b in range(21)]
+    else:
+        queries = [" ".join(f"c{j}" for j in rng.choice(30, size=4)) + " r5x1" for _ in range(21)]
+    ids = list(range(n))
+    cpu = SparseIndex(ids, texts, device="cpu").search(queries, 10)
+    gpu_idx = SparseIndex(ids, texts, device=cuda_device)
+    gpu_idx.probe_block_n = 128
+    ts.reset_launch_counts()
+    gpu = gpu_idx.search(queries, 10)
+    assert sum(ts.PLAIN_CALLS.values()) == 0 and ts.LAUNCHES["bm25_topk_v2"] == 0
+    if kind == "selective":
+        assert ts.LAUNCHES["bm25_topk_probe"] == 1 and ts.LAUNCHES["bm25_topk_v2_skip"] == 0
+    else:
+        assert ts.LAUNCHES["bm25_topk_probe"] + ts.LAUNCHES["bm25_topk_v2_skip"] >= 1
+    assert [[(h.doc_id, h.score) for h in r] for r in gpu] == [[(h.doc_id, h.score) for h in r] for r in cpu]
