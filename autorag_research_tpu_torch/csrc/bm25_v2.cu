@@ -1,12 +1,14 @@
-// bm25_v2: BM25 over the slot-padded layout with a fused streaming top-k,
-// walking the whole corpus, skipping Bloom-cleared tiles, or probing a list
-// of candidate tiles.
+// bm25_v2: BM25 over the slot-padded layout, flat or lane-packed, with a
+// fused streaming top-k, walking the whole corpus, skipping Bloom-cleared
+// tiles, or probing a list of candidate tiles.
 //
 // Replaces autorag_research_tpu/ops/sparse.py::_bm25_kernel_v2 (Pallas,
 // wrapper bm25_topk_pallas_v2 / _launch_bm25_pallas), ::_bm25_kernel_v2_skip
-// (wrapper bm25_topk_pallas_v2_skip) and ::_bm25_kernel_probe (wrapper
-// bm25_topk_pallas_probe). All three share one scoring body, as the Pallas
-// kernels share _slot_match_scores:
+// (wrapper bm25_topk_pallas_v2_skip), ::_bm25_kernel_probe (wrapper
+// bm25_topk_pallas_probe), ::_bm25_kernel_packed (wrapper
+// bm25_topk_pallas_packed) and ::_bm25_kernel_probe_packed (wrapper
+// bm25_topk_pallas_probe_packed). All five share one scoring body, as the
+// Pallas kernels share _slot_match_scores:
 //
 //   score(b, n) = sum over t = 0..T-1, in order, of
 //                 (sum_l [doc_ids[n, l] == q_ids[b, t]] * doc_w[n, l]) * q_w[b, t]
@@ -17,27 +19,42 @@
 // sum is the one matching weight; pads (doc -1, query -2) never match, and
 // pads may sit anywhere in a row.
 //
-// Inputs: q_ids / q_w [B, T] int32 / f32; doc_ids / doc_w [N, L] int32 / f32,
-// read in place. The skip walk reads a [q_tiles, n_tiles] uint8 match matrix
-// (ops/sparse.py::tile_match on the device, query tiles of BQ = 8 rows, doc
-// tiles of block_n rows); the probe walk reads cand [q_tiles, cap] int32, the
-// doc tiles of each query tile in increasing order, and count [q_tiles], the
-// live entries of each row. Every walk writes per-part lists [B, P, k] in
+// Inputs: q_ids / q_w [B, T] int32 / f32; the documents read in place, in one
+// of two layouts (the LAYOUT template parameter):
+//   FLAT    doc_ids / doc_w [N, L] int32 / f32, document n in row n;
+//   PACKED  ops/sparse.py::pack_slots's [R, 128]: pack = P documents of
+//           stride L = 128 / P lanes share a row, document n in lanes
+//           [(n % P) L, (n % P + 1) L) of row n / P; the 128 - P L dead tail
+//           lanes are never scored.
+// The TPU's packed kernel reduced a [BN, 128] match tile to per-document
+// sums with a 0/1 grouping matmul on the MXU, its way to get many short
+// documents out of one 128-lane row. Here a lane reads its document's own L
+// lanes, so the packed layout costs no extra work and its sums are the flat
+// layout's, bit for bit. The skip walk reads a [q_tiles, n_tiles] uint8
+// match matrix (ops/sparse.py::tile_match on the device, query tiles of
+// BQ = 8 rows, doc tiles of block_n rows); the probe walk reads cand
+// [q_tiles, cap] int32, the doc tiles of each query tile in increasing
+// order, and count [q_tiles], the live entries of each row (a packed tile
+// of block_n packed rows is block_n * P documents: the wrapper passes that
+// as block_n). Every walk writes per-part lists [B, parts, k] in
 // (-score, row) order, merged by the wrapper with merge_topk as
 // dense_topk_stream's are.
 //
 // Bound on this card: the function is one multiply and one add per (live
 // query term, document) pair, 2 operations that the rounding keeps apart (no
 // FMA), so at most 33.5 TFLOP/s, half the FMA peak; and the id and weight
-// arrays (0.4-0.5 GB at 500,000 docs) are read once at 3.35 TB/s. Batches of
-// about 100 or more queries of 10 terms are bound by operations, smaller ones
-// by bytes.
+// arrays (0.4-0.5 GB at 500,000 docs x 128 slots, 64 MB packed at width 16)
+// are read once at 3.35 TB/s. Batches of about 100 or more queries of 10
+// terms are bound by operations, smaller ones by bytes.
 //
 // What this first design does instead: T x L compares per (query, document).
 // A block owns one query tile (one warp per query) and a part of the work, and
 // walks its doc tiles 32 documents per step: the step's [32, L] ids and
-// weights are staged in shared memory (16-byte loads where L % 4 == 0; the
-// row stride is padded so the 32 lanes, one per document, read 32 banks),
+// weights are staged in shared memory (FLAT: 16-byte loads where L % 4 == 0;
+// PACKED: the whole 128-word rows the step's documents lie in, 16-byte
+// loads at any stride, each word moved to its document's staged row, so a
+// packed step reads about as many bytes as a flat one; the staged row stride
+// is padded so the 32 lanes, one per document, read 32 banks),
 // and each lane compares every slot of its document against 16 query terms
 // held in registers, the query tile's terms having been staged in shared
 // memory once. The epilogue offers the 32 scores of each query row to its
@@ -68,15 +85,17 @@ constexpr int LDS = LC + 1;       // staged row stride (32-bit words)
 constexpr int KSMEM = 1024;       // longest list kept in shared memory
 constexpr int TMAX = 2048;        // query terms staged per query
 constexpr int QUERY_PAD = -2;
+constexpr int PACKED_LANES = 128;  // words in a packed row
 
 enum Walk { PART = 0, SKIP = 1, PROBE = 2 };
+enum Layout { FLAT = 0, PACKED = 1 };
 
-// Rows [base, base + nd) and slots [l0, l0 + lc) of the ids and weights into
-// shared memory, row stride LDS.
-__device__ __forceinline__ void stage(const int* __restrict__ doc_ids,
-                                      const float* __restrict__ doc_w, int base, int nd,
-                                      int L, int l0, int lc, bool vec, int* s_ids, float* s_w,
-                                      int tid) {
+// Documents [base, base + nd) and slots [l0, l0 + lc) of the FLAT layout
+// into shared memory, row stride LDS.
+__device__ __forceinline__ void stage_flat(const int* __restrict__ doc_ids,
+                                           const float* __restrict__ doc_w, int base, int nd,
+                                           int L, int l0, int lc, bool vec, int* s_ids,
+                                           float* s_w, int tid) {
   if (vec) {
     const int v4 = lc >> 2;
     for (int v = tid; v < nd * v4; v += THREADS) {
@@ -105,14 +124,63 @@ __device__ __forceinline__ void stage(const int* __restrict__ doc_ids,
   }
 }
 
-template <int WALK, bool POS>
+// Documents [base, base + nd) of the PACKED layout (stride L, pack a row)
+// into the same staged rows as stage_flat: the packed rows they lie in are
+// read whole, 16 bytes a load when vec (a row is 512 bytes, so any stride
+// aligns), and each word goes to its document's staged row; the dead tail
+// lanes and the documents of the neighbouring steps are dropped.
+__device__ __forceinline__ void stage_packed(const int* __restrict__ doc_ids,
+                                             const float* __restrict__ doc_w, int base, int nd,
+                                             int L, int pack, bool vec, int* s_ids, float* s_w,
+                                             int tid) {
+  constexpr int V4 = PACKED_LANES / 4;
+  const int r0 = base / pack;
+  const int nr = (base + nd - 1) / pack - r0 + 1;
+  const int d0 = base - r0 * pack;  // the first document's place in row r0
+  for (int v = tid; v < nr * V4; v += THREADS) {
+    const int r = v / V4, c = (v - r * V4) * 4;
+    const size_t g = (size_t)(r0 + r) * PACKED_LANES + c;
+    int a[4];
+    float w[4];
+    if (vec) {
+      const int4 a4 = *reinterpret_cast<const int4*>(doc_ids + g);
+      const float4 w4 = *reinterpret_cast<const float4*>(doc_w + g);
+      a[0] = a4.x;
+      a[1] = a4.y;
+      a[2] = a4.z;
+      a[3] = a4.w;
+      w[0] = w4.x;
+      w[1] = w4.y;
+      w[2] = w4.z;
+      w[3] = w4.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a[e] = doc_ids[g + e];
+        w[e] = doc_w[g + e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = (c + e) / L;        // the row's document (pack: a dead lane)
+      const int d = r * pack + j - d0;  // its place in this step
+      if (j < pack && d >= 0 && d < nd) {
+        s_ids[d * LDS + c + e - j * L] = a[e];
+        s_w[d * LDS + c + e - j * L] = w[e];
+      }
+    }
+  }
+}
+
+template <int WALK, bool POS, int LAYOUT>
 __global__ void __launch_bounds__(THREADS)
 bm25_v2_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
                const int* __restrict__ doc_ids, const float* __restrict__ doc_w,
                const unsigned char* __restrict__ match, const int* __restrict__ cand,
                const int* __restrict__ count, float* __restrict__ out_s,
                int* __restrict__ out_i, int B, int T, int N, int L, int k, int part, int parts,
-               int q_tiles, int n_tiles, int cap, int block_n, int vec, int list_smem) {
+               int q_tiles, int n_tiles, int cap, int block_n, int vec, int list_smem,
+               int pack) {
   __shared__ int s_ids[DOCS * LDS];
   __shared__ float s_w[DOCS * LDS];
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -201,7 +269,11 @@ bm25_v2_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
           const int lc = min(LC, L - l0);
           if (n_lc > 1 || t0 == 0) {
             __syncthreads();
-            stage(doc_ids, doc_w, base, nd, L, l0, lc, vec != 0, s_ids, s_w, tid);
+            if (LAYOUT == PACKED) {  // L <= 64: one chunk, l0 = 0
+              stage_packed(doc_ids, doc_w, base, nd, L, pack, vec != 0, s_ids, s_w, tid);
+            } else {
+              stage_flat(doc_ids, doc_w, base, nd, L, l0, lc, vec != 0, s_ids, s_w, tid);
+            }
             __syncthreads();
           }
           if (mine) {
@@ -250,11 +322,11 @@ bm25_v2_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
   }
 }
 
-template <int WALK, bool POS>
+template <int WALK, bool POS, int LAYOUT>
 int launch(const void* q_ids, const void* q_w, const void* doc_ids, const void* doc_w,
            const void* match, const void* cand, const void* count, void* out_s, void* out_i,
            int B, int T, int N, int L, int k, int part, int parts, int q_tiles, int n_tiles,
-           int cap, int block_n, int vec, void* stream) {
+           int cap, int block_n, int vec, int pack, void* stream) {
   if (B == 0 || N == 0 || parts == 0) return 0;
   if (T < 0 || T > TMAX || L < 0 || k < 1 || part < 1 || (long long)q_tiles * BQ < B) {
     return (int)cudaErrorInvalidValue;
@@ -269,50 +341,64 @@ int launch(const void* q_ids, const void* q_w, const void* doc_ids, const void* 
                         (long long)parts * part < cap)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (vec && L % 4) return (int)cudaErrorInvalidValue;
+  if (vec && LAYOUT == FLAT && L % 4) return (int)cudaErrorInvalidValue;
+  if (LAYOUT == FLAT ? pack != 1 : (pack < 2 || (long long)pack * L > PACKED_LANES)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const long long blocks = (long long)q_tiles * parts;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   const int list_smem = k <= KSMEM;
   const int dyn_bytes = (list_smem ? BQ * k * (int)(sizeof(float) + sizeof(int)) : 0) +
                         BQ * T * (int)(sizeof(int) + sizeof(float));
-  auto kernel = bm25_v2_kernel<WALK, POS>;
+  auto kernel = bm25_v2_kernel<WALK, POS, LAYOUT>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_bytes);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)blocks, THREADS, dyn_bytes, (cudaStream_t)stream>>>(
       (const int*)q_ids, (const float*)q_w, (const int*)doc_ids, (const float*)doc_w,
       (const unsigned char*)match, (const int*)cand, (const int*)count, (float*)out_s,
-      (int*)out_i, B, T, N, L, k, part, parts, q_tiles, n_tiles, cap, block_n, vec, list_smem);
+      (int*)out_i, B, T, N, L, k, part, parts, q_tiles, n_tiles, cap, block_n, vec, list_smem,
+      pack);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q_ids / q_w [B, T]; doc_ids / doc_w [N, L], contiguous, 16-byte aligned
-// when vec != 0 (then L % 4 == 0). out_s / out_i [B, parts, k]. PART and
-// SKIP: part p covers documents [p*part, (p+1)*part), a multiple of block_n
-// for SKIP, with match [q_tiles, n_tiles] uint8. PROBE: part p covers
+// q_ids / q_w [B, T]; doc_ids / doc_w [N, L] (FLAT, pack = 1) or [ceil(N /
+// pack), 128] (PACKED, L = 128 / pack the stride), contiguous, 16-byte
+// aligned when vec != 0 (then, FLAT, L % 4 == 0). out_s / out_i [B, parts, k]. PART
+// and SKIP: part p covers documents [p*part, (p+1)*part), a multiple of
+// block_n for SKIP, with match [q_tiles, n_tiles] uint8. PROBE: part p covers
 // candidate entries [p*part, (p+1)*part) of cand [q_tiles, cap] int32 (tile
-// indices, increasing), count [q_tiles] int32. positive_only selects the skip
-// walk's mode; the probe walk is always positive_only. Each returns
-// cudaGetLastError().
+// indices, increasing; a tile is block_n documents), count [q_tiles] int32.
+// positive_only selects the skip walk's mode; the probe walks are always
+// positive_only. Each returns cudaGetLastError().
 #define BM25_ARGS                                                                            \
   const void *q_ids, const void *q_w, const void *doc_ids, const void *doc_w,                 \
       const void *match, const void *cand, const void *count, void *out_s, void *out_i,       \
       int B, int T, int N, int L, int k, int part, int parts, int q_tiles, int n_tiles,       \
-      int cap, int block_n, int vec, int positive_only, void *stream
+      int cap, int block_n, int vec, int positive_only, int pack, void *stream
 #define BM25_PASS                                                                              \
   q_ids, q_w, doc_ids, doc_w, match, cand, count, out_s, out_i, B, T, N, L, k, part, parts,   \
-      q_tiles, n_tiles, cap, block_n, vec, stream
+      q_tiles, n_tiles, cap, block_n, vec, pack, stream
 
 extern "C" int bm25_topk_v2_launch(BM25_ARGS) {
-  return launch<PART, false>(BM25_PASS);
+  return launch<PART, false, FLAT>(BM25_PASS);
 }
 
 extern "C" int bm25_topk_v2_skip_launch(BM25_ARGS) {
-  return positive_only ? launch<SKIP, true>(BM25_PASS) : launch<SKIP, false>(BM25_PASS);
+  return positive_only ? launch<SKIP, true, FLAT>(BM25_PASS)
+                       : launch<SKIP, false, FLAT>(BM25_PASS);
 }
 
 extern "C" int bm25_topk_probe_launch(BM25_ARGS) {
-  return launch<PROBE, true>(BM25_PASS);
+  return launch<PROBE, true, FLAT>(BM25_PASS);
+}
+
+extern "C" int bm25_topk_packed_launch(BM25_ARGS) {
+  return launch<PART, false, PACKED>(BM25_PASS);
+}
+
+extern "C" int bm25_topk_probe_packed_launch(BM25_ARGS) {
+  return launch<PROBE, true, PACKED>(BM25_PASS);
 }

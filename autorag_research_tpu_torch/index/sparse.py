@@ -1,8 +1,8 @@
 """BM25 sparse index: tokenization -> document statistics -> slot arrays on one GPU.
 
-Counterpart of ``autorag_research_tpu/index/sparse.py`` in its flat layout.
-The build tokenizes in Python and fills the slot arrays with vectorized
-numpy: document frequencies, lengths and per-(doc, term) BM25 weights
+Counterpart of ``autorag_research_tpu/index/sparse.py``. The build tokenizes
+in Python and fills the slot arrays with vectorized numpy: document
+frequencies, lengths and per-(doc, term) BM25 weights
 ``tf (k1 + 1) / (tf + k1 (1 - b + b dl / avgdl))`` in float64, cast to f32,
 bitwise equal to the JAX package's ``_build_python`` (vocabulary in first-seen
 order, slots in first-occurrence order, the same ``max_slots`` truncation).
@@ -10,18 +10,32 @@ Query weights are Lucene's ``idf = ln(1 + (N - df + 0.5) / (df + 0.5))``
 times the query term count. Scores are positive, higher is better; hits
 with score <= 0 (no term overlap) are dropped.
 
-``search`` routes through ``ops/sparse.py::bm25_route``. On the card with
-``tile_skip`` (the default) and k <= 2,048 it takes the JAX package's pruned
-legs (``_search_pruned``), positive scores only: the probe kernel over the
-exact candidate tiles of the host term -> tile lists when a batch is
-selective (candidate tiles <= half the corpus), else the two-pass tile-WAND
+Device layouts, as the JAX package chooses them:
+
+- lane-packed (``ops/sparse.py::pack_slots``) when every document has at most
+  64 unique terms, on the card, or off it up to 10,000 documents;
+- bucketed (``bucketize > 1``): documents partitioned by unique-term count,
+  each bucket packed when its width is at most 64, else flat, one launch per
+  bucket and a host merge by ``(-score, global row)``;
+- flat otherwise, slots padded to a multiple of 4.
+
+``search`` routes through ``ops/sparse.py::bm25_route``. Flat layout on the
+card with ``tile_skip`` (the default) and k <= 2,048: the JAX package's
+pruned legs (``_search_pruned``), positive scores only: the probe kernel over
+the exact candidate tiles of the host term -> tile lists when a batch is
+selective (candidate tiles <= half the corpus's), else the two-pass tile-WAND
 probe, which falls back to the Bloom tile-skip kernel when its bound prunes
-too little; the v2 kernel otherwise. All legs are exact: the hits are the
-same. The JAX package's lane-packed layout for short documents is not ported
-yet: such corpora stay in the flat layout, which changes the route, not the
-hits. ``bucketize > 1`` and a mesh raise ``NotImplementedError``. Artifacts
-(``sparse.npz`` + ``meta.json``) have the JAX package's format, so either
-package loads what the other saved.
+too little; the v2 kernel otherwise. Packed layout (``_search_packed_auto``):
+with ``tile_skip`` and k within a candidate tile the packed probe or tile-WAND
+over the packed layout (falling back to the full packed kernel), else the
+full packed kernel; the pins ``xla`` / ``pallas_v2`` / ``pallas`` run from a
+flat upload made on first use. Bucketed layout: the packed kernel on each
+packed bucket, the whole-corpus route of the method on each flat one. The
+pruned pins fall back to ``auto`` on a packed or bucketed layout. All legs
+are exact: the hits are the same. A
+mesh raises ``NotImplementedError``. Artifacts (``sparse.npz`` +
+``meta.json``) have the JAX package's format, so either package loads what
+the other saved.
 """
 
 from __future__ import annotations
@@ -35,34 +49,62 @@ import torch
 
 from autorag_research_tpu_torch.exceptions import IndexNotBuiltError
 from autorag_research_tpu_torch.index.base import SearchHit
+from autorag_research_tpu_torch.index.buckets import _plan_buckets
 from autorag_research_tpu_torch.index.tokenize import get_tokenizer
 from autorag_research_tpu_torch.ops.sparse import (
+    BLOCK_Q,
     DOC_PAD,
     QUERY_PAD,
     SKIP_BLOCK_N,
-    candidate_cap,
     bm25_route,
-    bm25_topk,
+    bm25_topk_packed,
     bm25_topk_probe,
+    bm25_topk_probe_packed,
+    bm25_topk_scan,
+    bm25_topk_v1,
+    bm25_topk_v2,
     bm25_topk_v2_skip,
     bm25_topk_wand,
     build_term_tile_lists,
     build_term_tile_maxw,
     build_tile_bitmaps,
+    candidate_cap,
     cluster_doc_order,
+    pack_slots,
+    packed_block_rows,
     probe_candidates,
+    pruned_leg,
 )
+from autorag_research_tpu_torch.ops.topk import INT_MAX, NEG_INF
+
+# widest document (unique terms) of a packed layout: two or more per row
+PACK_MAX_WIDTH = 64
+# off the card the JAX package packs only corpora this small (its packed
+# kernel runs interpreted there); the port makes the same layout choice, so
+# that its CPU route is the JAX package's
+PACK_OFF_CARD_MAX_DOCS = 10_000
+# the whole-corpus routes over a flat layout
+_FLAT_ROUTES = {"scan": bm25_topk_scan, "fused": bm25_topk_v2, "v1": bm25_topk_v1}
 
 
-def _refuse_buckets(bucketize: int) -> None:
-    if bucketize > 1:
-        raise NotImplementedError(
-            "SparseIndex bucketize > 1 takes the lane-packed kernels, ported with BM25 slice B"
-        )
+def _pad_slots(ids: np.ndarray, w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Pad the slot axis with empty slots to a multiple of 4 (the kernel's
+    16-byte loads; pads never match, scores unchanged)."""
+    pad = (-ids.shape[1]) % 4
+    if pad:
+        ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=DOC_PAD)
+        w = np.pad(w, ((0, 0), (0, pad)))
+    return ids, w
 
 
 class SparseIndex:
-    """Exact BM25 top-k over a slot-padded term-weight layout on one device."""
+    """Exact BM25 top-k over a slot-padded term-weight layout on one device.
+
+    ``bucketize > 1`` opts into the bucketed device layout (one trimmed
+    layout per bucket of unique-term counts, planned by
+    ``index/buckets.py::_plan_buckets``): for corpora that are mostly short,
+    or bound by device memory. The host slot arrays stay the build and save
+    source of truth."""
 
     def __init__(
         self,
@@ -75,9 +117,9 @@ class SparseIndex:
         bucketize: int = 1,
         tile_skip: bool = True,
         cluster_layout: bool = False,
+        probe_block_n: int = 2048,
         device: str | torch.device = "cuda",
     ):
-        _refuse_buckets(bucketize)
         self.ids = list(ids)
         self.tokenizer_name = tokenizer
         self.k1 = k1
@@ -90,8 +132,9 @@ class SparseIndex:
         # (ops/sparse.cluster_doc_order); equal-score ties at the k boundary
         # may resolve to other documents than in the id-ordered layout
         self.cluster_layout = cluster_layout
-        # doc tile of the probe and WAND legs' term -> tile lists
-        self.probe_block_n = SKIP_BLOCK_N
+        # doc tile of the probe and WAND legs' term -> tile lists (a packed
+        # layout's tile is this many documents in whole packed rows)
+        self.probe_block_n = probe_block_n
         self.device = torch.device(device)
         self.vocab: dict[str, int] = {}
         self.doc_freq: np.ndarray | None = None
@@ -100,12 +143,20 @@ class SparseIndex:
         self.n_docs = len(self.ids)
         self._slot_ids: np.ndarray | None = None  # [N, L] int32
         self._slot_weights: np.ndarray | None = None  # [N, L] float32
-        self._device: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._reset_device()
         self._bitmaps: torch.Tensor | None = None
         self._term_tiles: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self._term_tiles_maxw: dict[int, tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
         if texts is not None:
             self._build(texts)
+
+    def _reset_device(self) -> None:
+        # flat or packed (ids, weights), or None
+        self._device: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._device_pack = 1  # documents per row of _device
+        # flat upload behind the xla / pallas_v2 / pallas pins of a packed index
+        self._device_flat: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._device_buckets: list[dict] | None = None
 
     # ----------------------------------------------------------------- build
     @classmethod
@@ -174,7 +225,7 @@ class SparseIndex:
         self._slot_ids = slot_ids
         self._slot_weights = slot_w
         self._apply_cluster_layout()
-        self._device = None
+        self._reset_device()
         self._bitmaps = None
         self._term_tiles = {}
         self._term_tiles_maxw = {}
@@ -225,29 +276,82 @@ class SparseIndex:
         return q_ids, q_w
 
     # ----------------------------------------------------------------- search
+    def _upload(self, ids: np.ndarray, w: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        return (torch.from_numpy(np.ascontiguousarray(ids)).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(w)).to(self.device))
+
     def to_device(self, mesh=None) -> "SparseIndex":
-        """Upload the slot arrays, padded with empty slots to a multiple of 4
-        (the kernel's 16-byte loads; pads never match, scores unchanged)."""
+        """Upload the slot arrays in the layout the JAX package's
+        ``to_device`` chooses: bucketed with ``bucketize > 1``, else packed
+        when every document has at most ``PACK_MAX_WIDTH`` unique terms (on
+        the card, or off it up to ``PACK_OFF_CARD_MAX_DOCS`` documents), else
+        flat."""
         if mesh is not None:
             raise NotImplementedError("a mesh-sharded SparseIndex is ported with the multi-GPU slice")
         if self._slot_ids is None:
             raise IndexNotBuiltError("sparse index not built")
+        self._reset_device()
+        if self.bucketize > 1:
+            self._device_buckets = self._build_device_buckets()
+            return self
         ids, w = self._slot_ids, self._slot_weights
-        pad = (-ids.shape[1]) % 4
-        if pad:
-            ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=DOC_PAD)
-            w = np.pad(w, ((0, 0), (0, pad)))
-        self._device = (
-            torch.from_numpy(np.ascontiguousarray(ids)).to(self.device),
-            torch.from_numpy(np.ascontiguousarray(w)).to(self.device),
-        )
+        width = ids.shape[1]
+        if (width <= PACK_MAX_WIDTH and self.n_docs
+                and (self.device.type == "cuda" or self.n_docs <= PACK_OFF_CARD_MAX_DOCS)):
+            pids, pw, self._device_pack = pack_slots(ids, w, width)  # width <= 64: pack >= 2
+            self._device = self._upload(pids, pw)
+            return self
+        self._device = self._upload(*_pad_slots(ids, w))
         return self
 
+    def _build_device_buckets(self) -> list[dict]:
+        """Partition rows by unique-term count (JAX ``_build_device_buckets``);
+        each bucket keeps ascending global row order, so that its kernel's
+        tie order maps to the global ``(-score, row)`` order. A bucket of
+        width at most ``PACK_MAX_WIDTH`` is packed."""
+        assert self._slot_ids is not None and self._slot_weights is not None
+        counts = (self._slot_ids != DOC_PAD).sum(axis=1)
+        buckets = []
+        assigned = np.zeros(self.n_docs, dtype=bool)
+        for bound in _plan_buckets(counts, self.bucketize):
+            rows = np.nonzero((counts <= bound) & ~assigned)[0]
+            if rows.size == 0:
+                continue
+            assigned[rows] = True
+            width = max(int(counts[rows].max()), 1)
+            if width <= PACK_MAX_WIDTH:
+                ids, w, pack = pack_slots(self._slot_ids[rows], self._slot_weights[rows], width)
+            else:
+                ids, w = _pad_slots(self._slot_ids[rows, :width], self._slot_weights[rows, :width])
+                pack = 1
+            buckets.append({"rows": rows, "pack": pack, "arrays": self._upload(ids, w)})
+        return buckets
+
+    def _flat_device(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The flat device arrays: the flat upload itself, or else (a packed
+        index) a flat upload of the same slot arrays, made on first use and
+        kept."""
+        if self._device is not None and self._device_pack == 1:
+            return self._device
+        if self._device_flat is None:
+            self._device_flat = self._upload(*_pad_slots(self._slot_ids, self._slot_weights))
+        return self._device_flat
+
+    def _layout(self) -> str:
+        """The device layout searched: bucketed, packed or flat."""
+        if self._device_buckets is not None:
+            return "bucketed"
+        return "packed" if self._device_pack > 1 else "flat"
+
     def device_bytes(self) -> int:
-        """Slot-array bytes on the device."""
-        if self._device is None:
-            return 0
-        return sum(t.numel() * t.element_size() for t in self._device)
+        """Slot-array bytes on the device under the current layout (packed or
+        bucketed layouts as such; a pin's flat upload is not counted, as in
+        the JAX package)."""
+        if self._device_buckets is not None:
+            arrays = [t for bucket in self._device_buckets for t in bucket["arrays"]]
+        else:
+            arrays = list(self._device or ())
+        return sum(t.numel() * t.element_size() for t in arrays)
 
     def _ensure_bitmaps(self) -> torch.Tensor:
         """Tile term-presence bitmaps for the skip kernel, built once per
@@ -274,22 +378,25 @@ class SparseIndex:
             )
         return self._term_tiles_maxw[block_n]
 
+    def _queries_on_device(self, q_ids: np.ndarray, q_w: np.ndarray):
+        return torch.from_numpy(q_ids).to(self.device), torch.from_numpy(q_w).to(self.device)
+
     def _search_pruned(self, q_ids: np.ndarray, q_w: np.ndarray, doc_ids, doc_w, k: int, method: str):
-        """The pruned legs (JAX ``_search_pruned``), all ``positive_only``:
-        the probe kernel over the exact candidate tiles of the host term ->
-        tile lists when the batch is selective (candidate tiles <= half the
-        corpus's); else the two-pass tile-WAND probe, falling back to the
-        Bloom tile-skip kernel when its bound prunes too little. ``pallas_probe``
-        and ``pallas_wand`` pin their leg, ``pallas_v2_skip`` the skip kernel,
-        as does a k beyond ``probe_block_n``."""
-        qi = torch.from_numpy(q_ids).to(self.device)
-        qw = torch.from_numpy(q_w).to(self.device)
+        """The pruned legs over the flat layout (JAX ``_search_pruned``), all
+        ``positive_only``: the probe kernel over the exact candidate tiles of
+        the host term -> tile lists when the batch is selective (candidate
+        tiles <= half the corpus's); else the two-pass tile-WAND probe,
+        falling back to the Bloom tile-skip kernel when its bound prunes too
+        little. ``pallas_probe`` and ``pallas_wand`` pin their leg,
+        ``pallas_v2_skip`` the skip kernel, as does a k beyond
+        ``probe_block_n``."""
+        qi, qw = self._queries_on_device(q_ids, q_w)
         pbn = self.probe_block_n
         if min(k, self.n_docs) <= pbn and method in ("auto", "pallas_probe", "pallas_wand"):
             p_tiles = max(1, -(-self.n_docs // pbn))
             indptr, tiles = self._ensure_term_tiles(pbn)
-            cand, count, maxc = probe_candidates(q_ids, indptr, tiles, bq=8, cap=p_tiles)
-            if method == "pallas_probe" or (method == "auto" and maxc <= p_tiles // 2):
+            cand, count, maxc = probe_candidates(q_ids, indptr, tiles, bq=BLOCK_Q, cap=p_tiles)
+            if pruned_leg(method, maxc, p_tiles) == "probe":
                 cand = np.ascontiguousarray(cand[:, : candidate_cap(maxc, p_tiles)])
                 return bm25_topk_probe(
                     qi, qw, doc_ids, doc_w, torch.from_numpy(cand).to(self.device),
@@ -304,23 +411,81 @@ class SparseIndex:
             )
         return bm25_topk_v2_skip(qi, qw, doc_ids, doc_w, self._ensure_bitmaps(), k, positive_only=True)
 
+    def _search_packed_pruned(self, q_ids: np.ndarray, q_w: np.ndarray, k: int):
+        """The pruned legs over the packed layout (JAX ``_search_packed_auto``
+        on the TPU): a candidate tile is ``packed_block_rows`` packed rows,
+        so the host term -> tile lists are built at that many times ``pack``
+        documents; the packed probe for a selective batch, else tile-WAND
+        over the packed layout, whose fallback is the full packed kernel."""
+        pack = self._device_pack
+        packed_ids, packed_w = self._device  # type: ignore[misc]
+        bn_rows = packed_block_rows(self.probe_block_n, pack)
+        docs_per_tile = bn_rows * pack
+        p_tiles = max(1, -(-self.n_docs // docs_per_tile))
+        indptr, tiles = self._ensure_term_tiles(docs_per_tile)
+        cand, count, maxc = probe_candidates(q_ids, indptr, tiles, bq=BLOCK_Q, cap=p_tiles)
+        if pruned_leg("auto", maxc, p_tiles) == "probe":
+            qi, qw = self._queries_on_device(q_ids, q_w)
+            cand = np.ascontiguousarray(cand[:, : candidate_cap(maxc, p_tiles)])
+            return bm25_topk_probe_packed(
+                qi, qw, packed_ids, packed_w, self.n_docs, pack,
+                torch.from_numpy(cand).to(self.device), torch.from_numpy(count).to(self.device),
+                k, block_n=bn_rows,
+            )
+        return bm25_topk_wand(
+            q_ids, q_w, None, None, self._ensure_term_tiles_maxw(docs_per_tile), k, block_n=bn_rows,
+            packed=(packed_ids, packed_w, self.n_docs, pack),
+        )
+
+    def _search_bucketed(self, q_ids: np.ndarray, q_w: np.ndarray, k: int, flat_route: str):
+        """One launch per bucket (the packed kernel for a packed bucket, else
+        the whole-corpus ``flat_route`` of :func:`bm25_route`), then a host
+        merge by ``(-score, global row)`` (JAX ``_search_bucketed``). Returns
+        host (scores, rows) [Q, <= k], no-hit entries ``(NEG_INF, INT_MAX)``."""
+        qi, qw = self._queries_on_device(q_ids, q_w)
+        nq = q_ids.shape[0]
+        all_s = [np.empty((nq, 0), np.float32)]
+        all_r = [np.empty((nq, 0), np.int64)]
+        for bucket in self._device_buckets:  # type: ignore[union-attr]
+            nb = int(bucket["rows"].size)
+            ids, w = bucket["arrays"]
+            if bucket["pack"] > 1:
+                s, r = bm25_topk_packed(qi, qw, ids, w, nb, min(k, nb), bucket["pack"])
+            else:
+                s, r = _FLAT_ROUTES[flat_route](qi, qw, ids, w, min(k, nb))
+            s, r = s.cpu().numpy(), r.cpu().numpy()
+            valid = r != INT_MAX
+            all_r.append(np.where(valid, bucket["rows"][np.where(valid, r, 0)], INT_MAX))
+            all_s.append(np.where(valid, s, np.float32(NEG_INF)))
+        scores = np.concatenate(all_s, axis=1)
+        rows = np.concatenate(all_r, axis=1)
+        order = np.lexsort((rows, -scores), axis=1)[:, :k]
+        b_idx = np.arange(nq)[:, None]
+        return scores[b_idx, order], rows[b_idx, order]
+
     def topk_rows(self, queries: Sequence[str], k: int, method: str = "auto") -> tuple[np.ndarray, np.ndarray]:
-        """Batch search -> (scores [Q, k], rows [Q, k]) on the host, in
-        ``(-score, row)`` order; entries with score <= 0 are no hits."""
+        """Batch search -> (scores [Q, k'], rows [Q, k']) on the host, in
+        ``(-score, row)`` order (k' = k, or at most k on a bucketed index);
+        entries with score <= 0 are no hits."""
         if self._slot_ids is None:
             raise IndexNotBuiltError("sparse index not built")
-        if self._device is None:
+        if self._device is None and self._device_buckets is None:
             self.to_device()
         q_ids, q_w = self.encode_queries(queries)
-        doc_ids, doc_w = self._device  # type: ignore[misc]
-        route = bm25_route(method, self.n_docs, k, self.device.type, self.tile_skip)
+        route = bm25_route(method, self.n_docs, k, self.device.type, self.tile_skip, self._layout(),
+                           self._device_pack, self.probe_block_n)
+        if route.startswith("bucketed_"):
+            return self._search_bucketed(q_ids, q_w, k, route.removeprefix("bucketed_"))
         if route == "pruned":
-            scores, rows = self._search_pruned(q_ids, q_w, doc_ids, doc_w, k, method)
+            scores, rows = self._search_pruned(q_ids, q_w, *self._device, k, method)  # type: ignore[misc]
+        elif route == "pruned_packed":
+            scores, rows = self._search_packed_pruned(q_ids, q_w, k)
+        elif route == "packed":
+            scores, rows = bm25_topk_packed(*self._queries_on_device(q_ids, q_w), *self._device,
+                                            self.n_docs, k, self._device_pack)
         else:
-            scores, rows = bm25_topk(
-                torch.from_numpy(q_ids).to(self.device), torch.from_numpy(q_w).to(self.device),
-                doc_ids, doc_w, k, method="xla" if route == "scan" else "pallas_v2",
-            )
+            scores, rows = _FLAT_ROUTES[route](*self._queries_on_device(q_ids, q_w),
+                                               *self._flat_device(), k)
         return scores.cpu().numpy(), rows.cpu().numpy()
 
     def search(self, queries: Sequence[str], k: int, method: str = "auto") -> list[list[SearchHit]]:
@@ -330,7 +495,7 @@ class SparseIndex:
         for qs, qr in zip(scores, rows):
             hits = []
             for s, r in zip(qs[:k_eff], qr[:k_eff]):
-                if s <= 0.0:  # no term overlap: not a hit
+                if not (s > 0.0):  # no term overlap, or no hit at all
                     break
                 hits.append(SearchHit(self.ids[int(r)], float(s)))
             out.append(hits)
@@ -392,9 +557,9 @@ class SparseIndex:
             # a cluster-ordered layout is already in the saved slot arrays;
             # the flag only records provenance (no re-sort on load)
             cluster_layout=meta.get("cluster_layout", False),
+            probe_block_n=int(meta.get("probe_block_n", 2048)),
             device=device,
         )
-        idx.probe_block_n = int(meta.get("probe_block_n", 2048))
         idx.vocab = meta["vocab"]
         idx.avgdl = meta["avgdl"]
         idx.doc_freq = arrays["doc_freq"]

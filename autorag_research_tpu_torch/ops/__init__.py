@@ -13,12 +13,16 @@ from autorag_research_tpu_torch.ops.maxsim import (
 )
 from autorag_research_tpu_torch.ops.sparse import (
     bm25_topk,
+    bm25_topk_packed,
     bm25_topk_probe,
+    bm25_topk_probe_packed,
     bm25_topk_scan,
+    bm25_topk_v1,
     bm25_topk_v2,
     bm25_topk_v2_skip,
     bm25_topk_wand,
     build_tile_bitmaps,
+    pack_slots,
     tile_match,
 )
 
@@ -35,11 +39,15 @@ __all__ = [
     "maxsim_topk",
     "maxsim_topk_verified",
     "bm25_topk",
+    "bm25_topk_packed",
     "bm25_topk_probe",
+    "bm25_topk_probe_packed",
     "bm25_topk_scan",
+    "bm25_topk_v1",
     "bm25_topk_v2",
     "bm25_topk_v2_skip",
     "bm25_topk_wand",
     "build_tile_bitmaps",
+    "pack_slots",
     "tile_match",
 ]

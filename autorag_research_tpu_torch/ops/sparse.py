@@ -1,22 +1,26 @@
-"""BM25 sparse scoring on an NVIDIA GPU: the slot-padded layout.
+"""BM25 sparse scoring on an NVIDIA GPU: the slot-padded layout, flat or lane-packed.
 
-Counterpart of ``autorag_research_tpu/ops/sparse.py`` (its flat layout).
-Each document's unique terms occupy ``L`` slots of two ``[N, L]`` arrays,
-term ids (``DOC_PAD`` = -1 where empty) and precomputed BM25 term weights
-(0 where empty); a query is ``T`` (term id, idf * qtf) pairs, padded with
-``QUERY_PAD`` = -2 and weight 0, so pads never match each other.
+Counterpart of ``autorag_research_tpu/ops/sparse.py``. Each document's unique
+terms occupy ``L`` slots of two ``[N, L]`` arrays, term ids (``DOC_PAD`` = -1
+where empty) and precomputed BM25 term weights (0 where empty); a query is
+``T`` (term id, idf * qtf) pairs, padded with ``QUERY_PAD`` = -2 and weight 0,
+so pads never match each other. The lane-packed layout (:func:`pack_slots`)
+puts ``P = 128 // width`` short documents in each 128-word row.
 
 One scoring order everywhere, ``_slot_match_scores`` of the JAX package: for
 each query term t in increasing order, ``p_t = w[n, l*] * qw[b, t]``
 (rounded), then ``score = score + p_t`` (rounded), where ``l*`` is the doc
 slot holding the term (the sum over every slot, which is that one weight on
 index-built arrays). The scan, the plain versions and the kernels compute
-exactly this, so the CPU and the card rank alike bit for bit.
+exactly this, in either layout, so the CPU and the card rank alike bit for
+bit.
 
 - :func:`bm25_topk_scan` (JAX ``bm25_topk_xla``): document tiles with a
   running ``(-score, row)`` merge; zero-score documents are candidates.
 - :func:`bm25_topk_v2` (JAX ``bm25_topk_pallas_v2``): the fused kernel of
-  ``csrc/bm25_v2.cu`` for any k.
+  ``csrc/bm25_v2.cu`` for any k; :func:`bm25_topk_v1` (JAX
+  ``bm25_topk_pallas``, the ``pallas`` pin): ``csrc/bm25_v1.cu``, one
+  (query, term) pair per step, the same results bitwise.
 - :func:`bm25_topk_v2_skip` (JAX ``bm25_topk_pallas_v2_skip``): the same
   kernel skipping (query tile, doc tile) pairs that the 4-probe Bloom
   predicate :func:`tile_match` clears; ``positive_only`` masks scores <= 0
@@ -25,10 +29,13 @@ exactly this, so the CPU and the card rank alike bit for bit.
   over explicit per-query-tile candidate doc tiles, from the exact host
   term -> tile lists (:func:`build_term_tile_lists`, :func:`probe_candidates`)
   or the two-pass tile-WAND bound (:func:`bm25_topk_wand`).
-- :func:`bm25_route` / :func:`bm25_topk`: the dispatch.
+- :func:`bm25_topk_packed` / :func:`bm25_topk_probe_packed` (JAX
+  ``bm25_topk_pallas_packed`` / ``bm25_topk_pallas_probe_packed``): the
+  whole-corpus and probe walks of ``csrc/bm25_v2.cu`` over the packed layout.
+- :func:`bm25_route` / :func:`pruned_leg` / :func:`bm25_topk`: the dispatch.
 
 CPU tensors take each kernel's plain version; CUDA tensors launch the kernel
-or raise. The v1 and lane-packed kernels are not ported yet.
+or raise.
 """
 
 from __future__ import annotations
@@ -55,7 +62,14 @@ QUERY_PAD = -2
 
 # Kernel launches per wrapper: each wrapper adds one where it launches its
 # kernel and nowhere else.
-LAUNCHES = {"bm25_topk_v2": 0, "bm25_topk_v2_skip": 0, "bm25_topk_probe": 0}
+LAUNCHES = {
+    "bm25_topk_v2": 0,
+    "bm25_topk_v2_skip": 0,
+    "bm25_topk_probe": 0,
+    "bm25_topk_packed": 0,
+    "bm25_topk_probe_packed": 0,
+    "bm25_topk_v1": 0,
+}
 # Calls of the plain versions and the scan, whatever the device: a run on the
 # card shows with these that its tensors never took a plain route.
 PLAIN_CALLS = {
@@ -63,6 +77,9 @@ PLAIN_CALLS = {
     "bm25_topk_v2_plain": 0,
     "bm25_topk_v2_skip_plain": 0,
     "bm25_topk_probe_plain": 0,
+    "bm25_topk_packed_plain": 0,
+    "bm25_topk_probe_packed_plain": 0,
+    "bm25_topk_v1_plain": 0,
 }
 
 # [B, tile_n, L] f32 match weights of one scan step
@@ -77,6 +94,12 @@ PRUNED_K_MAX = 2048
 BLOCK_Q = 8
 # documents per step of the kernel (one per lane)
 _KERNEL_DOCS = 32
+# words in a row of the lane-packed layout
+PACKED_LANES = 128
+# documents per tile of the v1 kernel (bm25_topk_pallas's block_n)
+V1_TILE = 1024
+# the pins that name a pruned leg of a flat single-device index
+PRUNED_PINS = ("pallas_v2_skip", "pallas_probe", "pallas_wand")
 
 
 def reset_launch_counts() -> None:
@@ -238,6 +261,108 @@ def bm25_topk_probe_plain(
         b, n_tiles,
     )
     return _scan(q_ids, q_weights, doc_ids, doc_weights, k, None, True, allowed, block_n)
+
+
+def bm25_topk_v1_plain(q_ids, q_weights, doc_ids, doc_weights, k: int):
+    """Plain PyTorch version of :func:`bm25_topk_v1`: v2's function, so the
+    same tiled scan."""
+    PLAIN_CALLS["bm25_topk_v1_plain"] += 1
+    return _scan(q_ids, q_weights, doc_ids, doc_weights, k, None)
+
+
+# ------------------------------------------------------ lane-packed layout
+def pack_slots(
+    doc_ids: np.ndarray, doc_weights: np.ndarray, width: int
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Pack P = 128 // width docs per 128-word row (doc d -> row d // P,
+    lane group d % P, stride 128 // P). Returns (packed_ids [ceil(N/P), 128],
+    packed_weights, P); the lanes past P * stride, and the groups past the
+    last document, are ``DOC_PAD`` / 0. ``P == 1`` returns the arrays as
+    they are. Raises ``ValueError`` when a live slot lies beyond ``width``.
+    The JAX ``pack_slots``, bit for bit."""
+    p = max(1, PACKED_LANES // width)
+    if p == 1:
+        return doc_ids, doc_weights, 1
+    if doc_ids.shape[1] > width and (doc_ids[:, width:] != DOC_PAD).any():
+        raise ValueError(
+            f"pack_slots(width={width}): some docs have live terms beyond "
+            f"slot {width}; pack only corpora whose docs fit the width"
+        )
+    # the stride, not the raw width, is what the kernels derive from P
+    # (width 24 -> P 5 -> stride 25)
+    stride = PACKED_LANES // p
+    n = doc_ids.shape[0]
+    rows = -(-n // p)
+    ids = np.full((rows * p, stride), DOC_PAD, doc_ids.dtype)
+    w = np.zeros((rows * p, stride), doc_weights.dtype)
+    ids[:n, :width] = doc_ids[:, :width]
+    w[:n, :width] = doc_weights[:, :width]
+    out_ids = np.full((rows, PACKED_LANES), DOC_PAD, doc_ids.dtype)
+    out_w = np.zeros((rows, PACKED_LANES), doc_weights.dtype)
+    out_ids[:, : p * stride] = ids.reshape(rows, p * stride)
+    out_w[:, : p * stride] = w.reshape(rows, p * stride)
+    return out_ids, out_w, p
+
+
+def _check_packed(packed_ids, packed_w, n_docs: int, pack: int) -> None:
+    if not 2 <= pack <= PACKED_LANES:
+        raise ValueError(f"pack must be in [2, {PACKED_LANES}], got {pack}")
+    for x, name in ((packed_ids, "packed_ids"), (packed_w, "packed_weights")):
+        if x.ndim != 2 or x.shape[1] != PACKED_LANES or x.shape[0] * pack < n_docs:
+            raise ValueError(
+                f"{name} {tuple(x.shape)} must be [R, {PACKED_LANES}] with R * pack >= "
+                f"n_docs = {n_docs} (pack_slots's layout)"
+            )
+
+
+def _unpack(packed_ids, packed_w, n_docs: int, pack: int):
+    """The packed layout's documents as flat [n_docs, 128 // pack] slot
+    arrays (the dead tail lanes dropped)."""
+    stride = PACKED_LANES // pack
+    rows = packed_ids.shape[0]
+    return tuple(
+        x[:, : pack * stride].reshape(rows * pack, stride)[:n_docs] for x in (packed_ids, packed_w)
+    )
+
+
+def bm25_topk_packed_plain(q_ids, q_weights, packed_ids, packed_weights, n_docs: int, k: int,
+                           pack: int):
+    """Plain PyTorch version of :func:`bm25_topk_packed`: the scan over the
+    unpacked documents, bitwise :func:`bm25_topk_v2_plain` on the flat
+    arrays (pad slots add zeros)."""
+    _check_packed(packed_ids, packed_weights, n_docs, pack)
+    PLAIN_CALLS["bm25_topk_packed_plain"] += 1
+    doc_ids, doc_w = _unpack(packed_ids, packed_weights, n_docs, pack)
+    return _scan(q_ids, q_weights, doc_ids, doc_w, k, None)
+
+
+def _check_probe_k(k_eff: int, block_n: int) -> None:
+    if k_eff > block_n:
+        # the JAX kernel extracts k per lane group from block_n packed rows
+        raise ValueError(
+            f"k={k_eff} needs block_n >= {k_eff} packed rows; rebuild the "
+            "term->tile lists at a larger block or use a full-scan method"
+        )
+
+
+def bm25_topk_probe_packed_plain(q_ids, q_weights, packed_ids, packed_weights, n_docs: int,
+                                 pack: int, cand, count, k: int, block_n: int = 1024):
+    """Plain PyTorch version of :func:`bm25_topk_probe_packed`: the probe's
+    positive hits over the unpacked documents, a candidate tile being
+    ``block_n`` packed rows (``block_n * pack`` documents)."""
+    _check_packed(packed_ids, packed_weights, n_docs, pack)
+    _check_probe_k(min(k, n_docs), block_n)
+    b = q_ids.shape[0]
+    _check_candidates(cand, count, b)
+    PLAIN_CALLS["bm25_topk_probe_packed_plain"] += 1
+    dev = packed_ids.device
+    tile = block_n * pack
+    allowed = _candidate_mask(
+        torch.as_tensor(cand).to(dev, torch.int64), torch.as_tensor(count).to(dev, torch.int64),
+        b, -(-n_docs // tile),
+    )
+    doc_ids, doc_w = _unpack(packed_ids, packed_weights, n_docs, pack)
+    return _scan(q_ids, q_weights, doc_ids, doc_w, k, None, True, allowed, tile)
 
 
 # ------------------------------------------------------------ Bloom filters
@@ -483,16 +608,22 @@ def _kernel_parts(q_tiles: int, total: int, device: torch.device, unit: int) -> 
     return part, -(-total // part)
 
 
+def _kernel_queries(q_ids, q_w, dev):
+    return (torch.as_tensor(q_ids).to(dev, torch.int32).contiguous(),
+            torch.as_tensor(q_w).to(dev, torch.float32).contiguous())
+
+
 def _launch(name: str, q_ids, q_w, doc_ids, doc_w, k_eff: int, bitmaps=None, cand=None,
-            count=None, block_n: int = SKIP_BLOCK_N, positive_only: bool = False):
+            count=None, block_n: int = SKIP_BLOCK_N, positive_only: bool = False,
+            n_docs: int | None = None, pack: int = 1):
     """Launch one walk of csrc/bm25_v2.cu -> per-part lists [B, P, k_eff]
-    (scores, rows)."""
+    (scores, rows). ``pack > 1``: ``doc_ids`` / ``doc_w`` hold ``n_docs``
+    documents in the packed layout, and ``block_n`` counts documents."""
     dev = doc_ids.device
-    q_ids = torch.as_tensor(q_ids).to(dev, torch.int32).contiguous()
-    q_w = torch.as_tensor(q_w).to(dev, torch.float32).contiguous()
+    q_ids, q_w = _kernel_queries(q_ids, q_w, dev)
     _check_kernel_operands(q_ids, q_w, doc_ids, doc_w)
     b, t = q_ids.shape
-    n, slots = doc_ids.shape
+    n, slots = (n_docs, PACKED_LANES // pack) if pack > 1 else doc_ids.shape
     q_tiles = -(-b // BLOCK_Q)
     n_tiles = -(-n // block_n)
     match = None
@@ -501,16 +632,17 @@ def _launch(name: str, q_ids, q_w, doc_ids, doc_w, k_eff: int, bitmaps=None, can
         _check_bitmaps(bitmaps, n, block_n)
         match = tile_match(q_ids, bitmaps.to(dev)).to(torch.uint8).contiguous()
         part, parts = _kernel_parts(q_tiles, n, dev, block_n)
-    elif name == "bm25_topk_probe":
+    elif cand is not None:
         cap = cand.shape[1]
         part, parts = _kernel_parts(q_tiles, cap, dev, 1)
     else:
         part, parts = _kernel_parts(q_tiles, n, dev, _KERNEL_DOCS)
     out_s = torch.empty((b, parts, k_eff), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, parts, k_eff), dtype=torch.int32, device=dev)
-    vec = slots % 4 == 0 and doc_ids.data_ptr() % 16 == 0 and doc_w.data_ptr() % 16 == 0
+    # 16-byte loads: a flat row of a multiple of 4 slots, or any packed row
+    vec = (pack > 1 or slots % 4 == 0) and doc_ids.data_ptr() % 16 == 0 and doc_w.data_ptr() % 16 == 0
     fn = getattr(cuda_build.load("bm25_v2"), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
         q_ids.data_ptr(), q_w.data_ptr(), doc_ids.data_ptr(), doc_w.data_ptr(),
@@ -519,11 +651,21 @@ def _launch(name: str, q_ids, q_w, doc_ids, doc_w, k_eff: int, bitmaps=None, can
         count.data_ptr() if count is not None else None,
         out_s.data_ptr(), out_i.data_ptr(),
         b, t, n, slots, k_eff, part, parts, q_tiles, n_tiles, cap, block_n,
-        int(vec), int(positive_only), torch.cuda.current_stream(dev).cuda_stream,
+        int(vec), int(positive_only), pack, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check_launch(rc, name)
     LAUNCHES[name] += 1
     return out_s, out_i
+
+
+def _sorted_candidates(cand, count, dev):
+    """(cand, count) on the device for the probe walks: counts clamped to the
+    list length, the live entries sorted (then the walk meets rows in
+    increasing order), the dead ones INT_MAX."""
+    cand = torch.as_tensor(cand).to(dev, torch.int32)
+    count = torch.as_tensor(count).to(dev, torch.int32).clamp(0, cand.shape[1]).contiguous()
+    live = torch.arange(cand.shape[1], device=dev)[None, :] < count[:, None]
+    return torch.where(live, cand, INT_MAX).sort(dim=1).values.contiguous(), count
 
 
 def _empty_topk(b: int, k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -616,15 +758,122 @@ def bm25_topk_probe(
     if k_eff == 0 or b == 0 or cand.shape[1] == 0:
         s, i = _empty_topk(b, k_eff, doc_ids.device)
         return pad_to_k(*_positive_filler(s, i), k, k_eff)
-    dev = doc_ids.device
-    cand = torch.as_tensor(cand).to(dev, torch.int32)
-    count = torch.as_tensor(count).to(dev, torch.int32).clamp(0, cand.shape[1]).contiguous()
-    live = torch.arange(cand.shape[1], device=dev)[None, :] < count[:, None]
-    cand = torch.where(live, cand, INT_MAX).sort(dim=1).values.contiguous()
+    cand, count = _sorted_candidates(cand, count, doc_ids.device)
     out_s, out_i = _launch(
         "bm25_topk_probe", q_ids, q_weights, doc_ids, doc_weights, k_eff,
         cand=cand, count=count, block_n=block_n,
     )
+    scores, ids = merge_topk(out_s, out_i, k_eff)
+    return pad_to_k(scores, ids, k, k_eff)
+
+
+def bm25_topk_packed(
+    q_ids: torch.Tensor,
+    q_weights: torch.Tensor,
+    packed_ids: torch.Tensor,
+    packed_weights: torch.Tensor,
+    n_docs: int,
+    k: int,
+    pack: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """BM25 top-k over the lane-packed layout (JAX ``bm25_topk_pallas_packed``):
+    ``packed_ids`` / ``packed_weights`` [R, 128] from :func:`pack_slots`
+    hold ``n_docs`` documents, ``pack`` a row. Returns (scores [B, k], doc
+    rows [B, k]) in ``(-score, row)`` order, zero-score documents included,
+    as :func:`bm25_topk_v2` returns them on the flat layout: on the card
+    bitwise the same. CUDA tensors launch ``csrc/bm25_v2.cu``'s packed walk
+    (one list per query, no per-lane-group lists to merge); CPU tensors take
+    :func:`bm25_topk_packed_plain`."""
+    if not packed_ids.is_cuda:
+        return bm25_topk_packed_plain(q_ids, q_weights, packed_ids, packed_weights, n_docs, k, pack)
+    _check_packed(packed_ids, packed_weights, n_docs, pack)
+    b = q_ids.shape[0]
+    k_eff = min(k, n_docs)
+    if k_eff == 0 or b == 0:
+        return _empty_topk(b, k, packed_ids.device)
+    out_s, out_i = _launch("bm25_topk_packed", q_ids, q_weights, packed_ids, packed_weights,
+                           k_eff, n_docs=n_docs, pack=pack)
+    scores, ids = merge_topk(out_s, out_i, k_eff)
+    return pad_to_k(scores, ids, k, k_eff)
+
+
+def bm25_topk_probe_packed(
+    q_ids: torch.Tensor,
+    q_weights: torch.Tensor,
+    packed_ids: torch.Tensor,
+    packed_weights: torch.Tensor,
+    n_docs: int,
+    pack: int,
+    cand: torch.Tensor,
+    count: torch.Tensor,
+    k: int,
+    block_n: int = 1024,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Probe-mode BM25 over the lane-packed layout (JAX
+    ``bm25_topk_pallas_probe_packed``): a candidate tile is ``block_n``
+    packed rows, so ``block_n * pack`` documents, and the exact candidate
+    source is ``build_term_tile_lists(doc_ids, block_n * pack)``. The
+    contract of :func:`bm25_topk_probe`: positive hits in ``(-score, row)``
+    order, rows padded with ``(0.0, INT_MAX)``. ``ValueError`` when
+    ``min(k, n_docs) > block_n``, as in the JAX package. CUDA tensors launch
+    ``csrc/bm25_v2.cu``'s packed probe walk; CPU tensors take
+    :func:`bm25_topk_probe_packed_plain`."""
+    if not packed_ids.is_cuda:
+        return bm25_topk_probe_packed_plain(q_ids, q_weights, packed_ids, packed_weights, n_docs,
+                                            pack, cand, count, k, block_n)
+    _check_packed(packed_ids, packed_weights, n_docs, pack)
+    k_eff = min(k, n_docs)
+    _check_probe_k(k_eff, block_n)
+    b = q_ids.shape[0]
+    _check_candidates(cand, count, b)
+    if k_eff == 0 or b == 0 or cand.shape[1] == 0:
+        s, i = _empty_topk(b, k_eff, packed_ids.device)
+        return pad_to_k(*_positive_filler(s, i), k, k_eff)
+    cand, count = _sorted_candidates(cand, count, packed_ids.device)
+    out_s, out_i = _launch(
+        "bm25_topk_probe_packed", q_ids, q_weights, packed_ids, packed_weights, k_eff,
+        cand=cand, count=count, block_n=block_n * pack, n_docs=n_docs, pack=pack,
+    )
+    scores, ids = merge_topk(out_s, out_i, k_eff)
+    return pad_to_k(scores, ids, k, k_eff)
+
+
+def bm25_topk_v1(
+    q_ids: torch.Tensor,
+    q_weights: torch.Tensor,
+    doc_ids: torch.Tensor,
+    doc_weights: torch.Tensor,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """BM25 top-k through the v1 kernel (JAX ``bm25_topk_pallas``, the
+    ``pallas`` pin): one (query, term) pair per step over 1,024-document
+    tiles, ``csrc/bm25_v1.cu``. The function and results of
+    :func:`bm25_topk_v2`, bitwise. CPU tensors take
+    :func:`bm25_topk_v1_plain`."""
+    if not doc_ids.is_cuda:
+        return bm25_topk_v1_plain(q_ids, q_weights, doc_ids, doc_weights, k)
+    dev = doc_ids.device
+    b = q_ids.shape[0]
+    n, slots = doc_ids.shape
+    k_eff = min(k, n)
+    if k_eff == 0 or b == 0:
+        return _empty_topk(b, k, dev)
+    q_ids, q_w = _kernel_queries(q_ids, q_weights, dev)
+    _check_kernel_operands(q_ids, q_w, doc_ids, doc_weights)
+    q_tiles = -(-b // BLOCK_Q)
+    part, parts = _kernel_parts(q_tiles, n, dev, V1_TILE)
+    out_s = torch.empty((b, parts, k_eff), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, parts, k_eff), dtype=torch.int32, device=dev)
+    fn = cuda_build.load("bm25_v1").bm25_topk_v1_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(
+        q_ids.data_ptr(), q_w.data_ptr(), doc_ids.data_ptr(), doc_weights.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), b, q_ids.shape[1], n, slots, k_eff, part, parts,
+        q_tiles, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check_launch(rc, "bm25_topk_v1")
+    LAUNCHES["bm25_topk_v1"] += 1
     scores, ids = merge_topk(out_s, out_i, k_eff)
     return pad_to_k(scores, ids, k, k_eff)
 
@@ -661,10 +910,15 @@ def bm25_topk_wand(
     scan_fraction: float = 0.75,
     return_stats: bool = False,
     fallback: Callable[[], tuple[torch.Tensor, torch.Tensor]] | None = None,
+    packed: tuple[torch.Tensor, torch.Tensor, int, int] | None = None,
 ):
-    """Exact tile-WAND BM25 top-k (JAX ``bm25_topk_wand`` over the flat
-    layout): a two-pass upper-bound-pruned probe. ``term_tiles_maxw`` is
-    :func:`build_term_tile_maxw` at ``block_n``. Exits, cheapest first:
+    """Exact tile-WAND BM25 top-k (JAX ``bm25_topk_wand``): a two-pass
+    upper-bound-pruned probe. ``term_tiles_maxw`` is
+    :func:`build_term_tile_maxw` at ``block_n`` documents, or at ``block_n *
+    pack`` with ``packed=(packed_ids, packed_weights, n_docs, pack)``: then
+    ``doc_ids`` / ``doc_weights`` are unused, both passes run
+    :func:`bm25_topk_probe_packed` over tiles of ``block_n`` packed rows and
+    the default fallback is :func:`bm25_topk_packed`. Exits, cheapest first:
 
     1. ``fallback_early``: a provable lower bound on each query's k-th score
        (the k-th largest per-tile best single-term score) already leaves
@@ -681,11 +935,14 @@ def bm25_topk_wand(
     has score <= 0. With ``return_stats`` also the exit and tile counts."""
     q_np = q_ids.cpu().numpy() if torch.is_tensor(q_ids) else np.asarray(q_ids)
     w_np = q_weights.cpu().numpy() if torch.is_tensor(q_weights) else np.asarray(q_weights)
-    dev = doc_ids.device
+    if packed is not None:
+        packed_ids, packed_w, n_docs, pack = packed
+        dev = packed_ids.device
+    else:
+        dev, n_docs, pack = doc_ids.device, doc_ids.shape[0], 1
     bsz = q_np.shape[0]
     indptr, tiles, maxw = term_tiles_maxw
-    n_docs = doc_ids.shape[0]
-    n_tiles = max(1, -(-n_docs // block_n))
+    n_tiles = max(1, -(-n_docs // (block_n * pack)))
     k_eff = min(k, n_docs)
     bq = BLOCK_Q
     q_tiles = -(-bsz // bq)
@@ -701,16 +958,19 @@ def bm25_topk_wand(
         stats["fallback_full"] = True
         if fallback is not None:
             s, i = fallback()
+        elif packed is not None:
+            s, i = bm25_topk_packed(q_dev, w_dev, packed_ids, packed_w, n_docs, k_eff, pack)
         else:
             s, i = bm25_topk(q_dev, w_dev, doc_ids, doc_weights, k_eff)
         return done(s[:, :k_eff], i[:, :k_eff], stats)
 
     def probe(cand, count, cap):
-        return bm25_topk_probe(
-            q_dev, w_dev, doc_ids, doc_weights,
-            torch.from_numpy(np.ascontiguousarray(cand[:, :cap])).to(dev),
-            torch.from_numpy(count).to(dev), k_eff, block_n,
-        )
+        cand = torch.from_numpy(np.ascontiguousarray(cand[:, :cap])).to(dev)
+        count = torch.from_numpy(count).to(dev)
+        if packed is not None:
+            return bm25_topk_probe_packed(q_dev, w_dev, packed_ids, packed_w, n_docs, pack,
+                                          cand, count, k_eff, block_n)
+        return bm25_topk_probe(q_dev, w_dev, doc_ids, doc_weights, cand, count, k_eff, block_n)
 
     stats = {"n_tiles": n_tiles, "pass1_tiles": 0, "pass2_tiles_max": 0, "fallback_full": False,
              "fallback_early": False, "single_pass": False}
@@ -788,19 +1048,55 @@ def bm25_topk_wand(
 
 
 # -------------------------------------------------------------- dispatch
-def bm25_route(method: str, n: int, k: int, device_type: str, tile_skip: bool) -> str:
-    """The route of a ``SparseIndex`` search as a pure function:
-    ``"scan"``, ``"fused"`` (the v2 kernel) or ``"pruned"`` (the probe /
-    WAND / Bloom-skip legs of ``SparseIndex._search_pruned``).
+def packed_block_rows(probe_block_n: int, pack: int) -> int:
+    """Packed rows per candidate tile of a packed index's pruned legs (JAX
+    ``_search_packed_auto``'s ``bn_rows``): ``probe_block_n`` documents in
+    whole packed rows, rounded down to a multiple of 8 rows, at least 8."""
+    return max(8, (probe_block_n // pack) // 8 * 8)
 
-    ``auto``: on the card the pruned legs with ``tile_skip`` while
-    ``min(k, n) <= PRUNED_K_MAX`` (the JAX package's ``pruned_ok``), else the
-    v2 kernel; off the card the scan (what the JAX package does off the TPU).
-    ``xla`` pins the scan, ``pallas_v2`` the v2 kernel; ``pallas_v2_skip``,
-    ``pallas_probe`` and ``pallas_wand`` pin their pruned leg on any device
-    (plain versions on the CPU) while k allows, else fall back as ``auto``
-    without ``tile_skip``. ``pallas`` (v1) has no kernel of its own yet and
-    raises."""
+
+def bm25_route(method: str, n: int, k: int, device_type: str, tile_skip: bool, layout: str = "flat",
+               pack: int = 1, probe_block_n: int = SKIP_BLOCK_N) -> str:
+    """The route of a ``SparseIndex`` search as a pure function of its
+    device layout (``"flat"``, ``"packed"`` or ``"bucketed"``): ``"scan"``,
+    ``"fused"`` (the v2 kernel), ``"v1"`` (the v1 kernel), ``"pruned"`` (the
+    probe / WAND / Bloom-skip legs of ``SparseIndex._search_pruned``),
+    ``"packed"`` (the packed kernel over the whole corpus),
+    ``"pruned_packed"`` (``_search_packed_auto``'s probe / WAND legs over
+    the packed layout) or ``"bucketed_<leg>"`` (the packed kernel on each
+    packed bucket, ``<leg>`` - scan, fused or v1 - on each flat one).
+
+    The pruned legs exist on a flat layout only: elsewhere the pruned pins
+    ``pallas_v2_skip``, ``pallas_probe`` and ``pallas_wand`` fall back to
+    ``auto``, as in the JAX package's ``search``.
+
+    Flat layout, ``auto``: on the card the pruned legs with ``tile_skip``
+    while ``min(k, n) <= PRUNED_K_MAX`` (the JAX package's ``pruned_ok``),
+    else the v2 kernel; off the card the scan (what the JAX package does off
+    the TPU). ``xla`` pins the scan, ``pallas_v2`` the v2 kernel, ``pallas``
+    the v1 kernel; the pruned pins take their leg on any device (plain
+    versions on the CPU) while k allows, else fall back as ``auto`` without
+    ``tile_skip``.
+
+    Packed layout (``pack`` documents a row, JAX ``_search_packed_auto``):
+    ``auto`` takes the pruned packed legs on the card with ``tile_skip``
+    while ``min(k, n)`` fits a candidate tile of :func:`packed_block_rows`
+    rows, else the packed kernel (its plain version off the card); ``xla``,
+    ``pallas_v2`` and ``pallas`` take their flat route on a flat upload of
+    the same slot arrays.
+
+    Bucketed layout (JAX ``_search_bucketed``): a flat bucket takes the
+    whole-corpus route of ``method`` (``auto``: the v2 kernel on the card,
+    the scan off it)."""
+    if layout not in ("flat", "packed", "bucketed"):
+        raise ValueError(f"unknown SparseIndex layout: {layout}")
+    if method in PRUNED_PINS and layout != "flat":
+        method = "auto"
+    if layout == "bucketed":
+        return "bucketed_" + bm25_route(method, n, k, device_type, False)
+    if layout == "packed" and method == "auto":
+        fits = min(k, n) <= packed_block_rows(probe_block_n, pack)
+        return "pruned_packed" if (tile_skip and fits and device_type == "cuda") else "packed"
     pruned_ok = min(k, n) <= PRUNED_K_MAX
     plain = "fused" if device_type == "cuda" else "scan"
     if method == "auto":
@@ -809,14 +1105,22 @@ def bm25_route(method: str, n: int, k: int, device_type: str, tile_skip: bool) -
         return "scan"
     if method == "pallas_v2":
         return "fused"
-    if method in ("pallas_v2_skip", "pallas_probe", "pallas_wand"):
-        return "pruned" if pruned_ok else plain
     if method == "pallas":
-        raise NotImplementedError(
-            "bm25 method='pallas': its kernel (_bm25_kernel, v1) is not ported yet; "
-            "use 'auto' or 'pallas_v2'"
-        )
+        return "v1"
+    if method in PRUNED_PINS:
+        return "pruned" if pruned_ok else plain
     raise ValueError(f"unknown bm25_topk method: {method}")
+
+
+def pruned_leg(method: str, maxc: int, p_tiles: int) -> str:
+    """``"probe"`` or ``"wand"``: the leg a pruned search takes once the
+    batch's candidate-tile unions are known (``maxc`` the largest of the
+    query tiles', ``p_tiles`` the corpus's tiles). ``auto`` probes a
+    selective batch (``maxc <= p_tiles // 2``), ``pallas_probe`` always,
+    ``pallas_wand`` never (JAX ``_search_pruned`` and ``_search_packed_auto``)."""
+    if method == "pallas_probe" or (method == "auto" and maxc <= p_tiles // 2):
+        return "probe"
+    return "wand"
 
 
 def bm25_topk(
@@ -827,13 +1131,16 @@ def bm25_topk(
     k: int,
     method: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact BM25 top-k over the whole corpus (JAX ``bm25_topk``): ``auto``
-    takes the v2 kernel on the card and the scan off it; ``pallas_v2`` and
-    ``xla`` pin them; ``pallas`` (v1) raises ``NotImplementedError``. Zero
-    scores are candidates; the search layer drops them."""
+    """Exact BM25 top-k over the whole flat corpus (JAX ``bm25_topk``):
+    ``auto`` takes the v2 kernel on the card and the scan off it;
+    ``pallas_v2``, ``pallas`` (v1) and ``xla`` pin the v2 kernel, the v1
+    kernel and the scan (plain versions on CPU tensors). Zero scores are
+    candidates; the search layer drops them."""
     route = bm25_route(method, doc_ids.shape[0], k, doc_ids.device.type, False)
     if route == "scan":
         return bm25_topk_scan(q_ids, q_weights, doc_ids, doc_weights, k)
     if route == "fused":
         return bm25_topk_v2(q_ids, q_weights, doc_ids, doc_weights, k)
+    if route == "v1":
+        return bm25_topk_v1(q_ids, q_weights, doc_ids, doc_weights, k)
     raise ValueError(f"bm25_topk has no pruned route; method {method!r} is a SparseIndex pin")

@@ -16,7 +16,7 @@ from typing import Any
 import torch
 
 from autorag_research_tpu_torch.index import registry
-from autorag_research_tpu_torch.index.sparse import SparseIndex, _refuse_buckets
+from autorag_research_tpu_torch.index.sparse import SparseIndex
 from autorag_research_tpu_torch.pipelines.retrieval.base import BaseRetrievalPipeline
 
 
@@ -34,7 +34,6 @@ class BM25Pipeline(BaseRetrievalPipeline):
         bucketize: int = 1,
         device: str | torch.device = "cuda",
     ):
-        _refuse_buckets(bucketize)
         self.tokenizer = tokenizer
         self.k1 = k1
         self.b = b

@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's dense, MaxSim and BM25 retrieval paths
-(``autorag_research_tpu_torch``) at full width and fails (non-zero exit) on
+Drives the port's dense, MaxSim and BM25 (flat, packed, bucketed) retrieval
+paths (``autorag_research_tpu_torch``) at full width and fails (non-zero exit) on
 any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
@@ -62,8 +62,29 @@ any fault:
     <= 7, a selective batch: the probe kernel) at k = 10 and 1,000. The routes
     give the same hits, equal to an exact scan of the same device tensors;
     every kernel launched, no plain version or scan;
-11. a SciFact-size catalog run through ``BM25Pipeline`` (defaults): 3,000 rows,
-    recall@10 / ndcg@10, rows equal to an exact scan, a pruned leg launched.
+11. SciFact-size catalog runs through ``BM25Pipeline``, defaults and
+    ``bucketize=2`` on the same catalog: 3,000 rows each, rows equal to an exact
+    scan, equal recall@10 / ndcg@10, a pruned leg launched by the flat run;
+12. BM25 slice B's kernels against their plain versions: the packed kernel
+    (``csrc/bm25_v2.cu``'s packed layout) at 500,000 docs x 16 unique terms
+    (pack 8) beside the v2 kernel over the flat layout of the same arrays,
+    bitwise equal to both, k = 10 and 100; the packed probe at 500,000
+    clustered log-uniform short docs (256-row tiles, 32 rare-term queries x 8
+    terms, k = 10) beside the flat probe; the v1 kernel (``csrc/bm25_v1.cu``)
+    beside v2 at phase 9's uniform shapes; each with its time, the plain
+    version's, the CSR yardstick's and its bound;
+13. the short-doc main path with every launch count at 0 just before it: a
+    packed ``SparseIndex`` of 522,931 texts of 4-19 Zipf words (BEIR Quora's
+    size; L, pack and stride printed), 1,024 queries of 6-13 words at k = 10
+    and 100 with and without ``tile_skip`` and at k = 1,000, 1,024 rare-term
+    lookups at k = 10, the ``pallas`` (v1) and ``pallas_v2`` pins at k = 10;
+    each search logs its route and launches; hits equal to the v2 kernel over
+    a flat upload of the same index; the three new kernels launched, no plain
+    version; then each new kernel at the main path's shapes;
+14. a bucketed ``SparseIndex`` (``bucketize=2``) of 500,000 texts, 90% of
+    10-16 and 10% of 100-128 Zipf words: its buckets and ``device_bytes``
+    against the flat layout's, 1,024 NQ-like queries at k = 10 and 100, hits
+    equal to the flat layout's, the packed kernel launched.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -102,6 +123,15 @@ BM25_N, BM25_L, BM25_V, BM25_B, BM25_T = 500_000, 128, 200_000, 32, 16
 BM25_WINDOW = 2000  # term window of a clustered doc or query
 BM25_Q, BM25_K_LONG = 1024, 1000
 BM25_ZIPF = 1.1
+# BM25 slice B: the packed kernel at scripts/bench_bm25_packed.py's shapes
+# (500k docs x 16 unique terms, pack 8), the packed probe at
+# scripts/bench_bm25_probe_packed.py's (width 16, 8 query terms, vocabulary
+# 500k, cluster_doc_order, 256 packed rows a tile; 5M docs cut to 500k),
+# a short-doc main path at BEIR Quora's size (522,931 docs, mean 11.44 words;
+# BEIR Table 1) and a bucketed one (scripts/bench_bm25_bucketed.py's 90/10)
+PACKED_W, PROBE_T, PROBE_V, PROBE_ROWS = 16, 8, 500_000, 256
+QUORA_N, QUORA_WORDS, QUORA_QWORDS = 522_931, (4, 19), (6, 13)
+BUCKET_N, BUCKET_SHORT, BUCKET_LONG = 500_000, (10, 16), (100, 128)
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
 # non-tensor FLOP/s, HBM bytes/s
@@ -520,7 +550,7 @@ def bm25_arrays(seed: int, dev, clustered: bool):
     return q_ids, q_w, doc_ids, doc_w
 
 
-def bm25_library(q_ids, q_w, doc_ids, doc_w):
+def bm25_library(q_ids, q_w, doc_ids, doc_w, vocab: int = BM25_V):
     """Yardstick of the BM25 function (never called by the port): the
     doc-term CSR [N, V] f32 by the dense [V, B] query weights with one sparse
     product (cuSPARSE), then ``torch.topk``. Returns a callable of k (None:
@@ -536,9 +566,9 @@ def bm25_library(q_ids, q_w, doc_ids, doc_w):
     with warnings.catch_warnings():  # PyTorch calls its CSR support beta
         warnings.simplefilter("ignore", UserWarning)
         csr = torch.sparse_csr_tensor(
-            crow, ids_sorted[live].long(), w_sorted[live], size=(n, BM25_V), check_invariants=False
+            crow, ids_sorted[live].long(), w_sorted[live], size=(n, vocab), check_invariants=False
         )
-    qmat = torch.zeros((BM25_V, q_ids.shape[0]), dtype=torch.float32, device=doc_ids.device)
+    qmat = torch.zeros((vocab, q_ids.shape[0]), dtype=torch.float32, device=doc_ids.device)
     qb, qt = torch.nonzero(q_ids >= 0, as_tuple=True)
     qmat[q_ids[qb, qt].long(), qb] = q_w[qb, qt]
 
@@ -560,11 +590,89 @@ def zipf_texts(rng, words: list[str], n: int, lo: int, hi: int) -> list[str]:
     return [" ".join(seq[e - m : e]) for e, m in zip(ends, lens.tolist())]
 
 
+# source file and TPU kernel line (autorag_research_tpu/ops/sparse.py) of
+# each BM25 kernel wrapper
+BM25_KERNELS = {
+    "bm25_topk_v2": ("bm25_v2.cu", 295),
+    "bm25_topk_v2_skip": ("bm25_v2.cu", 474),
+    "bm25_topk_probe": ("bm25_v2.cu", 722),
+    "bm25_topk_packed": ("bm25_v2.cu", 934),
+    "bm25_topk_probe_packed": ("bm25_v2.cu", 1088),
+    "bm25_topk_v1": ("bm25_v1.cu", 107),
+}
+
+
+def bm25_bound(peak: dict, q_ids, doc_bytes: int, out_bytes, n: int = BM25_N, tiles=None,
+               block_n: int = 2048):
+    """Least time for the BM25 function on this run's data: one multiply and
+    one add per (live query term, document), kept apart by the function's
+    rounding (no FMA: half the f32 FMA peak), for every document or, with
+    ``tiles`` [q_tiles, n_tiles] bool, only the doc tiles of ``block_n``
+    documents a query tile must score; the slot arrays (``doc_bytes`` per
+    document) of the documents some query reads, read once."""
+    import torch
+
+    dev = q_ids.device
+    live = (q_ids >= 0).sum(dim=1).double()
+    if tiles is None:
+        pair_terms, docs = float(live.sum()) * n, n
+    else:
+        sizes = torch.full((tiles.shape[1],), float(block_n), dtype=torch.float64, device=dev)
+        sizes[-1] = n - block_n * (tiles.shape[1] - 1)
+        live_tile = torch.zeros(tiles.shape[0], dtype=torch.float64, device=dev)
+        live_tile.index_add_(0, torch.arange(len(live), device=dev) // 8, live)
+        pair_terms = float((live_tile[:, None] * tiles.double() * sizes).sum())
+        docs = float((tiles.any(dim=0).double() * sizes).sum())
+    return bound(2.0 * pair_terms, docs * doc_bytes + q_ids.numel() * 8 + out_bytes,
+                 peak["f32"] / 2, peak["hbm"])
+
+
+def bm25_record(kernels: list, name, case, err, ms, plain_ms, lib_ms, b_ms, b_by) -> None:
+    log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, CSR sparse.mm + topk yardstick "
+        f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    src, line = BM25_KERNELS[name]
+    kernels.append({
+        "name": name, "case": case, "route": "cuda",
+        "source": f"autorag_research_tpu_torch/csrc/{src}",
+        "replaces": f"autorag_research_tpu/ops/sparse.py:{line}",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+    })
+
+
+def bm25_check_equal(label, got, ref) -> float:
+    """Fail unless a kernel's (scores, rows) equal its reference bitwise;
+    returns max |d score|."""
+    import torch
+
+    (s, i), (rs, ri) = got, ref
+    err = float((s - rs).abs().max())
+    n_mism = int((i != ri).sum())
+    same = bool(torch.equal(s, rs) and torch.equal(i, ri))
+    log(f"{label}: ids mismatches {n_mism}/{i.numel()}, max|d score| = {err:.3e} (bitwise: {same})")
+    if not same:
+        fail(f"{label}: the kernel is not bitwise equal to its reference")
+    return err
+
+
+def tile_mask(cand, count, n_tiles: int):
+    """[q_tiles, n_tiles] bool: the live entries of candidate lists."""
+    import torch
+
+    dev = cand.device
+    live = torch.arange(cand.shape[1], device=dev)[None] < count[:, None]
+    mask = torch.zeros((cand.shape[0], n_tiles), dtype=torch.bool, device=dev)
+    rows = torch.arange(cand.shape[0], device=dev)[:, None].expand_as(cand)
+    mask[rows[live], cand[live].long()] = True
+    return mask
+
+
 def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> None:
     """The BM25 path: the three kernels vs their plain versions at the
     benchmark shapes, the main path (a BEIR-scale ``SparseIndex`` built from
     text and searched through the pruned legs and the v2 kernel) with its own
-    launch window, and a SciFact-size catalog run through ``BM25Pipeline``."""
+    launch window, and a SciFact-size catalog run through ``BM25Pipeline``,
+    flat and bucketed."""
     import torch
 
     from autorag_research_tpu_torch.evaluation.metrics.retrieval import (
@@ -580,58 +688,7 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
     from autorag_research_tpu_torch.store.catalog import Catalog
     from autorag_research_tpu_torch.store.gt import build_retrieval_gt_from_relations
 
-    src = "autorag_research_tpu_torch/csrc/bm25_v2.cu"
-    replaces = {"bm25_topk_v2": "295", "bm25_topk_v2_skip": "474", "bm25_topk_probe": "722"}
     elt_bytes = BM25_N * BM25_L * 8  # ids + weights, each read once
-    # one multiply and one add per (live query term, document), kept apart by
-    # the function's rounding (no FMA): half the f32 FMA peak
-    f32_no_fma = peak["f32"] / 2
-
-    def bm25_bound(q_ids, slots, out_bytes, tiles=None, block_n=ts.SKIP_BLOCK_N):
-        """Least time for the function on this run's data: every document
-        (or, with ``tiles`` [q_tiles, n_tiles] bool, only the doc tiles a
-        query tile must score) against each live query term; the slot
-        arrays of the documents some query reads, read once."""
-        live = (q_ids >= 0).sum(dim=1).double()
-        n = BM25_N
-        if tiles is None:
-            pair_terms, docs = float(live.sum()) * n, n
-        else:
-            sizes = torch.full((tiles.shape[1],), float(block_n), dtype=torch.float64, device=dev)
-            sizes[-1] = n - block_n * (tiles.shape[1] - 1)
-            live_tile = torch.zeros(tiles.shape[0], dtype=torch.float64, device=dev)
-            live_tile.index_add_(0, torch.arange(len(live), device=dev) // ts.BLOCK_Q, live)
-            pair_terms = float((live_tile[:, None] * tiles.double() * sizes).sum())
-            docs = float((tiles.any(dim=0).double() * sizes).sum())
-        return bound(2.0 * pair_terms, docs * slots * 8 + q_ids.numel() * 8 + out_bytes,
-                     f32_no_fma, peak["hbm"])
-
-    def record(name, case, err, ms, plain_ms, lib_ms, b_ms, b_by):
-        log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, CSR sparse.mm + topk yardstick "
-            f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-        kernels.append({
-            "name": name, "case": case, "route": "cuda", "source": src,
-            "replaces": f"autorag_research_tpu/ops/sparse.py:{replaces[name]}",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        })
-
-    def check_equal(label, got, ref):
-        (s, i), (rs, ri) = got, ref
-        err = float((s - rs).abs().max())
-        n_mism = int((i != ri).sum())
-        log(f"{label}: ids mismatches {n_mism}/{i.numel()}, max|d score| = {err:.3e} "
-            f"(bitwise: {bool(torch.equal(s, rs) and torch.equal(i, ri))})")
-        if not (torch.equal(s, rs) and torch.equal(i, ri)):
-            fail(f"{label}: the kernel is not bitwise equal to its plain version")
-        return err
-
-    def tile_mask(cand, count, n_tiles):
-        live = torch.arange(cand.shape[1], device=dev)[None] < count[:, None]
-        mask = torch.zeros((cand.shape[0], n_tiles), dtype=torch.bool, device=dev)
-        rows = torch.arange(cand.shape[0], device=dev)[:, None].expand_as(cand)
-        mask[rows[live], cand[live].long()] = True
-        return mask
 
     # ---- 9. kernels vs plain at the benchmark shapes -----------------------
     t0 = time.perf_counter()
@@ -652,59 +709,59 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
     shapes = f"B={BM25_B} x T={BM25_T} vs {BM25_N} x {BM25_L}"
     for k in (K, K_LONG, BM25_K_LONG):
         label = f"bm25_topk_v2 vs plain, uniform {shapes}, k={k}"
-        err = check_equal(label, ts.bm25_topk_v2(*uni, k), ts.bm25_topk_v2_plain(*uni, k))
-        record("bm25_topk_v2", f"uniform {shapes}, k={k}", err,
-               cuda_ms(lambda: ts.bm25_topk_v2(*uni, k), 10),
-               cuda_ms(lambda: ts.bm25_topk_v2_plain(*uni, k), 2),
-               cuda_ms(lambda: lib_uni(k), 5), *bm25_bound(uni[0], BM25_L, BM25_B * k * 8))
+        err = bm25_check_equal(label, ts.bm25_topk_v2(*uni, k), ts.bm25_topk_v2_plain(*uni, k))
+        bm25_record(kernels, "bm25_topk_v2", f"uniform {shapes}, k={k}", err,
+                    cuda_ms(lambda: ts.bm25_topk_v2(*uni, k), 10),
+                    cuda_ms(lambda: ts.bm25_topk_v2_plain(*uni, k), 2),
+                    cuda_ms(lambda: lib_uni(k), 5), *bm25_bound(peak, uni[0], BM25_L * 8, BM25_B * k * 8))
     match_uni = ts.tile_match(uni[0], bm_uni)
     for pos, k in ((True, K), (True, K_LONG), (False, K)):
         case = f"uniform {shapes}, k={k}, positive_only={pos}"
-        err = check_equal(
+        err = bm25_check_equal(
             f"bm25_topk_v2_skip vs plain, {case}",
             ts.bm25_topk_v2_skip(*uni, bm_uni, k, positive_only=pos),
             ts.bm25_topk_v2_skip_plain(*uni, bm_uni, k, positive_only=pos),
         )
         log(f"  (query tile, doc tile) pairs skipped: {1 - float(match_uni.float().mean()):.4f}")
-        record("bm25_topk_v2_skip", case, err,
-               cuda_ms(lambda: ts.bm25_topk_v2_skip(*uni, bm_uni, k, positive_only=pos), 10),
-               cuda_ms(lambda: ts.bm25_topk_v2_skip_plain(*uni, bm_uni, k, positive_only=pos), 2),
-               cuda_ms(lambda: lib_uni(k), 5),
-               *bm25_bound(uni[0], BM25_L, BM25_B * k * 8, tiles=match_uni))
+        bm25_record(kernels, "bm25_topk_v2_skip", case, err,
+                    cuda_ms(lambda: ts.bm25_topk_v2_skip(*uni, bm_uni, k, positive_only=pos), 10),
+                    cuda_ms(lambda: ts.bm25_topk_v2_skip_plain(*uni, bm_uni, k, positive_only=pos), 2),
+                    cuda_ms(lambda: lib_uni(k), 5),
+                    *bm25_bound(peak, uni[0], BM25_L * 8, BM25_B * k * 8, tiles=match_uni))
     # the clustered layout: the predicate prunes, the exact candidate lists more
     match_clu = ts.tile_match(clu[0], bm_clu)
     skipped = 1 - float(match_clu.float().mean())
     lib_clu = bm25_library(*clu)
     case = f"clustered {shapes}, k={K}, positive_only=True"
-    err = check_equal(f"bm25_topk_v2_skip vs plain, {case}",
-                      ts.bm25_topk_v2_skip(*clu, bm_clu, K, positive_only=True),
-                      ts.bm25_topk_v2_skip_plain(*clu, bm_clu, K, positive_only=True))
+    err = bm25_check_equal(f"bm25_topk_v2_skip vs plain, {case}",
+                           ts.bm25_topk_v2_skip(*clu, bm_clu, K, positive_only=True),
+                           ts.bm25_topk_v2_skip_plain(*clu, bm_clu, K, positive_only=True))
     log(f"  (query tile, doc tile) pairs skipped: {skipped:.4f}; doc tiles some query tile "
         f"scores: {int(match_clu.any(dim=0).sum())}/{bm_clu.shape[0]}")
     clu_v2_ms = cuda_ms(lambda: ts.bm25_topk_v2(*clu, K), 10)
     log(f"  v2 kernel (no skip) on the same clustered arrays: {clu_v2_ms:.3f} ms")
-    record("bm25_topk_v2_skip", case, err,
-           cuda_ms(lambda: ts.bm25_topk_v2_skip(*clu, bm_clu, K, positive_only=True), 10),
-           cuda_ms(lambda: ts.bm25_topk_v2_skip_plain(*clu, bm_clu, K, positive_only=True), 2),
-           cuda_ms(lambda: lib_clu(K), 5),
-           *bm25_bound(clu[0], BM25_L, BM25_B * K * 8, tiles=match_clu))
+    bm25_record(kernels, "bm25_topk_v2_skip", case, err,
+                cuda_ms(lambda: ts.bm25_topk_v2_skip(*clu, bm_clu, K, positive_only=True), 10),
+                cuda_ms(lambda: ts.bm25_topk_v2_skip_plain(*clu, bm_clu, K, positive_only=True), 2),
+                cuda_ms(lambda: lib_clu(K), 5),
+                *bm25_bound(peak, clu[0], BM25_L * 8, BM25_B * K * 8, tiles=match_clu))
     n_tiles = bm_clu.shape[0]
     cand_np, count_np, maxc = ts.probe_candidates(clu[0].cpu().numpy(), indptr, tiles, ts.BLOCK_Q, n_tiles)
     cand, count = torch.from_numpy(cand_np).to(dev), torch.from_numpy(count_np).to(dev)
     probe_tiles = tile_mask(cand, count, n_tiles)
     for k in (K, K_LONG):
         case = f"clustered {shapes}, k={k}, exact candidate tiles"
-        err = check_equal(f"bm25_topk_probe vs plain, {case}",
-                          ts.bm25_topk_probe(*clu, cand, count, k),
-                          ts.bm25_topk_probe_plain(*clu, cand, count, k))
+        err = bm25_check_equal(f"bm25_topk_probe vs plain, {case}",
+                               ts.bm25_topk_probe(*clu, cand, count, k),
+                               ts.bm25_topk_probe_plain(*clu, cand, count, k))
         log(f"  candidate tiles per query tile: max {maxc}, mean {float(count.float().mean()):.1f} "
             f"of {n_tiles}; (query tile, doc tile) pairs scored "
             f"{float(probe_tiles.float().mean()):.4f} (Bloom predicate: {1 - skipped:.4f})")
-        record("bm25_topk_probe", case, err,
-               cuda_ms(lambda: ts.bm25_topk_probe(*clu, cand, count, k), 10),
-               cuda_ms(lambda: ts.bm25_topk_probe_plain(*clu, cand, count, k), 2),
-               cuda_ms(lambda: lib_clu(k), 5),
-               *bm25_bound(clu[0], BM25_L, BM25_B * k * 8, tiles=probe_tiles))
+        bm25_record(kernels, "bm25_topk_probe", case, err,
+                    cuda_ms(lambda: ts.bm25_topk_probe(*clu, cand, count, k), 10),
+                    cuda_ms(lambda: ts.bm25_topk_probe_plain(*clu, cand, count, k), 2),
+                    cuda_ms(lambda: lib_clu(k), 5),
+                    *bm25_bound(peak, clu[0], BM25_L * 8, BM25_B * k * 8, tiles=probe_tiles))
     del uni, clu, bm_uni, bm_clu, lib_uni, lib_clu, match_uni, match_clu, cand, count, probe_tiles
     torch.cuda.empty_cache()
 
@@ -750,11 +807,12 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
     plain_calls = {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS}
     log(f"BM25 main path launches: {json.dumps(launches)}, plain calls {json.dumps(plain_calls)} "
         f"({main_s:.2f} s, first calls, host term -> tile lists and bitmaps included)")
-    if min(launches.values()) < 1 or any(plain_calls.values()):
+    flat_kernels = ("bm25_topk_v2", "bm25_topk_v2_skip", "bm25_topk_probe")
+    if min(launches[n] for n in flat_kernels) < 1 or any(plain_calls.values()):
         fail("the BM25 main path skipped a kernel or took a plain route on the card")
     for entry in kernels:
-        if entry["name"] in ts.LAUNCHES:
-            entry["launches"] = ts.LAUNCHES[entry["name"]]
+        if entry["name"] in flat_kernels:
+            entry["launches"] = launches[entry["name"]]
 
     def as_pairs(rows):
         return [[(h.doc_id, h.score) for h in row] for row in rows]
@@ -849,28 +907,27 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
         if not same:
             fail(f"{name} is not bitwise equal to its plain version at the main path's shapes")
         del got, ref
-        record(name, case, err, cuda_ms(kern, 5), plain_ms, cuda_ms(lambda: lib(K), 3),
-               *bm25_bound(q_used, slots, BM25_Q * K * 8, tiles=tiles_needed))
+        bm25_record(kernels, name, case, err, cuda_ms(kern, 5), plain_ms, cuda_ms(lambda: lib(K), 3),
+                    *bm25_bound(peak, q_used, slots * 8, BM25_Q * K * 8, tiles=tiles_needed))
         kernels[-1]["launches"] = launches[name]
     del index, ss, si, qi, qw, ri, rw, di, dw, bitmaps, lib_main, lib_rare, cand, count
     torch.cuda.empty_cache()
 
-    # ---- 11. SciFact-size catalog run through BM25Pipeline -------------------
+    # ---- 11. SciFact-size catalog runs through BM25Pipeline, flat and bucketed
     crng = np.random.default_rng(seed + 1)
     chunk_texts = make_texts(crng, vocab, SCIFACT_CHUNKS, 40, 121)
     gold = crng.choice(SCIFACT_CHUNKS, size=SCIFACT_QUERIES, replace=False)
     q_texts = [" ".join(crng.choice(chunk_texts[g].split(), size=12)) for g in gold]
-    with tempfile.TemporaryDirectory() as tmp:
-        cat = Catalog(f"{tmp}/scifact_bm25.db")
-        cat.add_chunks({"id": i, "contents": t} for i, t in enumerate(chunk_texts))
-        cat.add_queries({"id": j, "contents": t} for j, t in enumerate(q_texts))
-        for j, g in enumerate(gold):
-            cat.add_retrieval_gt(j, int(g))
+
+    def catalog_run(cat, name, **opts):
+        """(stats, launches, rows, recall@10, ndcg@10, buckets, plain calls)
+        of one pipeline run with its own launch window."""
         ts.reset_launch_counts()
-        pipe = BM25Pipeline(cat, name="bm25", device=dev)
+        pipe = BM25Pipeline(cat, name=name, device=dev, **opts)
         stats = pipe.run(top_k=K)
-        cat_launches = dict(ts.LAUNCHES)
-        rows = {j: cat.get_retrieved(j, pipe.pipeline_id) for j in range(SCIFACT_QUERIES)}
+        launches = {n: c for n, c in ts.LAUNCHES.items() if c}
+        plain = sum(ts.PLAIN_CALLS.values())
+        rows = [cat.get_retrieved(j, pipe.pipeline_id) for j in range(SCIFACT_QUERIES)]
         inputs = []
         for j in range(SCIFACT_QUERIES):
             gt, _ = build_retrieval_gt_from_relations(
@@ -879,27 +936,354 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
             inputs.append(MetricInput(
                 retrieval_gt=gt, retrieved_ids=[f"chunk_{r['doc_id']}" for r in rows[j]]
             ))
+        buckets = pipe._index()._device_buckets
+        return (stats, launches, [[(r["doc_id"], r["rel_score"]) for r in row] for row in rows],
+                float(np.mean(retrieval_recall(inputs))), float(np.mean(retrieval_ndcg(inputs))),
+                [(b["pack"], len(b["rows"])) for b in buckets] if buckets else None, plain)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cat = Catalog(f"{tmp}/scifact_bm25.db")
+        cat.add_chunks({"id": i, "contents": t} for i, t in enumerate(chunk_texts))
+        cat.add_queries({"id": j, "contents": t} for j, t in enumerate(q_texts))
+        for j, g in enumerate(gold):
+            cat.add_retrieval_gt(j, int(g))
+        runs = {"flat": catalog_run(cat, "bm25"), "bucketize=2": catalog_run(cat, "bm25_bk", bucketize=2)}
         cat.close()
-    recall = float(np.mean(retrieval_recall(inputs)))
-    ndcg = float(np.mean(retrieval_ndcg(inputs)))
     ref_idx = SparseIndex(list(range(SCIFACT_CHUNKS)), chunk_texts, device=dev).to_device()
     q_ids, q_w = ref_idx.encode_queries(q_texts)
     ss, si = ts.bm25_topk_scan(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_w).to(dev),
                                *ref_idx._device, K)
     ref = [[(int(r), float(s)) for s, r in zip(qs, qr) if s > 0]
            for qs, qr in zip(ss.cpu().numpy(), si.cpu().numpy())]
-    got = [[(r["doc_id"], r["rel_score"]) for r in rows[j]] for j in range(SCIFACT_QUERIES)]
-    n_mism = sum(a != b for a, b in zip(got, ref))
-    log(f"SciFact-size BM25 catalog run: {stats['total_results']} rows persisted for "
-        f"{stats['total_queries']} queries, launches {json.dumps(cat_launches)}, recall@10 "
-        f"{recall:.4f}, ndcg@10 {ndcg:.4f}, vs exact scan {n_mism} queries differ")
-    if stats["total_results"] != SCIFACT_QUERIES * K or stats["failed_queries"]:
-        fail(f"BM25 catalog run persisted {stats['total_results']} rows, failed "
-             f"{stats['failed_queries']}")
-    if n_mism or cat_launches["bm25_topk_v2_skip"] + cat_launches["bm25_topk_probe"] < 1:
-        fail("BM25 catalog run diverged from the exact scan or took no pruned leg")
-    if not (0.0 <= recall <= 1.0 and 0.0 <= ndcg <= 1.0 and math.isfinite(ndcg)):
-        fail(f"BM25 metrics out of range: recall {recall}, ndcg {ndcg}")
+    for label, (stats, launches, got, recall, ndcg, buckets, plain) in runs.items():
+        n_mism = sum(a != b for a, b in zip(got, ref))
+        log(f"SciFact-size BM25 catalog run, {label}: {stats['total_results']} rows persisted for "
+            f"{stats['total_queries']} queries, buckets (pack, docs) {buckets}, launches "
+            f"{json.dumps(launches)}, recall@10 {recall:.4f}, ndcg@10 {ndcg:.4f}, vs exact scan "
+            f"{n_mism} queries differ")
+        if stats["total_results"] != SCIFACT_QUERIES * K or stats["failed_queries"]:
+            fail(f"BM25 catalog run ({label}) persisted {stats['total_results']} rows, failed "
+                 f"{stats['failed_queries']}")
+        if n_mism:
+            fail(f"BM25 catalog run ({label}) diverged from the exact scan")
+        if not (0.0 <= recall <= 1.0 and 0.0 <= ndcg <= 1.0 and math.isfinite(ndcg)):
+            fail(f"BM25 metrics out of range ({label}): recall {recall}, ndcg {ndcg}")
+        if plain:
+            fail(f"BM25 catalog run ({label}) took a plain route on the card")
+    flat_run, bk_run = runs.values()
+    if flat_run[1].get("bm25_topk_v2_skip", 0) + flat_run[1].get("bm25_topk_probe", 0) < 1:
+        fail("the flat BM25 catalog run took no pruned leg")
+    if bk_run[0]["total_results"] != flat_run[0]["total_results"] or bk_run[3:5] != flat_run[3:5] \
+            or not bk_run[5] or len(bk_run[5]) != 2:
+        fail("the bucketed BM25 catalog run differs from the flat run's rows, metrics or layout")
+
+
+def log_uniform_short_docs(n: int, gen, dev):
+    """scripts/bench_bm25_probe_packed.py's short documents, drawn on the
+    card: 4-15 slots of log-uniform term ids in [1, PROBE_V) (``V ** u``),
+    weights uniform in [0.2, 2.0), a repeated id in a row made a pad (an
+    index build's unique terms)."""
+    import torch
+
+    cnt = torch.randint(4, PACKED_W, (n, 1), generator=gen, device=dev)
+    u = torch.rand((n, PACKED_W), generator=gen, device=dev, dtype=torch.float64)
+    terms = torch.pow(float(PROBE_V), u).long().clamp(max=PROBE_V - 1)
+    live = torch.arange(PACKED_W, device=dev)[None, :] < cnt
+    ids = torch.where(live, terms, -1).sort(dim=1).values
+    dup = torch.zeros_like(live)
+    dup[:, 1:] = (ids[:, 1:] == ids[:, :-1]) & (ids[:, 1:] >= 0)
+    ids = ids.masked_fill(dup, -1).to(torch.int32)
+    w = torch.rand((n, PACKED_W), generator=gen, device=dev) * 1.8 + 0.2
+    return ids, w.masked_fill(ids < 0, 0.0)
+
+
+def bm25_packed_phases(seed: int, dev, peak: dict, kernels: list) -> None:
+    """BM25 slice B: the packed kernels and the v1 kernel vs their plain
+    versions at the benchmark shapes (the packed kernel beside v2 over the
+    flat layout of the same arrays), the short-doc main path (a BEIR
+    Quora-size packed ``SparseIndex``) in a launch window of its own, and a
+    bucketed index of a 90/10 skewed corpus."""
+    import torch
+
+    from autorag_research_tpu_torch.index.sparse import SparseIndex
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    def as_pairs(rows):
+        return [[(h.doc_id, h.score) for h in row] for row in rows]
+
+    # ---- 12. packed, packed probe and v1 kernels at the benchmark shapes ---
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    zero = torch.zeros((BM25_N, 1), dtype=torch.int64, device=dev)
+    ids16 = unique_rows(BM25_N, PACKED_W, zero, BM25_V, gen, dev).to(torch.int32).contiguous()
+    w16 = torch.rand((BM25_N, PACKED_W), generator=gen, device=dev).contiguous()
+    q_ids = unique_rows(BM25_B, BM25_T, zero[:BM25_B], BM25_V, gen, dev).to(torch.int32).contiguous()
+    q_w = (torch.rand((BM25_B, BM25_T), generator=gen, device=dev) * 2 + 0.1).contiguous()
+    t0 = time.perf_counter()
+    p_np, pw_np, pack = ts.pack_slots(ids16.cpu().numpy(), w16.cpu().numpy(), PACKED_W)
+    pids, pw = torch.from_numpy(p_np).to(dev), torch.from_numpy(pw_np).to(dev)
+    log(f"packed benchmark arrays: {BM25_N} docs x {PACKED_W} unique terms (vocabulary {BM25_V}), "
+        f"pack {pack}, {tuple(pids.shape)} packed rows, {2 * pids.numel() * 4 / 1e6:.1f} MB; "
+        f"pack_slots on the host {time.perf_counter() - t0:.2f} s")
+    flat16 = (q_ids, q_w, ids16, w16)
+    lib16 = bm25_library(*flat16)
+    shapes = f"B={BM25_B} x T={BM25_T} vs {BM25_N} x {PACKED_W} packed {pack}"
+    for k in (K, K_LONG):
+        got = ts.bm25_topk_packed(q_ids, q_w, pids, pw, BM25_N, k, pack)
+        ref, plain_ms = timed(lambda: ts.bm25_topk_packed_plain(q_ids, q_w, pids, pw, BM25_N, k, pack))
+        err = bm25_check_equal(f"bm25_topk_packed vs plain, {shapes}, k={k}", got, ref)
+        bm25_check_equal(f"bm25_topk_packed vs bm25_topk_v2 over the flat layout, k={k}", got,
+                         ts.bm25_topk_v2(*flat16, k))
+        ms = cuda_ms(lambda: ts.bm25_topk_packed(q_ids, q_w, pids, pw, BM25_N, k, pack), 10)
+        v2_ms = cuda_ms(lambda: ts.bm25_topk_v2(*flat16, k), 10)
+        ms_again = cuda_ms(lambda: ts.bm25_topk_packed(q_ids, q_w, pids, pw, BM25_N, k, pack), 10)
+        log(f"  packed {ms:.3f} / {ms_again:.3f} ms against v2 over the flat [N, {PACKED_W}] layout "
+            f"{v2_ms:.3f} ms (packed, v2, packed): packed / flat {ms / v2_ms:.3f}")
+        bm25_record(kernels, "bm25_topk_packed", f"{shapes}, k={k}", err, ms, plain_ms,
+                    cuda_ms(lambda: lib16(k), 5),
+                    *bm25_bound(peak, q_ids, PACKED_W * 8, BM25_B * k * 8))
+        kernels[-1]["flat_v2_ms"] = v2_ms
+    del ids16, w16, pids, pw, flat16, lib16, got, ref
+
+    # the packed probe: log-uniform short docs, clustered, rare-term queries
+    t0 = time.perf_counter()
+    ids_c, w_c = log_uniform_short_docs(BM25_N, gen, dev)
+    ids_np, w_np = ids_c.cpu().numpy(), w_c.cpu().numpy()
+    df = np.bincount(ids_np[ids_np >= 0], minlength=PROBE_V)
+    order = ts.cluster_doc_order(ids_np, df)
+    ids_np, w_np = ids_np[order], w_np[order]
+    p_np, pw_np, pack = ts.pack_slots(ids_np, w_np, PACKED_W)
+    tile = PROBE_ROWS * pack
+    indptr, tiles = ts.build_term_tile_lists(ids_np, tile)
+    pids, pw = torch.from_numpy(p_np).to(dev), torch.from_numpy(pw_np).to(dev)
+    ids_c, w_c = torch.from_numpy(ids_np).to(dev), torch.from_numpy(w_np).to(dev)
+    half = torch.full((BM25_B, 1), PROBE_V // 2, dtype=torch.int64, device=dev)
+    rq = unique_rows(BM25_B, PROBE_T, half, PROBE_V // 2, gen, dev).to(torch.int32).contiguous()
+    rw = (torch.rand((BM25_B, PROBE_T), generator=gen, device=dev) + 0.5).contiguous()
+    n_tiles = -(-BM25_N // tile)
+    cand_np, count_np, maxc = ts.probe_candidates(rq.cpu().numpy(), indptr, tiles, ts.BLOCK_Q, n_tiles)
+    cap = ts.candidate_cap(maxc, n_tiles)
+    cand = torch.from_numpy(np.ascontiguousarray(cand_np[:, :cap])).to(dev)
+    count = torch.from_numpy(count_np).to(dev)
+    log(f"packed probe arrays: {BM25_N} log-uniform docs of 4-15 unique terms (vocabulary {PROBE_V}, "
+        f"the benchmark's 5M docs cut to {BM25_N}), cluster_doc_order, pack {pack}, tiles of "
+        f"{PROBE_ROWS} rows = {tile} docs; {BM25_B} rare-term queries x T={PROBE_T}: candidate tiles "
+        f"max {maxc}, mean {float(count.float().mean()):.1f} of {n_tiles} "
+        f"(host {time.perf_counter() - t0:.2f} s)")
+    case = f"clustered B={BM25_B} x T={PROBE_T} rare terms vs {BM25_N} x {PACKED_W} packed {pack}, k={K}"
+    got = ts.bm25_topk_probe_packed(rq, rw, pids, pw, BM25_N, pack, cand, count, K, PROBE_ROWS)
+    ref, plain_ms = timed(lambda: ts.bm25_topk_probe_packed_plain(rq, rw, pids, pw, BM25_N, pack, cand,
+                                                                  count, K, PROBE_ROWS))
+    err = bm25_check_equal(f"bm25_topk_probe_packed vs plain, {case}", got, ref)
+    bm25_check_equal("bm25_topk_probe_packed vs bm25_topk_probe over the flat layout", got,
+                     ts.bm25_topk_probe(rq, rw, ids_c, w_c, cand, count, K, tile))
+    ms = cuda_ms(lambda: ts.bm25_topk_probe_packed(rq, rw, pids, pw, BM25_N, pack, cand, count, K,
+                                                   PROBE_ROWS), 10)
+    flat_ms = cuda_ms(lambda: ts.bm25_topk_probe(rq, rw, ids_c, w_c, cand, count, K, tile), 10)
+    full_ms = cuda_ms(lambda: ts.bm25_topk_packed(rq, rw, pids, pw, BM25_N, K, pack), 10)
+    log(f"  probe over the flat layout {flat_ms:.3f} ms; full packed walk {full_ms:.3f} ms")
+    bm25_record(kernels, "bm25_topk_probe_packed", case, err, ms, plain_ms,
+                cuda_ms(lambda: bm25_library(rq, rw, ids_c, w_c, PROBE_V)(K), 5),
+                *bm25_bound(peak, rq, PACKED_W * 8, BM25_B * K * 8,
+                            tiles=tile_mask(cand, count, n_tiles), block_n=tile))
+    del pids, pw, ids_c, w_c, got, ref
+
+    # v1 beside v2 at scripts/bench_bm25.py's shapes (phase 9's uniform arrays)
+    uni = bm25_arrays(seed + 20, dev, clustered=False)
+    lib_uni = bm25_library(*uni)
+    shapes = f"B={BM25_B} x T={BM25_T} vs {BM25_N} x {BM25_L}"
+    for k in (K, K_LONG):
+        got = ts.bm25_topk_v1(*uni, k)
+        ref, plain_ms = timed(lambda: ts.bm25_topk_v1_plain(*uni, k))
+        err = bm25_check_equal(f"bm25_topk_v1 vs plain, uniform {shapes}, k={k}", got, ref)
+        bm25_check_equal(f"bm25_topk_v1 vs bm25_topk_v2, k={k}", got, ts.bm25_topk_v2(*uni, k))
+        ms = cuda_ms(lambda: ts.bm25_topk_v1(*uni, k), 5)
+        v2_ms = cuda_ms(lambda: ts.bm25_topk_v2(*uni, k), 5)
+        log(f"  v2 on the same arrays {v2_ms:.3f} ms")
+        bm25_record(kernels, "bm25_topk_v1", f"uniform {shapes}, k={k}", err, ms, plain_ms,
+                    cuda_ms(lambda: lib_uni(k), 5), *bm25_bound(peak, uni[0], BM25_L * 8, BM25_B * k * 8))
+    del uni, lib_uni, got, ref
+    torch.cuda.empty_cache()
+
+    # ---- 13. short-doc main path: a Quora-size packed index, launches from 0
+    rng = np.random.default_rng(seed + 31)
+    words = [f"t{i}" for i in range(BM25_V)]
+    t0 = time.perf_counter()
+    texts = zipf_texts(rng, words, QUORA_N, *QUORA_WORDS)
+    queries = zipf_texts(rng, words, BM25_Q, *QUORA_QWORDS)
+    t1 = time.perf_counter()
+    index = SparseIndex(list(range(QUORA_N)), texts, device=dev).to_device()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    del texts
+    width, pack = index._slot_ids.shape[1], index._device_pack
+    stride = 128 // pack
+    rare_words = np.array(list(index.vocab))[(index.doc_freq >= 1) & (index.doc_freq <= 7)]
+    lookups = [" ".join(rng.choice(rare_words, size=2, replace=False)) for _ in range(BM25_Q)]
+    flat_bytes = QUORA_N * (-(-width // 4) * 4) * 8
+    bn_rows = ts.packed_block_rows(index.probe_block_n, pack)
+    log(f"BM25 short-doc index from text: {QUORA_N} docs of {QUORA_WORDS[0]}-{QUORA_WORDS[1]} "
+        f"Zipf({BM25_ZIPF}) words over {BM25_V} (texts drawn in {t1 - t0:.2f} s); host build "
+        f"{build_s:.2f} s; L = {width} slots, pack {pack}, stride {stride}, "
+        f"{128 - pack * stride} dead lanes; {index.device_bytes() / 1e6:.1f} MB packed against "
+        f"{flat_bytes / 1e6:.1f} MB flat; candidate tiles of {bn_rows} rows = {bn_rows * pack} docs")
+    if pack < 2:
+        fail("the short-doc index did not pack")
+    td.reset_launch_counts()
+    tm.reset_launch_counts()
+    ts.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = (("NQ-like", queries, True, "auto", (K, K_LONG, BM25_K_LONG)),
+            ("NQ-like", queries, False, "auto", (K, K_LONG)),
+            ("rare-term lookups", lookups, True, "auto", (K,)),
+            ("NQ-like", queries, True, "pallas", (K,)),
+            ("NQ-like", queries, True, "pallas_v2", (K,)))
+    hits = {}
+    first_pruned_s = None
+    for label, qs, skip, method, ks in runs:
+        index.tile_skip = skip
+        for k in ks:
+            route = ts.bm25_route(method, QUORA_N, k, "cuda", skip, "packed", pack, index.probe_block_n)
+            before = dict(ts.LAUNCHES)
+            t1 = time.perf_counter()
+            hits[label, skip, method, k] = index.search(qs, k, method=method)
+            secs = time.perf_counter() - t1
+            if first_pruned_s is None and route == "pruned_packed":
+                first_pruned_s = secs
+            delta = {n: c - before[n] for n, c in ts.LAUNCHES.items() if c != before[n]}
+            log(f"BM25 short-doc search {label}, tile_skip={skip}, method={method}, k={k}: route "
+                f"{route}, {secs:.2f} s (first call), launches {json.dumps(delta)}")
+    index.tile_skip = True
+    main_s = time.perf_counter() - t0
+    launches = dict(ts.LAUNCHES)
+    plain_calls = {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS}
+    log(f"BM25 short-doc main path launches: {json.dumps(launches)}, plain calls "
+        f"{json.dumps(plain_calls)} ({main_s:.2f} s, first calls; first pruned search "
+        f"{first_pruned_s:.2f} s with its host term -> tile lists and maxima)")
+    new_kernels = ("bm25_topk_packed", "bm25_topk_probe_packed", "bm25_topk_v1")
+    if min(launches[n] for n in new_kernels) < 1 or any(plain_calls.values()):
+        fail("the short-doc main path skipped a kernel or took a plain route on the card")
+    for entry in kernels:
+        if entry["name"] in new_kernels:
+            entry["launches"] = launches[entry["name"]]
+
+    # the v2 kernel over a flat upload of the same index, outside the window
+    di, dw = index._flat_device()
+    for label, qs in (("NQ-like", queries), ("rare-term lookups", lookups)):
+        q_ids, q_w = index.encode_queries(qs)
+        ss, si = ts.bm25_topk_v2(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_w).to(dev), di, dw,
+                                 BM25_K_LONG)
+        ref = [[(index.ids[int(r)], float(s)) for s, r in zip(qs_, qr) if s > 0]
+               for qs_, qr in zip(ss.cpu().numpy(), si.cpu().numpy())]
+        for (lab, skip, method, k), got in hits.items():
+            if lab != label:
+                continue
+            same = as_pairs(got) == [row[:k] for row in ref]
+            log(f"BM25 short-doc search {label}, tile_skip={skip}, method={method}, k={k}: "
+                f"{sum(len(r) for r in got)} hits; == v2 over the flat upload: {same}")
+            if not same:
+                fail(f"BM25 short-doc hits ({label}, {method}, k={k}) differ from the flat v2 route")
+    del hits
+
+    # where a search's time goes, and each new kernel at the main path's shapes
+    q_ids, q_w = index.encode_queries(queries)
+    r_ids, r_w = index.encode_queries(lookups)
+    qi, qw = torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_w).to(dev)
+    ri, rw = torch.from_numpy(r_ids).to(dev), torch.from_numpy(r_w).to(dev)
+    pids, pw = index._device
+    for label, qs, k, skip in (("NQ-like", queries, K, True), ("NQ-like", queries, K_LONG, True),
+                               ("NQ-like", queries, K, False), ("NQ-like", queries, BM25_K_LONG, True),
+                               ("rare-term lookups", lookups, K, True)):
+        index.tile_skip = skip
+        ms = wall_ms(lambda: index.search(qs, k), 3)
+        log(f"BM25 short-doc search {label} Q={BM25_Q}, k={k}, tile_skip={skip}: {ms:.3f} ms/batch, "
+            f"{BM25_Q / ms * 1e3:.1f} QPS")
+    index.tile_skip = True
+    p_tiles = -(-QUORA_N // (bn_rows * pack))
+    term_tiles = index._ensure_term_tiles(bn_rows * pack)
+    cand_np, count_np, maxc = ts.probe_candidates(r_ids, *term_tiles, ts.BLOCK_Q, p_tiles)
+    cap = ts.candidate_cap(maxc, p_tiles)
+    cand = torch.from_numpy(np.ascontiguousarray(cand_np[:, :cap])).to(dev)
+    count = torch.from_numpy(count_np).to(dev)
+    log(f"short-doc rare-term lookups: candidate tiles per query tile max {maxc}, mean "
+        f"{float(count.float().mean()):.1f} of {p_tiles}")
+    v2_ms = cuda_ms(lambda: ts.bm25_topk_v2(qi, qw, di, dw, K), 5)
+    lib_main = bm25_library(qi, qw, di, dw)
+    lib_rare = bm25_library(ri, rw, di, dw)
+    main_shape = f"main path Q={BM25_Q} x T={qi.shape[1]} vs {QUORA_N} x {width} Zipf packed {pack}"
+    cases = (
+        ("bm25_topk_packed", f"{main_shape}, k={K}", qi, None, stride * 8, lib_main,
+         lambda: ts.bm25_topk_packed(qi, qw, pids, pw, QUORA_N, K, pack),
+         lambda: ts.bm25_topk_packed_plain(qi, qw, pids, pw, QUORA_N, K, pack)),
+        ("bm25_topk_probe_packed", f"main path {BM25_Q} rare-term lookups x T={ri.shape[1]} vs "
+         f"{QUORA_N} x {width} packed {pack}, k={K}", ri, tile_mask(cand, count, p_tiles), stride * 8,
+         lib_rare,
+         lambda: ts.bm25_topk_probe_packed(ri, rw, pids, pw, QUORA_N, pack, cand, count, K, bn_rows),
+         lambda: ts.bm25_topk_probe_packed_plain(ri, rw, pids, pw, QUORA_N, pack, cand, count, K, bn_rows)),
+        ("bm25_topk_v1", f"main path Q={BM25_Q} x T={qi.shape[1]} vs {QUORA_N} x {di.shape[1]} flat "
+         f"upload, k={K}", qi, None, di.shape[1] * 8, lib_main,
+         lambda: ts.bm25_topk_v1(qi, qw, di, dw, K), lambda: ts.bm25_topk_v1_plain(qi, qw, di, dw, K)),
+    )
+    for name, case, q_used, tiles_needed, doc_bytes, lib, kern, plain in cases:
+        ref, plain_ms = timed(plain)
+        err = bm25_check_equal(f"{name} vs plain, {case}", kern(), ref)
+        del ref
+        bm25_record(kernels, name, case, err, cuda_ms(kern, 5), plain_ms, cuda_ms(lambda: lib(K), 3),
+                    *bm25_bound(peak, q_used, doc_bytes, BM25_Q * K * 8, QUORA_N, tiles_needed,
+                                bn_rows * pack))
+        kernels[-1]["launches"] = launches[name]
+    log(f"  v2 over the flat upload at the main path, k={K}: {v2_ms:.3f} ms")
+    kernels[-3]["flat_v2_ms"] = v2_ms
+    del index, qi, qw, ri, rw, di, dw, pids, pw, lib_main, lib_rare, cand, count
+    torch.cuda.empty_cache()
+
+    # ---- 14. bucketed path: a 90/10 skewed corpus, bucketize=2 -------------
+    rng = np.random.default_rng(seed + 32)
+    is_long = rng.random(BUCKET_N) < 0.1
+    n_long = int(is_long.sum())
+    t0 = time.perf_counter()
+    short = iter(zipf_texts(rng, words, BUCKET_N - n_long, *BUCKET_SHORT))
+    long_ = iter(zipf_texts(rng, words, n_long, *BUCKET_LONG))
+    texts = [next(long_) if x else next(short) for x in is_long]
+    queries = zipf_texts(rng, words, BM25_Q, 6, 16)
+    t1 = time.perf_counter()
+    index = SparseIndex(list(range(BUCKET_N)), texts, bucketize=2, device=dev).to_device()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    del texts
+    di, dw = index._flat_device()
+    flat_bytes = (di.numel() + dw.numel()) * 4
+    layout = [(b["pack"], len(b["rows"]), tuple(b["arrays"][0].shape)) for b in index._device_buckets]
+    log(f"BM25 bucketed index from text: {BUCKET_N} docs, {n_long} of {BUCKET_LONG[0]}-{BUCKET_LONG[1]} "
+        f"Zipf words and the rest of {BUCKET_SHORT[0]}-{BUCKET_SHORT[1]} (texts {t1 - t0:.2f} s); "
+        f"host build {build_s:.2f} s; buckets (pack, docs, device shape) {layout}; device_bytes "
+        f"{index.device_bytes() / 1e6:.1f} MB bucketed against {flat_bytes / 1e6:.1f} MB flat "
+        f"(L = {index._slot_ids.shape[1]})")
+    if len(layout) != 2 or layout[0][0] < 2:
+        fail("the bucketed index has no packed short bucket")
+    q_ids, q_w = index.encode_queries(queries)
+    ss, si = ts.bm25_topk_v2(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_w).to(dev), di, dw,
+                             K_LONG)
+    ref = [[(index.ids[int(r)], float(s)) for s, r in zip(qs_, qr) if s > 0]
+           for qs_, qr in zip(ss.cpu().numpy(), si.cpu().numpy())]
+    for k in (K, K_LONG):
+        ts.reset_launch_counts()
+        t1 = time.perf_counter()
+        got = index.search(queries, k)
+        secs = time.perf_counter() - t1
+        launches = {n: c for n, c in ts.LAUNCHES.items() if c}
+        same = as_pairs(got) == [row[:k] for row in ref]
+        log(f"BM25 bucketed search NQ-like k={k}: {secs:.2f} s (first call), launches "
+            f"{json.dumps(launches)}, plain calls {sum(ts.PLAIN_CALLS.values())}; "
+            f"{sum(len(r) for r in got)} hits == the flat layout's v2 hits: {same}")
+        if not same or launches.get("bm25_topk_packed", 0) < 1 or any(ts.PLAIN_CALLS.values()):
+            fail(f"BM25 bucketed search at k={k} differs from the flat layout or missed the packed kernel")
+        ms = wall_ms(lambda: index.search(queries, k), 3)
+        log(f"BM25 bucketed search NQ-like Q={BM25_Q}, k={k}: {ms:.3f} ms/batch, "
+            f"{BM25_Q / ms * 1e3:.1f} QPS")
+    del index, di, dw, ss, si
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1197,6 +1581,9 @@ def main() -> int:
 
     # ---- 9-11. the BM25 path ----------------------------------------------
     bm25_phases(args.seed, dev, peak, kernels, vocab)
+
+    # ---- 12-14. BM25 slice B: packed and bucketed layouts, the v1 pin ------
+    bm25_packed_phases(args.seed, dev, peak, kernels)
 
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,10 @@
 
 Tokenizers, the index build (held against the JAX ``_build_python``, which
 the JAX ``SparseIndex`` would otherwise skip for its native build),
-``encode_queries`` and ``score_host`` are compared bitwise. Search hits: the
-port's CPU route (the scan) against the JAX index on the CPU (its lane-packed
-interpret kernel for these short corpora): ids equal and scores
+``encode_queries`` and ``score_host`` are compared bitwise. Search hits, on
+short corpora (both packages pack them) and on wide ones (more than 64
+unique terms in a document: both keep the flat layout): the port's CPU route
+against the JAX index on the CPU: ids equal and scores
 ``rtol=1e-6``, an id swap allowed only between two scores within that
 tolerance (XLA on the CPU may round a multiply-add differently). The pruned
 legs (probe, tile-WAND, Bloom skip) run on CPU tensors through their plain
@@ -31,12 +32,15 @@ TEXTS = [
 ]
 
 
-def _corpus(seed=0, n=400, vocab=250):
+def _corpus(seed=0, n=400, vocab=250, wide=False):
+    """Short documents (the longest, doc 8, of 40 unique terms: the packed
+    layout) or, ``wide``, doc 8 of 70 unique terms (wider than 64 slots: the
+    flat layout)."""
     rng = np.random.default_rng(seed)
     words = [f"w{i}" for i in range(vocab)] + ["Éclair", "straße", "naïve"]
     docs = [" ".join(rng.choice(words, size=int(rng.integers(0, 30)))) for _ in range(n)]
     docs[7] = ""
-    docs[8] = " ".join(f"u{i}" for i in range(40))  # the longest doc: 40 unique terms
+    docs[8] = " ".join(f"u{i}" for i in range(70 if wide else 40))
     queries = [" ".join(rng.choice(words, size=int(rng.integers(1, 7)))) for _ in range(19)]
     queries[3] = "nothing matches here"
     queries[4] = ""
@@ -145,16 +149,73 @@ def test_search_matches_jax(tile_skip, k):
         assert [h.doc_id for h in hits] == want
 
 
-@pytest.mark.parametrize("method", ["xla", "pallas_v2", "pallas_v2_skip", "pallas_probe", "pallas_wand"])
+@pytest.mark.parametrize("k", [1, 10, 500])
+@pytest.mark.parametrize("tile_skip", [True, False])
+def test_search_flat_layout_matches_jax(tile_skip, k):
+    # a corpus wider than 64 slots keeps the flat layout in both packages
+    docs, queries = _corpus(3, wide=True)
+    ids = [f"doc-{i}" for i in range(len(docs))]
+    j = JSparse(ids, docs, tile_skip=tile_skip).to_device()
+    t = SparseIndex(ids, docs, tile_skip=tile_skip, device="cpu").to_device()
+    assert t._device_pack == getattr(j, "_device_pack", 1) == 1 and t._layout() == "flat"
+    t_hits = t.search(queries, k)
+    _assert_hits(t_hits, j.search(queries, k))
+    assert t_hits[3] == [] and t_hits[4] == [] and t._device_flat is None
+    host = t.score_host(queries)
+    for b, hits in enumerate(t_hits):
+        order = np.lexsort((np.arange(len(docs)), -host[b]))
+        want = [ids[r] for r in order[: min(k, len(docs))] if host[b, r] > 0]
+        assert [h.doc_id for h in hits] == want
+
+
+# the leg each pin takes on a flat index off the card (plain versions)
+_FLAT_PIN_CALLS = {
+    "xla": ("bm25_topk_scan",),
+    "pallas_v2": ("bm25_topk_v2_plain",),
+    "pallas": ("bm25_topk_v1_plain",),
+    "pallas_v2_skip": ("bm25_topk_v2_skip_plain",),
+    "pallas_probe": ("bm25_topk_probe_plain",),
+    "pallas_wand": ("bm25_topk_probe_plain", "bm25_topk_v2_skip_plain"),
+}
+
+
+@pytest.mark.parametrize("method", ["xla", "pallas_v2", "pallas", "pallas_v2_skip", "pallas_probe",
+                                    "pallas_wand"])
 def test_search_method_pins_on_cpu(method):
-    docs, queries = _corpus(4)
-    t = SparseIndex(list(range(len(docs))), docs, device="cpu")
-    t.probe_block_n = 128
+    # a flat index: every pin takes its own leg and gives auto's hits, and the
+    # JAX index's (its auto route, and the pin itself where it runs on the
+    # CPU: the scan, and the pruned legs in interpret mode)
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    docs, queries = _corpus(4, wide=True)
+    ids = list(range(len(docs)))
+    t = SparseIndex(ids, docs, device="cpu", probe_block_n=128)
+    j = JSparse(ids, docs, probe_block_n=128)
     auto = t.search(queries, 8)
+    assert t._layout() == "flat"
+    ts.reset_launch_counts()
+    pinned = t.search(queries, 8, method=method)
+    assert sum(ts.PLAIN_CALLS[n] for n in _FLAT_PIN_CALLS[method]) >= 1
+    assert sum(ts.PLAIN_CALLS.values()) == sum(ts.PLAIN_CALLS[n] for n in _FLAT_PIN_CALLS[method])
+    assert [[(h.doc_id, h.score) for h in r] for r in pinned] == [[(h.doc_id, h.score) for h in r] for r in auto]
+    assert t._device_flat is None
+    _assert_hits(pinned, j.search(queries, 8))
+    if method not in ("pallas_v2", "pallas"):
+        _assert_hits(pinned, j.search(queries, 8, method=method))
+
+
+@pytest.mark.parametrize("method", ["xla", "pallas_v2", "pallas", "pallas_v2_skip", "pallas_probe",
+                                    "pallas_wand"])
+def test_search_method_pins_on_packed_index(method):
+    # the corpus packs; xla / pallas_v2 / pallas run on a flat upload, the
+    # pruned pins fall back to the packed route
+    docs, queries = _corpus(4)
+    t = SparseIndex(list(range(len(docs))), docs, device="cpu", probe_block_n=128)
+    auto = t.search(queries, 8)
+    assert t._device_pack > 1 and t._device_flat is None
     pinned = t.search(queries, 8, method=method)
     assert [[(h.doc_id, h.score) for h in r] for r in pinned] == [[(h.doc_id, h.score) for h in r] for r in auto]
-    with pytest.raises(NotImplementedError):
-        t.search(queries, 8, method="pallas")
+    assert (t._device_flat is not None) == (method in ("xla", "pallas_v2", "pallas"))
 
 
 def _regional_corpus(n=3000, seed=11):
@@ -186,7 +247,8 @@ def test_pruned_legs_match_jax(kind, k):
     j.probe_block_n = t.probe_block_n = 128
     q_ids, q_w = t.encode_queries(queries)
     ts.reset_launch_counts()
-    s, r = t._search_pruned(q_ids, q_w, *t._device, k, "auto")
+    # the flat layout's legs (this short-doc corpus packs: its flat upload)
+    s, r = t._search_pruned(q_ids, q_w, *t._flat_device(), k, "auto")
     js_, jr = j._search_pruned(q_ids, q_w, jnp.asarray(j._slot_ids), jnp.asarray(j._slot_weights), k, "auto")
     # selective batches take the probe over the exact candidate tiles; common
     # ones the tile-WAND flow (probe passes, or its Bloom-skip fallback)
@@ -216,27 +278,34 @@ def test_cluster_layout_same_hits_modulo_ties():
 
 
 def test_device_layout_pads_slots_to_a_multiple_of_four():
+    # the flat layout (here the pins' flat upload of a packed index) pads
+    # slots with empty ones; device_bytes counts the layout searched
     docs, queries = _corpus(6)
     t = SparseIndex(list(range(len(docs))), docs, device="cpu").to_device()
-    ids, w = t._device
-    assert t._slot_ids.shape[1] == 40 and ids.shape[1] % 4 == 0
-    assert t.device_bytes() == ids.numel() * 8
+    ids, w = t._flat_device()
+    assert t._slot_ids.shape[1] == 40 and ids.shape == (len(docs), 40)
+    assert t._device_pack == 3 and t.device_bytes() == -(-len(docs) // 3) * 128 * 8
     narrow = SparseIndex(list(range(3)), ["a b c", "a", "b b"], device="cpu").to_device()
-    assert narrow._device[0].shape == (3, 4) and (narrow._device[0][:, 3] == -1).all()
+    flat = narrow._flat_device()[0]
+    assert flat.shape == (3, 4) and (flat[:, 3] == -1).all()
+    assert narrow._device[0].shape == (1, 128) and narrow._device_pack == 42
     assert narrow.search(["b"], 3)[0][0].doc_id == 2
+    assert narrow.search(["b"], 3, method="xla")[0][0].doc_id == 2
 
 
 def test_bucketize_and_mesh_raise():
+    # bucketize > 1 builds and searches (a one-bucket corpus here); only a
+    # mesh still raises
     from autorag_research_tpu_torch.pipelines.retrieval.bm25 import BM25Pipeline
     from autorag_research_tpu_torch.store.catalog import Catalog
 
-    with pytest.raises(NotImplementedError, match="slice B"):
-        SparseIndex([0], ["a"], bucketize=3, device="cpu")
+    idx = SparseIndex([0], ["a"], bucketize=3, device="cpu")
+    assert [[h.doc_id for h in r] for r in idx.search(["a", "b"], 2)] == [[0], []]
+    assert len(idx._device_buckets) == 1
     with pytest.raises(NotImplementedError):
         SparseIndex([0], ["a"], device="cpu").to_device(mesh=object())
     cat = Catalog(":memory:")
-    with pytest.raises(NotImplementedError, match="slice B"):
-        BM25Pipeline(cat, bucketize=2, device="cpu")
+    assert BM25Pipeline(cat, bucketize=2, device="cpu").bucketize == 2
     cat.close()
 
 

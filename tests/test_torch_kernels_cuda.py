@@ -462,12 +462,15 @@ def test_bm25_topk_auto_takes_the_v2_kernel_at_any_k(cuda_device):
     ts.reset_launch_counts()
     s256, i256 = ts.bm25_topk(*args, 256)
     s1500, i1500 = ts.bm25_topk(*args, 1500)
-    assert ts.LAUNCHES == {"bm25_topk_v2": 2, "bm25_topk_v2_skip": 0, "bm25_topk_probe": 0}
+    assert ts.LAUNCHES["bm25_topk_v2"] == 2 and sum(ts.LAUNCHES.values()) == 2
     assert sum(ts.PLAIN_CALLS.values()) == 0  # the card's tensors never take a plain route
     torch.testing.assert_close(i1500[:, :256], i256, rtol=0, atol=0)
     torch.testing.assert_close(s1500[:, :256], s256, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        ts.bm25_topk(*args, 10, method="pallas")
+    # the v1 pin launches its own kernel, with v2's results
+    v1_s, v1_i = ts.bm25_topk(*args, 256, method="pallas")
+    assert ts.LAUNCHES["bm25_topk_v1"] == 1 and sum(ts.PLAIN_CALLS.values()) == 0
+    torch.testing.assert_close(v1_i, i256, rtol=0, atol=0)
+    torch.testing.assert_close(v1_s, s256, rtol=0, atol=0)
     with pytest.raises(ValueError):
         ts.bm25_topk(*args, 10, method="pallas_probe")
 
@@ -501,20 +504,221 @@ def test_sparse_index_pruned_legs_on_card(cuda_device, kind):
     texts = []
     for i in range(n):
         local = [f"r{i * 10 // n}x{j}" for j in rng.choice(300, size=int(rng.integers(3, 20)), replace=False)]
-        texts.append(" ".join(local + [f"c{j}" for j in rng.choice(30, size=3)]))
+        # 50 filler words no query holds: rows wider than 64 slots keep the
+        # flat layout, whose legs this test holds (the packed ones below)
+        filler = [f"f{j}" for j in rng.choice(5000, size=50, replace=False)]
+        texts.append(" ".join(local + [f"c{j}" for j in rng.choice(30, size=3)] + filler))
     if kind == "selective":
         queries = [" ".join(f"r{b % 2}x{j}" for j in rng.choice(300, size=3)) for b in range(21)]
     else:
         queries = [" ".join(f"c{j}" for j in rng.choice(30, size=4)) + " r5x1" for _ in range(21)]
     ids = list(range(n))
     cpu = SparseIndex(ids, texts, device="cpu").search(queries, 10)
-    gpu_idx = SparseIndex(ids, texts, device=cuda_device)
-    gpu_idx.probe_block_n = 128
+    gpu_idx = SparseIndex(ids, texts, device=cuda_device, probe_block_n=128)
     ts.reset_launch_counts()
     gpu = gpu_idx.search(queries, 10)
+    assert gpu_idx._device_pack == 1
     assert sum(ts.PLAIN_CALLS.values()) == 0 and ts.LAUNCHES["bm25_topk_v2"] == 0
     if kind == "selective":
         assert ts.LAUNCHES["bm25_topk_probe"] == 1 and ts.LAUNCHES["bm25_topk_v2_skip"] == 0
     else:
         assert ts.LAUNCHES["bm25_topk_probe"] + ts.LAUNCHES["bm25_topk_v2_skip"] >= 1
     assert [[(h.doc_id, h.score) for h in r] for r in gpu] == [[(h.doc_id, h.score) for h in r] for r in cpu]
+
+
+# ------------------------------------------------- BM25 packed layout, v1
+PACK_WIDTHS = [1, 3, 16, 19, 24, 33, 64]
+BM25_K = [1, 10, 100, 1000, 1500]
+
+
+def _packed_case(seed, width, n=3001, b=5, t=21, clustered=False):
+    """Short-document slot arrays of ``width`` slots (scattered pads, unique
+    terms; N % 32 != 0, B < 8 and T > 16 by default), packed by pack_slots:
+    (flat args, packed args, pack) on the card."""
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    arrays = _bm25_data(np.random.default_rng(seed), b, t, n, width, clustered=clustered)
+    pids, pw, pack = ts.pack_slots(arrays[2], arrays[3], width)
+    dev = torch.device("cuda")
+    flat = _bm25_tensors(arrays, dev)
+    packed = flat[:2] + _bm25_tensors((pids, pw), dev)
+    return flat, packed, pack
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", BM25_K)
+@pytest.mark.parametrize("width", PACK_WIDTHS)
+def test_bm25_packed_kernel_matches_plain_and_v2_on_flat(cuda_device, width, k):
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    flat, packed, pack = _packed_case(width * 31 + k, width, b=5 if width % 2 else 13,
+                                      t=21 if width % 2 else 6)
+    before = ts.LAUNCHES["bm25_topk_packed"]
+    s, i = ts.bm25_topk_packed(*packed, 3001, k, pack)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["bm25_topk_packed"] == before + 1
+    rs, ri = ts.bm25_topk_packed_plain(*packed, 3001, k, pack)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+    vs, vi = ts.bm25_topk_v2(*flat, k)  # the v2 kernel over the flat layout
+    torch.testing.assert_close(i, vi, rtol=0, atol=0)
+    torch.testing.assert_close(s, vs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", PACK_WIDTHS)
+def test_bm25_packed_kernel_unaligned_rows(cuda_device, width):
+    # packed rows that start off a 16-byte boundary take the scalar staging
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    flat, packed, pack = _packed_case(width + 5, width)
+    views = []
+    for t in packed[2:]:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        views.append(buf[1:].view(t.shape))
+        views[-1].copy_(t)
+    assert views[0].data_ptr() % 16 == 4
+    s, i = ts.bm25_topk_packed(*packed[:2], *views, 3001, 10, pack)
+    rs, ri = ts.bm25_topk_packed(*packed, 3001, 10, pack)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lists", ["exact", "unsorted", "truncated", "empty"])
+@pytest.mark.parametrize("k,block_rows", [(1, 16), (10, 16), (100, 128), (1000, 1536), (1500, 1536)])
+def test_bm25_probe_packed_kernel_matches_plain(cuda_device, lists, k, block_rows):
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    n, width = 20_000, 16
+    flat, packed, pack = _packed_case(k + block_rows, width, n=n, b=13, t=6, clustered=True)
+    tile = block_rows * pack
+    n_tiles = -(-n // tile)
+    indptr, tiles = ts.build_term_tile_lists(flat[2].cpu().numpy(), tile)
+    cand, count, _ = ts.probe_candidates(flat[0].cpu().numpy(), indptr, tiles, 8, n_tiles)
+    if lists == "unsorted":
+        cand[1, : count[1]] = cand[1, : count[1]][::-1].copy()  # the wrapper sorts live entries
+    elif lists == "truncated":
+        count[0] = max(0, count[0] - 1)
+    elif lists == "empty":
+        count[:] = 0
+    cand_t, count_t = torch.from_numpy(cand).to(cuda_device), torch.from_numpy(count).to(cuda_device)
+    before = ts.LAUNCHES["bm25_topk_probe_packed"]
+    s, i = ts.bm25_topk_probe_packed(*packed, n, pack, cand_t, count_t, k, block_rows)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["bm25_topk_probe_packed"] == before + 1
+    rs, ri = ts.bm25_topk_probe_packed_plain(*packed, n, pack, cand_t, count_t, k, block_rows)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+    # the flat probe kernel over tiles of block_rows * pack documents
+    fs, fi = ts.bm25_topk_probe(*flat, cand_t, count_t, k, tile)
+    torch.testing.assert_close(i, fi, rtol=0, atol=0)
+    torch.testing.assert_close(s, fs, rtol=0, atol=0)
+    if lists == "empty":
+        assert bool((s == 0).all()) and bool((i == ts.INT_MAX).all())
+    with pytest.raises(ValueError, match="block_n"):
+        ts.bm25_topk_probe_packed(*packed, n, pack, cand_t, count_t, block_rows + 1, block_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 100, 256, 1500])
+@pytest.mark.parametrize("shape", BM25_SHAPES, ids=["tiles", "scalar-rows", "long-rows"])
+def test_bm25_v1_kernel_matches_plain_and_v2(cuda_device, k, shape):
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    args = _bm25_tensors(_bm25_data(np.random.default_rng(k + 3), *shape), cuda_device)
+    before = ts.LAUNCHES["bm25_topk_v1"]
+    s, i = ts.bm25_topk_v1(*args, k)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["bm25_topk_v1"] == before + 1
+    rs, ri = ts.bm25_topk_v1_plain(*args, k)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+    vs, vi = ts.bm25_topk_v2(*args, k)
+    torch.testing.assert_close(i, vi, rtol=0, atol=0)
+    torch.testing.assert_close(s, vs, rtol=0, atol=0)
+
+
+def _short_texts(rng, n):
+    """Short documents (at most 22 unique words: the index packs them) of ten
+    regions' words plus a common band, and two query batches."""
+    texts = []
+    for i in range(n):
+        local = [f"r{i * 10 // n}x{j}" for j in rng.choice(300, size=int(rng.integers(3, 20)), replace=False)]
+        texts.append(" ".join(local + [f"c{j}" for j in rng.choice(30, size=3)]))
+    selective = [" ".join(f"r{b % 2}x{j}" for j in rng.choice(300, size=3)) for b in range(21)]
+    common = [" ".join(f"c{j}" for j in rng.choice(30, size=4)) + " r5x1" for _ in range(21)]
+    return texts, {"selective": selective, "common": common}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_skip", [True, False])
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("kind", ["selective", "common"])
+def test_sparse_index_packed_legs_on_card(cuda_device, kind, k, tile_skip):
+    # the packed probe for a selective batch, packed tile-WAND (or its
+    # fallback, the packed kernel) for common words, the packed kernel without
+    # tile_skip or beyond a candidate tile: the CPU route's hits (its plain
+    # packed version)
+    from autorag_research_tpu_torch.index.sparse import SparseIndex
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    texts, batches = _short_texts(np.random.default_rng(48), 6000)
+    ids = list(range(6000))
+    cpu = SparseIndex(ids, texts, device="cpu", probe_block_n=256).search(batches[kind], k)
+    gpu_idx = SparseIndex(ids, texts, device=cuda_device, probe_block_n=256, tile_skip=tile_skip)
+    ts.reset_launch_counts()
+    gpu = gpu_idx.search(batches[kind], k)
+    assert gpu_idx._device_pack == 5 and ts.packed_block_rows(256, 5) == 48
+    assert sum(ts.PLAIN_CALLS.values()) == 0
+    assert sum(ts.LAUNCHES[n] for n in ("bm25_topk_v2", "bm25_topk_v2_skip", "bm25_topk_probe")) == 0
+    if not tile_skip or k > 48:
+        assert ts.LAUNCHES["bm25_topk_packed"] == 1 and ts.LAUNCHES["bm25_topk_probe_packed"] == 0
+    elif kind == "selective":
+        assert ts.LAUNCHES["bm25_topk_probe_packed"] == 1 and ts.LAUNCHES["bm25_topk_packed"] == 0
+    else:
+        assert ts.LAUNCHES["bm25_topk_probe_packed"] + ts.LAUNCHES["bm25_topk_packed"] >= 1
+    expected = [[(h.doc_id, h.score) for h in r] for r in cpu]
+    assert [[(h.doc_id, h.score) for h in r] for r in gpu] == expected
+    # the kernel pins run on a flat upload, with the same hits
+    for pin, name in (("xla", None), ("pallas_v2", "bm25_topk_v2"), ("pallas", "bm25_topk_v1")):
+        ts.reset_launch_counts()
+        pinned = gpu_idx.search(batches[kind], k, method=pin)
+        assert [[(h.doc_id, h.score) for h in r] for r in pinned] == expected
+        if name:
+            assert ts.LAUNCHES[name] == 1 and sum(ts.PLAIN_CALLS.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 300])
+def test_sparse_index_bucketed_cuda_matches_cpu(cuda_device, k):
+    from autorag_research_tpu_torch.index.sparse import SparseIndex
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    rng = np.random.default_rng(49)
+    texts = []
+    for _ in range(5000):
+        if rng.random() < 0.9:
+            texts.append(" ".join(f"s{j}" for j in rng.choice(800, size=int(rng.integers(8, 15)))))
+        else:
+            texts.append(" ".join(f"l{j}" for j in rng.choice(5000, size=int(rng.integers(100, 128)),
+                                                               replace=False)))
+    queries = [" ".join(f"s{j}" for j in rng.choice(800, size=3)) + f" l{int(rng.integers(5000))}"
+               for _ in range(37)]
+    ids = list(range(5000))
+    cpu = SparseIndex(ids, texts, bucketize=2, device="cpu").search(queries, k)
+    flat = SparseIndex(ids, texts, device="cpu").search(queries, k)
+    gpu_idx = SparseIndex(ids, texts, bucketize=2, device=cuda_device)
+    ts.reset_launch_counts()
+    gpu = gpu_idx.search(queries, k)
+    assert [b["pack"] > 1 for b in gpu_idx._device_buckets] == [True, False]
+    assert ts.LAUNCHES["bm25_topk_packed"] == 1 and ts.LAUNCHES["bm25_topk_v2"] == 1
+    assert sum(ts.PLAIN_CALLS.values()) == 0
+    pairs = [[(h.doc_id, h.score) for h in r] for r in gpu]
+    assert pairs == [[(h.doc_id, h.score) for h in r] for r in cpu]
+    # a pruned pin falls back to auto on the bucketed layout
+    ts.reset_launch_counts()
+    pinned = gpu_idx.search(queries, k, method="pallas_wand")
+    assert ts.LAUNCHES["bm25_topk_packed"] == 1 and ts.LAUNCHES["bm25_topk_v2"] == 1
+    assert [[(h.doc_id, h.score) for h in r] for r in pinned] == pairs
+    assert pairs == [[(h.doc_id, h.score) for h in r] for r in flat]

@@ -267,14 +267,13 @@ def test_route_rules():
         assert r(method, 5000, 10, "cuda", False) == "pruned"
         assert r(method, 5000, 4096, "cuda", True) == "fused"  # k too large: as auto
         assert r(method, 5000, 4096, "cpu", True) == "scan"
-    for dev in ("cuda", "cpu"):
-        with pytest.raises(NotImplementedError):
-            r("pallas", 100, 10, dev, True)
+    for dev in ("cuda", "cpu"):  # the v1 pin: its kernel on the card, plain off it
+        assert r("pallas", 100, 10, dev, True) == "v1"
     with pytest.raises(ValueError):
         r("nope", 100, 10, "cpu", False)
 
 
-@pytest.mark.parametrize("method", ["auto", "xla", "pallas_v2", "pallas_v2_skip"])
+@pytest.mark.parametrize("method", ["auto", "xla", "pallas_v2", "pallas", "pallas_v2_skip"])
 def test_bm25_topk_dispatch_on_cpu(method):
     arrays = _data(13, dyadic=True)
     ts.reset_launch_counts()

@@ -28,7 +28,24 @@ def _corpus(seed=0, n_chunks=300, n_queries=24):
     return chunks, queries, gold
 
 
-def _run_slice(pkg, tmp_path):
+def _skewed_corpus(seed=1, n_chunks=400, n_queries=30):
+    """90% short chunks (6-14 words over 500) and 10% long ones (90-120
+    distinct words over 3,000: wider than 64 slots), queries drawn from a
+    gold chunk: ``bucketize=2`` gives a packed bucket and a flat one."""
+    rng = np.random.default_rng(seed)
+    chunks = []
+    for _ in range(n_chunks):
+        if rng.random() < 0.9:
+            chunks.append(" ".join(f"w{j}" for j in rng.choice(500, size=int(rng.integers(6, 15)))))
+        else:
+            size = int(rng.integers(90, 121))
+            chunks.append(" ".join(f"v{j}" for j in rng.choice(3000, size=size, replace=False)))
+    gold = rng.choice(n_chunks, size=n_queries, replace=False)
+    queries = [" ".join(rng.choice(chunks[g].split(), size=4)) for g in gold]
+    return chunks, queries, gold
+
+
+def _run_slice(pkg, tmp_path, corpus=_corpus, bucketize=1):
     """Build a catalog, run BM25 and score it with one package -> (stats,
     rows, metrics, ad-hoc hits, resume stats)."""
     Catalog = importlib.import_module(f"{pkg}.store.catalog").Catalog
@@ -37,8 +54,10 @@ def _run_slice(pkg, tmp_path):
     MetricInput = importlib.import_module(f"{pkg}.schema").MetricInput
     bm25 = importlib.import_module(f"{pkg}.pipelines.retrieval.bm25")
     registry = importlib.import_module(f"{pkg}.index.registry")
-    pipe_kw = {} if pkg == "autorag_research_tpu" else {"device": "cpu"}
-    chunks, queries, gold = _corpus()
+    pipe_kw = {"bucketize": bucketize}
+    if pkg != "autorag_research_tpu":
+        pipe_kw["device"] = "cpu"
+    chunks, queries, gold = corpus()
     (tmp_path / pkg).mkdir()
     cat = Catalog(tmp_path / pkg / "ws.db")
     cat.add_chunks({"id": i, "contents": t} for i, t in enumerate(chunks))
@@ -69,7 +88,9 @@ def _run_slice(pkg, tmp_path):
         adhoc.append(run(pipe._retrieve_by_text(queries[6], 5)))
         adhoc.append(run(pipe.retrieve(queries[7], 5)))  # a catalog query, by id
         resumed = bm25.BM25Pipeline(cat, name="bm25", **pipe_kw).run(top_k=10)
-        return stats, rows, scores, adhoc, resumed, pipe._get_pipeline_config()
+        buckets = pipe._index()._device_buckets
+        layout = [(b["pack"], len(b["rows"])) for b in buckets] if buckets else None
+        return stats, rows, scores, adhoc, resumed, pipe._get_pipeline_config(), layout
     finally:
         registry.invalidate(cat)
         cat.close()
@@ -89,8 +110,9 @@ def _assert_rows(t_rows, j_rows):
 
 
 def test_whole_bm25_slice_matches_jax(tmp_path):
-    j_stats, j_rows, j_scores, j_adhoc, j_res, j_cfg = _run_slice("autorag_research_tpu", tmp_path)
-    t_stats, t_rows, t_scores, t_adhoc, t_res, t_cfg = _run_slice("autorag_research_tpu_torch", tmp_path)
+    j_stats, j_rows, j_scores, j_adhoc, j_res, j_cfg, _ = _run_slice("autorag_research_tpu", tmp_path)
+    t_stats, t_rows, t_scores, t_adhoc, t_res, t_cfg, _ = _run_slice("autorag_research_tpu_torch",
+                                                                     tmp_path)
     assert t_cfg == j_cfg
     assert t_stats["total_results"] == j_stats["total_results"] == 230  # query 5 matches nothing
     assert t_stats["total_queries"] == j_stats["total_queries"] == 24
@@ -101,6 +123,25 @@ def test_whole_bm25_slice_matches_jax(tmp_path):
         _assert_rows([(0, h["doc_id"], h["score"]) for h in t], [(0, h["doc_id"], h["score"]) for h in j])
     # the resumed run retries only the query that persisted no row
     assert t_res["total_queries"] == j_res["total_queries"] == 1
+
+
+def test_bucketed_bm25_slice_matches_jax(tmp_path):
+    # BM25Pipeline(bucketize=2) on a 90/10 short/long catalog: a packed
+    # bucket and a flat one in both packages, equal rows and metrics
+    runs = {pkg: _run_slice(pkg, tmp_path, _skewed_corpus, bucketize=2)
+            for pkg in ("autorag_research_tpu", "autorag_research_tpu_torch")}
+    (j_stats, j_rows, j_scores, j_adhoc, _, j_cfg, j_layout), (t_stats, t_rows, t_scores, t_adhoc, _,
+                                                                 t_cfg, t_layout) = runs.values()
+    assert t_cfg == j_cfg and t_cfg["bucketize"] == 2
+    assert t_layout == j_layout and len(t_layout) == 2 and t_layout[0][0] > 1 and t_layout[1][0] == 1
+    # queries from a long chunk's rare words may have fewer than 10 hits
+    assert t_stats["total_results"] == j_stats["total_results"] == len(t_rows) > 250
+    assert t_stats["total_queries"] == 30
+    _assert_rows(t_rows, j_rows)
+    assert t_scores == j_scores
+    assert np.mean(t_scores["recall"]) > 0.5
+    for t, j in zip(t_adhoc, j_adhoc, strict=True):
+        _assert_rows([(0, h["doc_id"], h["score"]) for h in t], [(0, h["doc_id"], h["score"]) for h in j])
 
 
 @pytest.mark.parametrize("tokenizer", ["english", "wiki_tocken"])
