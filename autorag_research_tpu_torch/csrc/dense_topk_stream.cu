@@ -20,16 +20,18 @@
 // Design: 256 threads score a 64 x 64 tile (f32: 4 x 4 outputs a thread from
 // k chunks of 16 staged transposed in shared memory; bf16: 8 warps of
 // 16 x 32 mma tiles), park it in shared memory, and then each warp maintains
-// the lists of 8 rows. A row's list lives in dynamic shared memory, k sorted
-// entries (k <= KMAX = 256, 64 * k * 8 bytes per block), and its k-th score
-// in a register. A ballot finds the tile's columns that beat the row's k-th
-// score; when there are none (the usual case once the list is warm) the row
-// costs one ballot, which is the merge skip of the Pallas kernel. Each
-// winner is placed by list_insert (common.cuh, shared with maxsim_v2.cu): a
-// ballot-count rank over the list and a warp-wide shift of the entries below
-// it, 32 at a time. Corpus rows increase along a
-// block's walk, so an equal score never outranks an entry already held and
-// ties resolve to the lower id.
+// the lists of 8 rows. A row's list holds k sorted entries, in dynamic
+// shared memory up to k = KSMEM = 256 (64 * k * 8 bytes per block) and in
+// place in the output beyond (global memory, L2-cached; a template parameter,
+// so the shared-memory kernel keeps its registers), so any k is served; its
+// k-th score lives in a register. A ballot finds the tile's columns that
+// beat the row's k-th score; when there are none (the usual case once the
+// list is warm) the row costs one ballot, which is the merge skip of the
+// Pallas kernel. Each winner is placed by list_insert (common.cuh, shared with
+// the MaxSim kernels): a ballot-count rank over the list and a warp-wide shift
+// of the entries below it, 32 at a time. Corpus rows increase along a block's
+// walk, so an equal score never outranks an entry already held and ties
+// resolve to the lower id.
 
 #include "common.cuh"
 
@@ -39,7 +41,7 @@ constexpr int BQ = 64;
 constexpr int BN = 64;
 constexpr int THREADS = 256;
 constexpr int LDT = BN + 1;  // score tile row stride
-constexpr int KMAX = 256;  // list entries per row (dynamic shared memory)
+constexpr int KSMEM = 256;  // list entries per row held in shared memory
 
 // ---- f32 tile: C-core FFMA, 4 x 4 outputs per thread
 constexpr int BK32 = 16;
@@ -144,7 +146,9 @@ __device__ __forceinline__ void score_tile(const __nv_bfloat16* q, const __nv_bf
   }
 }
 
-template <typename T, typename Smem>
+// GLOBAL: the lists live in place in the output (k > KSMEM); rows past Q
+// have no list there and take no candidate.
+template <typename T, typename Smem, bool GLOBAL>
 __global__ void __launch_bounds__(THREADS)
 dense_topk_stream_kernel(const T* __restrict__ q, const T* __restrict__ c,
                          float* __restrict__ out_s, int* __restrict__ out_i, int Q, int N,
@@ -163,9 +167,21 @@ dense_topk_stream_kernel(const T* __restrict__ q, const T* __restrict__ c,
   const int row_end = min(N, row_begin + part_rows);
   const unsigned full = 0xffffffffu;
 
-  for (int i = tid; i < BQ * k; i += THREADS) {
-    Ls[i] = -INFINITY;
-    Li[i] = ARTPU_INT_MAX;
+  if (GLOBAL) {
+    for (int r = 0; r < 8; ++r) {
+      const int row = warp * 8 + r;
+      if (q0 + row >= Q) continue;  // warp-uniform
+      const size_t o = ((size_t)(q0 + row) * parts + p) * k;
+      for (int i = lane; i < k; i += 32) {
+        out_s[o + i] = -INFINITY;
+        out_i[o + i] = ARTPU_INT_MAX;
+      }
+    }
+  } else {
+    for (int i = tid; i < BQ * k; i += THREADS) {
+      Ls[i] = -INFINITY;
+      Li[i] = ARTPU_INT_MAX;
+    }
   }
   __syncthreads();
   // k-th score of each of the warp's 8 rows, the same in every lane
@@ -179,13 +195,14 @@ dense_topk_stream_kernel(const T* __restrict__ q, const T* __restrict__ c,
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int row = warp * 8 + r;
-      float* ls = Ls + row * k;
-      int* li = Li + row * k;
+      float* ls = GLOBAL ? out_s + ((size_t)(q0 + row) * parts + p) * k : Ls + row * k;
+      int* li = GLOBAL ? out_i + ((size_t)(q0 + row) * parts + p) * k : Li + row * k;
+      const bool live = !GLOBAL || q0 + row < Q;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = h * 32 + lane;
         const float s = St[row * LDT + col];
-        unsigned want = __ballot_sync(full, base + col < row_end && s > kth[r]);
+        unsigned want = __ballot_sync(full, live && base + col < row_end && s > kth[r]);
         while (want) {
           const int src = __ffs(want) - 1;
           want &= want - 1;
@@ -206,9 +223,9 @@ dense_topk_stream_kernel(const T* __restrict__ q, const T* __restrict__ c,
     if (q0 + row < Q) {
       const size_t o = ((size_t)(q0 + row) * parts + p) * k;
       for (int i = lane; i < k; i += 32) {
-        const float v = Ls[row * k + i];
+        const float v = GLOBAL ? out_s[o + i] : Ls[row * k + i];
         out_s[o + i] = v == -INFINITY ? ARTPU_NEG_INF : v;
-        out_i[o + i] = Li[row * k + i];
+        if (!GLOBAL) out_i[o + i] = Li[row * k + i];
       }
     }
   }
@@ -218,12 +235,14 @@ template <typename T, typename Smem>
 int launch(const void* q, const void* c, void* out_s, void* out_i, int Q, int N, int d, int k,
            int part_rows, int parts, void* stream) {
   if (Q == 0 || parts == 0) return 0;
-  if (k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
+  if (k < 1 || d < 8 || d % 8) return (int)cudaErrorInvalidValue;
   const int q_tiles = (Q + BQ - 1) / BQ;
   const long long blocks = (long long)q_tiles * parts;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  const int list_bytes = BQ * k * (int)(sizeof(float) + sizeof(int));
-  auto kernel = dense_topk_stream_kernel<T, Smem>;
+  const bool global = k > KSMEM;
+  const int list_bytes = global ? 0 : BQ * k * (int)(sizeof(float) + sizeof(int));
+  auto kernel = global ? dense_topk_stream_kernel<T, Smem, true>
+                       : dense_topk_stream_kernel<T, Smem, false>;
   if (list_bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, list_bytes);
@@ -238,7 +257,8 @@ int launch(const void* q, const void* c, void* out_s, void* out_i, int Q, int N,
 }  // namespace
 
 // q [Q, d], c [N, d] row-major (d % 8 == 0, 16-byte aligned); outputs
-// [Q, parts, k] with part p covering rows [p*part_rows, (p+1)*part_rows).
+// [Q, parts, k], any k >= 1, with part p covering rows [p*part_rows,
+// (p+1)*part_rows).
 // Returns cudaGetLastError().
 extern "C" int dense_topk_stream_f32_launch(const void* q, const void* c, void* out_s,
                                             void* out_i, int Q, int N, int d, int k,

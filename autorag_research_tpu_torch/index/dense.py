@@ -5,7 +5,10 @@ Vectors are L2-normalized at build and query time, so the kernels' raw dot
 product is the cosine similarity (the reference's ``1 - cosine_distance``);
 with ``metric="ip"`` the raw inner product is returned instead. Artifacts
 (``embeddings.npy`` + ``meta.json``) have the JAX package's format, so either
-package loads what the other saved.
+package loads what the other saved. On the card the corpus is stored with d
+zero-padded to a multiple of 8, the kernels' unit, and queries are padded to
+its width; zero lanes leave every score unchanged. The int8 corpus also
+gets zero rows up to a multiple of 16, which its search masks.
 """
 
 from __future__ import annotations
@@ -22,7 +25,12 @@ from autorag_research_tpu_torch.index.base import SearchHit
 from autorag_research_tpu_torch.ops.dense import (
     build_verified_sidecar,
     dense_topk,
+    dense_topk_int8,
     dense_topk_verified,
+    device_width,
+    int8_rows,
+    pad_width,
+    quantize_int8,
 )
 
 # the verified sidecar pads its bf16 rows to this multiple
@@ -50,13 +58,17 @@ def _l2_normalize_device(q: torch.Tensor) -> torch.Tensor:
 
 
 class DenseIndex:
-    """Exact dense top-k over an [N, d] corpus tensor on one device.
+    """Dense top-k over an [N, d] corpus tensor on one device.
 
-    Modes: ``"exact"`` (:func:`dense_topk`) and ``"verified"``
+    Modes: ``"exact"`` (:func:`dense_topk`); ``"verified"``
     (:func:`dense_topk_verified`: a bf16 prescreen through the seg-stats
     kernel plus a bound-checked f32 rescore; results always equal
-    ``"exact"``, tie order included). ``"approx"`` and ``"int8"`` arrive with
-    a later slice of the port.
+    ``"exact"``, tie order included); the serving modes ``"approx"``
+    (:func:`dense_topk` ``method="approx"``: the JAX package's
+    ``approx_max_k`` mode, whose selection the port makes exact, so its ids
+    equal ``"exact"``'s up to the scores' rounding) and ``"int8"``
+    (:func:`dense_topk_int8`: a per-row int8 corpus, 4x fewer device bytes,
+    approximate: the JAX package documents 98% top-10 agreement with f32).
     """
 
     def __init__(
@@ -68,11 +80,7 @@ class DenseIndex:
         mode: str = "exact",
         device: str | torch.device = "cuda",
     ):
-        if mode in ("approx", "int8"):
-            raise NotImplementedError(
-                f"DenseIndex mode={mode!r} is ported with the approx/int8 dense slice"
-            )
-        if mode not in ("exact", "verified"):
+        if mode not in ("exact", "verified", "approx", "int8"):
             raise ValueError(f"unknown mode: {mode}")
         if len(ids) != embeddings.shape[0]:
             raise ValueError("ids/embeddings length mismatch")
@@ -84,6 +92,7 @@ class DenseIndex:
         self.mode = mode
         self.device = torch.device(device)
         self._sidecar: dict | None = None
+        self._device_scale: torch.Tensor | None = None
         # (n_fail, covered) of the last verified search: the proof's outcome
         self.last_stats: tuple[int, bool] | None = None
         mat = np.asarray(embeddings, dtype=np.float32)
@@ -120,8 +129,17 @@ class DenseIndex:
         n_pad = -(-n // _SIDECAR_PAD_ROWS) * _SIDECAR_PAD_ROWS
         return n * d * 4 + n_pad * d * 2
 
+    def device_bytes(self) -> int:
+        """Bytes of the corpus tensors on the device: the corpus, the int8
+        mode's per-row scales, the verified mode's bf16 sidecar."""
+        tensors = [self._device, self._device_scale]
+        if self._sidecar is not None:
+            tensors.append(self._sidecar["corpus_lo"])
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
     def to_device(self) -> "DenseIndex":
-        """Materialize the corpus (and the verified sidecar) on the device."""
+        """Materialize the corpus (and the verified sidecar, or the int8
+        scales) on the device."""
         if self.mode == "verified":
             need = self.verified_device_bytes()
             limit = _device_memory_bytes(self.device)
@@ -131,12 +149,23 @@ class DenseIndex:
                     f"bf16 sidecar) but the device has {limit / 2**30:.1f} GB. "
                     "Use mode='exact', or a corpus split over several devices."
                 )
+        width = device_width(self.dim, self.device)
+        if self.mode == "int8":
+            # quantize once on the host and ship int8: the f32 corpus never
+            # occupies device memory. Zero rows up to int8_rows, scale 0,
+            # which the search masks
+            cq, cs = quantize_int8(self._host)
+            pad = int8_rows(self._n, self.device) - self._n
+            cq = torch.nn.functional.pad(pad_width(torch.from_numpy(cq), width), (0, 0, 0, pad))
+            self._device = cq.to(self.device)
+            self._device_scale = torch.nn.functional.pad(torch.from_numpy(cs), (0, pad)).to(self.device)
+            return self
         dt = torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
-        self._device = torch.from_numpy(self._host).to(self.device, dt)
+        self._device = pad_width(torch.from_numpy(self._host), width).to(self.device, dt)
         if self.mode == "verified":
             side = build_verified_sidecar(self._host, rep="bf16", pad_rows_to=_SIDECAR_PAD_ROWS)
             self._sidecar = {
-                "corpus_lo": side["corpus_lo"].to(self.device),
+                "corpus_lo": pad_width(side["corpus_lo"], width).to(self.device),
                 "corpus_scale": None,
                 "nd_max": side["nd_max"],
                 "r_max": side["r_max"],
@@ -170,6 +199,12 @@ class DenseIndex:
             if self.metric == "cosine":
                 q = l2_normalize(q)
             q = torch.from_numpy(q).to(self.device)
+        q = pad_width(q, corpus.shape[1])
+        if self.mode == "int8":
+            scores, rows = dense_topk_int8(
+                q.float().contiguous(), corpus, self._device_scale, k, n_valid=self._n
+            )
+            return scores.cpu().numpy(), rows.cpu().numpy()
         q = q.to(corpus.dtype).contiguous()
         if self.mode == "verified":
             scores, rows, n_fail, covered = dense_topk_verified(
@@ -177,7 +212,8 @@ class DenseIndex:
             )
             self.last_stats = (n_fail, covered)
         else:
-            scores, rows = dense_topk(q, corpus, k)
+            method = "approx" if self.mode == "approx" else "auto"
+            scores, rows = dense_topk(q, corpus, k, method=method)
         return scores.float().cpu().numpy(), rows.cpu().numpy()
 
     def search(self, query_embeddings, k: int) -> list[list[SearchHit]]:

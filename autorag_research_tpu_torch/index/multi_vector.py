@@ -8,10 +8,15 @@ searches bucket by bucket and merges by global ``(-score, row)`` on the host,
 so results equal the flat layout's exactly.
 
 Modes: ``"exact"`` (:func:`maxsim_topk`: on the card the fused kernel for
-k <= 16, the scores kernel beyond) and ``"verified"``
-(:func:`maxsim_topk_verified`: bf16 prescreen through the scores kernel,
-exact f32 rescore, results always equal ``"exact"``). ``search`` returns
-MaxSim / n_query_vectors (the reference's ``-distance / n_query_vectors``).
+k <= 16, the scores kernel beyond; ``search_method`` pins a kernel:
+``"pallas"`` v1, ``"pallas_v2"``, ``"pallas_v3"``, or ``"xla"`` the scan),
+``"verified"`` (:func:`maxsim_topk_verified`: bf16 prescreen through the
+scores kernel, exact f32 rescore, results always equal ``"exact"``) and
+``"int8"`` (:func:`maxsim_topk_int8`: per-token int8 tokens quantized on the
+host, 1 byte per dim on the device plus a scale per token; approximate).
+``search`` returns MaxSim / n_query_vectors (the reference's ``-distance /
+n_query_vectors``). On the card the tokens are stored with d zero-padded to
+a multiple of 8, the kernels' unit, and queries are padded to that width.
 Artifacts (``mv.npz`` + ``meta.json``) have the JAX package's format, so
 either package loads what the other saved.
 """
@@ -29,12 +34,20 @@ from autorag_research_tpu_torch.exceptions import EmbeddingMissingError, IndexNo
 from autorag_research_tpu_torch.index.base import SearchHit
 from autorag_research_tpu_torch.index.buckets import _plan_buckets
 from autorag_research_tpu_torch.index.dense import l2_normalize
-from autorag_research_tpu_torch.ops.dense import INT_MAX, dense_topk
+from autorag_research_tpu_torch.ops.dense import (
+    INT_MAX,
+    dense_topk,
+    device_width,
+    int8_rows,
+    pad_width,
+)
 from autorag_research_tpu_torch.ops.maxsim import (
     build_maxsim_sidecar,
     maxsim_rerank,
     maxsim_topk,
+    maxsim_topk_int8,
     maxsim_topk_verified,
+    quantize_int8_tokens,
 )
 
 
@@ -80,19 +93,15 @@ class MultiVectorIndex:
     ):
         if len(ids) != len(doc_matrices):
             raise ValueError("ids/doc_matrices length mismatch")
-        if mode == "int8":
-            raise NotImplementedError(
-                "MultiVectorIndex mode='int8' is ported with the int8 slice (with DenseIndex int8)"
-            )
-        if mode not in ("exact", "verified"):
+        if mode not in ("exact", "verified", "int8"):
             raise ValueError(f"unknown mode: {mode}")
         if bucketize < 1:
             raise ValueError("bucketize must be >= 1")
         self.ids = list(ids)
         self.normalize = normalize
         self.mode = mode
-        # default route for search(): "auto" (ops/maxsim.maxsim_route); "xla"
-        # pins the plain scan
+        # default route for search(): "auto" (ops/maxsim.maxsim_route);
+        # "xla" pins the scan, "pallas" / "pallas_v2" / "pallas_v3" a kernel
         self.search_method = search_method
         self.bucketize = bucketize
         self.device = torch.device(device)
@@ -108,6 +117,7 @@ class MultiVectorIndex:
         # the prefilter's single-vector proxies (derived state, rebuilt on load)
         self._proxies = _mean_token_proxies(self._docs, self._lens)
         self._device: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._scales_device: torch.Tensor | None = None
         self._sidecar: dict | None = None
         self._proxies_device: torch.Tensor | None = None
         self._device_buckets: list[dict] | None = None
@@ -135,16 +145,38 @@ class MultiVectorIndex:
 
     def device_bytes(self) -> int:
         """Token-matrix bytes on the device under the current layout (the
-        cost the bucketed layout exists to shrink), bf16 sidecar included."""
+        cost the bucketed layout exists to shrink), the bf16 sidecar and the
+        int8 mode's per-token scales included."""
         tensors: list[torch.Tensor] = []
         if self._device_buckets is not None:
             for b in self._device_buckets:
-                tensors += [b["docs"]] + ([b["lo"]] if "lo" in b else [])
+                tensors += [b[key] for key in ("docs", "lo", "scales") if key in b]
         elif self._device is not None:
             tensors.append(self._device[0])
             if self._sidecar is not None:
                 tensors.append(self._sidecar["docs_lo"])
+            if self._scales_device is not None:
+                tensors.append(self._scales_device)
         return sum(t.numel() * t.element_size() for t in tensors)
+
+    def _upload_tokens(self, docs: np.ndarray) -> dict:
+        """{"docs"} (f32, or int8 with {"scales"} in int8 mode) on the
+        device, d zero-padded to a multiple of 8 on the card; int8 tokens
+        also up to a multiple of 16 per document (``int8_rows``), so every
+        tile of documents is a product :func:`int8_matmul` takes in place.
+        The pad tokens lie past every length, masked as any pad token."""
+        width = device_width(self.dim, self.device)
+        if self.mode == "int8":
+            # quantize on the host and ship int8: the f32 tokens never occupy
+            # device memory
+            docs_q, scales = quantize_int8_tokens(docs)
+            pad = int8_rows(docs.shape[1], self.device) - docs.shape[1]
+            docs_q = pad_width(torch.from_numpy(docs_q), width)
+            return {
+                "docs": torch.nn.functional.pad(docs_q, (0, 0, 0, pad)).to(self.device),
+                "scales": torch.nn.functional.pad(torch.from_numpy(scales), (0, pad)).to(self.device),
+            }
+        return {"docs": pad_width(torch.from_numpy(docs), width).to(self.device)}
 
     def _build_device_buckets(self) -> list[dict]:
         """Partition rows by token count; each bucket keeps ascending global
@@ -158,11 +190,13 @@ class MultiVectorIndex:
             lo_bound = hi
             if rows.size == 0:
                 continue
-            docs = torch.from_numpy(np.ascontiguousarray(self._docs[rows, :hi])).to(self.device)
-            lens = torch.from_numpy(self._lens[rows]).to(self.device)
-            entry: dict = {"rows": rows.astype(np.int64), "docs": docs, "lens": lens}
+            entry: dict = {
+                "rows": rows.astype(np.int64),
+                "lens": torch.from_numpy(self._lens[rows]).to(self.device),
+                **self._upload_tokens(np.ascontiguousarray(self._docs[rows, :hi])),
+            }
             if self.mode == "verified":
-                side = build_maxsim_sidecar(docs, lens)
+                side = build_maxsim_sidecar(entry["docs"], entry["lens"])
                 entry["lo"] = side.pop("docs_lo")
                 entry["sidecar"] = side
             buckets.append(entry)
@@ -177,11 +211,12 @@ class MultiVectorIndex:
             self._device = None
             return self
         self._device_buckets = None
-        docs = torch.from_numpy(self._docs).to(self.device)
+        up = self._upload_tokens(self._docs)
         lens = torch.from_numpy(self._lens).to(self.device)
         if self.mode == "verified" and self._n:
-            self._sidecar = build_maxsim_sidecar(docs, lens)
-        self._device = (docs, lens)
+            self._sidecar = build_maxsim_sidecar(up["docs"], lens)
+        self._device = (up["docs"], lens)
+        self._scales_device = up.get("scales")
         return self
 
     # ----------------------------------------------------------------- search
@@ -210,6 +245,10 @@ class MultiVectorIndex:
                     kprime=kprime if kprime is not None else 64, return_stats=True,
                 )
                 fails, covered = fails + n_fail, covered and cov
+            elif self.mode == "int8":
+                s, r = maxsim_topk_int8(
+                    q, q_lens, bucket["docs"], bucket["scales"], bucket["lens"], kb
+                )
             else:
                 s, r = maxsim_topk(q, q_lens, bucket["docs"], bucket["lens"], kb, method=method)
             s = s.cpu().numpy()
@@ -247,6 +286,11 @@ class MultiVectorIndex:
                 "mode's always-equal-exact contract; use mode='exact' with "
                 "prefilter, or drop prefilter"
             )
+        if prefilter is not None and self.mode == "int8":
+            raise ValueError(
+                "prefilter is not supported with mode='int8' "
+                "(the exact-rerank stage needs the f32 token matrix)"
+            )
         if prefilter is not None and self.bucketize > 1:
             raise ValueError(
                 "prefilter is not supported with bucketize>1: the rerank "
@@ -259,7 +303,7 @@ class MultiVectorIndex:
         if self._device is None and self._device_buckets is None:
             self.to_device()
         q_np, q_lens_np = self._queries(query_matrices)
-        q = torch.from_numpy(q_np).to(self.device)
+        q = pad_width(torch.from_numpy(q_np), device_width(self.dim, self.device)).to(self.device)
         q_lens = torch.from_numpy(q_lens_np).to(self.device)
         if self._device_buckets is not None:
             scores, rows = self._search_bucketed(q, q_lens, k, method, kprime)
@@ -282,6 +326,8 @@ class MultiVectorIndex:
                 kprime=kprime if kprime is not None else 64, return_stats=True,
             )
             self.last_stats = (n_fail, covered)
+        elif self.mode == "int8":
+            s, r = maxsim_topk_int8(q, q_lens, docs, self._scales_device, lens, k)
         else:
             s, r = maxsim_topk(q, q_lens, docs, lens, k, method=method)
         return s.cpu().numpy(), r.cpu().numpy(), q_lens_np
@@ -341,10 +387,6 @@ class MultiVectorIndex:
         path = Path(path)
         meta = json.loads((path / "meta.json").read_text())
         mode = meta.get("mode", "exact")
-        if mode == "int8":
-            raise NotImplementedError(
-                "MultiVectorIndex mode='int8' is ported with the int8 slice (with DenseIndex int8)"
-            )
         arrays = np.load(path / "mv.npz")
         idx = cls.__new__(cls)
         idx.ids = meta["ids"]

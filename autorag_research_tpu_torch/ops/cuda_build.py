@@ -23,7 +23,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNEL_SOURCES = ("seg_stats", "dense_topk_stream", "maxsim_v2", "bm25_v2", "bm25_v1")
+KERNEL_SOURCES = (
+    "seg_stats", "dense_topk_stream", "maxsim_v2", "maxsim_v1", "maxsim_v3", "bm25_v2", "bm25_v1",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

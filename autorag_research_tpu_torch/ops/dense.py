@@ -11,7 +11,17 @@ once. Method names map to the JAX package's as follows:
 - ``kernel`` (``dense_topk_pallas``): :func:`dense_topk_stream`, the
   hand-written CUDA kernel ``csrc/dense_topk_stream.cu`` that never
   materializes the scores; on CPU tensors its plain version
-  :func:`dense_topk_plain`.
+  :func:`dense_topk_plain`. Any k, any d.
+- ``two_stage`` (``dense_topk_xla_two_stage``): per-segment then global
+  selection over the materialized scores, exact.
+- ``approx`` (``dense_topk_approx``): the scores plus an exact
+  ``(-score, id)`` selection. ``lax.approx_max_k`` has no CUDA primitive and
+  lowers to an exact top-k off the TPU, so the ids equal the exact ones.
+
+The int8 serving mode (:func:`dense_topk_int8`) quantizes per row and takes
+its s8 x s8 -> s32 products from ``torch._int_mm``; the JAX package computes
+them with ``dot_general(preferred_element_type=int32)`` outside any Pallas
+kernel.
 
 The verified-exact path (:func:`dense_topk_verified`) runs its prescreen
 through :func:`seg_stats_bf16`, the CUDA kernel ``csrc/seg_stats.cu``
@@ -49,9 +59,8 @@ LAUNCHES = {"seg_stats_bf16": 0, "dense_topk_stream": 0}
 # never materialized.
 FULL_MATERIALIZE_BUDGET = 2 << 30
 
-# Results per row the streaming kernel holds: each block keeps a k-entry list
-# per query row in shared memory (64 rows x k x 8 bytes).
-STREAM_K_MAX = 256
+# Corpus rows per step of the int8 scan leg (JAX ``_dense_topk_int8_scan``)
+INT8_TILE_N = 131072
 
 
 def reset_launch_counts() -> None:
@@ -82,6 +91,30 @@ def _masked_scores(qf, corpus, base: int, n_valid: int):
     return scores.masked_fill(col[None, :] >= n_valid, NEG_INF)
 
 
+def pad_width(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Zero-pad the last axis of ``x`` to ``width``. The kernels take d in
+    multiples of 8; zero lanes add exact zeros to every product, so scores
+    stay bitwise those of the unpadded operands."""
+    if x.shape[-1] == width:
+        return x
+    if x.shape[-1] > width:
+        raise ValueError(f"width {x.shape[-1]} exceeds {width}")
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def device_width(d: int, device: torch.device) -> int:
+    """d as an index stores it on ``device``: rounded up to the kernels'
+    multiple of 8 on the card (once, at upload), as it is elsewhere."""
+    return _round_up(max(d, 1), 8) if device.type == "cuda" else d
+
+
+def int8_rows(n: int, device: torch.device) -> int:
+    """Rows an int8 operand is stored with on ``device``: a multiple of 16 on
+    the card, the unit :func:`int8_matmul` would otherwise copy it to on
+    every product; the pad rows are zero and the searches mask them."""
+    return _round_up(n, 16) if device.type == "cuda" else n
+
+
 def _check_cuda_operand(x: torch.Tensor, name: str, dtypes: tuple) -> None:
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
@@ -89,8 +122,19 @@ def _check_cuda_operand(x: torch.Tensor, name: str, dtypes: tuple) -> None:
         raise ValueError(f"{name} dtype {x.dtype} not in {dtypes}")
     if x.ndim != 2 or not x.is_contiguous():
         raise ValueError(f"{name} must be a contiguous 2-D tensor")
-    if x.shape[1] % 8 or x.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel needs d % 8 == 0 and 16-byte alignment")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel needs 16-byte alignment")
+
+
+def _kernel_operands(a: torch.Tensor, b: torch.Tensor, names: tuple, dtypes: tuple):
+    """Check two CUDA operands of one width and zero-pad it to a multiple of 8
+    (a copy only when d % 8 != 0; the indexes pad once at upload)."""
+    _check_cuda_operand(a, names[0], dtypes)
+    _check_cuda_operand(b, names[1], dtypes)
+    if a.device != b.device or a.shape[1] != b.shape[1]:
+        raise ValueError(f"{names[0]} and {names[1]} must share a device and a width")
+    d8 = _round_up(max(a.shape[1], 1), 8)
+    return pad_width(a, d8), pad_width(b, d8)
 
 
 # --------------------------------------------------------------- exact paths
@@ -163,23 +207,22 @@ def dense_topk_stream(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Streaming exact dense top-k (JAX ``dense_topk_pallas``): queries and
     corpus both f32 or both bf16, f32 accumulation, the [Q, N] scores never
-    materialized. CUDA tensors launch ``csrc/dense_topk_stream.cu``; CPU
-    tensors take :func:`dense_topk_plain`. Returns (scores [Q, k], ids
-    [Q, k]) in ``(-score, id)`` order."""
+    materialized, any k and any d. CUDA tensors launch
+    ``csrc/dense_topk_stream.cu``; CPU tensors take :func:`dense_topk_plain`.
+    Returns (scores [Q, k], ids [Q, k]) in ``(-score, id)`` order."""
     if queries.dtype != corpus.dtype:
         raise ValueError("queries and corpus must share a dtype")
     n = corpus.shape[0]
     k_eff = min(k, n)
-    if k_eff > STREAM_K_MAX:
-        raise ValueError(f"the streaming kernel holds at most {STREAM_K_MAX} results per row")
     if not queries.is_cuda:
         return dense_topk_plain(queries, corpus, k)
     _require_exact_f32()
-    dtypes = (torch.float32, torch.bfloat16)
-    _check_cuda_operand(queries, "queries", dtypes)
-    _check_cuda_operand(corpus, "corpus", dtypes)
-    if queries.device != corpus.device or queries.shape[1] != corpus.shape[1]:
-        raise ValueError("queries and corpus must share a device and a width")
+    queries, corpus = _kernel_operands(
+        queries, corpus, ("queries", "corpus"), (torch.float32, torch.bfloat16)
+    )
+    if k_eff == 0 or queries.shape[0] == 0:
+        empty = torch.empty((queries.shape[0], 0), device=queries.device)
+        return pad_to_k(empty, empty.to(torch.int32), k, 0)
     q, d = queries.shape
     part_rows, parts = _stream_parts(q, n, queries.device)
     out_s = torch.empty((q, parts, k_eff), dtype=torch.float32, device=queries.device)
@@ -203,14 +246,49 @@ def dense_topk_stream(
     return pad_to_k(scores, ids, k, k_eff)
 
 
+def dense_topk_two_stage(
+    queries: torch.Tensor, corpus: torch.Tensor, k: int, tile: int = 2048
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact dense top-k by hierarchical selection (JAX
+    ``dense_topk_xla_two_stage``): the [Q, N] scores cut into segments of
+    ``tile`` columns (at least k rounded up to 128), one ``(-score, id)``
+    top-k per segment, then one over the survivors. The global winners lie
+    among the segments' winners, so ids and order equal the one-pass
+    selection's."""
+    _require_exact_f32()
+    n = corpus.shape[0]
+    k_eff = min(k, n)
+    tile = max(tile, _round_up(k_eff, 128))
+    scores = _scores(queries, corpus)
+    n_pad = _round_up(n, tile)
+    if n_pad != n:
+        scores = torch.nn.functional.pad(scores, (0, n_pad - n), value=NEG_INF)
+    t = n_pad // tile
+    tile_s, tile_loc = topk_ordered(scores.view(-1, t, tile), k_eff)
+    base = (torch.arange(t, dtype=torch.int32, device=scores.device) * tile)[None, :, None]
+    cand_i = (tile_loc + base).reshape(-1, t * k_eff)
+    out_s, out_i = sort_topk(tile_s.reshape(-1, t * k_eff), cand_i, k_eff)
+    return pad_to_k(out_s, out_i, k, k_eff)
+
+
+def dense_topk_approx(
+    queries: torch.Tensor, corpus: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The approx serving mode (JAX ``dense_topk_approx``): the [Q, N] scores
+    plus a top-k. ``lax.approx_max_k`` is a TPU primitive and lowers to an
+    exact top-k elsewhere; the port selects exactly in ``(-score, id)`` order
+    on every device, so its ids equal ``full``'s (at least the documented
+    recall, with no ``recall_target`` to set)."""
+    return dense_topk_full(queries, corpus, k)
+
+
 def dense_topk(
     queries: torch.Tensor, corpus: torch.Tensor, k: int, method: str = "auto"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dispatch by shape: ``full`` while the [Q, N] f32 scores fit
     ``FULL_MATERIALIZE_BUDGET``; beyond it ``kernel`` (the streaming CUDA
-    kernel, or its plain version for CPU tensors), which holds at most
-    ``STREAM_K_MAX`` results per row and raises ``ValueError`` beyond that
-    (``method="scan"`` takes any k)."""
+    kernel, or its plain version for CPU tensors). Every method takes any k;
+    ``scan``, ``two_stage`` and ``approx`` only when asked for."""
     if method == "auto":
         if queries.shape[0] * corpus.shape[0] * 4 <= FULL_MATERIALIZE_BUDGET:
             method = "full"
@@ -222,21 +300,157 @@ def dense_topk(
         return dense_topk_scan(queries, corpus, k)
     if method == "kernel":
         return dense_topk_stream(queries, corpus, k)
+    if method == "two_stage":
+        return dense_topk_two_stage(queries, corpus, k)
+    if method == "approx":
+        return dense_topk_approx(queries, corpus, k)
     raise ValueError(f"unknown dense_topk method: {method}")
 
 
-# ------------------------------------------------------- verified exact fast
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+# ------------------------------------------------------------- int8 serving
+def quantize_int8(x):
     """Per-row symmetric int8 quantization: ``x ~= q * scale[:, None]``.
 
-    Returns (q int8 [N, d], scale f32 [N]); zero rows get scale 0."""
+    Returns (q int8 [N, d], scale f32 [N]); zero rows get scale 0. numpy in,
+    numpy out (the index build path: quantize once on the host, ship 4x fewer
+    bytes), with ``absmax / 127`` as the JAX package's numpy path computes
+    it; a tensor stays on its device, with ``absmax * f32(1/127)``, what the
+    JAX package's jitted device paths compute (XLA turns the division by the
+    constant into that product, which differs in the last bit for ~4% of
+    rows). Both round half to even, as ``np.rint`` / ``jnp.round`` do."""
+    if isinstance(x, np.ndarray):
+        absmax = np.max(np.abs(x), axis=1)
+        scale = absmax / 127.0
+        safe = np.where(scale == 0, 1.0, scale)
+        q = np.clip(np.rint(x / safe[:, None]), -127, 127).astype(np.int8)
+        return q, scale.astype(np.float32)
     absmax = torch.amax(torch.abs(x), dim=1)
-    scale = absmax / 127.0
+    scale = absmax * torch.tensor(1.0 / 127.0, dtype=torch.float32)
     safe = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(x / safe[:, None]), -127, 127).to(torch.int8)
     return q, scale.float()
 
 
+def quantize_int8_global(x) -> tuple[np.ndarray, float]:
+    """ONE symmetric scale for the whole matrix: ``x ~= q * scale``. With a
+    global scale the s32 scores are already rank-faithful, so selection needs
+    no per-doc dequantization. Host (numpy) input only: the build path."""
+    x = np.asarray(x)
+    scale = float(np.max(np.abs(x))) / 127.0
+    safe = scale if scale > 0 else 1.0
+    q = np.clip(np.rint(x / safe), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact s8 x s8 -> s32 products ``a @ b.T`` of ``a`` [M, K] and ``b``
+    [N, K] through ``torch._int_mm``. On the card it takes M > 16 and K, N
+    in multiples of 8; the operands are zero-padded to that (zeros add
+    nothing to an integer sum) and the result cut back to [M, N]. N goes to
+    a multiple of 16: cuBLASLt finds no int8 algorithm for some larger N
+    that are only a multiple of 8 (on an H100 with CUDA 12.8: N = 11,784,
+    13,960 and 58,504 at K = 16 and 64) and serves them padded to 16. That
+    pad copies ``b``: the indexes store their int8 corpora already aligned
+    (:func:`int8_rows`, :func:`device_width`), so a search never copies."""
+    m, kd = a.shape
+    n = b.shape[0]
+    if m == 0 or n == 0:
+        return torch.zeros((m, n), dtype=torch.int32, device=a.device)
+    k8 = _round_up(max(kd, 1), 8)
+
+    def padded(x, rows):
+        if x.shape[1] == k8 and x.shape[0] == rows:
+            return x.contiguous()
+        return torch.nn.functional.pad(x, (0, k8 - kd, 0, rows - x.shape[0])).contiguous()
+
+    out = torch._int_mm(padded(a, max(m, 17)), padded(b, _round_up(n, 16)).T)
+    return out[:m, :n] if out.shape != (m, n) else out
+
+
+def _as_scale(corpus_scale, device) -> tuple[torch.Tensor, bool]:
+    """(f32 scale tensor, per_doc): a python float or 0-d tensor is a global
+    scale, an [N] tensor per-row scales."""
+    t = torch.as_tensor(corpus_scale, dtype=torch.float32, device=device)
+    return t, t.ndim != 0
+
+
+def dense_topk_int8(
+    queries: torch.Tensor,
+    corpus_q: torch.Tensor,
+    corpus_scale,
+    k: int,
+    tile_n: int = INT8_TILE_N,
+    n_valid: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense top-k over an int8-quantized corpus (JAX ``dense_topk_int8``):
+    per-row scales [N] (``quantize_int8``) or one global scale
+    (``quantize_int8_global``). Queries quantize per row on the device; the
+    s32 products convert to f32, the per-doc scales fold into the scores
+    before selection and the per-query scale multiplies the k winners (with a
+    global scale both scales multiply the winners). One flat product while
+    the [Q, N] scores fit ``FULL_MATERIALIZE_BUDGET``, else a scan over
+    ``tile_n``-row corpus tiles with a running merge. Rows from ``n_valid``
+    on (zero rows an index stores for :func:`int8_rows`) never win.
+
+    Contract: APPROXIMATE against f32 (quantization error), deterministic
+    within the quantized scores: selection is always exact ``(-score, id)``,
+    so the JAX ``exact`` flag has no counterpart (its ``approx_max_k`` lowers
+    to an exact top-k off the TPU)."""
+    if queries.shape[0] * corpus_q.shape[0] * 4 <= FULL_MATERIALIZE_BUDGET:
+        return _dense_topk_int8_flat(queries, corpus_q, corpus_scale, k, n_valid)
+    return _dense_topk_int8_scan(queries, corpus_q, corpus_scale, k, tile_n, n_valid)
+
+
+def _dense_topk_int8_flat(queries, corpus_q, corpus_scale, k: int, n_valid: int | None = None):
+    n_valid = corpus_q.shape[0] if n_valid is None else n_valid
+    k_eff = min(k, n_valid)
+    q_q, q_scale = quantize_int8(queries.float())
+    scale, per_doc = _as_scale(corpus_scale, queries.device)
+    s = int8_matmul(q_q, corpus_q).float()
+    if per_doc:
+        s = s * scale[None, :]
+    s[:, n_valid:] = NEG_INF
+    out_s, out_i = topk_ordered(s, k_eff)
+    if not per_doc:
+        # global scale: the s32 scores are rank-faithful; both scales go to
+        # the k winners only
+        out_s = out_s * (q_scale[:, None] * scale)
+        return pad_to_k(out_s, out_i, k, k_eff)
+    out_s = out_s * q_scale[:, None]
+    return pad_to_k(out_s, out_i, k, k_eff)
+
+
+def _dense_topk_int8_scan(
+    queries, corpus_q, corpus_scale, k: int, tile_n: int, n_valid: int | None = None
+):
+    """Bounded-memory int8 top-k (JAX ``_dense_topk_int8_scan``): the same
+    selection values as the flat leg, so equal ids, tie order included."""
+    q = queries.shape[0]
+    n = corpus_q.shape[0]
+    n_valid = n if n_valid is None else n_valid
+    k_eff = min(k, n_valid)
+    dev = queries.device
+    q_q, q_scale = quantize_int8(queries.float())
+    scale, per_doc = _as_scale(corpus_scale, dev)
+    tile_n = min(tile_n, _round_up(n, 128))
+    out_s = torch.full((q, k_eff), NEG_INF, dtype=torch.float32, device=dev)
+    out_i = torch.full((q, k_eff), INT_MAX, dtype=torch.int32, device=dev)
+    for base in range(0, n, tile_n):
+        s = int8_matmul(q_q, corpus_q[base : base + tile_n]).float()
+        if per_doc:
+            s = s * scale[base : base + tile_n][None, :]
+        s[:, max(n_valid - base, 0) :] = NEG_INF
+        tile_s, tile_i = topk_ordered(s, min(k_eff, s.shape[1]))
+        out_s, out_i = sort_topk(
+            torch.cat([out_s, tile_s], dim=1), torch.cat([out_i, tile_i + base], dim=1), k_eff
+        )
+    if not per_doc:
+        out_s = out_s * scale
+    out_s = out_s * q_scale[:, None]
+    return pad_to_k(out_s, out_i, k, k_eff)
+
+
+# ------------------------------------------------------- verified exact fast
 def build_verified_sidecar(corpus, rep: str = "int8", pad_rows_to: int | None = None) -> dict:
     """Host-side prescreen sidecar for :func:`dense_topk_verified`.
 
@@ -252,8 +466,9 @@ def build_verified_sidecar(corpus, rep: str = "int8", pad_rows_to: int | None = 
         raise ValueError("cannot build a verified sidecar for an empty corpus")
     c64 = c.astype(np.float64)
     if rep == "int8":
-        corpus_lo, corpus_scale = quantize_int8(torch.from_numpy(c))
-        deq = corpus_lo.double().numpy() * corpus_scale.double().numpy()[:, None]
+        lo_np, scale_np = quantize_int8(c)
+        corpus_lo, corpus_scale = torch.from_numpy(lo_np), torch.from_numpy(scale_np)
+        deq = lo_np.astype(np.float64) * scale_np.astype(np.float64)[:, None]
     elif rep == "bf16":
         corpus_lo = torch.from_numpy(c).to(torch.bfloat16)
         corpus_scale = None
@@ -346,10 +561,7 @@ def seg_stats_bf16(q_lo: torch.Tensor, corpus_lo: torch.Tensor, n: int, seg: int
         return _seg_stats_plain((q_lo, None), corpus_lo, None, n, seg)
     if seg != 128:
         raise ValueError("the seg_stats kernel takes seg=128 only")
-    _check_cuda_operand(q_lo, "q_lo", (torch.bfloat16,))
-    _check_cuda_operand(corpus_lo, "corpus_lo", (torch.bfloat16,))
-    if q_lo.device != corpus_lo.device or q_lo.shape[1] != corpus_lo.shape[1]:
-        raise ValueError("q_lo and corpus_lo must share a device and a width")
+    q_lo, corpus_lo = _kernel_operands(q_lo, corpus_lo, ("q_lo", "corpus_lo"), (torch.bfloat16,))
     q, d = q_lo.shape
     rows = corpus_lo.shape[0]
     if not 0 <= n <= rows:

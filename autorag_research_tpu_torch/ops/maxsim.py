@@ -11,6 +11,12 @@ query's token count.
 - :func:`maxsim_topk_v2` (JAX ``maxsim_topk_pallas_v2``): the fused kernel
   ``csrc/maxsim_v2.cu``, streaming top-k; CPU tensors take
   :func:`maxsim_topk_v2_plain`.
+- :func:`maxsim_topk_v1` (JAX ``maxsim_topk_pallas``, the ``pallas`` pin):
+  ``csrc/maxsim_v1.cu``, an additive [N, Td] document-token bias in place of
+  lengths; CPU tensors take :func:`maxsim_topk_v1_plain`.
+- :func:`maxsim_topk_v3` (JAX ``maxsim_topk_pallas_v3``, the ``pallas_v3``
+  pin): ``csrc/maxsim_v3.cu``, the mask folded into the product through a
+  bias lane; CPU tensors take :func:`maxsim_topk_v3_plain`.
 - :func:`maxsim_scores_v2` (JAX ``maxsim_scores_pallas_v2``): the same
   kernel's raw-scores epilogue, ``[B, N]``; CPU tensors take
   :func:`maxsim_scores_v2_plain`. :func:`maxsim_topk_via_scores` selects
@@ -19,10 +25,18 @@ query's token count.
   gather plus a batched product, outside any kernel in both packages).
 - :func:`maxsim_topk_verified`: bf16 prescreen, exact f32 rescore of the
   candidates and a per-query proof that they hold the true top-k.
+- :func:`maxsim_topk_int8` (the int8 serving mode): per-token int8 documents,
+  s8 x s8 -> s32 products from ``torch._int_mm`` (JAX: ``dot_general`` with
+  ``preferred_element_type=int32``, outside any Pallas kernel).
+
+The kernels take any k (lists beyond shared memory live in the output) and
+any d (zero-padded to a multiple of 8, which leaves every product exact).
 
 Empty documents (length 0) score ``NEG_INF`` and keep their row, on every
-route: the convention of ``maxsim_topk_xla``. (The JAX Pallas kernels let an
-empty document's sum overflow to ``-inf``; their top-k then never lists it.)
+route: the convention of ``maxsim_topk_xla``. (The JAX v1 and v2 Pallas
+kernels let an empty document's sum overflow to ``-inf``; their top-k then
+never lists it. The JAX v3 kernel scores it Tq_pad x -1e30, above the search
+layer's floor, so its pin lists it as a hit where the port's does not.)
 Rows past the corpus never surface; k beyond the corpus pads with
 ``(NEG_INF, INT_MAX)``.
 
@@ -39,7 +53,13 @@ import numpy as np
 import torch
 
 from autorag_research_tpu_torch.ops import cuda_build
-from autorag_research_tpu_torch.ops.dense import _require_exact_f32, _round_up
+from autorag_research_tpu_torch.ops.dense import (
+    _require_exact_f32,
+    _round_up,
+    int8_matmul,
+    pad_width,
+    quantize_int8,
+)
 from autorag_research_tpu_torch.ops.topk import (
     INT_MAX,
     NEG_INF,
@@ -51,10 +71,16 @@ from autorag_research_tpu_torch.ops.topk import (
 
 # Kernel launches per wrapper: each wrapper adds one where it launches its
 # kernel and nowhere else.
-LAUNCHES = {"maxsim_topk_v2": 0, "maxsim_scores_v2": 0}
+LAUNCHES = {"maxsim_topk_v2": 0, "maxsim_scores_v2": 0, "maxsim_topk_v1": 0, "maxsim_topk_v3": 0}
 # Calls of the plain versions and the scan, whatever the device: a run on the
 # card shows with these that its tensors never took a plain route.
-PLAIN_CALLS = {"maxsim_topk_scan": 0, "maxsim_topk_v2_plain": 0, "maxsim_scores_v2_plain": 0}
+PLAIN_CALLS = {
+    "maxsim_topk_scan": 0,
+    "maxsim_topk_v2_plain": 0,
+    "maxsim_scores_v2_plain": 0,
+    "maxsim_topk_v1_plain": 0,
+    "maxsim_topk_v3_plain": 0,
+}
 
 # [B, Tq, tile_n, Td] f32 product budget of one scan step (JAX: the same)
 MAXSIM_TILE_BUDGET = 512 << 20
@@ -63,8 +89,9 @@ MAXSIM_TILE_BUDGET = 512 << 20
 SCORES_BUDGET = 256 << 20
 # the fused kernel serves round_up(min(k, n), 8) <= FUSED_K_MAX on "auto"
 FUSED_K_MAX = 16
-# results per query the fused kernel holds (64 KB of lists at 16 queries)
-KERNEL_K_MAX = 256
+# v3's bias-lane value for pad document tokens (JAX ``_MASK_BIAS``): finite
+# in bf16, and Tq_pad times it stays finite in f32
+MASK_BIAS = -1.0e30
 # query-token rows and documents per step of the kernel (csrc/maxsim_v2.cu)
 _KERNEL_ROWS = 128
 _KERNEL_DOCS = 32
@@ -104,26 +131,39 @@ def _query_mask(query_lens, b: int, tq: int, device) -> torch.Tensor:
     return torch.arange(tq, device=device)[None, :] < lens[:, None]
 
 
-def _scan(queries, query_lens, docs, doc_lens, k: int, tile_n: int | None):
-    b, tq, _ = queries.shape
-    n, td, _ = docs.shape
+def _select_tiles(b: int, n: int, k: int, tile_n: int, device, tile_scores):
+    """``(-score, row)`` top-k over document tiles of ``tile_n`` rows with a
+    running merge; ``tile_scores(lo, hi)`` gives the [B, hi - lo] scores of
+    rows [lo, hi). Returns (scores f32 [B, k], rows int32 [B, k])."""
     k_eff = min(k, n)
-    dev = queries.device
-    scores = torch.full((b, k_eff), NEG_INF, dtype=torch.float32, device=dev)
-    ids = torch.full((b, k_eff), INT_MAX, dtype=torch.int32, device=dev)
+    scores = torch.full((b, k_eff), NEG_INF, dtype=torch.float32, device=device)
+    ids = torch.full((b, k_eff), INT_MAX, dtype=torch.int32, device=device)
     if n == 0 or b == 0:
         return pad_to_k(scores, ids, k, k_eff)
-    tile_n = min(tile_n or _auto_tile_n(b, tq, td, n), _round_up(n, 8))
-    qf = queries.float()
-    q_mask = _query_mask(query_lens, b, tq, dev)
-    lens = torch.as_tensor(doc_lens, device=dev).reshape(n)
     for base in range(0, n, tile_n):
-        tile_s = _tile_scores(qf, q_mask, docs[base : base + tile_n], lens[base : base + tile_n])
+        tile_s = tile_scores(base, min(n, base + tile_n))
         top_s, top_i = topk_ordered(tile_s, min(k_eff, tile_s.shape[1]))
         scores, ids = sort_topk(
             torch.cat([scores, top_s], dim=1), torch.cat([ids, top_i + base], dim=1), k_eff
         )
     return pad_to_k(scores, ids, k, k_eff)
+
+
+def _tile_rows(b: int, tq: int, td: int, n: int, tile_n: int | None) -> int:
+    return min(tile_n or _auto_tile_n(b, tq, td, n), _round_up(max(n, 1), 8))
+
+
+def _scan(queries, query_lens, docs, doc_lens, k: int, tile_n: int | None):
+    b, tq, _ = queries.shape
+    n, td, _ = docs.shape
+    dev = queries.device
+    qf = queries.float()
+    q_mask = _query_mask(query_lens, b, tq, dev)
+    lens = torch.as_tensor(doc_lens, device=dev).reshape(n)
+    return _select_tiles(
+        b, n, k, _tile_rows(b, tq, td, n, tile_n), dev,
+        lambda lo, hi: _tile_scores(qf, q_mask, docs[lo:hi], lens[lo:hi]),
+    )
 
 
 def maxsim_topk_scan(
@@ -174,6 +214,95 @@ def maxsim_scores_v2_plain(queries, query_lens, docs, doc_lens) -> torch.Tensor:
     )
 
 
+def _masked_queries(queries, query_lens):
+    """Queries with every token row past its query's length zeroed."""
+    b, tq, _ = queries.shape
+    mask = _query_mask(query_lens, b, tq, queries.device)
+    return queries * mask[:, :, None].to(queries.dtype)
+
+
+def v1_bias(doc_lens, n: int, td: int, device) -> torch.Tensor:
+    """The v1 kernel's additive document-token bias [N, Td] f32: 0 for real
+    tokens, NEG_INF for pads (JAX ``maxsim_topk_pallas``'s ``dbias``)."""
+    lens = torch.as_tensor(doc_lens, device=device).reshape(n)
+    tok = torch.arange(td, device=device)
+    return torch.where(tok[None, :] < lens[:, None], 0.0, NEG_INF).to(torch.float32)
+
+
+def maxsim_topk_v1_plain(queries, query_lens, docs, doc_lens, k: int):
+    """Plain PyTorch version of :func:`maxsim_topk_v1`, the same function:
+    zero pad query rows, the bias added to every product before the max over
+    all Td tokens, the rows summed; a sum that overflows to -inf (an empty
+    document) becomes NEG_INF. Returns (scores [B, k], rows [B, k]) in
+    ``(-score, row)`` order."""
+    _require_exact_f32()
+    PLAIN_CALLS["maxsim_topk_v1_plain"] += 1
+    b, tq, d = queries.shape
+    n, td, _ = docs.shape
+    dev = queries.device
+    qf = _masked_queries(queries, query_lens).float().reshape(b * tq, d)
+    bias = v1_bias(doc_lens, n, td, dev)
+
+    def tile_scores(lo, hi):
+        tile = docs[lo:hi].float().reshape((hi - lo) * td, d)
+        s = torch.matmul(qf, tile.T).view(b, tq, hi - lo, td) + bias[lo:hi][None, None]
+        return torch.clamp(torch.amax(s, dim=3).sum(dim=1), min=NEG_INF)
+
+    return _select_tiles(b, n, k, _tile_rows(b, tq, td, n, None), dev, tile_scores)
+
+
+def maxsim_v3_operands(queries, query_lens, docs, doc_lens):
+    """The v3 kernel's augmented operands (JAX ``maxsim_topk_pallas_v3``'s
+    bias lane): d grows to ``dp = round_up(d + 1, 8)`` and lane d holds 1 on
+    every query row, pad rows and rows up to ``tq_pad = round_up(Tq, 8)``
+    included, and 0 (real token) or ``MASK_BIAS`` (pad) on document tokens.
+    Returns (queries [B, tq_pad, dp], docs [N, Td, dp]) in the inputs'
+    dtype, query rows past their lengths zero elsewhere."""
+    b, tq, d = queries.shape
+    n, td, _ = docs.shape
+    dp = _round_up(d + 1, 8)
+    tq_pad = _round_up(max(tq, 1), 8)
+    q = torch.nn.functional.pad(_masked_queries(queries, query_lens), (0, dp - d, 0, tq_pad - tq))
+    q[:, :, d] = 1
+    lens = torch.as_tensor(doc_lens, device=docs.device).reshape(n)
+    valid = torch.arange(td, device=docs.device)[None, :] < lens[:, None]
+    dd = torch.nn.functional.pad(docs, (0, dp - d))
+    dd[:, :, d] = torch.where(valid, 0.0, MASK_BIAS).to(docs.dtype)
+    return q.contiguous(), dd.contiguous()
+
+
+def _reset_empty(scores, ids, doc_lens, n: int):
+    """v3 scores an empty document Tq_pad x MASK_BIAS, below every real score
+    and above the pads: set it to NEG_INF with its row, the other routes'
+    convention, which keeps the order."""
+    lens = torch.as_tensor(doc_lens, device=ids.device).reshape(n)
+    real = ids < n
+    empty = real & (lens[torch.where(real, ids, 0).long()] == 0)
+    return scores.masked_fill(empty, NEG_INF), ids
+
+
+def maxsim_topk_v3_plain(queries, query_lens, docs, doc_lens, k: int):
+    """Plain PyTorch version of :func:`maxsim_topk_v3`, the same function:
+    the augmented operands of :func:`maxsim_v3_operands` multiplied, the max
+    over all Td tokens and the sum over the tq_pad rows taken with no other
+    mask, empty documents reset to NEG_INF after selection."""
+    _require_exact_f32()
+    PLAIN_CALLS["maxsim_topk_v3_plain"] += 1
+    b = queries.shape[0]
+    n, td, _ = docs.shape
+    qa, da = maxsim_v3_operands(queries, query_lens, docs, doc_lens)
+    tq_pad, dp = qa.shape[1], qa.shape[2]
+    qf = qa.float().reshape(b * tq_pad, dp)
+
+    def tile_scores(lo, hi):
+        tile = da[lo:hi].float().reshape((hi - lo) * td, dp)
+        s = torch.matmul(qf, tile.T).view(b, tq_pad, hi - lo, td)
+        return torch.amax(s, dim=3).sum(dim=1)
+
+    s, i = _select_tiles(b, n, k, _tile_rows(b, tq_pad, td, n, None), queries.device, tile_scores)
+    return _reset_empty(s, i, doc_lens, n)
+
+
 # ----------------------------------------------------------------- kernels
 def _kernel_layout(b: int, tq: int) -> tuple[int, int, int, int]:
     """(tq_pad, bq, rt, q_blocks): queries of tq_pad = round_up(Tq, 8) rows,
@@ -186,12 +315,11 @@ def _kernel_layout(b: int, tq: int) -> tuple[int, int, int, int]:
     return tq_pad, bq, rt, -(-b // bq)
 
 
-def _pack_queries(queries, query_lens, tq_pad: int, bq: int, rt: int, q_blocks: int):
-    """[q_blocks, rt*128, d] query-token rows, zero past each query's length,
-    past the last query and past each block's bq * tq_pad rows."""
-    b, tq, d = queries.shape
-    mask = _query_mask(query_lens, b, tq, queries.device)
-    q = queries * mask[:, :, None].to(queries.dtype)
+def _pack_queries(q, tq_pad: int, bq: int, rt: int, q_blocks: int):
+    """[q_blocks, rt*128, d] query-token rows of the masked queries ``q``
+    [B, Tq, d], zero past Tq, past the last query and past each block's
+    bq * tq_pad rows."""
+    b, tq, d = q.shape
     q = torch.nn.functional.pad(q, (0, 0, 0, tq_pad - tq, 0, q_blocks * bq - b))
     q = q.reshape(q_blocks, bq * tq_pad, d)
     q = torch.nn.functional.pad(q, (0, 0, 0, rt * _KERNEL_ROWS - bq * tq_pad))
@@ -207,7 +335,9 @@ def _kernel_parts(q_blocks: int, n: int, device: torch.device) -> tuple[int, int
     return part_docs, -(-n // part_docs)
 
 
-def _check_kernel_operands(queries, docs, doc_lens):
+def _kernel_operands(queries, docs):
+    """Check the kernels' operands and zero-pad d to a multiple of 8 (a copy
+    only when d % 8 != 0; ``MultiVectorIndex`` pads once at upload)."""
     for x, name in ((queries, "queries"), (docs, "docs")):
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -215,49 +345,62 @@ def _check_kernel_operands(queries, docs, doc_lens):
             raise ValueError(f"{name} dtype {x.dtype} not in (float32, bfloat16)")
         if x.ndim != 3 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 3-D tensor")
-        if x.shape[2] % 8 or x.data_ptr() % 16:
-            raise ValueError(f"{name}: the kernel needs d % 8 == 0 and 16-byte alignment")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel needs 16-byte alignment")
     if queries.dtype != docs.dtype:
         raise ValueError("queries and docs must share a dtype")
     if queries.device != docs.device or queries.shape[2] != docs.shape[2]:
         raise ValueError("queries and docs must share a device and a width")
-    if doc_lens.shape != (docs.shape[0],):
-        raise ValueError("doc_lens must be [N]")
+    d8 = _round_up(max(queries.shape[2], 1), 8)
+    return pad_width(queries, d8), pad_width(docs, d8)
 
 
-def _launch(fused: bool, queries, query_lens, docs, doc_lens, k_eff: int):
-    """Launch one epilogue of csrc/maxsim_v2.cu -> fused lists [B, P, k_eff]
-    (scores, rows) or scores [B, N]."""
+def _launch(source: str, name: str, queries, docs, aux, k_eff: int):
+    """Launch ``name`` (``maxsim_topk_v1`` / ``_v2`` / ``_v3`` fused, k_eff >
+    0; ``maxsim_scores_v2``, k_eff 0) of ``csrc/<source>.cu`` on masked
+    queries [B, Tq, d] and docs [N, Td, d], with the kernel's aux input
+    (lengths, bias or None) -> fused lists [B, P, k_eff] (scores, rows) or
+    scores [B, N]."""
     _require_exact_f32()
     dev = queries.device
-    dlens = torch.as_tensor(doc_lens).to(dev, torch.int32).contiguous()
-    _check_kernel_operands(queries, docs, dlens)
+    queries, docs = _kernel_operands(queries, docs)
     b, tq, d = queries.shape
     n, td, _ = docs.shape
     tq_pad, bq, rt, q_blocks = _kernel_layout(b, tq)
-    qp = _pack_queries(queries, query_lens, tq_pad, bq, rt, q_blocks)
+    qp = _pack_queries(queries, tq_pad, bq, rt, q_blocks)
     part_docs, parts = _kernel_parts(q_blocks, n, dev)
+    fused = k_eff > 0
     if fused:
         out_s = torch.empty((b, parts, k_eff), dtype=torch.float32, device=dev)
         out_i = torch.empty((b, parts, k_eff), dtype=torch.int32, device=dev)
-        name = "maxsim_topk_v2"
     else:
         out_s = torch.empty((b, n), dtype=torch.float32, device=dev)
         out_i = None
-        name = "maxsim_scores_v2"
     suffix = "f32" if queries.dtype == torch.float32 else "bf16"
-    fn = getattr(cuda_build.load("maxsim_v2"), f"{name}_{suffix}_launch")
+    fn = getattr(cuda_build.load(source), f"{name}_{suffix}_launch")
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
-        qp.data_ptr(), docs.data_ptr(), dlens.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr() if out_i is not None else None,
-        b, n, td, d, tq_pad, bq, rt, k_eff if fused else 0, part_docs, parts, q_blocks,
+        qp.data_ptr(), docs.data_ptr(), aux.data_ptr() if aux is not None else None,
+        out_s.data_ptr(), out_i.data_ptr() if out_i is not None else None,
+        b, n, td, d, tq_pad, bq, rt, k_eff, part_docs, parts, q_blocks,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check_launch(rc, name)
     LAUNCHES[name] += 1
     return out_s, out_i
+
+
+def _fused(source: str, name: str, queries, docs, aux, k: int):
+    """One fused launch merged to (scores [B, k], rows [B, k])."""
+    b = queries.shape[0]
+    k_eff = min(k, docs.shape[0])
+    if k_eff == 0 or b == 0:
+        empty = torch.empty((b, 0), device=queries.device)
+        return pad_to_k(empty, empty.to(torch.int32), k, 0)
+    out_s, out_i = _launch(source, name, queries, docs, aux, k_eff)
+    scores, ids = merge_topk(out_s, out_i, k_eff)
+    return pad_to_k(scores, ids, k, k_eff)
 
 
 def maxsim_topk_v2(
@@ -268,26 +411,67 @@ def maxsim_topk_v2(
     k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused MaxSim top-k (JAX ``maxsim_topk_pallas_v2``): queries and docs
-    both f32 or both bf16, f32 sums, the [B, N] scores never materialized.
-    CUDA tensors launch ``csrc/maxsim_v2.cu`` (at most ``KERNEL_K_MAX``
-    results per query, else ``ValueError``); CPU tensors take
-    :func:`maxsim_topk_v2_plain`. Returns (scores [B, k], rows [B, k]) in
+    both f32 or both bf16, f32 sums, the [B, N] scores never materialized,
+    any k and any d. CUDA tensors launch ``csrc/maxsim_v2.cu``; CPU tensors
+    take :func:`maxsim_topk_v2_plain`. Returns (scores [B, k], rows [B, k])
+    in ``(-score, row)`` order, empty documents at NEG_INF with their row."""
+    if queries.dtype != docs.dtype:
+        raise ValueError("queries and docs must share a dtype")
+    if not queries.is_cuda:
+        return maxsim_topk_v2_plain(queries, query_lens, docs, doc_lens, k)
+    dlens = torch.as_tensor(doc_lens).to(queries.device, torch.int32).contiguous()
+    if dlens.shape != (docs.shape[0],):
+        raise ValueError("doc_lens must be [N]")
+    return _fused(
+        "maxsim_v2", "maxsim_topk_v2", _masked_queries(queries, query_lens), docs, dlens, k
+    )
+
+
+def maxsim_topk_v1(
+    queries: torch.Tensor,
+    query_lens: torch.Tensor,
+    docs: torch.Tensor,
+    doc_lens: torch.Tensor,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused MaxSim top-k with an additive document-token bias (JAX
+    ``maxsim_topk_pallas``, the ``pallas`` pin): the wrapper builds the
+    [N, Td] f32 bias per call (:func:`v1_bias`) and the kernel
+    ``csrc/maxsim_v1.cu`` adds it before the per-token max, over all Td
+    tokens. Any k, any d; f32 or bf16. CPU tensors take
+    :func:`maxsim_topk_v1_plain`. Returns (scores [B, k], rows [B, k]) in
     ``(-score, row)`` order, empty documents at NEG_INF with their row."""
     if queries.dtype != docs.dtype:
         raise ValueError("queries and docs must share a dtype")
-    b = queries.shape[0]
-    n = docs.shape[0]
-    k_eff = min(k, n)
-    if k_eff > KERNEL_K_MAX:
-        raise ValueError(f"the fused MaxSim kernel holds at most {KERNEL_K_MAX} results per query")
     if not queries.is_cuda:
-        return maxsim_topk_v2_plain(queries, query_lens, docs, doc_lens, k)
-    if k_eff == 0 or b == 0:
-        empty = torch.empty((b, 0), device=queries.device)
-        return pad_to_k(empty, empty.to(torch.int32), k, 0)
-    out_s, out_i = _launch(True, queries, query_lens, docs, doc_lens, k_eff)
-    scores, ids = merge_topk(out_s, out_i, k_eff)
-    return pad_to_k(scores, ids, k, k_eff)
+        return maxsim_topk_v1_plain(queries, query_lens, docs, doc_lens, k)
+    bias = v1_bias(doc_lens, docs.shape[0], docs.shape[1], queries.device)
+    return _fused(
+        "maxsim_v1", "maxsim_topk_v1", _masked_queries(queries, query_lens), docs, bias, k
+    )
+
+
+def maxsim_topk_v3(
+    queries: torch.Tensor,
+    query_lens: torch.Tensor,
+    docs: torch.Tensor,
+    doc_lens: torch.Tensor,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused MaxSim top-k with the mask folded into the product (JAX
+    ``maxsim_topk_pallas_v3``, the ``pallas_v3`` pin): the wrapper builds the
+    augmented operands per call (:func:`maxsim_v3_operands`), the kernel ``csrc/maxsim_v3.cu`` reads no lengths,
+    and empty documents are reset to NEG_INF with their row after selection
+    (the JAX kernel leaves them at Tq_pad x -1e30). Any k, any d; f32 or
+    bf16. CPU tensors take :func:`maxsim_topk_v3_plain`. Returns (scores
+    [B, k], rows [B, k]) in ``(-score, row)`` order."""
+    if queries.dtype != docs.dtype:
+        raise ValueError("queries and docs must share a dtype")
+    if not queries.is_cuda:
+        return maxsim_topk_v3_plain(queries, query_lens, docs, doc_lens, k)
+    qa, da = maxsim_v3_operands(queries, query_lens, docs, doc_lens)
+    s, i = _fused("maxsim_v3", "maxsim_topk_v3", qa, da, None, k)
+    return _reset_empty(s, i, doc_lens, docs.shape[0])
 
 
 def maxsim_scores_v2(
@@ -306,7 +490,12 @@ def maxsim_scores_v2(
         return torch.empty(
             (queries.shape[0], docs.shape[0]), dtype=torch.float32, device=queries.device
         )
-    return _launch(False, queries, query_lens, docs, doc_lens, 0)[0]
+    dlens = torch.as_tensor(doc_lens).to(queries.device, torch.int32).contiguous()
+    if dlens.shape != (docs.shape[0],):
+        raise ValueError("doc_lens must be [N]")
+    return _launch(
+        "maxsim_v2", "maxsim_scores_v2", _masked_queries(queries, query_lens), docs, dlens, 0
+    )[0]
 
 
 def _scores_chunk(b: int, n: int) -> int:
@@ -350,9 +539,11 @@ def maxsim_route(method: str, b: int, n: int, k: int, device_type: str) -> tuple
     off the TPU); on the card the fused kernel while ``round_up(min(k, n),
     8) <= 16`` (JAX's rule without its VMEM conditions), else the scores
     kernel plus ``sort_topk`` in query chunks whose [Bc, N] f32 block fits
-    ``SCORES_BUDGET``; never the scan. ``xla`` pins the scan,
-    ``pallas_v2`` the fused kernel. ``pallas`` (v1) and ``pallas_v3`` have
-    no kernel of their own yet and raise."""
+    ``SCORES_BUDGET``; never the scan. ``xla`` pins the scan, ``pallas_v2``
+    the fused kernel (``"fused"``), ``pallas`` the v1 kernel (``"v1"``) and
+    ``pallas_v3`` the v3 kernel (``"v3"``); off the card each pinned kernel's
+    wrapper takes its plain version, as the JAX package runs a pinned Pallas
+    kernel in interpret mode off the TPU."""
     chunk = _scores_chunk(b, n)
     if method == "auto":
         if device_type != "cuda":
@@ -364,11 +555,10 @@ def maxsim_route(method: str, b: int, n: int, k: int, device_type: str) -> tuple
         return "scan", chunk
     if method == "pallas_v2":
         return "fused", chunk
-    if method in ("pallas", "pallas_v3"):
-        raise NotImplementedError(
-            f"maxsim method={method!r}: its kernel (_maxsim_kernel"
-            f"{'_v3' if method == 'pallas_v3' else ''}) is not ported yet; use 'auto' or 'pallas_v2'"
-        )
+    if method == "pallas":
+        return "v1", chunk
+    if method == "pallas_v3":
+        return "v3", chunk
     raise ValueError(f"unknown maxsim method: {method}")
 
 
@@ -388,6 +578,10 @@ def maxsim_topk(
         return maxsim_topk_scan(queries, query_lens, docs, doc_lens, k, tile_n=tile_n)
     if route == "fused":
         return maxsim_topk_v2(queries, query_lens, docs, doc_lens, k)
+    if route == "v1":
+        return maxsim_topk_v1(queries, query_lens, docs, doc_lens, k)
+    if route == "v3":
+        return maxsim_topk_v3(queries, query_lens, docs, doc_lens, k)
     return maxsim_topk_via_scores(queries, query_lens, docs, doc_lens, k, chunk_b=chunk)
 
 
@@ -583,3 +777,59 @@ def maxsim_topk_verified(
     if return_stats:
         return out_s, out_i, n_fail, covered
     return out_s, out_i
+
+
+# ----------------------------------------------------------- int8 serving
+def quantize_int8_tokens(docs):
+    """Per-token-row symmetric int8 quantization of a padded [N, Td, d] token
+    matrix: ``docs ~= q * scale[..., None]``. Returns (q int8 [N, Td, d],
+    scale f32 [N, Td]); pad tokens are zero rows with scale 0. numpy in, numpy
+    out (the index build path); a tensor stays on its device."""
+    n, td, d = docs.shape
+    q, scale = quantize_int8(docs.reshape(n * td, d))
+    return q.reshape(n, td, d), scale.reshape(n, td)
+
+
+def maxsim_topk_int8(
+    queries: torch.Tensor,
+    query_lens: torch.Tensor,
+    docs_q: torch.Tensor,
+    doc_scales: torch.Tensor,
+    doc_lens: torch.Tensor,
+    k: int,
+    tile_n: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """MaxSim top-k over a per-token int8 corpus (JAX ``maxsim_topk_int8``).
+
+    Queries quantize per token row on the device; each document-token scale
+    multiplies the s32 products before the max over document tokens (scales
+    vary per token, so they decide which token wins), and each query token's
+    scale weights its maximum before the sum; pad query tokens add exactly 0.
+    Document tiles of ``tile_n`` rows (``MAXSIM_TILE_BUDGET`` by default) go
+    through one s8 product each, with a running ``(-score, row)`` merge.
+
+    Contract: APPROXIMATE against f32 (quantization error), deterministic
+    within the quantized scores. Empty documents score NEG_INF with their
+    row. Returns (scores [B, k], rows [B, k])."""
+    b, tq, d = queries.shape
+    n, td, _ = docs_q.shape
+    dev = queries.device
+    q_q, q_scale = quantize_int8(queries.float().reshape(b * tq, d))
+    q_mask = _query_mask(query_lens, b, tq, dev)
+    # the query-token scale, zero on pad tokens, weights the per-token maxima
+    q_weight = torch.where(q_mask, q_scale.reshape(b, tq), 0.0)
+    lens = torch.as_tensor(doc_lens, device=dev).reshape(n)
+    scales = torch.as_tensor(doc_scales, device=dev)
+    tok = torch.arange(td, device=dev)
+
+    def tile_scores(lo, hi):
+        nt = hi - lo
+        s = int8_matmul(q_q, docs_q[lo:hi].reshape(nt * td, d)).float().view(b, tq, nt, td)
+        s = s * scales[lo:hi][None, None]  # per-doc-token dequant before the max
+        s = s.masked_fill(~(tok[None, :] < lens[lo:hi, None])[None, None], NEG_INF)
+        per_token = torch.amax(s, dim=3) * q_weight[:, :, None]
+        # pad query tokens add exactly 0, also against an empty document
+        per_token = torch.where(q_mask[:, :, None], per_token, 0.0)
+        return per_token.sum(dim=1).masked_fill(~(lens[lo:hi] > 0)[None, :], NEG_INF)
+
+    return _select_tiles(b, n, k, _tile_rows(b, tq, td, n, tile_n), dev, tile_scores)

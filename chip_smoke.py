@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Drives the port's dense, MaxSim and BM25 (flat, packed, bucketed) retrieval
-paths (``autorag_research_tpu_torch``) at full width and fails (non-zero exit) on
-any fault:
+paths (``autorag_research_tpu_torch``), the MaxSim pins and the int8 and approx
+serving modes at full width and fails (non-zero exit) on any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source);
@@ -84,7 +84,24 @@ any fault:
 14. a bucketed ``SparseIndex`` (``bucketize=2``) of 500,000 texts, 90% of
     10-16 and 10% of 100-128 Zipf words: its buckets and ``device_bytes``
     against the flat layout's, 1,024 NQ-like queries at k = 10 and 100, hits
-    equal to the flat layout's, the packed kernel launched.
+    equal to the flat layout's, the packed kernel launched;
+15. the last slice's kernels: #11 (``csrc/maxsim_v1.cu``, the ``pallas``
+    pin) and #12 (``csrc/maxsim_v3.cu``, the ``pallas_v3`` pin) against their
+    plain versions at phase 6's shapes (f32 text scale and bf16 page scale,
+    k = 10), each with #9 timed beside it, #12's operand build timed apart;
+    lists of any k (#11 and #2 at k = 1,000, #9 at k = 300, #2 at the main
+    path's Q = 2,048 x 500,000 x 768) and an odd width (d = 100: #1, #2, #9);
+16. the slice's path with every launch count at 0 just before it: the text
+    ``MultiVectorIndex`` with the ``pallas`` and ``pallas_v3`` pins at k = 10
+    (hits equal to auto's), an int8 page-scale ``MultiVectorIndex`` and the
+    approx and int8 ``DenseIndex`` at 500,000 x 768 searched by 1,024 and 2,048
+    embedded queries (approx ids equal to exact mode's, int8's top-10
+    agreement printed, int8 at Q = 2,048 on the scan leg); both new kernels
+    launched, no plain version; device bytes of the int8 indexes against f32;
+    the first 64 queries' int8 dense hits bitwise equal to the same op on CPU
+    tensors (4 queries within 1e-5 for int8 MaxSim); an int8 ``DenseIndex``
+    of 499,993 rows (stored padded to 500,000, masked) with the full one's
+    hits, timed beside the op on the unaligned rows.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -130,6 +147,15 @@ BM25_ZIPF = 1.1
 # a short-doc main path at BEIR Quora's size (522,931 docs, mean 11.44 words;
 # BEIR Table 1) and a bucketed one (scripts/bench_bm25_bucketed.py's 90/10)
 PACKED_W, PROBE_T, PROBE_V, PROBE_ROWS = 16, 8, 500_000, 256
+# the last slice: lists of any k (a TREC-style top-1,000; past the kernels'
+# 256 shared-memory entries), an odd width, and the int8 modes' sanity floors
+# on this synthetic data (the JAX package documents 98% top-10 on real dense
+# embeddings; its MaxSim int8 test asserts top-5 >= 0.8)
+K_ANY, K_F1_MAXSIM, ODD_DIM = 1000, 300, 100
+INT8_AGREE_MIN, MV_INT8_AGREE_MIN = 0.9, 0.8
+# the int8 searches held against the same ops on CPU tensors for a slice of
+# their queries; an int8 corpus whose size is not a multiple of 16
+INT8_CPU_Q, MV_INT8_CPU_Q, INT8_ODD_N = 64, 4, N_DOCS - 7
 QUORA_N, QUORA_WORDS, QUORA_QWORDS = 522_931, (4, 19), (6, 13)
 BUCKET_N, BUCKET_SHORT, BUCKET_LONG = 500_000, (10, 16), (100, 128)
 
@@ -416,7 +442,9 @@ def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -
     plain_calls = dict(tm.PLAIN_CALLS)
     log(f"MaxSim main path launches: {json.dumps(launches)}, plain calls "
         f"{json.dumps(plain_calls)} ({main_s:.2f} s, first calls)")
-    if min(tm.LAUNCHES.values()) < 1 or any(plain_calls.values()):
+    if min(tm.LAUNCHES[n] for n in ("maxsim_topk_v2", "maxsim_scores_v2")) < 1 or any(
+        plain_calls.values()
+    ):
         fail("the MaxSim main path skipped a kernel or took a plain route on the card")
     for k in kernels:
         if k["name"] in tm.LAUNCHES:
@@ -1286,6 +1314,325 @@ def bm25_packed_phases(seed: int, dev, peak: dict, kernels: list) -> None:
     torch.cuda.empty_cache()
 
 
+def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str],
+                       corpus: np.ndarray, query_texts: list[str]) -> None:
+    """The last slice: kernels #11 and #12 beside #9 at the MaxSim shapes, the
+    kernels at any k and any d (phase 15); the pins and the serving modes
+    through the indexes in their own launch window (phase 16). The corpora,
+    queries and encoders are those of phases 1-7, remade from the same seeds."""
+    import torch
+
+    from autorag_research_tpu_torch.embeddings.torch_encoder import (
+        TorchEncoderEmbedding,
+        TorchEncoderMultiVectorEmbedding,
+    )
+    from autorag_research_tpu_torch.index.dense import (
+        DenseIndex,
+        _l2_normalize_device,
+        l2_normalize,
+    )
+    from autorag_research_tpu_torch.index.multi_vector import MultiVectorIndex, pad_ragged
+    from autorag_research_tpu_torch.models.encoder import EncoderConfig
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+
+    t0 = time.perf_counter()
+    text_mats, _ = mv_corpus(TEXT_N, TEXT_TD, seed + 10, dev)
+    index_text = MultiVectorIndex(list(range(TEXT_N)), text_mats, device=dev).to_device()
+    del text_mats
+    page_mats, _ = mv_corpus(PAGE_N, PAGE_TD, seed + 11, dev)
+    index_page = MultiVectorIndex(list(range(PAGE_N)), page_mats, device=dev).to_device()
+    index_page8 = MultiVectorIndex(list(range(PAGE_N)), page_mats, mode="int8", device=dev)
+    index_page8.to_device()
+    del page_mats
+    doc_ids = list(range(N_DOCS))
+    index_e = DenseIndex(doc_ids, corpus, device=dev).to_device()
+    index_a = DenseIndex(doc_ids, corpus, mode="approx", device=dev).to_device()
+    index_8 = DenseIndex(doc_ids, corpus, mode="int8", device=dev).to_device()
+    index_8o = DenseIndex(doc_ids[:INT8_ODD_N], corpus[:INT8_ODD_N], mode="int8", device=dev)
+    index_8o.to_device()
+    mv_texts = make_texts(np.random.default_rng(seed + 12), vocab, MV_Q, 8, MV_TQ + 1)
+    mv_embedder = TorchEncoderMultiVectorEmbedding(
+        EncoderConfig(**MV_ENCODER), seed=seed, batch_size=512, device=dev
+    )
+    embedder = TorchEncoderEmbedding(
+        EncoderConfig(**ENCODER), seed=seed, batch_size=512, device=dev
+    )
+    q_mats = mv_embedder.embed_texts_multi(mv_texts)
+    q_np, ql_np = pad_ragged([l2_normalize(m) for m in q_mats])
+    q32 = torch.from_numpy(q_np).to(dev)
+    ql = torch.from_numpy(ql_np).to(dev)
+    q16 = q32.to(torch.bfloat16)
+    docs_t, lens_t = index_text._device
+    docs_p, lens_p = index_page._device
+    docs_p16 = docs_p.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"slice corpora remade: text and page MultiVectorIndex (f32), page int8, DenseIndex "
+        f"exact / approx / int8 at {N_DOCS} x {DIM} ({time.perf_counter() - t0:.2f} s)")
+
+    # ---- 15. kernels #11 and #12 beside #9; any k, any d ------------------
+    names = {"maxsim_topk_v1": ("maxsim_v1.cu", 125), "maxsim_topk_v3": ("maxsim_v3.cu", 572)}
+
+    def pin_case(name, label, q, docs, dlens, k, pk, elt):
+        kernel, plain = getattr(tm, name), getattr(tm, f"{name}_plain")
+        build_ms = None
+        if name == "maxsim_topk_v3":
+            build_ms = cuda_ms(lambda: tm.maxsim_v3_operands(q, ql, docs, dlens), 2)
+            ops = tm.maxsim_v3_operands(q, ql, docs, dlens)
+
+            def call():  # the wrapper's launch on prebuilt operands
+                s, i = tm._fused("maxsim_v3", name, *ops, None, k)
+                return tm._reset_empty(s, i, dlens, docs.shape[0])
+        else:
+            def call():
+                return kernel(q, ql, docs, dlens, k)
+        s, i = call()
+        rs, ri = plain(q, ql, docs, dlens, k)
+        n_mism, ok, err = mv_agree(s, i, rs, ri, mv_tol(q, ql, 1.0))
+        log(f"{name} vs plain, {label}: ids mismatches {n_mism}/{i.numel()} (all within the "
+            f"rounding term: {ok}), max|d score| = {err:.3e}")
+        if not ok:
+            fail(f"{name} disagrees with its plain version ({label})")
+        ms = cuda_ms(call, 3)
+        v2_ms = cuda_ms(lambda: tm.maxsim_topk_v2(q, ql, docs, dlens, k), 3)
+        plain_ms = cuda_ms(lambda: plain(q, ql, docs, dlens, k), 1)
+        lib_ms = cuda_ms(lambda: mv_library(q, ql, docs, dlens, k), 1)
+        b_ms, b_by = mv_bound(ql, dlens, MV_DIM, elt, q.shape[0] * k * 8, peak[pk], peak["hbm"])
+        log(f"  kernel {ms:.3f} ms" + (f" (+ operand build {build_ms:.3f} ms)" if build_ms else "")
+            + f", #9 (maxsim_topk_v2) beside it {v2_ms:.3f} ms, plain {plain_ms:.3f} ms, chunked "
+            f"matmul + amax + topk {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        src, line = names[name]
+        entry = {
+            "name": name, "case": label, "route": "cuda",
+            "source": f"autorag_research_tpu_torch/csrc/{src}",
+            "replaces": f"autorag_research_tpu/ops/maxsim.py:{line}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "v2_ms": v2_ms,
+        }
+        if build_ms is not None:
+            entry["operand_build_ms"] = build_ms
+        kernels.append(entry)
+
+    td._require_exact_f32()
+    text = f"text scale B={MV_Q} x {TEXT_N} docs x {TEXT_TD} x {MV_DIM}"
+    page = f"page scale B={MV_Q} x {PAGE_N} pages x {PAGE_TD} x {MV_DIM}"
+    for name in names:
+        pin_case(name, f"f32 {text}, k={K}", q32, docs_t, lens_t, K, "f32", 4)
+        pin_case(name, f"bf16 {page}, k={K}", q16, docs_p16, lens_p, K, "bf16", 2)
+
+    def any_case(label, got, ref, check):
+        (s, i), ms = got
+        rs, ri = ref
+        ok, detail = check(s, i, rs, ri)
+        log(f"{label}: {detail}, kernel {ms:.3f} ms")
+        if not ok:
+            fail(f"{label}: the kernel disagrees with its plain version")
+
+    def mv_check(s, i, rs, ri):
+        n_mism, ok, err = mv_agree(s, i, rs, ri, mv_tol(q32, ql, 1.0))
+        return ok, (f"ids mismatches {n_mism}/{i.numel()} (within the rounding term: {ok}), "
+                    f"max|d score| = {err:.3e}")
+
+    def dense_check(s, i, rs, ri):
+        s, i, rs, ri = (t.cpu().numpy() for t in (s, i, rs, ri))
+        n_mism, ok = ids_agree(i, s, ri, rs)
+        ok = ok and bool((np.abs(s - rs) <= 1e-6 * np.abs(rs) + 4e-7).all())
+        return ok, (f"ids mismatches {n_mism}/{i.size} (all sub-ulp: {ok}), "
+                    f"max|d score| = {np.abs(s - rs).max():.3e}")
+
+    any_case(f"maxsim_topk_v1 f32 {text}, k={K_ANY} (lists in the output)",
+             timed(lambda: tm.maxsim_topk_v1(q32, ql, docs_t, lens_t, K_ANY)),
+             tm.maxsim_topk_v1_plain(q32, ql, docs_t, lens_t, K_ANY), mv_check)
+    any_case(f"maxsim_topk_v2 f32 {text}, k={K_F1_MAXSIM} (lists in the output)",
+             timed(lambda: tm.maxsim_topk_v2(q32, ql, docs_t, lens_t, K_F1_MAXSIM)),
+             tm.maxsim_topk_v2_plain(q32, ql, docs_t, lens_t, K_F1_MAXSIM), mv_check)
+    q_ex = index_e._device.new_tensor(l2_normalize(embedder.embed_texts(query_texts)))
+    c_f32 = index_e._device
+    any_case(f"dense_topk_stream @ Q={Q_EXACT} x N={N_DOCS} x d={DIM} f32, k={K_ANY} "
+             f"(lists in the output)",
+             timed(lambda: td.dense_topk_stream(q_ex, c_f32, K_ANY)),
+             td.dense_topk_plain(q_ex, c_f32, K_ANY), dense_check)
+    # d = 100: the wrappers zero-pad to 104 (a copy per call)
+    q100 = q_ex[:, :ODD_DIM].contiguous()
+    c100 = c_f32[:, :ODD_DIM].contiguous()
+    any_case(f"dense_topk_stream @ Q={Q_EXACT} x N={N_DOCS} x d={ODD_DIM} f32, k={K}",
+             timed(lambda: td.dense_topk_stream(q100, c100, K)),
+             td.dense_topk_plain(q100, c100, K), dense_check)
+    q100b = q100[:Q_VERIFIED].to(torch.bfloat16)
+    c100b = c100.to(torch.bfloat16)
+    (got, seg_ms) = timed(lambda: td.seg_stats_bf16(q100b, c100b, N_DOCS))
+    ref = td._seg_stats_plain((q100b, None), c100b, None, N_DOCS, 128)
+    qn = torch.linalg.vector_norm(q100b.float(), dim=1, keepdim=True)
+    tol = ODD_DIM * 2.0**-23 * qn * torch.linalg.vector_norm(c100b.float(), dim=1).max()
+    err = max(float((got[0] - ref[0]).abs().max()), float((got[2] - ref[2]).abs().max()))
+    loc_bad = int(((got[1] != ref[1]) & ((ref[0] - ref[2]) > 2 * tol)).sum())
+    within = bool(((got[0] - ref[0]).abs() <= tol).all() and ((got[2] - ref[2]).abs() <= tol).all())
+    log(f"seg_stats_bf16 @ Q={Q_VERIFIED} x N={N_DOCS} x d={ODD_DIM}: max|d max1,max2| = "
+        f"{err:.3e} (within the reduction-order bound: {within}), loc1 mismatches not near-ties "
+        f"{loc_bad}, kernel {seg_ms:.3f} ms")
+    if not within or loc_bad:
+        fail("seg_stats_bf16 disagrees with its plain version at d = 100")
+    del got, ref, q100, c100, q100b, c100b
+    docs_t100 = docs_t[:, :, :ODD_DIM].contiguous()
+    q32_100 = q32[:, :, :ODD_DIM].contiguous()
+    s, i = tm.maxsim_topk_v2(q32_100, ql, docs_t100, lens_t, K)
+    rs, ri = tm.maxsim_topk_v2_plain(q32_100, ql, docs_t100, lens_t, K)
+    n_mism, ok, err = mv_agree(s, i, rs, ri, mv_tol(q32_100, ql, 1.0))
+    v2_100_ms = cuda_ms(lambda: tm.maxsim_topk_v2(q32_100, ql, docs_t100, lens_t, K), 2)
+    log(f"maxsim_topk_v2 f32 text scale d={ODD_DIM}, k={K}: ids mismatches {n_mism}/{i.numel()} "
+        f"(within the rounding term: {ok}), max|d score| = {err:.3e}, kernel {v2_100_ms:.3f} ms")
+    if not ok:
+        fail("maxsim_topk_v2 disagrees with its plain version at d = 100")
+    del docs_t100, q32_100, docs_p16
+    torch.cuda.empty_cache()
+
+    # ---- 16. the slice's path, launch counts from 0 ------------------------
+    td.reset_launch_counts()
+    tm.reset_launch_counts()
+    t0 = time.perf_counter()
+    q_mats = mv_embedder.embed_texts_multi(mv_texts)
+    s_v1, r_v1 = index_text.topk_rows(q_mats, K, method="pallas")[:2]
+    s_v3, r_v3 = index_text.topk_rows(q_mats, K, method="pallas_v3")[:2]
+    s_p8, r_p8 = index_page8.topk_rows(q_mats, K)[:2]
+    emb = embedder.embed_texts_device(query_texts)
+    dense_out = {}
+    for q_cnt in (Q_VERIFIED, Q_EXACT):
+        dense_out["approx", q_cnt] = index_a.topk_rows(emb[:q_cnt], K)
+        dense_out["int8", q_cnt] = index_8.topk_rows(emb[:q_cnt], K)
+        dense_out["int8_odd", q_cnt] = index_8o.topk_rows(emb[:q_cnt], K)
+    slice_s = time.perf_counter() - t0
+    launches = {**td.LAUNCHES, **tm.LAUNCHES}
+    plain_calls = dict(tm.PLAIN_CALLS)
+    log(f"slice path launches: {json.dumps(launches)}, plain calls {json.dumps(plain_calls)} "
+        f"({slice_s:.2f} s, first calls)")
+    if tm.LAUNCHES["maxsim_topk_v1"] < 1 or tm.LAUNCHES["maxsim_topk_v3"] < 1:
+        fail("the slice path did not launch the v1 and v3 kernels")
+    if any(plain_calls.values()):
+        fail("the slice path took a plain route on the card")
+    for k in kernels:
+        if k["name"] in names:
+            k["launches"] = tm.LAUNCHES[k["name"]]
+
+    s_auto, r_auto = index_text.topk_rows(q_mats, K)[:2]
+    tol = mv_tol(q32, ql, 1.0)
+    for pin, s, r in (("pallas", s_v1, r_v1), ("pallas_v3", s_v3, r_v3)):
+        n_mism, ok, err = mv_agree(s, r, s_auto, r_auto, tol)
+        same = bool(np.array_equal(r, r_auto) and np.array_equal(s, s_auto))
+        log(f"MultiVectorIndex text scale, the {pin} pin vs auto (fused v2), k={K}: ids "
+            f"mismatches {n_mism}/{r.size} (within the rounding term: {ok}; bitwise: {same}), "
+            f"max|d score| = {err:.3e}")
+        if not ok or not np.isfinite(s).all():
+            fail(f"the {pin} pin's hits differ from auto's")
+    pin_ms = {m: wall_ms(lambda m=m: index_text.topk_rows(q_mats, K, method=m), 2)
+              for m in ("auto", "pallas", "pallas_v3")}
+    log("MultiVectorIndex text scale search, k=10, ms/batch: "
+        + ", ".join(f"{m} {v:.3f}" for m, v in pin_ms.items()))
+
+    def agree(a, b):
+        return float(np.mean([len(set(x) & set(y)) / len(x) for x, y in zip(a, b)]))
+
+    def int8_cpu_slice(index, q_cnt, label):
+        """The card's first INT8_CPU_Q results against dense_topk_int8 on CPU
+        tensors, the same normalized queries and stored corpus: the s32
+        products are exact and every f32 step after them an IEEE operation in
+        one order, so ids and scores are bitwise equal."""
+        got_s, got_i = dense_out[label, q_cnt]
+        n = index.n_docs
+        qn = _l2_normalize_device(emb[:q_cnt].float())[:INT8_CPU_Q].cpu()
+        qn = td.pad_width(qn, index._device.shape[1])
+        ref_s, ref_i = td.dense_topk_int8(
+            qn, index._device[:n].cpu(), index._device_scale[:n].cpu(), K
+        )
+        same = bool(np.array_equal(got_i[:INT8_CPU_Q], ref_i.numpy())
+                    and np.array_equal(got_s[:INT8_CPU_Q], ref_s.numpy()))
+        log(f"DenseIndex int8 {n} rows (stored {index._device.shape[0]}), Q={q_cnt}: the "
+            f"first {INT8_CPU_Q} queries' hits bitwise equal to dense_topk_int8 on CPU "
+            f"tensors: {same}")
+        if not same:
+            fail(f"the card's int8 dense hits differ from the CPU's ({n} rows, Q={q_cnt})")
+
+    for q_cnt in (Q_VERIFIED, Q_EXACT):
+        es, ei = index_e.topk_rows(emb[:q_cnt], K)
+        a_s, a_i = dense_out["approx", q_cnt]
+        n_mism, explained = ids_agree(a_i, a_s, ei, es)
+        i8_s, i8_i = dense_out["int8", q_cnt]
+        i8_agree = agree(i8_i, ei)
+        a_ms = wall_ms(lambda: index_a.topk_rows(emb[:q_cnt], K), 2)
+        i8_ms = wall_ms(lambda: index_8.topk_rows(emb[:q_cnt], K), 2)
+        e_ms = wall_ms(lambda: index_e.topk_rows(emb[:q_cnt], K), 2)
+        leg = "flat" if q_cnt * N_DOCS * 4 <= td.FULL_MATERIALIZE_BUDGET else "scan"
+        log(f"DenseIndex Q={q_cnt} x {N_DOCS} x {DIM}, k={K}: approx vs exact ids {n_mism}/"
+            f"{a_i.size} mismatches (all sub-ulp: {explained}), {a_ms:.3f} ms/batch; int8 "
+            f"({leg} leg) top-{K} agreement with exact {i8_agree:.4f}, {i8_ms:.3f} ms/batch; "
+            f"exact {e_ms:.3f} ms/batch")
+        if not explained:
+            fail(f"approx ids diverge from exact mode beyond sub-ulp near-ties at Q={q_cnt}")
+        if i8_agree < INT8_AGREE_MIN or not np.isfinite(i8_s).all():
+            fail(f"int8 top-{K} agreement {i8_agree} below {INT8_AGREE_MIN} at Q={q_cnt}")
+        int8_cpu_slice(index_8, q_cnt, "int8")
+        # INT8_ODD_N rows, stored with zero rows up to a multiple of 16 and
+        # masked: the hits of the full corpus wherever none of its last 7 rows
+        # made the top-k, and no pad row listed
+        o_s, o_i = dense_out["int8_odd", q_cnt]
+        keep = (i8_i < INT8_ODD_N).all(axis=1)
+        same = bool(np.array_equal(o_i[keep], i8_i[keep]) and np.array_equal(o_s[keep], i8_s[keep]))
+        o_ms = wall_ms(lambda: index_8o.topk_rows(emb[:q_cnt], K), 2)
+        log(f"DenseIndex int8 {INT8_ODD_N} rows (not a multiple of 16), Q={q_cnt}: hits equal "
+            f"the {N_DOCS}-row index's on {int(keep.sum())} queries: {same}, no pad row: "
+            f"{bool((o_i < INT8_ODD_N).all())}; {o_ms:.3f} ms/batch against {i8_ms:.3f}")
+        if not same or not (o_i < INT8_ODD_N).all():
+            fail(f"the int8 index of {INT8_ODD_N} rows disagrees with the full one at Q={q_cnt}")
+        int8_cpu_slice(index_8o, q_cnt, "int8_odd")
+    # the cost the stored pad rows avoid: the same search through the op on
+    # the unaligned rows, which int8_matmul pads (copies) on every product
+    qn = td.pad_width(_l2_normalize_device(emb[:Q_VERIFIED].float()), index_8o._device.shape[1])
+    c_odd = index_8o._device[:INT8_ODD_N]
+    s_odd = index_8o._device_scale[:INT8_ODD_N]
+    unal_ms = cuda_ms(lambda: td.dense_topk_int8(qn, c_odd, s_odd, K), 2)
+    al_ms = cuda_ms(lambda: td.dense_topk_int8(qn, index_8o._device, index_8o._device_scale, K,
+                                               n_valid=INT8_ODD_N), 2)
+    log(f"dense_topk_int8 @ Q={Q_VERIFIED} x {INT8_ODD_N} x {DIM}: stored rows (a multiple of "
+        f"16, masked) {al_ms:.3f} ms, the unaligned rows (padded per product) {unal_ms:.3f} ms")
+    del qn, c_odd, s_odd
+    log(f"DenseIndex device bytes: int8 {index_8.device_bytes()} (1 byte per dim + a f32 scale "
+        f"per row), exact f32 {index_e.device_bytes()}")
+    if not index_8.device_bytes() * 3.9 < index_e.device_bytes():
+        fail("the int8 dense index does not hold about 4x fewer device bytes")
+
+    pe_s, pe_i = tm.maxsim_topk(q32, ql, docs_p, lens_p, K)
+    p8_agree = agree(r_p8, pe_i.cpu().numpy())
+    p8_ms = wall_ms(lambda: index_page8.topk_rows(q_mats, K), 2)
+    log(f"MultiVectorIndex int8 page scale, k={K}: top-{K} agreement with exact f32 "
+        f"{p8_agree:.4f}, {p8_ms:.3f} ms/batch; device bytes int8 {index_page8.device_bytes()} "
+        f"against f32 {index_page.device_bytes()}")
+    if p8_agree < MV_INT8_AGREE_MIN or not np.isfinite(s_p8).all():
+        fail(f"MaxSim int8 top-{K} agreement {p8_agree} below {MV_INT8_AGREE_MIN}")
+    # the card's first MV_INT8_CPU_Q results against maxsim_topk_int8 on CPU
+    # tensors: s32 products exact, the token sums in another order (1e-5)
+    q8_np, ql8_np = index_page8._queries(q_mats)
+    docs8, lens8 = index_page8._device
+    c_s, c_i = tm.maxsim_topk_int8(
+        torch.from_numpy(q8_np[:MV_INT8_CPU_Q]), torch.from_numpy(ql8_np[:MV_INT8_CPU_Q]),
+        docs8.cpu(), index_page8._scales_device.cpu(), lens8.cpu(), K,
+    )
+    c_s, c_i = c_s.numpy(), c_i.numpy()
+    g_s, g_i = s_p8[:MV_INT8_CPU_Q], r_p8[:MV_INT8_CPU_Q]
+    close = bool(np.allclose(g_s, c_s, rtol=1e-5, atol=1e-5))
+    mism = g_i != c_i
+    ok = close and bool((np.abs(g_s - c_s)[mism] <= 1e-5).all())
+    log(f"MultiVectorIndex int8 page scale: the first {MV_INT8_CPU_Q} queries against "
+        f"maxsim_topk_int8 on CPU tensors: ids mismatches {int(mism.sum())}/{g_i.size} (all "
+        f"within 1e-5: {ok}), max|d score| = {np.abs(g_s - c_s).max():.3e}")
+    if not ok:
+        fail("the card's int8 MaxSim hits differ from the CPU's")
+    del docs8, lens8
+    if not index_page8.device_bytes() * 3.5 < index_page.device_bytes():
+        fail("the int8 MaxSim index does not hold about 4x fewer device bytes")
+    del index_text, index_page, index_page8, index_e, index_a, index_8, index_8o, docs_t, docs_p
+    del emb
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1584,6 +1931,9 @@ def main() -> int:
 
     # ---- 12-14. BM25 slice B: packed and bucketed layouts, the v1 pin ------
     bm25_packed_phases(args.seed, dev, peak, kernels)
+
+    # ---- 15-16. the MaxSim pins (#11, #12), any k and d, the serving modes ----
+    pin_serving_phases(args.seed, dev, peak, kernels, vocab, corpus, query_texts)
 
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

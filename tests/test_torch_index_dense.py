@@ -74,10 +74,12 @@ def test_jax_saved_index_loads_in_port(tmp_path):
 
 
 def test_modes_and_capacity_refusal(monkeypatch):
-    ids, emb, _ = _data(4, n=300)
+    ids, emb, qs = _data(4, n=300)
+    # the serving modes construct and search, with the JAX index's ids
     for mode in ("approx", "int8"):
-        with pytest.raises(NotImplementedError):
-            DenseIndex(ids, emb, mode=mode, device="cpu")
+        got = DenseIndex(ids, emb, mode=mode, device="cpu").topk_rows(qs, 10)
+        ref = JaxDenseIndex(ids, emb, mode=mode).topk_rows(qs, 10)
+        np.testing.assert_array_equal(got[1], ref[1])
     with pytest.raises(ValueError):
         DenseIndex(ids, emb, mode="fast", device="cpu")
     idx = DenseIndex(ids, emb, mode="verified", device="cpu")

@@ -89,8 +89,11 @@ def test_pad_ragged_and_device_bytes():
 
 def test_modes_and_refusals():
     ids, mats, queries = _corpus(3)
-    with pytest.raises(NotImplementedError, match="int8"):
-        MultiVectorIndex(ids, mats, mode="int8", device="cpu")
+    # int8 constructs and searches, with the JAX index's hits
+    got = MultiVectorIndex(ids, mats, mode="int8", device="cpu").search(queries, 5)
+    assert _hits(got)[0] == _hits(JaxMultiVectorIndex(ids, mats, mode="int8").search(queries, 5))[0]
+    with pytest.raises(ValueError):
+        MultiVectorIndex(ids, mats, device="cpu", mode="int8").search(queries, 5, prefilter=2)
     with pytest.raises(ValueError):
         MultiVectorIndex(ids, mats, mode="fast", device="cpu")
     with pytest.raises(NotImplementedError):
@@ -106,8 +109,9 @@ def test_modes_and_refusals():
     ref = _hits(idx.search(queries, 7))[0]
     assert _hits(idx.search(queries, 7, method="xla"))[0] == ref
     assert _hits(idx.search(queries, 7, method="pallas_v2"))[0] == ref
-    with pytest.raises(NotImplementedError):
-        idx.search(queries, 7, method="pallas_v3")
+    # the v1 and v3 pins (their plain versions on the CPU)
+    assert _hits(idx.search(queries, 7, method="pallas"))[0] == ref
+    assert _hits(idx.search(queries, 7, method="pallas_v3"))[0] == ref
 
 
 @pytest.mark.parametrize("mode", ["exact", "verified"])

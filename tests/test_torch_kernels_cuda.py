@@ -98,12 +98,15 @@ def test_stream_kernel_random_floats(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_bad_operands(cuda_device):
-    c = torch.zeros((256, 12), device=cuda_device)  # d % 8 != 0
-    with pytest.raises(ValueError):
-        td.dense_topk_stream(c[:4], c, 5)
-    c16 = torch.zeros((512, 16), device=cuda_device)
-    with pytest.raises(ValueError):
-        td.dense_topk_stream(c16[:4], c16, td.STREAM_K_MAX + 1)
+    # d % 8 != 0 and lists beyond shared memory run (zero-padded d, lists in
+    # the output); a wrong seg or valid-row count still raises
+    rng = np.random.default_rng(12)
+    c = torch.from_numpy(_eighths(rng, (256, 12))).to(cuda_device)
+    for q, k in ((c[:4], 5), (c[:70], 257)):
+        s, i = td.dense_topk_stream(q.contiguous(), c, k)
+        rs, ri = td.dense_topk_plain(q.contiguous(), c, k)
+        torch.testing.assert_close(i, ri, rtol=0, atol=0)
+        torch.testing.assert_close(s, rs, rtol=0, atol=0)
     cb = torch.zeros((256, 16), device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         td.seg_stats_bf16(cb[:4], cb, 256, seg=64)
@@ -233,7 +236,9 @@ def test_maxsim_auto_route_launches_kernels(cuda_device):
     tm.reset_launch_counts()
     s16, i16 = tm.maxsim_topk(*args, 16)
     s17, i17 = tm.maxsim_topk(*args, 17)
-    assert tm.LAUNCHES == {"maxsim_topk_v2": 1, "maxsim_scores_v2": 1}
+    assert tm.LAUNCHES == {
+        "maxsim_topk_v2": 1, "maxsim_scores_v2": 1, "maxsim_topk_v1": 0, "maxsim_topk_v3": 0,
+    }
     assert sum(tm.PLAIN_CALLS.values()) == 0  # the card's tensors never take a plain route
     torch.testing.assert_close(i17[:, :16], i16, rtol=0, atol=0)
     torch.testing.assert_close(s17[:, :16], s16, rtol=0, atol=0)
@@ -263,20 +268,24 @@ def test_maxsim_kernels_random_floats(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_maxsim_wrappers_refuse_bad_operands(cuda_device):
+    # d % 8 != 0, k beyond shared memory and the pallas pin run; mixed
+    # dtypes still raise
     from autorag_research_tpu_torch.ops import maxsim as tm
 
-    q = torch.zeros((2, 4, 12), device=cuda_device)  # d % 8 != 0
-    docs = torch.zeros((50, 6, 12), device=cuda_device)
-    lens = torch.full((50,), 6, dtype=torch.int32, device=cuda_device)
+    args = _mv_tensors(_mv_data(np.random.default_rng(12), 2, 4, 300, 6, 12, empty=(3,)),
+                       cuda_device, torch.float32)
+    for k in (5, 257):
+        torch.testing.assert_close(tm.maxsim_topk_v2(*args, k), tm.maxsim_topk_v2_plain(*args, k),
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(tm.maxsim_scores_v2(*args), tm.maxsim_scores_v2_plain(*args),
+                               rtol=0, atol=0)
+    q, ql, docs, dl = args
     with pytest.raises(ValueError):
-        tm.maxsim_topk_v2(q, lens[:2], docs, lens, 5)
-    q16, d16 = torch.zeros((2, 4, 16), device=cuda_device), torch.zeros((300, 6, 16), device=cuda_device)
-    with pytest.raises(ValueError):
-        tm.maxsim_topk_v2(q16, lens[:2], d16, torch.full((300,), 6, device=cuda_device), 257)
-    with pytest.raises(ValueError):
-        tm.maxsim_scores_v2(q16, lens[:2], d16.to(torch.bfloat16), lens)
-    with pytest.raises(NotImplementedError):
-        tm.maxsim_topk(q16, lens[:2], d16[:50], lens, 5, method="pallas")
+        tm.maxsim_scores_v2(q, ql, docs.to(torch.bfloat16), dl)
+    before = tm.LAUNCHES["maxsim_topk_v1"]
+    torch.testing.assert_close(tm.maxsim_topk(*args, 5, method="pallas"),
+                               tm.maxsim_topk_v1_plain(*args, 5), rtol=0, atol=0)
+    assert tm.LAUNCHES["maxsim_topk_v1"] == before + 1
 
 
 @pytest.mark.cuda
@@ -302,6 +311,153 @@ def test_multi_vector_index_cuda_matches_cpu(cuda_device, opts, k):
         mism = gpu[1] != exact[1]
         assert (np.abs(gpu[0] - exact[0])[mism] <= 1e-5).all()
         assert gpu_idx.last_stats is not None
+
+
+# ------------------------------------------- MaxSim pins (#11, #12), any k and d
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 17, 300])
+@pytest.mark.parametrize("shape", MV_SHAPES, ids=["long-docs", "blocks", "long-query"])
+@pytest.mark.parametrize("pin", ["v1", "v3"])
+def test_maxsim_pin_kernels_match_plain(cuda_device, pin, dtype, k, shape):
+    # dyadic tokens: every sum exact, so kernel and plain version agree
+    # bitwise, empty documents at NEG_INF with their rows
+    from autorag_research_tpu_torch.ops import maxsim as tm
+
+    args = _mv_tensors(_mv_data(np.random.default_rng(k), *shape, empty=(0, 11)), cuda_device, dtype)
+    kernel = {"v1": tm.maxsim_topk_v1, "v3": tm.maxsim_topk_v3}[pin]
+    plain = {"v1": tm.maxsim_topk_v1_plain, "v3": tm.maxsim_topk_v3_plain}[pin]
+    before = tm.LAUNCHES[f"maxsim_topk_{pin}"]
+    s, i = kernel(*args, k)
+    torch.cuda.synchronize()
+    assert tm.LAUNCHES[f"maxsim_topk_{pin}"] == before + 1
+    rs, ri = plain(*args, k)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+    # the same ranking as the v2 kernel
+    vs, vi = tm.maxsim_topk_v2(*args, k)
+    torch.testing.assert_close(i, vi, rtol=0, atol=0)
+    torch.testing.assert_close(s, vs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["maxsim_topk_v1", "maxsim_topk_v2", "maxsim_topk_v3"])
+def test_maxsim_fused_kernels_any_k_and_d(cuda_device, name, dtype):
+    # k = 1,000 (lists in the output) and d = 12 (padded to 16) in one call
+    from autorag_research_tpu_torch.ops import maxsim as tm
+
+    args = _mv_tensors(_mv_data(np.random.default_rng(1000), 19, 9, 1300, 21, 12, empty=(2, 700)),
+                       cuda_device, dtype)
+    s, i = getattr(tm, name)(*args, 1000)
+    rs, ri = getattr(tm, f"{name}_plain")(*args, 1000)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxsim_pin_kernels_random_floats(cuda_device, dtype):
+    # random floats: an id may differ only between scores within the f32
+    # rounding term of the proof (the v2 kernel's test)
+    from autorag_research_tpu_torch.ops import maxsim as tm
+
+    rng = np.random.default_rng(46)
+    q, ql, docs, dl = _mv_data(rng, 40, 32, 3000, 64, 100, empty=(7,), dyadic=False)
+    q /= np.maximum(np.linalg.norm(q, axis=2, keepdims=True), 1e-9)
+    docs /= np.maximum(np.linalg.norm(docs, axis=2, keepdims=True), 1e-9)
+    args = _mv_tensors((q, ql, docs, dl), cuda_device, dtype)
+    tol = (100 + 32) * 2.0**-23 * 32
+    for pin in ("v1", "v3"):
+        s, i = getattr(tm, f"maxsim_topk_{pin}")(*args, 10)
+        rs, ri = getattr(tm, f"maxsim_topk_{pin}_plain")(*args, 10)
+        torch.testing.assert_close(s, rs, rtol=1e-5, atol=1e-5)
+        mism = i != ri
+        assert bool(((s - rs).abs()[mism] <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_kernels_any_k_and_d(cuda_device, dtype):
+    # the streaming kernel at k = 1,000 and d = 12, the seg-stats kernel at d = 12
+    rng = np.random.default_rng(13)
+    c = torch.from_numpy(_eighths(rng, (6000, 12))).to(cuda_device, dtype)
+    c[300:340] = c[5]
+    q = torch.from_numpy(_eighths(rng, (90, 12))).to(cuda_device, dtype)
+    for k in (257, 1000):
+        s, i = td.dense_topk_stream(q, c, k)
+        rs, ri = td.dense_topk_plain(q, c, k)
+        torch.testing.assert_close(i, ri, rtol=0, atol=0)
+        torch.testing.assert_close(s, rs, rtol=0, atol=0)
+    if dtype == torch.bfloat16:
+        got = td.seg_stats_bf16(q, c, 5990)
+        ref = td._seg_stats_plain((q, None), c, None, 5990, 128)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_int8_products_on_card(cuda_device):
+    # torch._int_mm's shape rules (M > 16, K and N multiples of 8; N of 16,
+    # where cuBLASLt has no int8 algorithm for N = 11,784) met by zero
+    # padding; the s32 products exact, equal to the CPU's
+    rng = np.random.default_rng(14)
+    for m, kd, n in ((3, 12, 5), (40, 768, 1001), (17, 8, 8), (960, 16, 11784)):
+        a = torch.from_numpy(rng.integers(-127, 128, size=(m, kd)).astype(np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, size=(n, kd)).astype(np.int8))
+        got = td.int8_matmul(a.to(cuda_device), b.to(cuda_device)).cpu()
+        torch.testing.assert_close(got, a.int() @ b.int().T, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["approx", "int8"])
+@pytest.mark.parametrize("d", [64, 12])
+def test_dense_index_serving_modes_cuda_match_cpu(cuda_device, mode, d):
+    rng = np.random.default_rng(47)
+    emb = rng.normal(size=(3000, d)).astype(np.float32)
+    qs = rng.normal(size=(50, d)).astype(np.float32)
+    ids = list(range(3000))
+    cpu = DenseIndex(ids, emb, mode=mode, device="cpu").topk_rows(qs, 10)
+    gpu_idx = DenseIndex(ids, emb, mode=mode, device=cuda_device)
+    # queries normalized on the card (another rounding than numpy's)
+    dev_q = gpu_idx.topk_rows(torch.from_numpy(qs).to(cuda_device), 10)
+    np.testing.assert_allclose(dev_q[0], cpu[0], rtol=1e-6, atol=1e-6)
+    mism = dev_q[1] != cpu[1]
+    assert (np.abs(dev_q[0] - cpu[0])[mism] <= 1e-6).all()
+    gpu = gpu_idx.topk_rows(qs, 10)  # normalized by numpy, as on the CPU
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-6, atol=1e-6)
+    if mode == "int8":  # s32 products are exact: bitwise
+        np.testing.assert_array_equal(gpu[1], cpu[1])
+        np.testing.assert_array_equal(gpu[0], cpu[0])
+        # rows stored up to a multiple of 16 (3008), masked by the search
+        assert gpu_idx.device_bytes() == 3008 * (-(-d // 8) * 8) + 3008 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [{"search_method": "pallas"}, {"search_method": "pallas_v3"},
+                                  {"mode": "int8"}, {"mode": "int8", "bucketize": 3}],
+                         ids=["v1-pin", "v3-pin", "int8", "int8-bucketed"])
+@pytest.mark.parametrize("d", [64, 12])
+def test_multi_vector_index_pins_and_int8_cuda_match_cpu(cuda_device, opts, d):
+    from autorag_research_tpu_torch.index.multi_vector import MultiVectorIndex
+    from autorag_research_tpu_torch.ops import maxsim as tm
+
+    rng = np.random.default_rng(48)
+    mats = [rng.normal(size=(int(rng.integers(0, 40)), d)).astype(np.float32) for _ in range(1500)]
+    queries = [rng.normal(size=(int(rng.integers(3, 33)), d)).astype(np.float32) for _ in range(30)]
+    ids = list(range(1500))
+    cpu = MultiVectorIndex(ids, mats, device="cpu", **opts).search(queries, 10)
+    tm.reset_launch_counts()
+    gpu = MultiVectorIndex(ids, mats, device=cuda_device, **opts).search(queries, 10)
+    assert sum(tm.PLAIN_CALLS.values()) == 0
+    pin = opts.get("search_method")
+    if pin:
+        assert tm.LAUNCHES["maxsim_topk_v1" if pin == "pallas" else "maxsim_topk_v3"] == 1
+    for g, c in zip(gpu, cpu):
+        gs, cs = np.array([h.score for h in g]), np.array([h.score for h in c])
+        np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-5)
+        mism = np.array([h.doc_id for h in g]) != np.array([h.doc_id for h in c])
+        assert (np.abs(gs - cs)[mism] <= 1e-5).all()
 
 
 # -------------------------------------------------------------------- BM25

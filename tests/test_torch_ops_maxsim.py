@@ -194,9 +194,11 @@ def test_route_rule():
     route, chunk = tm.maxsim_route("auto", 1024, n, 65, cuda)
     assert route == "scores" and chunk == 67 and chunk * n * 4 <= 256 << 20 < (chunk + 1) * n * 4
     assert tm.maxsim_route("auto", 128, 50_000, 65, cuda)[1] == 128
-    for method in ("pallas", "pallas_v3"):
-        with pytest.raises(NotImplementedError):
-            tm.maxsim_route(method, 8, 100, 10, cuda)
+    # the v1 and v3 pins, on the card and off it (where their wrappers take
+    # the plain versions, as JAX runs the pinned kernel in interpret mode)
+    for device_type in (cuda, "cpu"):
+        assert tm.maxsim_route("pallas", 8, 100, 10, device_type)[0] == "v1"
+        assert tm.maxsim_route("pallas_v3", 8, 100, 300, device_type)[0] == "v3"
     with pytest.raises(ValueError):
         tm.maxsim_route("fast", 8, 100, 10, cuda)
 
@@ -210,12 +212,19 @@ def test_dispatch_on_cpu_takes_plain_versions():
         _assert_topk(ts, ti, ref_s, ref_i)
     ts, ti = tm.maxsim_topk_via_scores(*_torch("f32", *arrays), 17)
     _assert_topk(ts, ti, ref_s, ref_i)
-    assert tm.LAUNCHES == {"maxsim_topk_v2": 0, "maxsim_scores_v2": 0}
+    assert tm.LAUNCHES == {
+        "maxsim_topk_v2": 0, "maxsim_scores_v2": 0, "maxsim_topk_v1": 0, "maxsim_topk_v3": 0,
+    }
     assert tm.PLAIN_CALLS == {
         "maxsim_topk_scan": 2, "maxsim_topk_v2_plain": 1, "maxsim_scores_v2_plain": 1,
+        "maxsim_topk_v1_plain": 0, "maxsim_topk_v3_plain": 0,
     }
-    with pytest.raises(ValueError):
-        tm.maxsim_topk_v2(*_torch("f32", *arrays[:2]), *_torch("f32", *_data(11, n=300))[2:], 300)
+    # any k through the pallas_v2 pin: k = 300 beyond the kernel's 256
+    # shared-memory entries, the JAX package's ids
+    big = (*arrays[:2], *_data(11, n=300)[2:])
+    js, ji = jm.maxsim_topk_xla(*_jax("f32", *big), 300, tile_n=64)
+    ts, ti = tm.maxsim_topk(*_torch("f32", *big), 300, method="pallas_v2")
+    _assert_topk(ts, ti, js, ji)
 
 
 # ------------------------------------------------------------- verified
