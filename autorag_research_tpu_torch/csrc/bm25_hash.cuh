@@ -1,0 +1,587 @@
+// bm25_hash: the BM25 scoring body of the whole-corpus walk over the flat
+// slot-padded layout, with a fused streaming top-k. bm25_v2.cu launches it
+// under two names: bm25_topk_v2_launch (replacing
+// autorag_research_tpu/ops/sparse.py::_bm25_kernel_v2) and
+// bm25_topk_v1_launch (replacing ::_bm25_kernel, the v1 pin).
+// Both TPU kernels compute
+//
+//   score(b, n) = fold over t = 0..T-1, in order: score += m(n, q_ids[b, t]) * q_w[b, t]
+//   m(n, term)  = sum of doc_w[n, l] over the slots l with doc_ids[n, l] == term, in slot order
+//
+// each product and each add rounded on its own (__fmul_rn / __fadd_rn: no
+// FMA), so the kernel equals the plain PyTorch version bitwise. Document pads
+// (-1) and query pads (-2) never match.
+//
+// Bound on this card: one multiply and one add per (live query term,
+// document), which the rounding keeps apart, so at most 33.5 TFLOP/s (half
+// the f32 FMA peak); and the slot arrays read once at 3.35 TB/s. At 1,024
+// queries of about 10 live terms over 500,000 documents of 104 slots that is
+// 0.3 ms of operations; at 32 queries, 0.15 ms of bytes. What bounds this
+// design instead is the instruction stream: a 16-byte shared load, two
+// compares and the bookkeeping of a probe for every (live query term,
+// document), plus the table builds, B / QB of them per document.
+//
+// What the design does about it. A document's slots hold its unique terms,
+// so the match weight of a query term is one lookup, not a compare against
+// every slot:
+// - Tiles of D consecutive documents (D a power of two <= 32) are one
+//   contiguous span of D L words in each array. The next tile's span is
+//   copied into shared memory with cp.async (16 bytes a copy where L % 4 == 0
+//   and the arrays are aligned, else 4) while the warps score the current
+//   one: two buffers, one commit group per tile.
+// - From the staged slots the block builds one open-addressing table per
+//   document: H >= 2 L entries (a power of two, at least 8; the plan gives
+//   about 8 L) in H / 2 buckets of two (key, weight) pairs, 16 bytes,
+//   multiplicative hash, linear probing over buckets. A lookup reads one
+//   bucket with one 16-byte load, which holds the weight of a hit too; a
+//   bucket fills in slot order, so one whose second key is empty ends a miss,
+//   and with about an eighth of the entries taken a probe rarely needs the
+//   next bucket. Buckets are laid out bucket-major and document-minor:
+//   bucket j of document i is 16-byte word j D + i, so the lanes that probe D
+//   neighbouring documents read neighbouring banks at any j. The build gives
+//   a warp's lanes neighbouring documents in the same way (a warp on one
+//   document's table would hit one bank 32 times): each slot claims its
+//   key's entry with atomicCAS and writes its weight beside it. A slot that
+//   finds its key already taken marks its document; only then, after a
+//   barrier, every slot of a marked document writes its key's slot-order sum
+//   over the row (the same value from each, so the race is benign). No float
+//   atomics: the table is the same on every run.
+// - A block owns a query tile of QB queries (the wrapper's plan; 128 by
+//   default). Their live terms sit compacted in shared memory, each with its
+//   first bucket (hashed once), four terms and their weights read as three
+//   16-byte broadcasts. Warp w serves queries w, w + 8, ...: its lanes take D
+//   documents of 32 / D queries at once, and each lane folds its query's
+//   terms in order, one probe each. So the corpus is staged B / QB times,
+//   not B / 8 times as the first design did.
+// - A lane loads the first buckets of four terms at once; a probe whose
+//   first bucket is full walks on alone, so the warp waits for the few lanes
+//   that collide, not for the longest of all its probes in lockstep. The four
+//   products are folded in term order once all are known.
+// - The epilogue: a ballot of the lanes whose score beats their list's k-th;
+//   each query meets its documents in increasing row order, so ties go to
+//   the lower row. Lists of up to 64 entries take each one by list_insert
+//   (common.cuh), the first design's. Longer lists gather up to 32
+//   candidates in a buffer in shared memory and merge them in one pass
+//   (merge_buffer): an insertion shifts a list of k entries, and v2's lists
+//   first fill with k zero scores, so k insertions one by one cost k^2 / 32
+//   steps in L2 at k = 1,000. Lists sit in shared memory when the plan finds
+//   room, else in place in the output (L2-cached), so any k is served.
+// - Rows too wide for even one document's table beside its staged slots
+//   (the plan's `staged` = 0) take the same body with D = 1, the table in a
+//   global scratch slice of the block's own, and the slots read in place.
+// Outputs: per-part lists [B, parts, k] in (-score, row) order, merged by the
+// wrapper with merge_topk.
+#pragma once
+
+#include "common.cuh"
+
+namespace bm25_hash {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int DOC_PAD = -1;  // never inserted; the empty table key
+constexpr int QUERY_PAD = -2;
+constexpr int TMAX = 2048;
+constexpr int MAX_DOCS = 32;
+constexpr long long SMEM_MAX = 232448;  // a block's shared memory on sm_90
+constexpr int K_DIRECT = 64;  // lists up to this long take list_insert directly
+constexpr int CAP = 32;       // candidates a longer list buffers before a merge
+
+__host__ __device__ inline long long carve(long long& off, long long bytes) {
+  const long long o = off;
+  off += (bytes + 15) / 16 * 16;
+  return o;
+}
+
+// Byte offsets of the dynamic shared memory regions, each rounded to 16
+// bytes; ops/sparse.py::_hash_smem computes the same total.
+struct Layout {
+  // staged buffer s (0, 1): ids at raw + 2 s buf, weights at raw + (2 s + 1) buf
+  long long tab, raw, buf, dup, q_id, q_w, q_n, ls, li, bs, bi, bn, total;
+  __host__ __device__ Layout(int D, int H, int L, int T, int QB, int k, int list_smem,
+                             int staged) {
+    long long off = 0;
+    const long long dh = staged ? (long long)D * H : 0;
+    const long long dl = staged ? (long long)D * L : 0;
+    tab = carve(off, dh * 8);
+    buf = (dl * 4 + 15) / 16 * 16;
+    raw = carve(off, 4 * buf);
+    dup = carve(off, MAX_DOCS * 4);
+    // (term, first bucket << log D) pairs and weights, rows of T rounded up to 4
+    q_id = carve(off, (long long)QB * ((T + 3) / 4 * 4) * 8);
+    q_w = carve(off, (long long)QB * ((T + 3) / 4 * 4) * 4);
+    q_n = carve(off, (long long)QB * 4);
+    const long long lk = list_smem ? (long long)QB * k : 0;
+    ls = carve(off, lk * 4);
+    li = carve(off, lk * 4);
+    const long long lb = k > K_DIRECT ? (long long)QB : 0;  // candidate buffers
+    bs = carve(off, lb * CAP * 4);
+    bi = carve(off, lb * CAP * 4);
+    bn = carve(off, lb * 4);
+    total = off;
+  }
+};
+
+__device__ __forceinline__ unsigned bucket_of(int key, int log_nb) {
+  return ((unsigned)key * 2654435769u) >> (32 - log_nb);
+}
+
+// The filled length of a list (its entries > -inf, a prefix), found 32
+// chunks per ballot: two ballots for k <= 1,024. Called by all 32 lanes.
+__device__ __forceinline__ int filled_len(const float* ls, int k, int lane) {
+  const unsigned full = 0xffffffffu;
+  int lo = 0, n = k;  // entries [0, lo) are filled, entries [lo + n, k) are not
+  while (n > 32) {
+    const int step = (n + 31) >> 5;
+    const int last = min(lo + (lane + 1) * step, lo + n) - 1;
+    const int c = __popc(__ballot_sync(full, lane * step < n && ls[last] > -INFINITY));
+    const int nlo = min(lo + c * step, lo + n);  // the last chunk may be short
+    n = max(0, min(step, lo + n - nlo));
+    lo = nlo;
+  }
+  return lo + __popc(__ballot_sync(full, lane < n && ls[lo + lane] > -INFINITY));
+}
+
+// Merge a query's buffered candidates (bs, bi: m of them, 1 <= m <= 32,
+// every row after the list's rows) into its list (ls, li: k entries in
+// (-score, row) order, -inf past the filled ones), keeping the first k.
+// Called by all 32 lanes of a warp. The candidates are sorted across the
+// lanes (bitonic); each lands after the list entries >= its score (a
+// binary search), and each list entry from the first landing place on moves
+// down by the candidates above it, high chunks first. One merge of m
+// candidates shifts the list once, where m insertions would shift it m times.
+__device__ void merge_buffer(float* ls, int* li, int k, float* bs, int* bi, int m, int lane) {
+  const unsigned full = 0xffffffffu;
+  float s = lane < m ? bs[lane] : -INFINITY;
+  int r = lane < m ? bi[lane] : ARTPU_INT_MAX;
+  for (int size = 2; size <= 32; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float os = __shfl_xor_sync(full, s, stride);
+      const int orow = __shfl_xor_sync(full, r, stride);
+      const bool before = s > os || (s == os && r < orow);
+      const bool up = (lane & size) == 0, lower = (lane & stride) == 0;
+      if ((before == up) != lower) {
+        s = os;
+        r = orow;
+      }
+    }
+  }
+  __syncwarp();
+  if (lane < m) {
+    bs[lane] = s;
+    bi[lane] = r;
+  }
+  const int filled = filled_len(ls, k, lane);
+  int rank = filled;  // the list entries >= s come first (their rows are lower)
+  if (lane < m) {
+    int lo = 0, hi = filled;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (ls[mid] >= s) lo = mid + 1;
+      else hi = mid;
+    }
+    rank = lo;
+  }
+  __syncwarp();
+  const int first = __shfl_sync(full, rank, 0);
+  for (int c0 = (filled - 1) & ~31; filled > first && c0 >= (first & ~31); c0 -= 32) {
+    const int i = c0 + lane;
+    const bool mv = i >= first && i < filled;
+    float v = 0.f;
+    int id = 0, to = k;
+    if (mv) {
+      v = ls[i];
+      id = li[i];
+      int lo = 0, hi = m;  // the candidates above v
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (bs[mid] > v) lo = mid + 1;
+        else hi = mid;
+      }
+      to = i + lo;
+    }
+    __syncwarp();
+    if (mv && to < k) {
+      ls[to] = v;
+      li[to] = id;
+    }
+    __syncwarp();
+  }
+  if (lane < m && lane + rank < k) {
+    ls[lane + rank] = s;
+    li[lane + rank] = r;
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ void cp_async16(void* s, const void* g) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(g));
+}
+
+__device__ __forceinline__ void cp_async4(void* s, const void* g) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa), "l"(g));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// Copy `words` words of each array from word `off` into the staged buffers.
+__device__ __forceinline__ void stage(const int* __restrict__ doc_ids,
+                                      const float* __restrict__ doc_w, long long off, int words,
+                                      bool vec, int* s_ids, float* s_w, int tid) {
+  if (vec) {  // off and words are multiples of 4
+    for (int v = tid * 4; v < words; v += THREADS * 4) {
+      cp_async16(s_ids + v, doc_ids + off + v);
+      cp_async16(s_w + v, doc_w + off + v);
+    }
+  } else {
+    for (int v = tid; v < words; v += THREADS) {
+      cp_async4(s_ids + v, doc_ids + off + v);
+      cp_async4(s_w + v, doc_w + off + v);
+    }
+  }
+}
+
+template <bool STAGED>
+__global__ void __launch_bounds__(THREADS, 2)
+bm25_hash_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
+                 const int* __restrict__ doc_ids, const float* __restrict__ doc_w,
+                 float* __restrict__ out_s, int* __restrict__ out_i, int* __restrict__ g_tab,
+                 int B, int T, int N, int L, int k, int part, int parts, int q_tiles, int QB,
+                 int log_d, int log_h, int list_smem, int vec) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const Layout lay(1 << log_d, 1 << log_h, L, T, QB, k, list_smem, STAGED);
+  const int D = 1 << log_d, H = 1 << log_h;
+  const int log_nb = log_h - 1;  // buckets of two entries
+  const unsigned nbmask = (1u << log_nb) - 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = blockIdx.x % q_tiles;
+  const int p = blockIdx.x / q_tiles;
+  const unsigned full = 0xffffffffu;
+  // bucket j of document i: (k0, w0, k1, w1) at tab[(j << log_d) + i]
+  int4* tab = STAGED ? reinterpret_cast<int4*>(dyn + lay.tab)
+                     : reinterpret_cast<int4*>(g_tab + (size_t)blockIdx.x * 2 * H);
+  int* s_dup = reinterpret_cast<int*>(dyn + lay.dup);
+  int2* sq_id = reinterpret_cast<int2*>(dyn + lay.q_id);
+  float* sq_w = reinterpret_cast<float*>(dyn + lay.q_w);
+  int* sq_n = reinterpret_cast<int*>(dyn + lay.q_n);
+  float* Ls = reinterpret_cast<float*>(dyn + lay.ls);
+  int* Li = reinterpret_cast<int*>(dyn + lay.li);
+  float* Bs = reinterpret_cast<float*>(dyn + lay.bs);  // [QB, CAP] when k > K_DIRECT
+  int* Bi = reinterpret_cast<int*>(dyn + lay.bi);
+  int* Bn = reinterpret_cast<int*>(dyn + lay.bn);
+  // query qloc of the tile (owned by warp qloc % WARPS): its list
+  auto list_s = [&](int qloc) {
+    return list_smem ? Ls + (size_t)qloc * k : out_s + ((size_t)(qt * QB + qloc) * parts + p) * k;
+  };
+  auto list_i = [&](int qloc) {
+    return list_smem ? Li + (size_t)qloc * k : out_i + ((size_t)(qt * QB + qloc) * parts + p) * k;
+  };
+  // the weight word of `key` in document i's table (the key is there)
+  auto weight_of = [&](int key, int i) {
+    unsigned j = bucket_of(key, log_nb);
+    while (true) {
+      int* kw = reinterpret_cast<int*>(tab + (j << log_d) + i);
+      if (kw[0] == key) return kw + 1;
+      if (kw[2] == key) return kw + 3;
+      j = (j + 1) & nbmask;
+    }
+  };
+
+  const int begin = p * part;
+  const int end = min(N, begin + part);
+  const int n_tiles = end > begin ? (end - begin + D - 1) >> log_d : 0;
+  if (STAGED && n_tiles > 0) {  // the first tile's copy overlaps the prologue
+    stage(doc_ids, doc_w, (long long)begin * L, min(D, end - begin) * L, vec != 0,
+          reinterpret_cast<int*>(dyn + lay.raw), reinterpret_cast<float*>(dyn + lay.raw + lay.buf),
+          tid);
+    cp_async_commit();
+  }
+
+  // the warp's queries: live terms compacted in order (the row's tail up
+  // to a multiple of 4 an empty key in bucket 0), lists reset
+  const int tp = (T + 3) / 4 * 4;
+  for (int qloc = warp; qloc < QB; qloc += WARPS) {
+    const int b = qt * QB + qloc;
+    if (b >= B) continue;  // warp-uniform
+    int n = 0;
+    for (int t0 = 0; t0 < T; t0 += 32) {
+      const int t = t0 + lane;
+      const int id = t < T ? q_ids[(size_t)b * T + t] : QUERY_PAD;
+      // pads leave the fold as it is (a document pad holds weight 0)
+      const bool live = id != QUERY_PAD && id != DOC_PAD;
+      const unsigned m = __ballot_sync(full, live);
+      if (live) {
+        const int pos = n + __popc(m & ((1u << lane) - 1));
+        sq_id[qloc * tp + pos] = make_int2(id, (int)(bucket_of(id, log_nb) << log_d));
+        sq_w[qloc * tp + pos] = q_w[(size_t)b * T + t];
+      }
+      n += __popc(m);
+    }
+    if (lane < 4 && n + lane < tp) {
+      sq_id[qloc * tp + n + lane] = make_int2(DOC_PAD, 0);
+      sq_w[qloc * tp + n + lane] = 0.f;
+    }
+    if (lane == 0) {
+      sq_n[qloc] = n;
+      if (k > K_DIRECT) Bn[qloc] = 0;
+    }
+    float* ls = list_s(qloc);
+    int* li = list_i(qloc);
+    for (int i = lane; i < k; i += 32) {
+      ls[i] = -INFINITY;
+      li[i] = ARTPU_INT_MAX;
+    }
+  }
+
+  const int qpw = QB / WARPS;         // queries of a warp
+  const int i_doc = lane & (D - 1);   // this lane's document in the tile
+  const int j_sub = lane >> log_d;    // and its query among the warp's 32 / D
+  const int n_sub = 32 >> log_d;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int base = begin + (it << log_d);
+    const int nd = min(D, end - base);
+    if (STAGED) {
+      if (it + 1 < n_tiles) {
+        const int nb = base + D;
+        const long long o = lay.raw + 2 * ((it + 1) & 1) * lay.buf;
+        stage(doc_ids, doc_w, (long long)nb * L, min(D, end - nb) * L, vec != 0,
+              reinterpret_cast<int*>(dyn + o), reinterpret_cast<float*>(dyn + o + lay.buf), tid);
+      }
+      cp_async_commit();
+      cp_async_wait1();  // this tile's group has landed (this thread's copies)
+    }
+    __syncthreads();  // every copy of the tile visible; the last tile's probes done
+    {
+      const int4 empty = make_int4(DOC_PAD, 0, DOC_PAD, 0);
+      for (int e = tid; e < (D * H) >> 1; e += THREADS) tab[e] = empty;
+      if (tid < MAX_DOCS) s_dup[tid] = 0;
+    }
+    __syncthreads();
+    const long long o = lay.raw + 2 * (it & 1) * lay.buf;
+    const int* ids = STAGED ? reinterpret_cast<const int*>(dyn + o) : doc_ids + (size_t)base * L;
+    const float* ws =
+        STAGED ? reinterpret_cast<const float*>(dyn + o + lay.buf) : doc_w + (size_t)base * L;
+    // items v = l D + i (slot l of document i): a warp's lanes work on
+    // neighbouring documents, whose buckets lie in distinct banks
+    const int words = L << log_d;
+    // each slot claims its key's entry and writes its weight there; a slot
+    // that finds its key taken marks the document
+    int dup = 0;
+    for (int v = tid; v < words; v += THREADS) {
+      const int l = v >> log_d, i = v & (D - 1);
+      if (i >= nd) continue;
+      const int key = ids[i * L + l];
+      if (key == DOC_PAD) continue;
+      unsigned j = bucket_of(key, log_nb);
+      while (true) {
+        int* kw = reinterpret_cast<int*>(tab + (j << log_d) + i);
+        int old = atomicCAS(kw, DOC_PAD, key);
+        if (old != DOC_PAD && old != key) {
+          kw += 2;
+          old = atomicCAS(kw, DOC_PAD, key);
+        }
+        if (old == DOC_PAD) {
+          kw[1] = __float_as_int(ws[i * L + l]);
+          break;
+        }
+        if (old == key) {
+          s_dup[i] = 1;
+          dup = 1;
+          break;
+        }
+        j = (j + 1) & nbmask;
+      }
+    }
+    if (__syncthreads_or(dup)) {
+      // a repeated term: each slot of a marked document writes its key's
+      // sum over the row in slot order (the plain version's sum)
+      for (int v = tid; v < words; v += THREADS) {
+        const int l = v >> log_d, i = v & (D - 1);
+        if (i >= nd || !s_dup[i]) continue;
+        const int key = ids[i * L + l];
+        if (key == DOC_PAD) continue;
+        float s = 0.f;
+        for (int l2 = 0; l2 < L; ++l2) {
+          if (ids[i * L + l2] == key) s = __fadd_rn(s, ws[i * L + l2]);
+        }
+        *weight_of(key, i) = __float_as_int(s);
+      }
+      __syncthreads();
+    }
+
+    // score: lanes take (query j_sub, document i_doc) pairs
+    for (int jb = 0; jb < qpw; jb += n_sub) {
+      const int j = jb + j_sub;
+      const int qloc = warp + j * WARPS;
+      const bool valid = j < qpw && qt * QB + qloc < B && i_doc < nd;
+      float s = -INFINITY;
+      float kth = INFINITY;
+      if (valid) {
+        s = 0.f;
+        const int n = sq_n[qloc];
+        const int4* qi = reinterpret_cast<const int4*>(sq_id + qloc * tp);
+        const float4* qwr = reinterpret_cast<const float4*>(sq_w + qloc * tp);
+        for (int t = 0; t < n; t += 4) {
+          // four (term, first bucket) pairs and their weights in three 16-byte loads
+          const int4 p01 = qi[t >> 1], p23 = qi[(t >> 1) + 1];
+          const float4 w4 = qwr[t >> 2];
+          const int qk[4] = {p01.x, p01.z, p23.x, p23.z};
+          const int qb[4] = {p01.y, p01.w, p23.y, p23.w};
+          const float qw[4] = {w4.x, w4.y, w4.z, w4.w};
+          int4 x[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) x[u] = tab[qb[u] + i_doc];
+          const unsigned live = n - t >= 4 ? 15u : (1u << (n - t)) - 1;
+          unsigned hit = 0, pending = 0;
+          float m[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int q = qk[u];
+            const bool h0 = x[u].x == q, h1 = x[u].z == q;
+            m[u] = __int_as_float(h0 ? x[u].y : x[u].w);
+            if (h0 || h1) hit |= 1u << u;
+            else if (x[u].z != DOC_PAD) pending |= 1u << u;  // both pairs taken
+          }
+          hit &= live;
+          pending &= live;
+          while (pending) {  // a full first bucket: this probe walks on alone
+            const int u = __ffs(pending) - 1;
+            pending &= pending - 1;
+            const int key = u == 0 ? qk[0] : u == 1 ? qk[1] : u == 2 ? qk[2] : qk[3];
+            unsigned j = (unsigned)(u == 0 ? qb[0] : u == 1 ? qb[1] : u == 2 ? qb[2] : qb[3]) >> log_d;
+            while (true) {
+              j = (j + 1) & nbmask;
+              const int4 y = tab[(j << log_d) + i_doc];
+              if (y.x == key || y.z == key) {
+                const float w = __int_as_float(y.x == key ? y.y : y.w);
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                  if (v == u) m[v] = w;
+                }
+                hit |= 1u << u;
+                break;
+              }
+              if (y.z == DOC_PAD) break;
+            }
+          }
+          // the fold in term order; a miss adds nothing, so skipping it is exact
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (hit >> u & 1) s = __fadd_rn(s, __fmul_rn(m[u], qw[u]));
+          }
+        }
+        kth = list_s(qloc)[k - 1];
+      }
+      unsigned want = __ballot_sync(full, valid && s > kth);
+      if (k <= K_DIRECT) {
+        while (want) {  // lane order: per query, increasing rows
+          const int src = __ffs(want) - 1;
+          want &= want - 1;
+          const float cs = __shfl_sync(full, s, src);
+          const int sq = warp + (jb + (src >> log_d)) * WARPS;
+          float* ls = list_s(sq);
+          if (cs > ls[k - 1]) list_insert(ls, list_i(sq), k, cs, base + (src & (D - 1)), lane);
+        }
+      } else {
+        while (want) {  // each query's candidates into its buffer, in row order
+          const int jq = (__ffs(want) - 1) >> log_d;
+          const unsigned gm = want & (D == 32 ? full : ((1u << D) - 1) << (jq << log_d));
+          want &= ~gm;
+          const int sq = warp + (jb + jq) * WARPS;
+          int cnt = Bn[sq];
+          const int add = __popc(gm);
+          if (cnt + add > CAP) {
+            merge_buffer(list_s(sq), list_i(sq), k, Bs + sq * CAP, Bi + sq * CAP, cnt, lane);
+            cnt = 0;
+          }
+          if (gm >> lane & 1) {
+            const int pos = cnt + __popc(gm & ((1u << lane) - 1));
+            Bs[sq * CAP + pos] = s;
+            Bi[sq * CAP + pos] = base + i_doc;
+          }
+          __syncwarp();
+          if (lane == 0) Bn[sq] = cnt + add;
+          __syncwarp();
+        }
+      }
+    }
+  }
+
+  for (int qloc = warp; qloc < QB; qloc += WARPS) {
+    const int b = qt * QB + qloc;
+    if (b >= B) continue;
+    if (k > K_DIRECT && Bn[qloc] > 0) {
+      merge_buffer(list_s(qloc), list_i(qloc), k, Bs + qloc * CAP, Bi + qloc * CAP, Bn[qloc], lane);
+    }
+    const float* ls = list_s(qloc);
+    const int* li = list_i(qloc);
+    const size_t o = ((size_t)b * parts + p) * k;
+    for (int i = lane; i < k; i += 32) {
+      const float v = ls[i];
+      const int id = li[i];
+      out_s[o + i] = v == -INFINITY ? ARTPU_NEG_INF : v;
+      out_i[o + i] = id;
+    }
+  }
+}
+
+inline int log2_exact(int x) {
+  int r = 0;
+  while (r < 31 && (1 << r) < x) ++r;
+  return (1 << r) == x ? r : -1;
+}
+
+// q_ids / q_w [B, T]; doc_ids / doc_w [N, L], contiguous, 16-byte aligned
+// when vec != 0 (then L % 4 == 0). out_s / out_i [B, parts, k]: part p covers
+// documents [p*part, (p+1)*part), a multiple of `docs`. The plan (qb, docs,
+// table, list_smem, staged, smem) is ops/sparse.py::bm25_hash_plan's; smem
+// must equal Layout's total. staged == 0: docs == 1, and g_tab holds
+// q_tiles * parts * table (key, weight) pairs of scratch, 16-byte aligned.
+// Returns cudaGetLastError(), or the error of a refused shared-memory
+// attribute.
+inline int launch(const void* q_ids, const void* q_w, const void* doc_ids, const void* doc_w,
+                  void* out_s, void* out_i, void* g_tab, int B, int T, int N, int L, int k,
+                  int part, int parts, int q_tiles, int qb, int docs, int table, int list_smem,
+                  int staged, int vec, int smem, void* stream) {
+  if (B == 0 || N == 0 || parts == 0) return 0;
+  const int log_d = log2_exact(docs), log_h = log2_exact(table);
+  if (T < 0 || T > TMAX || L < 0 || k < 1 || part < 1 || qb < WARPS || qb % WARPS ||
+      log_d < 0 || docs > MAX_DOCS || log_h < 3 || (long long)table < 2LL * L ||
+      part % docs || (long long)q_tiles * qb < B || (long long)parts * part < N ||
+      (long long)(parts - 1) * part >= N || (vec && L % 4)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!staged && (docs != 1 || g_tab == nullptr || (size_t)g_tab % 16)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Layout lay(docs, table, L, T, qb, k, list_smem, staged);
+  if (lay.total != smem || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)q_tiles * parts;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  auto kernel = staged ? bm25_hash_kernel<true> : bm25_hash_kernel<false>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      (const int*)q_ids, (const float*)q_w, (const int*)doc_ids, (const float*)doc_w,
+      (float*)out_s, (int*)out_i, (int*)g_tab, B, T, N, L, k, part, parts, q_tiles, qb, log_d,
+      log_h, list_smem, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bm25_hash
+
+// The C signature of both launchers (bm25_v2.cu).
+#define BM25_HASH_ARGS                                                                        \
+  const void *q_ids, const void *q_w, const void *doc_ids, const void *doc_w, void *out_s,     \
+      void *out_i, void *g_tab, int B, int T, int N, int L, int k, int part, int parts,        \
+      int q_tiles, int qb, int docs, int table, int list_smem, int staged, int vec, int smem,  \
+      void *stream
+#define BM25_HASH_PASS                                                                        \
+  q_ids, q_w, doc_ids, doc_w, out_s, out_i, g_tab, B, T, N, L, k, part, parts, q_tiles, qb,     \
+      docs, table, list_smem, staged, vec, smem, stream

@@ -7,20 +7,27 @@
 // (wrapper bm25_topk_pallas_v2_skip), ::_bm25_kernel_probe (wrapper
 // bm25_topk_pallas_probe), ::_bm25_kernel_packed (wrapper
 // bm25_topk_pallas_packed) and ::_bm25_kernel_probe_packed (wrapper
-// bm25_topk_pallas_probe_packed). All five share one scoring body, as the
+// bm25_topk_pallas_probe_packed). All five compute one function, as the
 // Pallas kernels share _slot_match_scores:
 //
 //   score(b, n) = sum over t = 0..T-1, in order, of
 //                 (sum_l [doc_ids[n, l] == q_ids[b, t]] * doc_w[n, l]) * q_w[b, t]
 //
 // each product and each partial sum rounded on its own (__fmul_rn /
-// __fadd_rn forbid FMA contraction), so the kernel equals the plain PyTorch
-// version bitwise. A document's slots hold its unique terms, so the inner
-// sum is the one matching weight; pads (doc -1, query -2) never match, and
-// pads may sit anywhere in a row.
+// __fadd_rn forbid FMA contraction), so every walk equals the plain PyTorch
+// version bitwise. Pads (doc -1, query -2) never match, wherever they sit.
 //
-// Inputs: q_ids / q_w [B, T] int32 / f32; the documents read in place, in one
-// of two layouts (the LAYOUT template parameter):
+// Two bodies. The whole-corpus walk over the flat layout (bm25_topk_v2_launch,
+// the main path's kernel, and bm25_topk_v1_launch, the v1 pin's) runs
+// bm25_hash.cuh: a per-document term hash in
+// shared memory, probed once per (query term, document), query tiles of up
+// to 128 queries per staged document tile, cp.async double-buffered staging;
+// its note gives the design. The skip, probe and packed walks below keep the
+// first body, because their query tiles are tied to ops/sparse.py::tile_match's
+// rows of BQ = 8 queries and the skip rule reads the block's lists.
+//
+// Inputs of the first body: q_ids / q_w [B, T] int32 / f32; the documents
+// read in place, in one of two layouts (the LAYOUT template parameter):
 //   FLAT    doc_ids / doc_w [N, L] int32 / f32, document n in row n;
 //   PACKED  ops/sparse.py::pack_slots's [R, 128]: pack = P documents of
 //           stride L = 128 / P lanes share a row, document n in lanes
@@ -44,34 +51,36 @@
 // query term, document) pair, 2 operations that the rounding keeps apart (no
 // FMA), so at most 33.5 TFLOP/s, half the FMA peak; and the id and weight
 // arrays (0.4-0.5 GB at 500,000 docs x 128 slots, 64 MB packed at width 16)
-// are read once at 3.35 TB/s. Batches of about 100 or more queries of 10
-// terms are bound by operations, smaller ones by bytes.
+// are read once at 3.35 TB/s, or only the doc tiles a walk must score.
 //
-// What this first design does instead: T x L compares per (query, document).
+// What the first body does instead: T x L compares per (query, document).
 // A block owns one query tile (one warp per query) and a part of the work, and
 // walks its doc tiles 32 documents per step: the step's [32, L] ids and
-// weights are staged in shared memory (FLAT: 16-byte loads where L % 4 == 0;
-// PACKED: the whole 128-word rows the step's documents lie in, 16-byte
-// loads at any stride, each word moved to its document's staged row, so a
-// packed step reads about as many bytes as a flat one; the staged row stride
-// is padded so the 32 lanes, one per document, read 32 banks),
-// and each lane compares every slot of its document against 16 query terms
-// held in registers, the query tile's terms having been staged in shared
-// memory once. The epilogue offers the 32 scores of each query row to its
-// k-best list (list_insert, common.cuh): a ballot finds the scores above the
-// list's k-th; documents increase along a block's walk, so ties go to the
-// lower row. Lists of up to KSMEM entries live in shared memory; longer ones
-// live in place in the output (global memory, L2-cached), so any k is served.
+// weights are staged in shared memory synchronously, two barriers a step
+// (FLAT: 16-byte loads where L % 4 == 0; PACKED: the whole 128-word rows the
+// step's documents lie in, 16-byte loads at any stride, each word moved to
+// its document's staged row, so a packed step reads about as many bytes as a
+// flat one; the staged row stride is padded so the 32 lanes, one per
+// document, read 32 banks), and each lane compares every slot of its document
+// against 16 query terms held in registers, the query tile's terms having
+// been staged in shared memory once. With 8 queries a block, a batch of B
+// queries stages the slots B / 8 times. The epilogue offers the 32 scores of
+// each query row to its k-best list (list_insert, common.cuh): a ballot finds
+// the scores above the list's k-th; documents increase along a block's walk,
+// so ties go to the lower row. Lists of up to KSMEM entries live in shared
+// memory; longer ones live in place in the output (global memory,
+// L2-cached), so any k is served. Moving these walks onto bm25_hash.cuh
+// needs tile_match's query tiles reconciled with its QB first.
 //
-// Walks. PART: a contiguous part of the corpus. SKIP: the part in tiles of
-// block_n documents (part boundaries are tile boundaries); a tile whose match
-// entry is 0 is neither read nor scored (positive_only), or, in v2 mode, only
-// once every list of the block holds a k-th score > 0 (bit-identical to the
-// PART walk). PROBE: entries [p * part, (p + 1) * part) of the query tile's
+// Walks. PART: a contiguous part of the corpus (PACKED only; the flat
+// whole-corpus walk is bm25_hash.cuh's). SKIP: the part in tiles of block_n
+// documents (part boundaries are tile boundaries); a tile whose match entry
+// is 0 is neither read nor scored (positive_only), or, in v2 mode, only once
+// every list of the block holds a k-th score > 0 (bit-identical to the whole
+// walk). PROBE: entries [p * part, (p + 1) * part) of the query tile's
 // candidate list, up to its count; only those tiles are read (positive_only).
-// A per-query-tile term hash in shared memory, cp.async double-buffered tiles
-// and a persistent grid are later work.
 
+#include "bm25_hash.cuh"
 #include "common.cuh"
 
 namespace {
@@ -382,8 +391,22 @@ int launch(const void* q_ids, const void* q_w, const void* doc_ids, const void* 
   q_ids, q_w, doc_ids, doc_w, match, cand, count, out_s, out_i, B, T, N, L, k, part, parts,   \
       q_tiles, n_tiles, cap, block_n, vec, pack, stream
 
-extern "C" int bm25_topk_v2_launch(BM25_ARGS) {
-  return launch<PART, false, FLAT>(BM25_PASS);
+// The whole-corpus walk over the flat layout: bm25_hash.cuh's body, with the
+// arguments of bm25_hash::launch.
+extern "C" int bm25_topk_v2_launch(BM25_HASH_ARGS) {
+  return bm25_hash::launch(BM25_HASH_PASS);
+}
+
+// The v1 pin. Replaces autorag_research_tpu/ops/sparse.py::_bm25_kernel
+// (Pallas, wrapper bm25_topk_pallas / _launch_bm25_pallas, block_n = 1024),
+// which a SparseIndex search reaches only through method="pallas". The pin
+// keeps the TPU kernel's function, not its blocks: the TPU's v1 walked
+// 1,024-document tiles one (query, term) pair per step, a structure its own
+// v2 replaced, so here it is the whole-corpus walk's kernel under its own
+// name (the wrapper counts its launches apart), with that kernel's bound and
+// design (bm25_hash.cuh).
+extern "C" int bm25_topk_v1_launch(BM25_HASH_ARGS) {
+  return bm25_hash::launch(BM25_HASH_PASS);
 }
 
 extern "C" int bm25_topk_v2_skip_launch(BM25_ARGS) {

@@ -24,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = (
-    "seg_stats", "dense_topk_stream", "maxsim_v2", "maxsim_v1", "maxsim_v3", "bm25_v2", "bm25_v1",
+    "seg_stats", "dense_topk_stream", "maxsim_v2", "maxsim_v1", "maxsim_v3", "bm25_v2",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -19,8 +19,10 @@ bit.
   running ``(-score, row)`` merge; zero-score documents are candidates.
 - :func:`bm25_topk_v2` (JAX ``bm25_topk_pallas_v2``): the fused kernel of
   ``csrc/bm25_v2.cu`` for any k; :func:`bm25_topk_v1` (JAX
-  ``bm25_topk_pallas``, the ``pallas`` pin): ``csrc/bm25_v1.cu``, one
-  (query, term) pair per step, the same results bitwise.
+  ``bm25_topk_pallas``, the ``pallas`` pin): the same kernel under its own
+  name and launch count. Both run the scoring body of ``csrc/bm25_hash.cuh``
+  (a per-document term hash in shared memory, many queries per staged
+  document tile) on the tile plan of :func:`bm25_hash_plan`.
 - :func:`bm25_topk_v2_skip` (JAX ``bm25_topk_pallas_v2_skip``): the same
   kernel skipping (query tile, doc tile) pairs that the 4-probe Bloom
   predicate :func:`tile_match` clears; ``positive_only`` masks scores <= 0
@@ -41,7 +43,7 @@ or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -90,14 +92,33 @@ KERNEL_T_MAX = 2048
 SKIP_BLOCK_N = 2048
 # largest k the pruned routes serve (the JAX package's pruned_ok gate)
 PRUNED_K_MAX = 2048
-# queries per block of the kernel, and of the tile predicate
+# queries per block of the skip, probe and packed walks, and of the tile
+# predicate
 BLOCK_Q = 8
-# documents per step of the kernel (one per lane)
+# documents per step of those walks (one per lane)
 _KERNEL_DOCS = 32
 # words in a row of the lane-packed layout
 PACKED_LANES = 128
-# documents per tile of the v1 kernel (bm25_topk_pallas's block_n)
-V1_TILE = 1024
+# the hash body's tile plan (csrc/bm25_hash.cuh): the largest query tile
+HASH_QB = 128
+# a document's table: the next power of two >= HASH_TABLE_FACTOR L entries
+# (a miss then rarely finds its first bucket full), but no more than
+# HASH_TABLE_CAP entries where 2 L would do, and never fewer than 2 L
+HASH_TABLE_FACTOR = 8
+HASH_TABLE_CAP = 4096
+# a block's and an SM's shared memory on sm_90 (the SM keeps 1 KiB per
+# resident block), and the most of a block's the lists may take
+SMEM_BLOCK_MAX = 232448
+SMEM_SM = 233472
+SMEM_BLOCK_RESERVED = 1024
+HASH_LIST_SMEM_MAX = 64 << 10
+# lists longer than HASH_K_DIRECT merge their candidates HASH_CAP at a time
+# (bm25_hash.cuh's K_DIRECT and CAP: its launcher refuses a plan whose shared
+# memory differs from its own count)
+HASH_K_DIRECT = 64
+HASH_CAP = 32
+# resident blocks an SM's registers hold (the kernel's __launch_bounds__(256, 2))
+HASH_BLOCKS_PER_SM_MAX = 2
 # the pins that name a pruned leg of a flat single-device index
 PRUNED_PINS = ("pallas_v2_skip", "pallas_probe", "pallas_wand")
 
@@ -613,10 +634,137 @@ def _kernel_queries(q_ids, q_w, dev):
             torch.as_tensor(q_w).to(dev, torch.float32).contiguous())
 
 
+class HashPlan(NamedTuple):
+    """The tile plan of one ``csrc/bm25_hash.cuh`` launch."""
+
+    qb: int  # queries of a block's query tile
+    docs: int  # documents of a staged tile (D, a power of two <= 32)
+    table: int  # entries of a document's term table (a power of two >= 2 L, >= 8)
+    list_smem: bool  # the k-best lists in shared memory (else in the output)
+    staged: bool  # slots staged and tables in shared memory (else D = 1, global scratch)
+    smem: int  # dynamic shared memory bytes of a block
+    q_tiles: int
+    part: int  # documents of a part, a multiple of docs
+    parts: int
+    blocks_per_sm: int  # resident blocks an SM holds by the plan's count (sets parts)
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def _hash_smem(docs: int, table: int, slots: int, t: int, qb: int, k: int, list_smem: bool,
+               staged: bool) -> int:
+    """Dynamic shared memory of a block: ``bm25_hash.cuh``'s ``Layout``, each
+    region rounded to 16 bytes (the tables' (key, weight) pairs, two staged
+    tiles of ids and weights, 32 documents' repeat marks, the query tile's
+    compacted (term, first bucket) pairs and weights in rows of T rounded up
+    to 4, its term counts, the lists when they sit there, and past
+    ``HASH_K_DIRECT`` each query's buffer of ``HASH_CAP`` candidates)."""
+    dh = docs * table if staged else 0
+    dl = docs * slots if staged else 0
+    lk = qb * k if list_smem else 0
+    lb = qb if k > HASH_K_DIRECT else 0
+    tp = _round_up(t, 4)
+    return (_r16(dh * 8) + 4 * _r16(dl * 4) + _r16(32 * 4) + _r16(qb * tp * 8) + _r16(qb * tp * 4)
+            + _r16(qb * 4) + 2 * _r16(lk * 4) + 2 * _r16(lb * HASH_CAP * 4) + _r16(lb * 4))
+
+
+def _hash_fit(qb: int, table: int, slots: int, t: int, k: int):
+    """(docs, list_smem, smem) of the first staged layout that fits a query
+    tile of ``qb``: lists in shared memory first (when within
+    ``HASH_LIST_SMEM_MAX``), two blocks an SM before one, the most documents
+    first; None when not even one document fits a block."""
+    two = SMEM_SM // 2 - SMEM_BLOCK_RESERVED
+    for list_smem in (True, False) if qb * k * 8 <= HASH_LIST_SMEM_MAX else (False,):
+        for budget in (two, SMEM_BLOCK_MAX):
+            for docs in (32, 16, 8, 4, 2, 1):
+                smem = _hash_smem(docs, table, slots, t, qb, k, list_smem, True)
+                if smem <= budget:
+                    return docs, list_smem, smem
+    return None
+
+
+def bm25_hash_plan(b: int, t: int, n: int, slots: int, k: int, sms: int,
+                   qb_max: int = HASH_QB) -> HashPlan:
+    """Tile plan of the hash body for B queries of T terms over N documents
+    of L slots, lists of k (pure: the CPU tests check its invariants). The
+    table has the next power of two >= ``HASH_TABLE_FACTOR`` L entries, cut
+    to ``HASH_TABLE_CAP`` but never below 2 L (and at least 8). The query
+    tile is the largest multiple of 8 up to ``qb_max`` (a multiple of 8;
+    ``chip_smoke.py`` times other values than ``HASH_QB``), halved while
+    :func:`_hash_fit` finds no staged layout for it; a
+    row too wide even for a tile of 8 takes D = 1, 8 queries, lists in the
+    output and the table in global scratch. Parts split the corpus so that
+    the grid fills the SMs in one wave, no more (one block an SM with global
+    scratch, so the scratch stays within ``sms * table`` entries)."""
+    table = max(8, _pow2_at_least(2 * slots),
+                min(_pow2_at_least(HASH_TABLE_FACTOR * slots), HASH_TABLE_CAP))
+    qb = min(_round_up(max(b, 1), 8), qb_max)
+    fit = _hash_fit(qb, table, slots, t, k)
+    while fit is None and qb > 8:
+        qb = max(8, qb // 2 // 8 * 8)
+        fit = _hash_fit(qb, table, slots, t, k)
+    staged = fit is not None
+    docs, list_smem, smem = fit if staged else (1, False, _hash_smem(1, table, slots, t, 8, k, False,
+                                                                     False))
+    qb = qb if staged else 8
+    per_sm = max(1, min(HASH_BLOCKS_PER_SM_MAX, SMEM_SM // (smem + SMEM_BLOCK_RESERVED)))
+    q_tiles = -(-b // qb)
+    target = per_sm * sms if staged else sms
+    parts = max(1, min(-(-n // docs), target // q_tiles))  # one wave
+    part = _round_up(-(-n // parts), docs)
+    return HashPlan(qb, docs, table, list_smem, staged, smem, q_tiles, part, -(-n // part), per_sm)
+
+
+def _hash_topk(name: str, q_ids, q_w, doc_ids, doc_w, k: int, qb_max: int = HASH_QB):
+    """Top-k of CUDA tensors through ``csrc/bm25_hash.cuh``'s body, launched
+    by ``csrc/bm25_v2.cu``'s ``<name>_launch`` on :func:`bm25_hash_plan`'s
+    plan and counted under ``LAUNCHES[name]``; per-part lists merged."""
+    dev = doc_ids.device
+    b = q_ids.shape[0]
+    k_eff = min(k, doc_ids.shape[0])
+    if k_eff == 0 or b == 0:
+        return _empty_topk(b, k, dev)
+    q_ids, q_w = _kernel_queries(q_ids, q_w, dev)
+    _check_kernel_operands(q_ids, q_w, doc_ids, doc_w)
+    b, t = q_ids.shape
+    n, slots = doc_ids.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = bm25_hash_plan(b, t, n, slots, k_eff, sms, qb_max)
+    out_s = torch.empty((b, plan.parts, k_eff), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, plan.parts, k_eff), dtype=torch.int32, device=dev)
+    g_tab = None
+    if not plan.staged:  # (key, weight) pairs, one table per block
+        g_tab = torch.empty(2 * plan.q_tiles * plan.parts * plan.table, dtype=torch.int32, device=dev)
+    # 16-byte copies: rows of a multiple of 4 slots on aligned arrays
+    vec = slots % 4 == 0 and doc_ids.data_ptr() % 16 == 0 and doc_w.data_ptr() % 16 == 0
+    fn = getattr(cuda_build.load("bm25_v2"), f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(
+        q_ids.data_ptr(), q_w.data_ptr(), doc_ids.data_ptr(), doc_w.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(),
+        g_tab.data_ptr() if g_tab is not None else None,
+        b, t, n, slots, k_eff, plan.part, plan.parts, plan.q_tiles, plan.qb, plan.docs,
+        plan.table, int(plan.list_smem), int(plan.staged), int(vec), plan.smem,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check_launch(rc, name)
+    LAUNCHES[name] += 1
+    scores, ids = merge_topk(out_s, out_i, k_eff)
+    return pad_to_k(scores, ids, k, k_eff)
+
+
 def _launch(name: str, q_ids, q_w, doc_ids, doc_w, k_eff: int, bitmaps=None, cand=None,
             count=None, block_n: int = SKIP_BLOCK_N, positive_only: bool = False,
             n_docs: int | None = None, pack: int = 1):
-    """Launch one walk of csrc/bm25_v2.cu -> per-part lists [B, P, k_eff]
+    """Launch one skip, probe or packed walk of csrc/bm25_v2.cu's first body
+    -> per-part lists [B, P, k_eff]
     (scores, rows). ``pack > 1``: ``doc_ids`` / ``doc_w`` hold ``n_docs``
     documents in the packed layout, and ``block_n`` counts documents."""
     dev = doc_ids.device
@@ -681,18 +829,13 @@ def bm25_topk_v2(
     k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused BM25 top-k (JAX ``bm25_topk_pallas_v2``), any k. CUDA tensors
-    launch ``csrc/bm25_v2.cu``; CPU tensors take :func:`bm25_topk_v2_plain`.
+    launch ``csrc/bm25_v2.cu``'s whole-corpus walk (the hash body of
+    ``csrc/bm25_hash.cuh``); CPU tensors take :func:`bm25_topk_v2_plain`.
     Returns (scores [B, k], rows [B, k]) in ``(-score, row)`` order;
     zero-score documents fill rows with fewer positive hits, in row order."""
     if not doc_ids.is_cuda:
         return bm25_topk_v2_plain(q_ids, q_weights, doc_ids, doc_weights, k)
-    b = q_ids.shape[0]
-    k_eff = min(k, doc_ids.shape[0])
-    if k_eff == 0 or b == 0:
-        return _empty_topk(b, k, doc_ids.device)
-    out_s, out_i = _launch("bm25_topk_v2", q_ids, q_weights, doc_ids, doc_weights, k_eff)
-    scores, ids = merge_topk(out_s, out_i, k_eff)
-    return pad_to_k(scores, ids, k, k_eff)
+    return _hash_topk("bm25_topk_v2", q_ids, q_weights, doc_ids, doc_weights, k)
 
 
 def bm25_topk_v2_skip(
@@ -846,36 +989,13 @@ def bm25_topk_v1(
     k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """BM25 top-k through the v1 kernel (JAX ``bm25_topk_pallas``, the
-    ``pallas`` pin): one (query, term) pair per step over 1,024-document
-    tiles, ``csrc/bm25_v1.cu``. The function and results of
-    :func:`bm25_topk_v2`, bitwise. CPU tensors take
-    :func:`bm25_topk_v1_plain`."""
+    ``pallas`` pin): the TPU kernel's function, not its blocks, so the
+    kernel of :func:`bm25_topk_v2` (``csrc/bm25_hash.cuh``) under
+    ``bm25_topk_v1_launch`` and its own launch count, the same results.
+    CPU tensors take :func:`bm25_topk_v1_plain`."""
     if not doc_ids.is_cuda:
         return bm25_topk_v1_plain(q_ids, q_weights, doc_ids, doc_weights, k)
-    dev = doc_ids.device
-    b = q_ids.shape[0]
-    n, slots = doc_ids.shape
-    k_eff = min(k, n)
-    if k_eff == 0 or b == 0:
-        return _empty_topk(b, k, dev)
-    q_ids, q_w = _kernel_queries(q_ids, q_weights, dev)
-    _check_kernel_operands(q_ids, q_w, doc_ids, doc_weights)
-    q_tiles = -(-b // BLOCK_Q)
-    part, parts = _kernel_parts(q_tiles, n, dev, V1_TILE)
-    out_s = torch.empty((b, parts, k_eff), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, parts, k_eff), dtype=torch.int32, device=dev)
-    fn = cuda_build.load("bm25_v1").bm25_topk_v1_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(
-        q_ids.data_ptr(), q_w.data_ptr(), doc_ids.data_ptr(), doc_weights.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), b, q_ids.shape[1], n, slots, k_eff, part, parts,
-        q_tiles, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    cuda_build.check_launch(rc, "bm25_topk_v1")
-    LAUNCHES["bm25_topk_v1"] += 1
-    scores, ids = merge_topk(out_s, out_i, k_eff)
-    return pad_to_k(scores, ids, k, k_eff)
+    return _hash_topk("bm25_topk_v1", q_ids, q_weights, doc_ids, doc_weights, k)
 
 
 # ------------------------------------------------------------- tile WAND

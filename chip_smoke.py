@@ -45,7 +45,9 @@ serving modes at full width and fails (non-zero exit) on any fault:
    ``VectorSearchPipeline(search_mode="multi")`` verified: 3,000 rows,
    recall@10 / ndcg@10, rows held against an exact search, the scores kernel
    launched;
-9. the three BM25 kernels (``csrc/bm25_v2.cu``) against their plain versions
+9. the three BM25 kernels (``csrc/bm25_v2.cu``; v2's whole-corpus walk on
+   the hash body of ``csrc/bm25_hash.cuh``, its tile plan logged) against
+   their plain versions
    at the repo's BM25 benchmark shapes (500,000 docs x 128 slots of unique
    terms, 25% padded at random places, vocabulary 200,000; 32 queries x 16
    terms): v2 at k = 10, 100 and 1,000, the skip kernel in both modes, and
@@ -61,7 +63,10 @@ serving modes at full width and fails (non-zero exit) on any fault:
     kernel), and by 1,024 rare-term lookups (two words of document frequency
     <= 7, a selective batch: the probe kernel) at k = 10 and 1,000. The routes
     give the same hits, equal to an exact scan of the same device tensors;
-    every kernel launched, no plain version or scan;
+    every kernel launched, no plain version or scan; then each kernel at the
+    main path's shapes, v1 (#4, v2's kernel under the pin's name) bitwise
+    equal to v2 (#3) there, the hash body's tile plan logged, and v2 timed
+    with its query tile capped at 64, 128 (the default) and 256;
 11. SciFact-size catalog runs through ``BM25Pipeline``, defaults and
     ``bucketize=2`` on the same catalog: 3,000 rows each, rows equal to an exact
     scan, equal recall@10 / ndcg@10, a pruned leg launched by the flat run;
@@ -70,8 +75,8 @@ serving modes at full width and fails (non-zero exit) on any fault:
     (pack 8) beside the v2 kernel over the flat layout of the same arrays,
     bitwise equal to both, k = 10 and 100; the packed probe at 500,000
     clustered log-uniform short docs (256-row tiles, 32 rare-term queries x 8
-    terms, k = 10) beside the flat probe; the v1 kernel (``csrc/bm25_v1.cu``)
-    beside v2 at phase 9's uniform shapes; each with its time, the plain
+    terms, k = 10) beside the flat probe; the v1 kernel (v2's hash body under
+    the pin's name) at phase 9's uniform shapes; each with its time, the plain
     version's, the CSR yardstick's and its bound;
 13. the short-doc main path with every launch count at 0 just before it: a
     packed ``SparseIndex`` of 522,931 texts of 4-19 Zipf words (BEIR Quora's
@@ -619,14 +624,15 @@ def zipf_texts(rng, words: list[str], n: int, lo: int, hi: int) -> list[str]:
 
 
 # source file and TPU kernel line (autorag_research_tpu/ops/sparse.py) of
-# each BM25 kernel wrapper
+# each BM25 kernel wrapper (v2's whole-corpus walk and v1 run the hash body,
+# launched from bm25_v2.cu)
 BM25_KERNELS = {
-    "bm25_topk_v2": ("bm25_v2.cu", 295),
+    "bm25_topk_v2": ("bm25_hash.cuh", 295),
     "bm25_topk_v2_skip": ("bm25_v2.cu", 474),
     "bm25_topk_probe": ("bm25_v2.cu", 722),
     "bm25_topk_packed": ("bm25_v2.cu", 934),
     "bm25_topk_probe_packed": ("bm25_v2.cu", 1088),
-    "bm25_topk_v1": ("bm25_v1.cu", 107),
+    "bm25_topk_v1": ("bm25_hash.cuh", 107),
 }
 
 
@@ -681,6 +687,27 @@ def bm25_check_equal(label, got, ref) -> float:
     if not same:
         fail(f"{label}: the kernel is not bitwise equal to its reference")
     return err
+
+
+def hash_plan_note(label: str, q_ids, doc_ids, k: int) -> None:
+    """Log the hash body's tile plan (csrc/bm25_hash.cuh) that a v2 or v1
+    launch on these operands takes: D, QB, the table, the shared-memory
+    bytes, the lists' placement, the parts, and the blocks per SM the plan
+    counts on (its estimate from shared memory and the kernel's launch
+    bounds, not a measured residency)."""
+    import torch
+
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    (b, t), (n, slots) = q_ids.shape, doc_ids.shape
+    sms = torch.cuda.get_device_properties(doc_ids.device).multi_processor_count
+    plan = ts.bm25_hash_plan(b, t, n, slots, min(k, n), sms)._asdict()
+    log(f"  hash plan, {label}: D={plan['docs']}, QB={plan['qb']}, table {plan['table']} entries, "
+        f"{plan['smem']} B shared memory, lists in "
+        f"{'shared memory' if plan['list_smem'] else 'the output'}, "
+        f"{'staged' if plan['staged'] else 'unstaged (global scratch)'}, {plan['q_tiles']} query "
+        f"tiles x {plan['parts']} parts of {plan['part']} docs, planned for "
+        f"{plan['blocks_per_sm']} blocks/SM")
 
 
 def tile_mask(cand, count, n_tiles: int):
@@ -738,6 +765,7 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
     for k in (K, K_LONG, BM25_K_LONG):
         label = f"bm25_topk_v2 vs plain, uniform {shapes}, k={k}"
         err = bm25_check_equal(label, ts.bm25_topk_v2(*uni, k), ts.bm25_topk_v2_plain(*uni, k))
+        hash_plan_note(f"uniform {shapes}, k={k}", uni[0], uni[2], k)
         bm25_record(kernels, "bm25_topk_v2", f"uniform {shapes}, k={k}", err,
                     cuda_ms(lambda: ts.bm25_topk_v2(*uni, k), 10),
                     cuda_ms(lambda: ts.bm25_topk_v2_plain(*uni, k), 2),
@@ -934,6 +962,20 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
         log(f"{name} vs plain, {case}: bitwise equal {same}, max|d score| = {err:.3e}")
         if not same:
             fail(f"{name} is not bitwise equal to its plain version at the main path's shapes")
+        if name == "bm25_topk_v2":
+            for k in (K, BM25_K_LONG):
+                hash_plan_note(f"{main_shape}, k={k}", qi, di, k)
+            # #4 (v1) is #3's kernel under the pin's name: held against #3 once
+            bm25_check_equal(f"bm25_topk_v1 vs bm25_topk_v2, {case}",
+                             ts.bm25_topk_v1(qi, qw, di, dw, K), got)
+            # the query tile: #3 capped at QB = 64, 128 (the default) and 256,
+            # in the order 128, 64, 256, 256, 64, 128
+            qb_ms = {}
+            for qb in (128, 64, 256, 256, 64, 128):
+                qb_ms.setdefault(qb, []).append(cuda_ms(
+                    lambda: ts._hash_topk("bm25_topk_v2", qi, qw, di, dw, K, qb_max=qb), 5))
+            log(f"  v2 at the main path, k={K}, by query tile: " + ", ".join(
+                f"QB={qb}: {' / '.join(f'{m:.3f}' for m in ms)} ms" for qb, ms in sorted(qb_ms.items())))
         del got, ref
         bm25_record(kernels, name, case, err, cuda_ms(kern, 5), plain_ms, cuda_ms(lambda: lib(K), 3),
                     *bm25_bound(peak, q_used, slots * 8, BM25_Q * K * 8, tiles=tiles_needed))
@@ -1117,7 +1159,8 @@ def bm25_packed_phases(seed: int, dev, peak: dict, kernels: list) -> None:
                             tiles=tile_mask(cand, count, n_tiles), block_n=tile))
     del pids, pw, ids_c, w_c, got, ref
 
-    # v1 beside v2 at scripts/bench_bm25.py's shapes (phase 9's uniform arrays)
+    # v1 at scripts/bench_bm25.py's shapes (phase 9's uniform arrays, where
+    # phase 9 timed v2, the same kernel)
     uni = bm25_arrays(seed + 20, dev, clustered=False)
     lib_uni = bm25_library(*uni)
     shapes = f"B={BM25_B} x T={BM25_T} vs {BM25_N} x {BM25_L}"
@@ -1125,11 +1168,9 @@ def bm25_packed_phases(seed: int, dev, peak: dict, kernels: list) -> None:
         got = ts.bm25_topk_v1(*uni, k)
         ref, plain_ms = timed(lambda: ts.bm25_topk_v1_plain(*uni, k))
         err = bm25_check_equal(f"bm25_topk_v1 vs plain, uniform {shapes}, k={k}", got, ref)
-        bm25_check_equal(f"bm25_topk_v1 vs bm25_topk_v2, k={k}", got, ts.bm25_topk_v2(*uni, k))
-        ms = cuda_ms(lambda: ts.bm25_topk_v1(*uni, k), 5)
-        v2_ms = cuda_ms(lambda: ts.bm25_topk_v2(*uni, k), 5)
-        log(f"  v2 on the same arrays {v2_ms:.3f} ms")
-        bm25_record(kernels, "bm25_topk_v1", f"uniform {shapes}, k={k}", err, ms, plain_ms,
+        hash_plan_note(f"uniform {shapes}, k={k}", uni[0], uni[2], k)
+        bm25_record(kernels, "bm25_topk_v1", f"uniform {shapes}, k={k}", err,
+                    cuda_ms(lambda: ts.bm25_topk_v1(*uni, k), 5), plain_ms,
                     cuda_ms(lambda: lib_uni(k), 5), *bm25_bound(peak, uni[0], BM25_L * 8, BM25_B * k * 8))
     del uni, lib_uni, got, ref
     torch.cuda.empty_cache()
@@ -1261,6 +1302,8 @@ def bm25_packed_phases(seed: int, dev, peak: dict, kernels: list) -> None:
                     *bm25_bound(peak, q_used, doc_bytes, BM25_Q * K * 8, QUORA_N, tiles_needed,
                                 bn_rows * pack))
         kernels[-1]["launches"] = launches[name]
+        if name == "bm25_topk_v1":
+            hash_plan_note(case, qi, di, K)
     log(f"  v2 over the flat upload at the main path, k={K}: {v2_ms:.3f} ms")
     kernels[-3]["flat_v2_ms"] = v2_ms
     del index, qi, qw, ri, rw, di, dw, pids, pw, lib_main, lib_rare, cand, count

@@ -878,3 +878,102 @@ def test_sparse_index_bucketed_cuda_matches_cpu(cuda_device, k):
     assert ts.LAUNCHES["bm25_topk_packed"] == 1 and ts.LAUNCHES["bm25_topk_v2"] == 1
     assert [[(h.doc_id, h.score) for h in r] for r in pinned] == pairs
     assert pairs == [[(h.doc_id, h.score) for h in r] for r in flat]
+
+
+# ------------------------------------------- BM25 hash body (#3 and #4)
+HIGH_ID = 2**31 - 2  # the largest term id a query pad (-2) leaves free
+
+
+def _hash_data(rng, b, t, n, slots, high=False):
+    """Dyadic slot arrays (weights k/8: every sum exact) for the hash body:
+    rows of unique terms with scattered pads, row 5 repeating one term in its
+    first min(3, L) slots (the build sums them in slot order), row 7 all pads;
+    queries of t terms drawn from the documents' terms with repeats and pads
+    mid-row, query 0 all pads, query 1 one unknown term. ``high``: ids end at
+    2**31 - 2."""
+    vocab = max(3000, 3 * slots)
+    base = HIGH_ID + 1 - vocab if high else 0
+    doc_ids = np.stack([rng.choice(vocab, size=slots, replace=False) for _ in range(n)]).astype(np.int64)
+    doc_w = (rng.integers(1, 17, size=(n, slots)) / 8.0).astype(np.float32)
+    pad = rng.random((n, slots)) < 0.25
+    doc_ids[pad] = -1 - base
+    doc_w[pad] = 0.0
+    doc_ids[5, : min(3, slots)] = 17
+    doc_w[5, : min(3, slots)] = (np.arange(1, min(3, slots) + 1) / 8.0).astype(np.float32)
+    doc_ids[7], doc_w[7] = -1 - base, 0.0
+    doc_ids = (doc_ids + base).astype(np.int32)
+    live = doc_ids[doc_ids >= 0]
+    q_ids = np.full((b, t), -2, np.int32)
+    q_w = np.zeros((b, t), np.float32)
+    for i in range(2, b):
+        m = int(rng.integers(1, t + 1))
+        pos = np.sort(rng.choice(t, size=m, replace=False))  # pads mid-row
+        q_ids[i, pos] = rng.choice(live, size=m) if len(live) else base + 1
+        if m > 1:
+            q_ids[i, pos[-1]] = q_ids[i, pos[0]]  # a repeated term
+        q_w[i, pos] = rng.integers(1, 3, size=m)
+    if b > 2 and slots >= 1:
+        q_ids[2, 0], q_w[2, 0] = doc_ids[5, 0], 1.0  # the repeated doc term
+    if b > 1 and t > 0:  # an id no document holds
+        q_ids[1, :], q_w[1, :] = -2, 0.0
+        q_ids[1, t // 2], q_w[1, t // 2] = base - 5 if high else vocab + 7, 2.0
+    return q_ids, q_w, doc_ids, doc_w
+
+
+def _hash_check(args, ks):
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    for k in ks:
+        before = dict(ts.LAUNCHES)
+        got2 = ts.bm25_topk_v2(*args, k)
+        got1 = ts.bm25_topk_v1(*args, k)
+        torch.cuda.synchronize()
+        assert ts.LAUNCHES["bm25_topk_v2"] == before["bm25_topk_v2"] + 1
+        assert ts.LAUNCHES["bm25_topk_v1"] == before["bm25_topk_v1"] + 1
+        ref = ts.bm25_topk_v2_plain(*args, k)
+        for got in (got2, got1):  # #3 and #4 bitwise the plain version, so each other
+            torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0)
+            torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, high", [(1, False), (16, False), (33, True)], ids=["T1", "T16", "T33-high-ids"])
+@pytest.mark.parametrize("slots", [1, 3, 20, 104, 128, 1500])
+def test_bm25_hash_body_v2_and_v1_match_plain(cuda_device, slots, t, high):
+    # B = 133: two query tiles, the second under-full; N = 3001 (701 at
+    # L = 1,500, one document per tile) is no multiple of a tile or a part
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    n = 701 if slots >= 1500 else 3001
+    args = _bm25_tensors(_hash_data(np.random.default_rng(slots + t), 133, t, n, slots, high),
+                         cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = ts.bm25_hash_plan(133, t, n, slots, 10, sms)
+    assert plan.staged and 133 % plan.qb and n % plan.docs + n % plan.part
+    _hash_check(args, (1, 10, 257, 1000))
+
+
+@pytest.mark.cuda
+def test_bm25_hash_body_unstaged_wide_rows(cuda_device):
+    # rows too wide to stage (L = 9,000): D = 1, the table in global scratch
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    args = _bm25_tensors(_hash_data(np.random.default_rng(11), 20, 16, 300, 9000), cuda_device)
+    assert not ts.bm25_hash_plan(20, 16, 300, 9000, 10, 132).staged
+    _hash_check(args, (1, 10, 257))
+
+
+@pytest.mark.cuda
+def test_bm25_hash_body_unaligned_rows(cuda_device):
+    # L % 4 == 0 on arrays that start 4 bytes past a 16-byte boundary: 4-byte
+    # copies
+    q_ids, q_w, doc_ids, doc_w = _bm25_tensors(
+        _hash_data(np.random.default_rng(12), 40, 16, 2001, 20), cuda_device)
+    views = []
+    for x in (doc_ids, doc_w):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+        v = buf[1:].view(x.shape)
+        v.copy_(x)
+        assert v.is_contiguous() and v.data_ptr() % 16 == 4
+        views.append(v)
+    _hash_check((q_ids, q_w, *views), (10, 300))
