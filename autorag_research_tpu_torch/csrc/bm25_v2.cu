@@ -1,13 +1,12 @@
 // bm25_v2: BM25 over the slot-padded layout, flat or lane-packed, with a
-// fused streaming top-k, walking the whole corpus, skipping Bloom-cleared
-// tiles, or probing a list of candidate tiles.
+// fused streaming top-k: the launchers of every BM25 kernel of the port.
 //
 // Replaces autorag_research_tpu/ops/sparse.py::_bm25_kernel_v2 (Pallas,
-// wrapper bm25_topk_pallas_v2 / _launch_bm25_pallas), ::_bm25_kernel_v2_skip
-// (wrapper bm25_topk_pallas_v2_skip), ::_bm25_kernel_probe (wrapper
-// bm25_topk_pallas_probe), ::_bm25_kernel_packed (wrapper
-// bm25_topk_pallas_packed) and ::_bm25_kernel_probe_packed (wrapper
-// bm25_topk_pallas_probe_packed). All five compute one function, as the
+// wrapper bm25_topk_pallas_v2 / _launch_bm25_pallas), ::_bm25_kernel (the v1
+// pin, bm25_topk_pallas), ::_bm25_kernel_v2_skip (bm25_topk_pallas_v2_skip),
+// ::_bm25_kernel_packed (bm25_topk_pallas_packed), ::_bm25_kernel_probe
+// (bm25_topk_pallas_probe) and ::_bm25_kernel_probe_packed
+// (bm25_topk_pallas_probe_packed). All six compute one function, as the
 // Pallas kernels share _slot_match_scores:
 //
 //   score(b, n) = sum over t = 0..T-1, in order, of
@@ -17,68 +16,54 @@
 // __fadd_rn forbid FMA contraction), so every walk equals the plain PyTorch
 // version bitwise. Pads (doc -1, query -2) never match, wherever they sit.
 //
-// Two bodies. The whole-corpus walk over the flat layout (bm25_topk_v2_launch,
-// the main path's kernel, and bm25_topk_v1_launch, the v1 pin's) runs
-// bm25_hash.cuh: a per-document term hash in
-// shared memory, probed once per (query term, document), query tiles of up
-// to 128 queries per staged document tile, cp.async double-buffered staging;
-// its note gives the design. The skip, probe and packed walks below keep the
-// first body, because their query tiles are tied to ops/sparse.py::tile_match's
-// rows of BQ = 8 queries and the skip rule reads the block's lists.
+// Two bodies. Every walk that scores whole document tiles runs
+// bm25_hash.cuh, whose note gives its design and bound: a per-document term
+// hash in shared memory, probed once per (query term, document), query
+// tiles of up to 256 queries per staged document tile, cp.async
+// double-buffered staging. Its launchers: the whole-corpus walk over the
+// flat layout (bm25_topk_v2_launch, and bm25_topk_v1_launch for the v1
+// pin), the skip walk (bm25_topk_v2_skip_launch: doc tiles that the Bloom
+// predicate clears for a query's 8-query group are skipped, both modes) and
+// the whole-corpus walk over the packed layout (bm25_topk_packed_launch).
 //
-// Inputs of the first body: q_ids / q_w [B, T] int32 / f32; the documents
-// read in place, in one of two layouts (the LAYOUT template parameter):
+// The probe walks below (bm25_topk_probe_launch, bm25_topk_probe_packed_
+// launch) keep the first body, because their candidate lists come per query
+// tile of BQ = 8 queries (ops/sparse.py::probe_candidates). Inputs: q_ids /
+// q_w [B, T] int32 / f32; the documents read in place, in one of two
+// layouts (the LAYOUT template parameter):
 //   FLAT    doc_ids / doc_w [N, L] int32 / f32, document n in row n;
 //   PACKED  ops/sparse.py::pack_slots's [R, 128]: pack = P documents of
 //           stride L = 128 / P lanes share a row, document n in lanes
 //           [(n % P) L, (n % P + 1) L) of row n / P; the 128 - P L dead tail
 //           lanes are never scored.
-// The TPU's packed kernel reduced a [BN, 128] match tile to per-document
-// sums with a 0/1 grouping matmul on the MXU, its way to get many short
-// documents out of one 128-lane row. Here a lane reads its document's own L
-// lanes, so the packed layout costs no extra work and its sums are the flat
-// layout's, bit for bit. The skip walk reads a [q_tiles, n_tiles] uint8
-// match matrix (ops/sparse.py::tile_match on the device, query tiles of
-// BQ = 8 rows, doc tiles of block_n rows); the probe walk reads cand
-// [q_tiles, cap] int32, the doc tiles of each query tile in increasing
-// order, and count [q_tiles], the live entries of each row (a packed tile
-// of block_n packed rows is block_n * P documents: the wrapper passes that
-// as block_n). Every walk writes per-part lists [B, parts, k] in
-// (-score, row) order, merged by the wrapper with merge_topk as
-// dense_topk_stream's are.
+// cand [q_tiles, cap] int32 lists the doc tiles of each query tile in
+// increasing order and count [q_tiles] its live entries (a packed tile of
+// block_n packed rows is block_n * P documents: the wrapper passes that as
+// block_n). Each walk writes per-part lists [B, parts, k] in (-score, row)
+// order, merged by the wrapper with merge_topk as dense_topk_stream's are.
 //
 // Bound on this card: the function is one multiply and one add per (live
 // query term, document) pair, 2 operations that the rounding keeps apart (no
 // FMA), so at most 33.5 TFLOP/s, half the FMA peak; and the id and weight
-// arrays (0.4-0.5 GB at 500,000 docs x 128 slots, 64 MB packed at width 16)
-// are read once at 3.35 TB/s, or only the doc tiles a walk must score.
+// arrays of the candidate tiles read once at 3.35 TB/s.
 //
 // What the first body does instead: T x L compares per (query, document).
-// A block owns one query tile (one warp per query) and a part of the work, and
-// walks its doc tiles 32 documents per step: the step's [32, L] ids and
-// weights are staged in shared memory synchronously, two barriers a step
-// (FLAT: 16-byte loads where L % 4 == 0; PACKED: the whole 128-word rows the
-// step's documents lie in, 16-byte loads at any stride, each word moved to
-// its document's staged row, so a packed step reads about as many bytes as a
-// flat one; the staged row stride is padded so the 32 lanes, one per
-// document, read 32 banks), and each lane compares every slot of its document
-// against 16 query terms held in registers, the query tile's terms having
-// been staged in shared memory once. With 8 queries a block, a batch of B
-// queries stages the slots B / 8 times. The epilogue offers the 32 scores of
-// each query row to its k-best list (list_insert, common.cuh): a ballot finds
-// the scores above the list's k-th; documents increase along a block's walk,
-// so ties go to the lower row. Lists of up to KSMEM entries live in shared
+// A block owns one query tile (one warp per query) and a part of its
+// candidate list, and walks each candidate tile 32 documents per step: the
+// step's [32, L] ids and weights are staged in shared memory synchronously,
+// two barriers a step (FLAT: 16-byte loads where L % 4 == 0; PACKED: the
+// whole 128-word rows the step's documents lie in, 16-byte loads at any
+// stride, each word moved to its document's staged row; the staged row
+// stride is padded so the 32 lanes, one per document, read 32 banks), and
+// each lane compares every slot of its document against 16 query terms held
+// in registers. The epilogue offers the 32 scores of each query row to its
+// k-best list (list_insert, common.cuh): a ballot finds the scores above the
+// list's k-th; documents increase along a block's walk, so ties go to the
+// lower row. Only scores > 0 enter (the lists start at 0.0), rows with fewer
+// hits keep (0.0, INT_MAX). Lists of up to KSMEM entries live in shared
 // memory; longer ones live in place in the output (global memory,
 // L2-cached), so any k is served. Moving these walks onto bm25_hash.cuh
-// needs tile_match's query tiles reconciled with its QB first.
-//
-// Walks. PART: a contiguous part of the corpus (PACKED only; the flat
-// whole-corpus walk is bm25_hash.cuh's). SKIP: the part in tiles of block_n
-// documents (part boundaries are tile boundaries); a tile whose match entry
-// is 0 is neither read nor scored (positive_only), or, in v2 mode, only once
-// every list of the block holds a k-th score > 0 (bit-identical to the whole
-// walk). PROBE: entries [p * part, (p + 1) * part) of the query tile's
-// candidate list, up to its count; only those tiles are read (positive_only).
+// needs their candidate lists per query tile of the hash body's QB.
 
 #include "bm25_hash.cuh"
 #include "common.cuh"
@@ -96,7 +81,6 @@ constexpr int TMAX = 2048;        // query terms staged per query
 constexpr int QUERY_PAD = -2;
 constexpr int PACKED_LANES = 128;  // words in a packed row
 
-enum Walk { PART = 0, SKIP = 1, PROBE = 2 };
 enum Layout { FLAT = 0, PACKED = 1 };
 
 // Documents [base, base + nd) and slots [l0, l0 + lc) of the FLAT layout
@@ -181,15 +165,14 @@ __device__ __forceinline__ void stage_packed(const int* __restrict__ doc_ids,
   }
 }
 
-template <int WALK, bool POS, int LAYOUT>
+template <int LAYOUT>
 __global__ void __launch_bounds__(THREADS)
-bm25_v2_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
-               const int* __restrict__ doc_ids, const float* __restrict__ doc_w,
-               const unsigned char* __restrict__ match, const int* __restrict__ cand,
-               const int* __restrict__ count, float* __restrict__ out_s,
-               int* __restrict__ out_i, int B, int T, int N, int L, int k, int part, int parts,
-               int q_tiles, int n_tiles, int cap, int block_n, int vec, int list_smem,
-               int pack) {
+bm25_probe_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
+                  const int* __restrict__ doc_ids, const float* __restrict__ doc_w,
+                  const int* __restrict__ cand, const int* __restrict__ count,
+                  float* __restrict__ out_s, int* __restrict__ out_i, int B, int T, int N, int L,
+                  int k, int part, int parts, int q_tiles, int n_tiles, int cap, int block_n,
+                  int vec, int list_smem, int pack) {
   __shared__ int s_ids[DOCS * LDS];
   __shared__ float s_w[DOCS * LDS];
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -217,50 +200,25 @@ bm25_v2_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
   }
   if (active) {
     for (int i = lane; i < k; i += 32) {
-      ls[i] = POS ? 0.f : -INFINITY;
+      ls[i] = 0.f;  // only scores > 0 enter
       li[i] = ARTPU_INT_MAX;
     }
   }
   __syncthreads();
 
-  // the tiles this block walks: PART one span, SKIP the part's block_n
-  // tiles, PROBE its slice of the candidate list
-  int begin = 0, end = 0, n_walk = 0;
-  if (WALK == PROBE) {
-    begin = p * part;
-    end = min(min(count[qt], cap), begin + part);
-    n_walk = max(0, end - begin);
-  } else {
-    begin = p * part;
-    end = min(N, begin + part);
-    n_walk = WALK == SKIP ? (end - begin + block_n - 1) / block_n : 1;
-  }
+  // this block's slice of the query tile's candidate list
+  const int begin = p * part;
+  const int end = min(min(count[qt], cap), begin + part);
+  const int n_walk = max(0, end - begin);
   const int n_lc = (L + LC - 1) / LC;
   const int* qid_row = sq_id + warp * T;
   const float* qw_row = sq_w + warp * T;
 
   for (int w = 0; w < n_walk; ++w) {
-    int tb, te;
-    if (WALK == PROBE) {
-      const int tile = cand[(size_t)qt * cap + begin + w];  // block-uniform
-      if (tile < 0 || tile >= n_tiles) continue;
-      tb = tile * block_n;
-      te = min(N, tb + block_n);
-    } else if (WALK == SKIP) {
-      tb = begin + w * block_n;
-      te = min(end, tb + block_n);
-      bool need = match[(size_t)qt * n_tiles + tb / block_n] != 0;
-      if (!POS) {
-        // a doc tile with no query term scores 0 everywhere: it can change
-        // no list whose k-th score is already > 0 (pad rows left out)
-        const int warm = !active || ls[k - 1] > 0.f;
-        need = __syncthreads_and(warm) == 0 || need;
-      }
-      if (!need) continue;  // block-uniform
-    } else {
-      tb = begin;
-      te = end;
-    }
+    const int tile = cand[(size_t)qt * cap + begin + w];  // block-uniform
+    if (tile < 0 || tile >= n_tiles) continue;
+    const int tb = tile * block_n;
+    const int te = min(N, tb + block_n);
     for (int base = tb; base < te; base += DOCS) {
       const int nd = min(DOCS, te - base);
       const bool mine = active && lane < nd;
@@ -304,7 +262,7 @@ bm25_v2_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
         }
       }
       if (active) {  // warp-uniform
-        // POS: the list starts at 0.0, so only scores > 0 can enter
+        // the list starts at 0.0, so only scores > 0 can enter
         const float s = lane < nd ? score : -INFINITY;
         float kth = ls[k - 1];
         unsigned want = __ballot_sync(full, s > kth);
@@ -323,31 +281,21 @@ bm25_v2_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
 
   if (active) {
     for (int i = lane; i < k; i += 32) {
-      const float v = ls[i];
-      const int id = li[i];
-      out_s[o + i] = v == -INFINITY ? ARTPU_NEG_INF : v;
-      out_i[o + i] = id;
+      out_s[o + i] = ls[i];
+      out_i[o + i] = li[i];
     }
   }
 }
 
-template <int WALK, bool POS, int LAYOUT>
+template <int LAYOUT>
 int launch(const void* q_ids, const void* q_w, const void* doc_ids, const void* doc_w,
-           const void* match, const void* cand, const void* count, void* out_s, void* out_i,
-           int B, int T, int N, int L, int k, int part, int parts, int q_tiles, int n_tiles,
-           int cap, int block_n, int vec, int pack, void* stream) {
+           const void* cand, const void* count, void* out_s, void* out_i, int B, int T, int N,
+           int L, int k, int part, int parts, int q_tiles, int n_tiles, int cap, int block_n,
+           int vec, int pack, void* stream) {
   if (B == 0 || N == 0 || parts == 0) return 0;
-  if (T < 0 || T > TMAX || L < 0 || k < 1 || part < 1 || (long long)q_tiles * BQ < B) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (WALK != PROBE && (long long)parts * part < N) return (int)cudaErrorInvalidValue;
-  if (WALK != PART && (block_n < 1 || (long long)n_tiles * block_n < N ||
-                       (long long)(n_tiles - 1) * block_n >= N)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (WALK == SKIP && (match == nullptr || part % block_n)) return (int)cudaErrorInvalidValue;
-  if (WALK == PROBE && (cand == nullptr || count == nullptr || cap < 1 ||
-                        (long long)parts * part < cap)) {
+  if (T < 0 || T > TMAX || L < 0 || k < 1 || part < 1 || (long long)q_tiles * BQ < B ||
+      block_n < 1 || (long long)n_tiles * block_n < N || (long long)(n_tiles - 1) * block_n >= N ||
+      cand == nullptr || count == nullptr || cap < 1 || (long long)parts * part < cap) {
     return (int)cudaErrorInvalidValue;
   }
   if (vec && LAYOUT == FLAT && L % 4) return (int)cudaErrorInvalidValue;
@@ -359,15 +307,14 @@ int launch(const void* q_ids, const void* q_w, const void* doc_ids, const void* 
   const int list_smem = k <= KSMEM;
   const int dyn_bytes = (list_smem ? BQ * k * (int)(sizeof(float) + sizeof(int)) : 0) +
                         BQ * T * (int)(sizeof(int) + sizeof(float));
-  auto kernel = bm25_v2_kernel<WALK, POS, LAYOUT>;
+  auto kernel = bm25_probe_kernel<LAYOUT>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_bytes);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)blocks, THREADS, dyn_bytes, (cudaStream_t)stream>>>(
       (const int*)q_ids, (const float*)q_w, (const int*)doc_ids, (const float*)doc_w,
-      (const unsigned char*)match, (const int*)cand, (const int*)count, (float*)out_s,
-      (int*)out_i, B, T, N, L, k, part, parts, q_tiles, n_tiles, cap, block_n, vec, list_smem,
-      pack);
+      (const int*)cand, (const int*)count, (float*)out_s, (int*)out_i, B, T, N, L, k, part,
+      parts, q_tiles, n_tiles, cap, block_n, vec, list_smem, pack);
   return (int)cudaGetLastError();
 }
 
@@ -375,26 +322,23 @@ int launch(const void* q_ids, const void* q_w, const void* doc_ids, const void* 
 
 // q_ids / q_w [B, T]; doc_ids / doc_w [N, L] (FLAT, pack = 1) or [ceil(N /
 // pack), 128] (PACKED, L = 128 / pack the stride), contiguous, 16-byte
-// aligned when vec != 0 (then, FLAT, L % 4 == 0). out_s / out_i [B, parts, k]. PART
-// and SKIP: part p covers documents [p*part, (p+1)*part), a multiple of
-// block_n for SKIP, with match [q_tiles, n_tiles] uint8. PROBE: part p covers
-// candidate entries [p*part, (p+1)*part) of cand [q_tiles, cap] int32 (tile
-// indices, increasing; a tile is block_n documents), count [q_tiles] int32.
-// positive_only selects the skip walk's mode; the probe walks are always
-// positive_only. Each returns cudaGetLastError().
-#define BM25_ARGS                                                                            \
+// aligned when vec != 0 (then, FLAT, L % 4 == 0). out_s / out_i [B, parts,
+// k]: part p covers candidate entries [p*part, (p+1)*part) of cand
+// [q_tiles, cap] int32 (tile indices, increasing; a tile is block_n
+// documents), count [q_tiles] int32. Each returns cudaGetLastError().
+#define BM25_PROBE_ARGS                                                                      \
   const void *q_ids, const void *q_w, const void *doc_ids, const void *doc_w,                 \
-      const void *match, const void *cand, const void *count, void *out_s, void *out_i,       \
-      int B, int T, int N, int L, int k, int part, int parts, int q_tiles, int n_tiles,       \
-      int cap, int block_n, int vec, int positive_only, int pack, void *stream
-#define BM25_PASS                                                                              \
-  q_ids, q_w, doc_ids, doc_w, match, cand, count, out_s, out_i, B, T, N, L, k, part, parts,   \
-      q_tiles, n_tiles, cap, block_n, vec, pack, stream
+      const void *cand, const void *count, void *out_s, void *out_i, int B, int T, int N,      \
+      int L, int k, int part, int parts, int q_tiles, int n_tiles, int cap, int block_n,      \
+      int vec, int pack, void *stream
+#define BM25_PROBE_PASS                                                                      \
+  q_ids, q_w, doc_ids, doc_w, cand, count, out_s, out_i, B, T, N, L, k, part, parts, q_tiles, \
+      n_tiles, cap, block_n, vec, pack, stream
 
 // The whole-corpus walk over the flat layout: bm25_hash.cuh's body, with the
 // arguments of bm25_hash::launch.
 extern "C" int bm25_topk_v2_launch(BM25_HASH_ARGS) {
-  return bm25_hash::launch(BM25_HASH_PASS);
+  return bm25_hash::launch(bm25_hash::FULL, BM25_HASH_PASS);
 }
 
 // The v1 pin. Replaces autorag_research_tpu/ops/sparse.py::_bm25_kernel
@@ -406,22 +350,23 @@ extern "C" int bm25_topk_v2_launch(BM25_HASH_ARGS) {
 // name (the wrapper counts its launches apart), with that kernel's bound and
 // design (bm25_hash.cuh).
 extern "C" int bm25_topk_v1_launch(BM25_HASH_ARGS) {
-  return bm25_hash::launch(BM25_HASH_PASS);
+  return bm25_hash::launch(bm25_hash::FULL, BM25_HASH_PASS);
 }
 
-extern "C" int bm25_topk_v2_skip_launch(BM25_ARGS) {
-  return positive_only ? launch<SKIP, true, FLAT>(BM25_PASS)
-                       : launch<SKIP, false, FLAT>(BM25_PASS);
+// The skip walk, walk = SKIP_POS (positive_only) or SKIP_V2, on the hash body.
+extern "C" int bm25_topk_v2_skip_launch(BM25_HASH_ARGS) {
+  return bm25_hash::launch(bm25_hash::SKIP_POS, BM25_HASH_PASS);
 }
 
-extern "C" int bm25_topk_probe_launch(BM25_ARGS) {
-  return launch<PROBE, true, FLAT>(BM25_PASS);
+// The whole-corpus walk over the packed layout, on the hash body (pack > 1
+// where the pack is no power of two; the wrapper passes a power of two's
+// rows as the flat [R pack, 128 / pack] array, pack = 1).
+extern "C" int bm25_topk_packed_launch(BM25_HASH_ARGS) {
+  return bm25_hash::launch(bm25_hash::FULL, BM25_HASH_PASS);
 }
 
-extern "C" int bm25_topk_packed_launch(BM25_ARGS) {
-  return launch<PART, false, PACKED>(BM25_PASS);
-}
+extern "C" int bm25_topk_probe_launch(BM25_PROBE_ARGS) { return launch<FLAT>(BM25_PROBE_PASS); }
 
-extern "C" int bm25_topk_probe_packed_launch(BM25_ARGS) {
-  return launch<PROBE, true, PACKED>(BM25_PASS);
+extern "C" int bm25_topk_probe_packed_launch(BM25_PROBE_ARGS) {
+  return launch<PACKED>(BM25_PROBE_PASS);
 }

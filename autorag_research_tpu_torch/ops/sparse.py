@@ -23,17 +23,18 @@ bit.
   name and launch count. Both run the scoring body of ``csrc/bm25_hash.cuh``
   (a per-document term hash in shared memory, many queries per staged
   document tile) on the tile plan of :func:`bm25_hash_plan`.
-- :func:`bm25_topk_v2_skip` (JAX ``bm25_topk_pallas_v2_skip``): the same
-  kernel skipping (query tile, doc tile) pairs that the 4-probe Bloom
-  predicate :func:`tile_match` clears; ``positive_only`` masks scores <= 0
-  and pads under-full rows with ``(0.0, INT_MAX)``.
-- :func:`bm25_topk_probe` (JAX ``bm25_topk_pallas_probe``): the same kernel
-  over explicit per-query-tile candidate doc tiles, from the exact host
-  term -> tile lists (:func:`build_term_tile_lists`, :func:`probe_candidates`)
-  or the two-pass tile-WAND bound (:func:`bm25_topk_wand`).
-- :func:`bm25_topk_packed` / :func:`bm25_topk_probe_packed` (JAX
-  ``bm25_topk_pallas_packed`` / ``bm25_topk_pallas_probe_packed``): the
-  whole-corpus and probe walks of ``csrc/bm25_v2.cu`` over the packed layout.
+- :func:`bm25_topk_v2_skip` (JAX ``bm25_topk_pallas_v2_skip``): the hash
+  body skipping, per 8-query group, the doc tiles that the 4-probe Bloom
+  predicate clears (:func:`tile_group_masks`); ``positive_only`` masks
+  scores <= 0 and pads under-full rows with ``(0.0, INT_MAX)``.
+- :func:`bm25_topk_probe` (JAX ``bm25_topk_pallas_probe``): the first body
+  of ``csrc/bm25_v2.cu`` over explicit per-query-tile candidate doc tiles,
+  from the exact host term -> tile lists (:func:`build_term_tile_lists`,
+  :func:`probe_candidates`) or the two-pass tile-WAND bound
+  (:func:`bm25_topk_wand`).
+- :func:`bm25_topk_packed` (JAX ``bm25_topk_pallas_packed``): the hash body
+  over the packed layout; :func:`bm25_topk_probe_packed` (JAX
+  ``bm25_topk_pallas_probe_packed``): the first body's probe walk over it.
 - :func:`bm25_route` / :func:`pruned_leg` / :func:`bm25_topk`: the dispatch.
 
 CPU tensors take each kernel's plain version; CUDA tensors launch the kernel
@@ -43,6 +44,7 @@ or raise.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -92,15 +94,14 @@ KERNEL_T_MAX = 2048
 SKIP_BLOCK_N = 2048
 # largest k the pruned routes serve (the JAX package's pruned_ok gate)
 PRUNED_K_MAX = 2048
-# queries per block of the skip, probe and packed walks, and of the tile
-# predicate
+# queries per block of the probe walks, and per row of the tile predicate
 BLOCK_Q = 8
-# documents per step of those walks (one per lane)
-_KERNEL_DOCS = 32
 # words in a row of the lane-packed layout
 PACKED_LANES = 128
-# the hash body's tile plan (csrc/bm25_hash.cuh): the largest query tile
+# the hash body's tile plan (csrc/bm25_hash.cuh): the largest query tile,
+# by default and at most (a tile's 8-query groups fill a 32-bit skip mask)
 HASH_QB = 128
+HASH_QB_MAX = 256
 # a document's table: the next power of two >= HASH_TABLE_FACTOR L entries
 # (a miss then rarely finds its first bucket full), but no more than
 # HASH_TABLE_CAP entries where 2 L would do, and never fewer than 2 L
@@ -119,6 +120,9 @@ HASH_K_DIRECT = 64
 HASH_CAP = 32
 # resident blocks an SM's registers hold (the kernel's __launch_bounds__(256, 2))
 HASH_BLOCKS_PER_SM_MAX = 2
+# the hash body's walks (bm25_hash.cuh's Walk): whole parts, or the skip
+# walk in positive_only or v2 mode
+_WALK_FULL, _WALK_SKIP_POS, _WALK_SKIP_V2 = 0, 1, 2
 # the pins that name a pruned leg of a flat single-device index
 PRUNED_PINS = ("pallas_v2_skip", "pallas_probe", "pallas_wand")
 
@@ -461,31 +465,57 @@ def cluster_doc_order(doc_ids: np.ndarray, doc_freq: np.ndarray) -> np.ndarray:
     return np.argsort(rarest_term, kind="stable")
 
 
-def tile_match(q_ids: torch.Tensor, bitmaps: torch.Tensor, bq: int = BLOCK_Q) -> torch.Tensor:
-    """(query tile x doc tile) Bloom term-presence predicate, bool
-    [ceil(B/bq), n_tiles], on the bitmaps' device (JAX ``_tile_match``): True
-    iff some query term of the tile of ``bq`` queries is possibly present in
-    the doc tile. The last query tile's pad rows replicate rows 0.. as the
-    JAX wrapper's do, so the matrix is the JAX package's bit for bit. The
-    probe ``(q * mult) mod 2^32 mod space`` runs in int64 (torch has no
-    general uint32 arithmetic)."""
+def _query_tile_hits(q_ids, bitmaps: torch.Tensor) -> torch.Tensor:
+    """[n_tiles, B] bool on the bitmaps' device: True iff some live term of
+    query b is possibly present in doc tile j (all 4 Bloom probe bits set),
+    the 4 probes gathered at once. The probe ``(q * mult) mod 2^32 mod
+    space`` runs in int64 (torch has no general uint32 arithmetic)."""
     n_tiles, n_words = bitmaps.shape
     space = 32 * n_words
     if space & (space - 1):
         raise ValueError(f"32 * {n_words} words is not a power of two")
     q = torch.as_tensor(q_ids).to(bitmaps.device, torch.int64)
-    b = q.shape[0]
-    q_tiles = -(-b // bq)
     live = q >= 0
-    hit = None
-    for mult in _BLOOM_MULTS:
-        pos = torch.where(live, ((q * mult) & 0xFFFFFFFF) % space, 0)
-        words = bitmaps[:, pos // 32]  # [n_tiles, B, T]
-        probe = ((words >> (pos % 32).to(words.dtype)) & 1) != 0
-        hit = probe if hit is None else hit & probe
-    per_query = (hit & live[None]).any(dim=2).T  # [B, n_tiles]
-    row_src = torch.arange(q_tiles * bq, device=q.device) % max(b, 1)
-    return per_query[row_src].reshape(q_tiles, bq, n_tiles).any(dim=1)
+    # the multipliers as Python scalars: a tensor of them would be a
+    # blocking host-to-device copy on every call
+    pos = torch.where(live, torch.stack([(q * m) & 0xFFFFFFFF for m in _BLOOM_MULTS]) % space, 0)
+    words = bitmaps[:, pos // 32]  # [n_tiles, 4, B, T]
+    probe = ((words >> (pos % 32).to(words.dtype)) & 1) != 0
+    return (probe.all(dim=1) & live).any(dim=2)
+
+
+def tile_match(q_ids: torch.Tensor, bitmaps: torch.Tensor, bq: int = BLOCK_Q) -> torch.Tensor:
+    """(query tile x doc tile) Bloom term-presence predicate, bool
+    [ceil(B/bq), n_tiles], on the bitmaps' device (JAX ``_tile_match``): True
+    iff some query term of the tile of ``bq`` queries is possibly present in
+    the doc tile. The last query tile's pad rows replicate rows 0.. as the
+    JAX wrapper's do, so the matrix is the JAX package's bit for bit."""
+    hits = _query_tile_hits(q_ids, bitmaps)
+    n_tiles, b = hits.shape
+    q_tiles = -(-b // bq)
+    row_src = torch.arange(q_tiles * bq, device=hits.device) % max(b, 1)
+    return hits[:, row_src].reshape(n_tiles, q_tiles, bq).any(dim=2).T
+
+
+def tile_group_masks(q_ids: torch.Tensor, bitmaps: torch.Tensor, qb: int) -> torch.Tensor:
+    """The skip walk's predicate, int32 [ceil(B/qb), n_tiles] on the bitmaps'
+    device: bit g of entry (i, j) is set iff some query of the 8-query group
+    g of query tile i (queries ``i qb + 8 g`` to ``+ 7`` that are < B) may
+    hold a term of doc tile j. Group g is row ``i qb / 8 + g`` of
+    :func:`tile_match`'s matrix (the JAX kernel's own 8-query rows), except
+    that queries past B set no bit, where ``tile_match`` ORs rows of other
+    tiles into its last row. ``qb`` is a multiple of 8 up to
+    ``HASH_QB_MAX`` (32 groups, bit 31 the sign bit)."""
+    if qb % BLOCK_Q or not BLOCK_Q <= qb <= HASH_QB_MAX:
+        raise ValueError(f"qb={qb} must be a multiple of {BLOCK_Q} in [{BLOCK_Q}, {HASH_QB_MAX}]")
+    hits = _query_tile_hits(q_ids, bitmaps)
+    n_tiles, b = hits.shape
+    q_tiles = -(-b // qb)
+    hits = torch.cat([hits, hits.new_zeros((n_tiles, q_tiles * qb - b))], dim=1)
+    groups = hits.reshape(n_tiles, q_tiles, qb // BLOCK_Q, BLOCK_Q).any(dim=3)
+    bits = torch.arange(qb // BLOCK_Q, device=hits.device)
+    masks = (groups.to(torch.int64) << bits).sum(dim=2).T
+    return torch.where(masks >= 2**31, masks - 2**32, masks).to(torch.int32).contiguous()
 
 
 # ------------------------------------------------- host term -> tile lists
@@ -619,14 +649,13 @@ def _check_kernel_operands(q_ids, q_w, doc_ids, doc_w) -> None:
         raise ValueError(f"the BM25 kernel stages at most {KERNEL_T_MAX} terms per query")
 
 
-def _kernel_parts(q_tiles: int, total: int, device: torch.device, unit: int) -> tuple[int, int]:
-    """(part, parts): split ``total`` units of work (documents, or candidate
-    entries) so that the grid holds about eight blocks per SM; a part is a
-    multiple of ``unit``."""
+def _kernel_parts(q_tiles: int, cap: int, device: torch.device) -> tuple[int, int]:
+    """(part, parts): split the ``cap`` candidate entries of a probe walk so
+    that the grid holds about eight blocks per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    parts = max(1, min(-(-total // unit), -(-8 * sms // q_tiles)))
-    part = _round_up(-(-total // parts), unit)
-    return part, -(-total // part)
+    parts = max(1, min(cap, -(-8 * sms // q_tiles)))
+    part = -(-cap // parts)
+    return part, -(-cap // part)
 
 
 def _kernel_queries(q_ids, q_w, dev):
@@ -657,59 +686,83 @@ def _pow2_at_least(x: int) -> int:
     return 1 << max(0, x - 1).bit_length()
 
 
+def _stage_words(docs: int, slots: int, pack: int) -> int:
+    """Words of one staged tile of ``docs`` documents (``bm25_hash.cuh``'s
+    ``stage_words``): ``docs`` rows of ``slots`` slots, or in the packed
+    layout (``pack > 1``) the whole 128-word rows they lie in. A tile starts
+    at a multiple of ``docs``, so it meets at most ``(pack - gcd(docs, pack)
+    + docs - 1) // pack + 1`` rows."""
+    if pack == 1:
+        return docs * slots
+    return ((pack - math.gcd(docs, pack) + docs - 1) // pack + 1) * PACKED_LANES
+
+
 def _hash_smem(docs: int, table: int, slots: int, t: int, qb: int, k: int, list_smem: bool,
-               staged: bool) -> int:
+               staged: bool, pack: int = 1) -> int:
     """Dynamic shared memory of a block: ``bm25_hash.cuh``'s ``Layout``, each
     region rounded to 16 bytes (the tables' (key, weight) pairs, two staged
-    tiles of ids and weights, 32 documents' repeat marks, the query tile's
-    compacted (term, first bucket) pairs and weights in rows of T rounded up
-    to 4, its term counts, the lists when they sit there, and past
-    ``HASH_K_DIRECT`` each query's buffer of ``HASH_CAP`` candidates)."""
+    tiles of ids and weights, 32 documents' repeat marks and, packed, their
+    staged offsets, the query tile's compacted (term, first bucket) pairs
+    and weights in rows of T rounded up to 4, its term counts, the lists
+    when they sit there, and past ``HASH_K_DIRECT`` each query's buffer of
+    ``HASH_CAP`` candidates)."""
     dh = docs * table if staged else 0
-    dl = docs * slots if staged else 0
+    dl = _stage_words(docs, slots, pack) if staged else 0
     lk = qb * k if list_smem else 0
     lb = qb if k > HASH_K_DIRECT else 0
     tp = _round_up(t, 4)
-    return (_r16(dh * 8) + 4 * _r16(dl * 4) + _r16(32 * 4) + _r16(qb * tp * 8) + _r16(qb * tp * 4)
-            + _r16(qb * 4) + 2 * _r16(lk * 4) + 2 * _r16(lb * HASH_CAP * 4) + _r16(lb * 4))
+    return (_r16(dh * 8) + 4 * _r16(dl * 4) + _r16(32 * 4) + (_r16(32 * 4) if pack > 1 else 0)
+            + _r16(qb * tp * 8) + _r16(qb * tp * 4) + _r16(qb * 4) + 2 * _r16(lk * 4)
+            + 2 * _r16(lb * HASH_CAP * 4) + _r16(lb * 4))
 
 
-def _hash_fit(qb: int, table: int, slots: int, t: int, k: int):
+def _hash_fit(qb: int, table: int, slots: int, t: int, k: int, max_docs: int, pack: int):
     """(docs, list_smem, smem) of the first staged layout that fits a query
     tile of ``qb``: lists in shared memory first (when within
     ``HASH_LIST_SMEM_MAX``), two blocks an SM before one, the most documents
-    first; None when not even one document fits a block."""
+    up to ``max_docs`` first; None when not even one document fits a block."""
     two = SMEM_SM // 2 - SMEM_BLOCK_RESERVED
     for list_smem in (True, False) if qb * k * 8 <= HASH_LIST_SMEM_MAX else (False,):
         for budget in (two, SMEM_BLOCK_MAX):
             for docs in (32, 16, 8, 4, 2, 1):
-                smem = _hash_smem(docs, table, slots, t, qb, k, list_smem, True)
+                if docs > max_docs:
+                    continue
+                smem = _hash_smem(docs, table, slots, t, qb, k, list_smem, True, pack)
                 if smem <= budget:
                     return docs, list_smem, smem
     return None
 
 
 def bm25_hash_plan(b: int, t: int, n: int, slots: int, k: int, sms: int,
-                   qb_max: int = HASH_QB) -> HashPlan:
+                   qb_max: int = HASH_QB, block_n: int | None = None, pack: int = 1) -> HashPlan:
     """Tile plan of the hash body for B queries of T terms over N documents
     of L slots, lists of k (pure: the CPU tests check its invariants). The
     table has the next power of two >= ``HASH_TABLE_FACTOR`` L entries, cut
     to ``HASH_TABLE_CAP`` but never below 2 L (and at least 8). The query
-    tile is the largest multiple of 8 up to ``qb_max`` (a multiple of 8;
-    ``chip_smoke.py`` times other values than ``HASH_QB``), halved while
-    :func:`_hash_fit` finds no staged layout for it; a
-    row too wide even for a tile of 8 takes D = 1, 8 queries, lists in the
-    output and the table in global scratch. Parts split the corpus so that
-    the grid fills the SMs in one wave, no more (one block an SM with global
-    scratch, so the scratch stays within ``sms * table`` entries)."""
+    tile is the largest multiple of 8 up to ``qb_max`` (a multiple of 8 up
+    to ``HASH_QB_MAX``; ``chip_smoke.py`` times other values than
+    ``HASH_QB``), halved while :func:`_hash_fit` finds no staged layout for
+    it; a row too wide even for a tile of 8 takes D = 1, 8 queries, lists in
+    the output and the table in global scratch. Parts split the corpus so
+    that the grid fills the SMs in one wave, no more (one block an SM with
+    global scratch, so the scratch stays within ``sms * table`` entries).
+
+    The skip walk (``block_n``, its skip tile): D divides ``block_n``, so a
+    staged tile lies in one skip tile (a part may start inside one: parts of
+    whole skip tiles would give the slowest block up to a skip tile more
+    work). The packed layout (``pack > 1``, ``slots = 128 // pack``):
+    a staged tile holds the whole 128-word rows its documents lie in."""
     table = max(8, _pow2_at_least(2 * slots),
                 min(_pow2_at_least(HASH_TABLE_FACTOR * slots), HASH_TABLE_CAP))
+    max_docs = min(32, block_n & -block_n) if block_n else 32
     qb = min(_round_up(max(b, 1), 8), qb_max)
-    fit = _hash_fit(qb, table, slots, t, k)
+    fit = _hash_fit(qb, table, slots, t, k, max_docs, pack)
     while fit is None and qb > 8:
         qb = max(8, qb // 2 // 8 * 8)
-        fit = _hash_fit(qb, table, slots, t, k)
+        fit = _hash_fit(qb, table, slots, t, k, max_docs, pack)
     staged = fit is not None
+    if not staged and pack > 1:
+        raise ValueError(f"no staged plan for the packed layout (pack {pack}, T = {t}, k = {k})")
     docs, list_smem, smem = fit if staged else (1, False, _hash_smem(1, table, slots, t, 8, k, False,
                                                                      False))
     qb = qb if staged else 8
@@ -721,37 +774,62 @@ def bm25_hash_plan(b: int, t: int, n: int, slots: int, k: int, sms: int,
     return HashPlan(qb, docs, table, list_smem, staged, smem, q_tiles, part, -(-n // part), per_sm)
 
 
-def _hash_topk(name: str, q_ids, q_w, doc_ids, doc_w, k: int, qb_max: int = HASH_QB):
+def _hash_topk(name: str, q_ids, q_w, doc_ids, doc_w, k: int, qb_max: int = HASH_QB, skip=None,
+               n_docs: int | None = None, pack: int = 1, stats: torch.Tensor | None = None):
     """Top-k of CUDA tensors through ``csrc/bm25_hash.cuh``'s body, launched
     by ``csrc/bm25_v2.cu``'s ``<name>_launch`` on :func:`bm25_hash_plan`'s
-    plan and counted under ``LAUNCHES[name]``; per-part lists merged."""
+    plan and counted under ``LAUNCHES[name]``; per-part lists merged.
+    ``skip = (bitmaps, block_n, positive_only)`` takes the skip walk, with
+    :func:`tile_group_masks` at the plan's query tile. ``pack > 1``:
+    ``doc_ids`` / ``doc_w`` are :func:`pack_slots`'s rows holding ``n_docs``
+    documents (a power-of-two pack is read as the flat [R pack, 128 / pack]
+    array it is). ``stats``: a CUDA int64 [2] that the skip walk adds its
+    counts to: the (query, document) pairs that probed nothing, and the
+    (query tile, document) pairs never staged."""
     dev = doc_ids.device
     b = q_ids.shape[0]
-    k_eff = min(k, doc_ids.shape[0])
+    n = doc_ids.shape[0] if n_docs is None else n_docs
+    k_eff = min(k, n)
     if k_eff == 0 or b == 0:
         return _empty_topk(b, k, dev)
     q_ids, q_w = _kernel_queries(q_ids, q_w, dev)
     _check_kernel_operands(q_ids, q_w, doc_ids, doc_w)
     b, t = q_ids.shape
-    n, slots = doc_ids.shape
+    slots = doc_ids.shape[1]
+    if pack > 1:
+        slots = PACKED_LANES // pack
+        if pack & (pack - 1) == 0:  # the packed rows are the flat array
+            doc_ids, doc_w = (x.view(-1, slots)[:n] for x in (doc_ids, doc_w))
+            pack = 1
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = bm25_hash_plan(b, t, n, slots, k_eff, sms, qb_max)
+    block_n = skip[1] if skip is not None else None
+    plan = bm25_hash_plan(b, t, n, slots, k_eff, sms, qb_max, block_n, pack)
+    masks = None
+    walk = _WALK_FULL
+    if skip is not None:
+        bitmaps, _, positive_only = skip
+        masks = tile_group_masks(q_ids, bitmaps.to(dev), plan.qb)
+        walk = _WALK_SKIP_POS if positive_only else _WALK_SKIP_V2
     out_s = torch.empty((b, plan.parts, k_eff), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, plan.parts, k_eff), dtype=torch.int32, device=dev)
     g_tab = None
     if not plan.staged:  # (key, weight) pairs, one table per block
         g_tab = torch.empty(2 * plan.q_tiles * plan.parts * plan.table, dtype=torch.int32, device=dev)
-    # 16-byte copies: rows of a multiple of 4 slots on aligned arrays
-    vec = slots % 4 == 0 and doc_ids.data_ptr() % 16 == 0 and doc_w.data_ptr() % 16 == 0
+    # 16-byte copies: tiles of a multiple of 4 words (whole packed rows, or D
+    # rows of L slots) on aligned arrays
+    vec = ((pack > 1 or plan.docs * slots % 4 == 0) and doc_ids.data_ptr() % 16 == 0
+           and doc_w.data_ptr() % 16 == 0)
     fn = getattr(cuda_build.load("bm25_v2"), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
         q_ids.data_ptr(), q_w.data_ptr(), doc_ids.data_ptr(), doc_w.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(),
+        masks.data_ptr() if masks is not None else None, out_s.data_ptr(), out_i.data_ptr(),
         g_tab.data_ptr() if g_tab is not None else None,
+        stats.data_ptr() if stats is not None else None,
         b, t, n, slots, k_eff, plan.part, plan.parts, plan.q_tiles, plan.qb, plan.docs,
-        plan.table, int(plan.list_smem), int(plan.staged), int(vec), plan.smem,
+        plan.table, int(plan.list_smem), int(plan.staged), int(vec), plan.smem, walk,
+        block_n or 0, masks.shape[1] if masks is not None else 0, pack,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check_launch(rc, name)
@@ -760,13 +838,12 @@ def _hash_topk(name: str, q_ids, q_w, doc_ids, doc_w, k: int, qb_max: int = HASH
     return pad_to_k(scores, ids, k, k_eff)
 
 
-def _launch(name: str, q_ids, q_w, doc_ids, doc_w, k_eff: int, bitmaps=None, cand=None,
-            count=None, block_n: int = SKIP_BLOCK_N, positive_only: bool = False,
-            n_docs: int | None = None, pack: int = 1):
-    """Launch one skip, probe or packed walk of csrc/bm25_v2.cu's first body
-    -> per-part lists [B, P, k_eff]
-    (scores, rows). ``pack > 1``: ``doc_ids`` / ``doc_w`` hold ``n_docs``
-    documents in the packed layout, and ``block_n`` counts documents."""
+def _launch(name: str, q_ids, q_w, doc_ids, doc_w, k_eff: int, cand, count,
+            block_n: int = SKIP_BLOCK_N, n_docs: int | None = None, pack: int = 1):
+    """Launch one probe walk of csrc/bm25_v2.cu's first body -> per-part
+    lists [B, P, k_eff] (scores, rows). ``pack > 1``: ``doc_ids`` /
+    ``doc_w`` hold ``n_docs`` documents in the packed layout, and
+    ``block_n`` counts documents."""
     dev = doc_ids.device
     q_ids, q_w = _kernel_queries(q_ids, q_w, dev)
     _check_kernel_operands(q_ids, q_w, doc_ids, doc_w)
@@ -774,32 +851,20 @@ def _launch(name: str, q_ids, q_w, doc_ids, doc_w, k_eff: int, bitmaps=None, can
     n, slots = (n_docs, PACKED_LANES // pack) if pack > 1 else doc_ids.shape
     q_tiles = -(-b // BLOCK_Q)
     n_tiles = -(-n // block_n)
-    match = None
-    cap = 0
-    if name == "bm25_topk_v2_skip":
-        _check_bitmaps(bitmaps, n, block_n)
-        match = tile_match(q_ids, bitmaps.to(dev)).to(torch.uint8).contiguous()
-        part, parts = _kernel_parts(q_tiles, n, dev, block_n)
-    elif cand is not None:
-        cap = cand.shape[1]
-        part, parts = _kernel_parts(q_tiles, cap, dev, 1)
-    else:
-        part, parts = _kernel_parts(q_tiles, n, dev, _KERNEL_DOCS)
+    cap = cand.shape[1]
+    part, parts = _kernel_parts(q_tiles, cap, dev)
     out_s = torch.empty((b, parts, k_eff), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, parts, k_eff), dtype=torch.int32, device=dev)
     # 16-byte loads: a flat row of a multiple of 4 slots, or any packed row
     vec = (pack > 1 or slots % 4 == 0) and doc_ids.data_ptr() % 16 == 0 and doc_w.data_ptr() % 16 == 0
     fn = getattr(cuda_build.load("bm25_v2"), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
         q_ids.data_ptr(), q_w.data_ptr(), doc_ids.data_ptr(), doc_w.data_ptr(),
-        match.data_ptr() if match is not None else None,
-        cand.data_ptr() if cand is not None else None,
-        count.data_ptr() if count is not None else None,
-        out_s.data_ptr(), out_i.data_ptr(),
-        b, t, n, slots, k_eff, part, parts, q_tiles, n_tiles, cap, block_n,
-        int(vec), int(positive_only), pack, torch.cuda.current_stream(dev).cuda_stream,
+        cand.data_ptr(), count.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        b, t, n, slots, k_eff, part, parts, q_tiles, n_tiles, cap, block_n, int(vec), pack,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check_launch(rc, name)
     LAUNCHES[name] += 1
@@ -851,27 +916,22 @@ def bm25_topk_v2_skip(
     """:func:`bm25_topk_v2` with term-driven tile skipping (JAX
     ``bm25_topk_pallas_v2_skip``). ``bitmaps`` [n_tiles, W] int32 must be
     built at the same ``block_n`` (else ``ValueError``; the corpus is never
-    re-tiled). A doc tile whose (query tile, doc tile) predicate is False is
-    neither read nor scored; with ``positive_only=False`` also only once
-    every list of the block holds a k-th score > 0, so results equal v2's
-    bitwise. With ``positive_only=True`` only scores > 0 are kept, rows with
-    fewer hits padded with ``(0.0, INT_MAX)``. CPU tensors take
-    :func:`bm25_topk_v2_skip_plain`."""
+    re-tiled). CUDA tensors launch the hash body of ``csrc/bm25_hash.cuh``
+    (``csrc/bm25_v2.cu``'s skip walk): a query whose 8-query group's
+    predicate (:func:`tile_group_masks`) is False on a doc tile probes
+    nothing there, and a doc tile that no group of a query tile needs is
+    neither read nor scored; with ``positive_only=False`` the latter only
+    once every list of the query tile holds a k-th score > 0, so results
+    equal v2's bitwise. With ``positive_only=True`` only scores > 0 are
+    kept, rows with fewer hits padded with ``(0.0, INT_MAX)``. CPU tensors
+    take :func:`bm25_topk_v2_skip_plain`."""
     if not doc_ids.is_cuda:
         return bm25_topk_v2_skip_plain(
             q_ids, q_weights, doc_ids, doc_weights, bitmaps, k, block_n, positive_only
         )
-    b = q_ids.shape[0]
-    k_eff = min(k, doc_ids.shape[0])
-    if k_eff == 0 or b == 0:
-        _check_bitmaps(bitmaps, doc_ids.shape[0], block_n)
-        return _empty_topk(b, k, doc_ids.device)
-    out_s, out_i = _launch(
-        "bm25_topk_v2_skip", q_ids, q_weights, doc_ids, doc_weights, k_eff,
-        bitmaps=bitmaps, block_n=block_n, positive_only=positive_only,
-    )
-    scores, ids = merge_topk(out_s, out_i, k_eff)
-    return pad_to_k(scores, ids, k, k_eff)
+    _check_bitmaps(bitmaps, doc_ids.shape[0], block_n)
+    return _hash_topk("bm25_topk_v2_skip", q_ids, q_weights, doc_ids, doc_weights, k,
+                      skip=(bitmaps, block_n, positive_only))
 
 
 def bm25_topk_probe(
@@ -902,10 +962,8 @@ def bm25_topk_probe(
         s, i = _empty_topk(b, k_eff, doc_ids.device)
         return pad_to_k(*_positive_filler(s, i), k, k_eff)
     cand, count = _sorted_candidates(cand, count, doc_ids.device)
-    out_s, out_i = _launch(
-        "bm25_topk_probe", q_ids, q_weights, doc_ids, doc_weights, k_eff,
-        cand=cand, count=count, block_n=block_n,
-    )
+    out_s, out_i = _launch("bm25_topk_probe", q_ids, q_weights, doc_ids, doc_weights, k_eff, cand, count,
+                           block_n)
     scores, ids = merge_topk(out_s, out_i, k_eff)
     return pad_to_k(scores, ids, k, k_eff)
 
@@ -924,20 +982,15 @@ def bm25_topk_packed(
     hold ``n_docs`` documents, ``pack`` a row. Returns (scores [B, k], doc
     rows [B, k]) in ``(-score, row)`` order, zero-score documents included,
     as :func:`bm25_topk_v2` returns them on the flat layout: on the card
-    bitwise the same. CUDA tensors launch ``csrc/bm25_v2.cu``'s packed walk
-    (one list per query, no per-lane-group lists to merge); CPU tensors take
-    :func:`bm25_topk_packed_plain`."""
+    bitwise the same. CUDA tensors launch the hash body of
+    ``csrc/bm25_hash.cuh`` over the packed rows (``csrc/bm25_v2.cu``'s
+    ``bm25_topk_packed_launch``; a power-of-two pack's rows are read as the
+    flat array they are); CPU tensors take :func:`bm25_topk_packed_plain`."""
     if not packed_ids.is_cuda:
         return bm25_topk_packed_plain(q_ids, q_weights, packed_ids, packed_weights, n_docs, k, pack)
     _check_packed(packed_ids, packed_weights, n_docs, pack)
-    b = q_ids.shape[0]
-    k_eff = min(k, n_docs)
-    if k_eff == 0 or b == 0:
-        return _empty_topk(b, k, packed_ids.device)
-    out_s, out_i = _launch("bm25_topk_packed", q_ids, q_weights, packed_ids, packed_weights,
-                           k_eff, n_docs=n_docs, pack=pack)
-    scores, ids = merge_topk(out_s, out_i, k_eff)
-    return pad_to_k(scores, ids, k, k_eff)
+    return _hash_topk("bm25_topk_packed", q_ids, q_weights, packed_ids, packed_weights, k,
+                      n_docs=n_docs, pack=pack)
 
 
 def bm25_topk_probe_packed(
@@ -973,10 +1026,8 @@ def bm25_topk_probe_packed(
         s, i = _empty_topk(b, k_eff, packed_ids.device)
         return pad_to_k(*_positive_filler(s, i), k, k_eff)
     cand, count = _sorted_candidates(cand, count, packed_ids.device)
-    out_s, out_i = _launch(
-        "bm25_topk_probe_packed", q_ids, q_weights, packed_ids, packed_weights, k_eff,
-        cand=cand, count=count, block_n=block_n * pack, n_docs=n_docs, pack=pack,
-    )
+    out_s, out_i = _launch("bm25_topk_probe_packed", q_ids, q_weights, packed_ids, packed_weights,
+                           k_eff, cand, count, block_n * pack, n_docs, pack)
     scores, ids = merge_topk(out_s, out_i, k_eff)
     return pad_to_k(scores, ids, k, k_eff)
 

@@ -45,16 +45,18 @@ serving modes at full width and fails (non-zero exit) on any fault:
    ``VectorSearchPipeline(search_mode="multi")`` verified: 3,000 rows,
    recall@10 / ndcg@10, rows held against an exact search, the scores kernel
    launched;
-9. the three BM25 kernels (``csrc/bm25_v2.cu``; v2's whole-corpus walk on
-   the hash body of ``csrc/bm25_hash.cuh``, its tile plan logged) against
-   their plain versions
-   at the repo's BM25 benchmark shapes (500,000 docs x 128 slots of unique
-   terms, 25% padded at random places, vocabulary 200,000; 32 queries x 16
-   terms): v2 at k = 10, 100 and 1,000, the skip kernel in both modes, and
-   on a clustered variant (where tiles prune; skipped share printed) the
-   skip kernel and the probe kernel over the exact candidate tiles; each
-   bitwise equal to its plain version, with its time, the plain version's, a
-   CSR ``sparse.mm`` + ``topk`` yardstick's and its bound;
+9. the three BM25 kernels (``csrc/bm25_v2.cu``; v2's whole-corpus walk and
+   the skip walk on the hash body of ``csrc/bm25_hash.cuh``, each launch's
+   tile plan logged, the probe walk on the first body) against their plain
+   versions at the repo's BM25 benchmark shapes (500,000 docs x 128 slots of
+   unique terms, 25% padded at random places, vocabulary 200,000; 32
+   queries x 16 terms): v2 at k = 10, 100 and 1,000, the skip kernel in both
+   modes, and on a clustered variant (where tiles prune) the skip kernel and
+   the probe kernel over the exact candidate tiles; the skip walk's own
+   counts of (query, document) pairs that probed nothing and (query tile,
+   document) pairs never staged printed; each bitwise equal to its plain version, with its
+   time, the plain version's, a CSR ``sparse.mm`` + ``topk`` yardstick's and
+   its bound;
 10. the BM25 main path with every launch count at 0 just before it: a
     ``SparseIndex`` built from 500,000 texts of 40-120 Zipf(1.1) words over a
     200,000-word vocabulary (host build time printed), searched by 1,024
@@ -64,14 +66,16 @@ serving modes at full width and fails (non-zero exit) on any fault:
     <= 7, a selective batch: the probe kernel) at k = 10 and 1,000. The routes
     give the same hits, equal to an exact scan of the same device tensors;
     every kernel launched, no plain version or scan; then each kernel at the
-    main path's shapes, v1 (#4, v2's kernel under the pin's name) bitwise
-    equal to v2 (#3) there, the hash body's tile plan logged, and v2 timed
-    with its query tile capped at 64, 128 (the default) and 256;
+    main path's shapes, v1 (#4, v2's kernel under the pin's name) and the
+    skip kernel in v2 mode (#5) bitwise equal to v2 (#3) there, the hash
+    body's tile plans and the skip walk's counts on the Zipf batch logged,
+    and v2 and the skip kernel timed with their query tiles capped at 64,
+    128 (the default) and 256;
 11. SciFact-size catalog runs through ``BM25Pipeline``, defaults and
     ``bucketize=2`` on the same catalog: 3,000 rows each, rows equal to an exact
     scan, equal recall@10 / ndcg@10, a pruned leg launched by the flat run;
 12. BM25 slice B's kernels against their plain versions: the packed kernel
-    (``csrc/bm25_v2.cu``'s packed layout) at 500,000 docs x 16 unique terms
+    (the hash body over the packed layout) at 500,000 docs x 16 unique terms
     (pack 8) beside the v2 kernel over the flat layout of the same arrays,
     bitwise equal to both, k = 10 and 100; the packed probe at 500,000
     clustered log-uniform short docs (256-row tiles, 32 rare-term queries x 8
@@ -85,7 +89,9 @@ serving modes at full width and fails (non-zero exit) on any fault:
     lookups at k = 10, the ``pallas`` (v1) and ``pallas_v2`` pins at k = 10;
     each search logs its route and launches; hits equal to the v2 kernel over
     a flat upload of the same index; the three new kernels launched, no plain
-    version; then each new kernel at the main path's shapes;
+    version; then each new kernel at the main path's shapes, the packed
+    kernel (pack 6, dead lanes: whole rows staged) bitwise equal to v2 over
+    the flat upload, its tile plan logged;
 14. a bucketed ``SparseIndex`` (``bucketize=2``) of 500,000 texts, 90% of
     10-16 and 10% of 100-128 Zipf words: its buckets and ``device_bytes``
     against the flat layout's, 1,024 NQ-like queries at k = 10 and 100, hits
@@ -624,13 +630,13 @@ def zipf_texts(rng, words: list[str], n: int, lo: int, hi: int) -> list[str]:
 
 
 # source file and TPU kernel line (autorag_research_tpu/ops/sparse.py) of
-# each BM25 kernel wrapper (v2's whole-corpus walk and v1 run the hash body,
-# launched from bm25_v2.cu)
+# each BM25 kernel wrapper (v2, v1, the skip and the packed walks run the
+# hash body, launched from bm25_v2.cu; the probe walks its first body)
 BM25_KERNELS = {
     "bm25_topk_v2": ("bm25_hash.cuh", 295),
-    "bm25_topk_v2_skip": ("bm25_v2.cu", 474),
+    "bm25_topk_v2_skip": ("bm25_hash.cuh", 474),
     "bm25_topk_probe": ("bm25_v2.cu", 722),
-    "bm25_topk_packed": ("bm25_v2.cu", 934),
+    "bm25_topk_packed": ("bm25_hash.cuh", 934),
     "bm25_topk_probe_packed": ("bm25_v2.cu", 1088),
     "bm25_topk_v1": ("bm25_hash.cuh", 107),
 }
@@ -689,25 +695,86 @@ def bm25_check_equal(label, got, ref) -> float:
     return err
 
 
-def hash_plan_note(label: str, q_ids, doc_ids, k: int) -> None:
-    """Log the hash body's tile plan (csrc/bm25_hash.cuh) that a v2 or v1
-    launch on these operands takes: D, QB, the table, the shared-memory
-    bytes, the lists' placement, the parts, and the blocks per SM the plan
-    counts on (its estimate from shared memory and the kernel's launch
-    bounds, not a measured residency)."""
+def hash_plan_note(label: str, q_ids, doc_ids, k: int, block_n: int | None = None,
+                   n_docs: int | None = None, pack: int = 1):
+    """Log the hash body's tile plan (csrc/bm25_hash.cuh) that a launch on
+    these operands takes (the skip walk's with ``block_n``, the packed
+    walk's with ``n_docs`` and ``pack``): D, QB, the table, the
+    shared-memory bytes, the lists' placement, the parts, and the blocks per
+    SM the plan counts on (its estimate from shared memory and the kernel's
+    launch bounds, not a measured residency). Returns the plan."""
     import torch
 
     from autorag_research_tpu_torch.ops import sparse as ts
 
-    (b, t), (n, slots) = q_ids.shape, doc_ids.shape
+    (b, t), n, slots = q_ids.shape, doc_ids.shape[0], doc_ids.shape[1]
+    if pack > 1:  # a power-of-two pack's rows are the flat array
+        n, slots, pack = n_docs, 128 // pack, 1 if pack & (pack - 1) == 0 else pack
     sms = torch.cuda.get_device_properties(doc_ids.device).multi_processor_count
-    plan = ts.bm25_hash_plan(b, t, n, slots, min(k, n), sms)._asdict()
-    log(f"  hash plan, {label}: D={plan['docs']}, QB={plan['qb']}, table {plan['table']} entries, "
-        f"{plan['smem']} B shared memory, lists in "
-        f"{'shared memory' if plan['list_smem'] else 'the output'}, "
-        f"{'staged' if plan['staged'] else 'unstaged (global scratch)'}, {plan['q_tiles']} query "
-        f"tiles x {plan['parts']} parts of {plan['part']} docs, planned for "
-        f"{plan['blocks_per_sm']} blocks/SM")
+    plan = ts.bm25_hash_plan(b, t, n, slots, min(k, n), sms, block_n=block_n, pack=pack)
+    log(f"  hash plan, {label}: D={plan.docs}, QB={plan.qb}, table {plan.table} entries, "
+        f"{plan.smem} B shared memory, lists in "
+        f"{'shared memory' if plan.list_smem else 'the output'}, "
+        f"{'staged' if plan.staged else 'unstaged (global scratch)'}"
+        f"{f', packed rows of {pack} staged whole' if pack > 1 else ''}, {plan.q_tiles} query "
+        f"tiles x {plan.parts} parts of {plan.part} docs, planned for "
+        f"{plan.blocks_per_sm} blocks/SM")
+    return plan
+
+
+def skip_counts(label: str, args, bitmaps, k: int, positive_only: bool, ref) -> dict:
+    """One skip-walk launch with its device counters (outside any launch
+    window; its result held bitwise against ``ref``): the share of (query,
+    document) pairs that probed nothing and of (query tile, document) pairs
+    never staged, logged and returned (each skip tile weighted by its
+    documents)."""
+    import torch
+
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
+    got = ts._hash_topk("bm25_topk_v2_skip", *args, k, skip=(bitmaps, ts.SKIP_BLOCK_N, positive_only),
+                        stats=stats)
+    bm25_check_equal(f"  bm25_topk_v2_skip with its counters, {label}", got, ref)
+    sms = torch.cuda.get_device_properties(args[0].device).multi_processor_count
+    (b, t), (n, slots) = args[0].shape, args[2].shape
+    plan = ts.bm25_hash_plan(b, t, n, slots, min(k, n), sms, block_n=ts.SKIP_BLOCK_N)
+    pairs, docs = stats.tolist()
+    out = {"pairs_skipped": pairs / (b * n), "docs_unstaged": docs / (plan.q_tiles * n)}
+    log(f"  skip walk, {label}: (query, document) pairs that probed nothing {pairs}/{b * n} "
+        f"= {out['pairs_skipped']:.4f}; (query tile of {plan.qb}, document) pairs never staged "
+        f"{docs}/{plan.q_tiles * n} = {out['docs_unstaged']:.4f}")
+    return out
+
+
+def device_breakdown(label: str, fn, calls: int = 3) -> None:
+    """Log the device time per kernel name of ``calls`` runs of ``fn`` under
+    ``torch.profiler`` (CUPTI), ms per run, largest first; "not measured"
+    where the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+        if us > 0:
+            rows.append((us / 1e3 / calls, e.count // calls, e.key))
+    if not rows:
+        log(f"  device time by kernel, {label}: not measured (the trace holds no device time)")
+        return
+    rows.sort(reverse=True)
+    log(f"  device time by kernel, {label}: {sum(r[0] for r in rows):.3f} ms a run in "
+        f"{sum(r[1] for r in rows)} launches; " + "; ".join(
+            f"{ms:.3f} ms x{n} {name[:70]}" for ms, n, name in rows[:8]))
 
 
 def tile_mask(cand, count, n_tiles: int):
@@ -773,12 +840,13 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
     match_uni = ts.tile_match(uni[0], bm_uni)
     for pos, k in ((True, K), (True, K_LONG), (False, K)):
         case = f"uniform {shapes}, k={k}, positive_only={pos}"
-        err = bm25_check_equal(
-            f"bm25_topk_v2_skip vs plain, {case}",
-            ts.bm25_topk_v2_skip(*uni, bm_uni, k, positive_only=pos),
-            ts.bm25_topk_v2_skip_plain(*uni, bm_uni, k, positive_only=pos),
-        )
-        log(f"  (query tile, doc tile) pairs skipped: {1 - float(match_uni.float().mean()):.4f}")
+        got = ts.bm25_topk_v2_skip(*uni, bm_uni, k, positive_only=pos)
+        err = bm25_check_equal(f"bm25_topk_v2_skip vs plain, {case}", got,
+                               ts.bm25_topk_v2_skip_plain(*uni, bm_uni, k, positive_only=pos))
+        log(f"  (8-query group, doc tile) pairs the Bloom predicate clears: "
+            f"{1 - float(match_uni.float().mean()):.4f}")
+        hash_plan_note(case, uni[0], uni[2], k, block_n=ts.SKIP_BLOCK_N)
+        skip_counts(case, uni, bm_uni, k, pos, got)
         bm25_record(kernels, "bm25_topk_v2_skip", case, err,
                     cuda_ms(lambda: ts.bm25_topk_v2_skip(*uni, bm_uni, k, positive_only=pos), 10),
                     cuda_ms(lambda: ts.bm25_topk_v2_skip_plain(*uni, bm_uni, k, positive_only=pos), 2),
@@ -789,11 +857,15 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
     skipped = 1 - float(match_clu.float().mean())
     lib_clu = bm25_library(*clu)
     case = f"clustered {shapes}, k={K}, positive_only=True"
-    err = bm25_check_equal(f"bm25_topk_v2_skip vs plain, {case}",
-                           ts.bm25_topk_v2_skip(*clu, bm_clu, K, positive_only=True),
+    got = ts.bm25_topk_v2_skip(*clu, bm_clu, K, positive_only=True)
+    err = bm25_check_equal(f"bm25_topk_v2_skip vs plain, {case}", got,
                            ts.bm25_topk_v2_skip_plain(*clu, bm_clu, K, positive_only=True))
-    log(f"  (query tile, doc tile) pairs skipped: {skipped:.4f}; doc tiles some query tile "
-        f"scores: {int(match_clu.any(dim=0).sum())}/{bm_clu.shape[0]}")
+    log(f"  (8-query group, doc tile) pairs the Bloom predicate clears: {skipped:.4f}; doc tiles "
+        f"some group scores: {int(match_clu.any(dim=0).sum())}/{bm_clu.shape[0]}")
+    hash_plan_note(case, clu[0], clu[2], K, block_n=ts.SKIP_BLOCK_N)
+    skip_counts(case, clu, bm_clu, K, True, got)
+    skip_counts(f"clustered {shapes}, k={K}, positive_only=False", clu, bm_clu, K, False,
+                ts.bm25_topk_v2(*clu, K))
     clu_v2_ms = cuda_ms(lambda: ts.bm25_topk_v2(*clu, K), 10)
     log(f"  v2 kernel (no skip) on the same clustered arrays: {clu_v2_ms:.3f} ms")
     bm25_record(kernels, "bm25_topk_v2_skip", case, err,
@@ -965,9 +1037,13 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
         if name == "bm25_topk_v2":
             for k in (K, BM25_K_LONG):
                 hash_plan_note(f"{main_shape}, k={k}", qi, di, k)
-            # #4 (v1) is #3's kernel under the pin's name: held against #3 once
+            # #4 (v1) is #3's kernel under the pin's name: held against #3 once;
+            # #5 in v2 mode is #3's function too
             bm25_check_equal(f"bm25_topk_v1 vs bm25_topk_v2, {case}",
                              ts.bm25_topk_v1(qi, qw, di, dw, K), got)
+            bm25_check_equal(f"bm25_topk_v2_skip (positive_only=False) vs bm25_topk_v2, {case}",
+                             ts.bm25_topk_v2_skip(qi, qw, di, dw, bitmaps, K, positive_only=False),
+                             got)
             # the query tile: #3 capped at QB = 64, 128 (the default) and 256,
             # in the order 128, 64, 256, 256, 64, 128
             qb_ms = {}
@@ -976,6 +1052,24 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
                     lambda: ts._hash_topk("bm25_topk_v2", qi, qw, di, dw, K, qb_max=qb), 5))
             log(f"  v2 at the main path, k={K}, by query tile: " + ", ".join(
                 f"QB={qb}: {' / '.join(f'{m:.3f}' for m in ms)} ms" for qb, ms in sorted(qb_ms.items())))
+        if name == "bm25_topk_v2_skip":
+            hash_plan_note(case, qi, di, K, block_n=ts.SKIP_BLOCK_N)
+            skip_counts(case, (qi, qw, di, dw), bitmaps, K, True, got)
+            skip_counts(f"{main_shape}, k={K}, positive_only=False", (qi, qw, di, dw), bitmaps, K,
+                        False, ts.bm25_topk_v2(qi, qw, di, dw, K))
+            # the skip walk's query tile: QB = 64, 128 (the default) and 256,
+            # in the order 128, 64, 256, 256, 64, 128
+            qb_ms = {}
+            for qb in (128, 64, 256, 256, 64, 128):
+                qb_ms.setdefault(qb, []).append(cuda_ms(
+                    lambda: ts._hash_topk("bm25_topk_v2_skip", qi, qw, di, dw, K, qb_max=qb,
+                                          skip=(bitmaps, ts.SKIP_BLOCK_N, True)), 5))
+            log(f"  skip kernel at the main path, k={K}, positive_only=True, by query tile: "
+                + ", ".join(f"QB={qb}: {' / '.join(f'{m:.3f}' for m in ms)} ms"
+                            for qb, ms in sorted(qb_ms.items())))
+            device_breakdown(f"bm25_topk_v2_skip, {case}", kern)
+            device_breakdown(f"bm25_topk_v2, {main_shape}, k={K}",
+                             lambda: ts.bm25_topk_v2(qi, qw, di, dw, K))
         del got, ref
         bm25_record(kernels, name, case, err, cuda_ms(kern, 5), plain_ms, cuda_ms(lambda: lib(K), 3),
                     *bm25_bound(peak, q_used, slots * 8, BM25_Q * K * 8, tiles=tiles_needed))
@@ -1103,6 +1197,7 @@ def bm25_packed_phases(seed: int, dev, peak: dict, kernels: list) -> None:
         got = ts.bm25_topk_packed(q_ids, q_w, pids, pw, BM25_N, k, pack)
         ref, plain_ms = timed(lambda: ts.bm25_topk_packed_plain(q_ids, q_w, pids, pw, BM25_N, k, pack))
         err = bm25_check_equal(f"bm25_topk_packed vs plain, {shapes}, k={k}", got, ref)
+        hash_plan_note(f"{shapes}, k={k}", q_ids, pids, k, n_docs=BM25_N, pack=pack)
         bm25_check_equal(f"bm25_topk_packed vs bm25_topk_v2 over the flat layout, k={k}", got,
                          ts.bm25_topk_v2(*flat16, k))
         ms = cuda_ms(lambda: ts.bm25_topk_packed(q_ids, q_w, pids, pw, BM25_N, k, pack), 10)
@@ -1296,8 +1391,13 @@ def bm25_packed_phases(seed: int, dev, peak: dict, kernels: list) -> None:
     )
     for name, case, q_used, tiles_needed, doc_bytes, lib, kern, plain in cases:
         ref, plain_ms = timed(plain)
-        err = bm25_check_equal(f"{name} vs plain, {case}", kern(), ref)
-        del ref
+        got = kern()
+        err = bm25_check_equal(f"{name} vs plain, {case}", got, ref)
+        if name == "bm25_topk_packed":  # #7 is #3's function over the same slots
+            bm25_check_equal(f"bm25_topk_packed vs bm25_topk_v2 over the flat upload, {case}", got,
+                             ts.bm25_topk_v2(qi, qw, di, dw, K))
+            hash_plan_note(case, qi, pids, K, n_docs=QUORA_N, pack=pack)
+        del ref, got
         bm25_record(kernels, name, case, err, cuda_ms(kern, 5), plain_ms, cuda_ms(lambda: lib(K), 3),
                     *bm25_bound(peak, q_used, doc_bytes, BM25_Q * K * 8, QUORA_N, tiles_needed,
                                 bn_rows * pack))

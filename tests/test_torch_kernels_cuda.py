@@ -977,3 +977,177 @@ def test_bm25_hash_body_unaligned_rows(cuda_device):
         assert v.is_contiguous() and v.data_ptr() % 16 == 4
         views.append(v)
     _hash_check((q_ids, q_w, *views), (10, 300))
+
+
+# ------------------------------- BM25 skip and packed walks on the hash body
+SKIP_K = [1, 10, 65, 257, 1000]
+
+
+def _skip_stats(device):
+    return torch.zeros(2, dtype=torch.int64, device=device)
+
+
+def _skip_check(args, bitmaps, k, block_n, positive_only, stats=None):
+    """#5 on the hash body, bitwise its plain version (and, in v2 mode, the
+    v2 kernel), its launch counted; returns the group masks it read."""
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    before = ts.LAUNCHES["bm25_topk_v2_skip"]
+    if stats is None:
+        s, i = ts.bm25_topk_v2_skip(*args, bitmaps, k, block_n=block_n, positive_only=positive_only)
+    else:
+        s, i = ts._hash_topk("bm25_topk_v2_skip", *args, k, skip=(bitmaps, block_n, positive_only),
+                             stats=stats)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["bm25_topk_v2_skip"] == before + 1
+    rs, ri = ts.bm25_topk_v2_skip_plain(*args, bitmaps, k, block_n=block_n,
+                                        positive_only=positive_only)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+    if not positive_only:
+        vs, vi = ts.bm25_topk_v2(*args, k)
+        torch.testing.assert_close(i, vi, rtol=0, atol=0)
+        torch.testing.assert_close(s, vs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positive_only", [True, False])
+@pytest.mark.parametrize("k", SKIP_K)
+def test_bm25_skip_hash_body_groups_skip_apart(cuda_device, positive_only, k):
+    # B = 133: two query tiles of QB = 128, the second of 5 queries (B is no
+    # multiple of 8 or of QB); clustered rows, so within one (query tile,
+    # skip tile) pair some 8-query groups skip and others do not
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    arrays = _bm25_data(np.random.default_rng(k + 11), 133, 6, 6000, 20, clustered=True)
+    args = _bm25_tensors(arrays, cuda_device)
+    bitmaps = torch.from_numpy(ts.build_tile_bitmaps(arrays[2], 128)).to(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = ts.bm25_hash_plan(133, 6, 6000, 20, k, sms, block_n=128)
+    assert plan.qb == 128 and plan.q_tiles == 2 and 128 % plan.docs == 0
+    masks = ts.tile_group_masks(args[0], bitmaps, plan.qb)
+    first = masks[0]
+    assert bool(((first != 0) & (first != 0xFFFF)).any())  # some groups skip, others not
+    stats = _skip_stats(cuda_device)
+    _skip_check(args, bitmaps, k, 128, positive_only, stats)
+    pairs, docs = stats.tolist()  # (query, document) pairs that probed nothing, docs never staged
+    assert 0 < pairs < 133 * 6000
+    if positive_only:  # a skip tile that no group of a query tile needs is never staged
+        sizes = torch.full((masks.shape[1],), 128, device=cuda_device)
+        sizes[-1] = 6000 - 128 * (masks.shape[1] - 1)
+        assert docs == int(((masks == 0) * sizes).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10])
+def test_bm25_skip_hash_body_v2_warms_partway(cuda_device, k):
+    # every query holds term 7, which only the first 64 documents of each
+    # part hold: each list reaches a k-th score > 0 on a part's first skip
+    # tile, then the v2 walk skips the tiles no group needs (the next one is
+    # already prefetched)
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    rng = np.random.default_rng(21 + k)
+    n, slots, b = 200_000, 12, 40
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = ts.bm25_hash_plan(b, 4, n, slots, k, sms, block_n=128)
+    assert plan.part >= 4 * 128
+    doc_ids = rng.integers(1000, 51_000, size=(n, slots)).astype(np.int32)  # repeats summed
+    doc_w = (rng.integers(1, 17, size=(n, slots)) / 8.0).astype(np.float32)
+    first = np.arange(n) % plan.part < 64
+    doc_ids[first, 0] = 7
+    q_ids = np.full((b, 4), -2, np.int32)
+    q_w = np.zeros((b, 4), np.float32)
+    q_ids[:, 0], q_w[:, 0] = 7, 1.0
+    q_ids[:, 2], q_w[:, 2] = 999, 2.0  # a term no document holds
+    args = _bm25_tensors((q_ids, q_w, doc_ids, doc_w), cuda_device)
+    bitmaps = torch.from_numpy(ts.build_tile_bitmaps(doc_ids, 128)).to(cuda_device)
+    stats = _skip_stats(cuda_device)
+    _skip_check(args, bitmaps, k, 128, False, stats)
+    pairs, docs = stats.tolist()
+    # each part stages the skip tiles of its first 64 documents and the tile
+    # after (prefetched while its lists warmed), a few Bloom false positives aside
+    assert docs > plan.q_tiles * (n - plan.parts * (3 * 128 + plan.docs))
+    assert pairs >= docs * b // plan.q_tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positive_only", [True, False])
+def test_bm25_skip_hash_body_every_tile_skipped(cuda_device, positive_only):
+    # empty queries: no group matches anywhere; positive_only stages nothing
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    q_ids, q_w, doc_ids, doc_w = _bm25_data(np.random.default_rng(4), 21, 4, 5000, 16)
+    q_ids[:], q_w[:] = -2, 0.0
+    args = _bm25_tensors((q_ids, q_w, doc_ids, doc_w), cuda_device)
+    bitmaps = torch.from_numpy(ts.build_tile_bitmaps(doc_ids, 128)).to(cuda_device)
+    for k in (10, 257):
+        stats = _skip_stats(cuda_device)
+        _skip_check(args, bitmaps, k, 128, positive_only, stats)
+        # every (query, document) pair probed nothing; positive_only staged no document
+        assert stats.tolist() == [21 * 5000, 5000 if positive_only else 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positive_only", [True, False])
+def test_bm25_skip_hash_body_unstaged_wide_rows(cuda_device, positive_only):
+    # L = 9,000: D = 1, the table in global scratch; queries 8-15 (a whole
+    # group) hold only terms no document has, so their group skips
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    q_ids, q_w, doc_ids, doc_w = _hash_data(np.random.default_rng(13), 20, 16, 300, 9000)
+    q_ids[8:16], q_w[8:16] = -2, 0.0
+    q_ids[8:16, 3], q_w[8:16, 3] = 1_000_000_007, 1.0
+    args = _bm25_tensors((q_ids, q_w, doc_ids, doc_w), cuda_device)
+    assert not ts.bm25_hash_plan(20, 16, 300, 9000, 10, 132, block_n=128).staged
+    bitmaps = torch.from_numpy(ts.build_tile_bitmaps(doc_ids, 128)).to(cuda_device)
+    for k in (1, 10, 257):
+        stats = _skip_stats(cuda_device)
+        _skip_check(args, bitmaps, k, 128, positive_only, stats)
+        # group 1 probes nothing (a Bloom false positive in one skip tile aside)
+        assert stats[0].item() >= 8 * (300 - 128)
+
+
+# pack_slots widths of the packs 2, 3, 5, 6, 7, 8, 42, 64, 128 (3,001 documents:
+# no multiple of any)
+HASH_PACK_WIDTHS = [64, 42, 25, 21, 18, 16, 3, 2, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", SKIP_K)
+@pytest.mark.parametrize("width", HASH_PACK_WIDTHS)
+def test_bm25_packed_hash_body_matches_plain_and_v2_on_flat(cuda_device, width, k):
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    flat, packed, pack = _packed_case(width * 7 + k, width, b=133, t=13)
+    assert pack == 128 // width and 3001 % pack
+    before = ts.LAUNCHES["bm25_topk_packed"]
+    s, i = ts.bm25_topk_packed(*packed, 3001, k, pack)
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES["bm25_topk_packed"] == before + 1
+    rs, ri = ts.bm25_topk_packed_plain(*packed, 3001, k, pack)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+    vs, vi = ts.bm25_topk_v2(*flat, k)  # #3 over the flat layout of the same slots
+    torch.testing.assert_close(i, vi, rtol=0, atol=0)
+    torch.testing.assert_close(s, vs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", HASH_PACK_WIDTHS)
+def test_bm25_packed_hash_body_unaligned_rows(cuda_device, width):
+    # packed rows 4 bytes past a 16-byte boundary: 4-byte copies
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    flat, packed, pack = _packed_case(width + 50, width, b=133, t=13)
+    views = []
+    for t in packed[2:]:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        views.append(buf[1:].view(t.shape))
+        views[-1].copy_(t)
+    assert views[0].data_ptr() % 16 == 4
+    for k in (10, 257):
+        s, i = ts.bm25_topk_packed(*packed[:2], *views, 3001, k, pack)
+        rs, ri = ts.bm25_topk_packed_plain(*packed, 3001, k, pack)
+        torch.testing.assert_close(i, ri, rtol=0, atol=0)
+        torch.testing.assert_close(s, rs, rtol=0, atol=0)

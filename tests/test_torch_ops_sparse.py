@@ -229,6 +229,35 @@ def test_tile_match_bitwise(b):
                                   np.asarray(j))
 
 
+@pytest.mark.parametrize("qb", [64, 128, 256])
+@pytest.mark.parametrize("b", [1, 5, 8, 133, 1024])
+def test_tile_group_masks_fold_the_jax_rows(b, qb):
+    # the skip walk's masks against the JAX _tile_match, called as it is:
+    # bit g of query tile i is the JAX row of 8-query group i qb / 8 + g
+    q_ids, _, doc_ids, _ = _data(20 + b, b=b + 2, t=5, clustered=True)
+    q_ids = np.ascontiguousarray(q_ids[2:])  # the last b: all real queries
+    q_ids[b // 2 + 1 :: 7] = -2  # empty queries, some whole groups among them at b = 1,024
+    bitmaps = js.build_tile_bitmaps(doc_ids, 64)
+    n_tiles = bitmaps.shape[0]
+    bsz_pad = -(-b // 8) * 8
+    masks = ts.tile_group_masks(torch.from_numpy(q_ids), torch.from_numpy(bitmaps), qb).numpy()
+    q_tiles = -(-b // qb)
+    assert masks.shape == (q_tiles, n_tiles) and masks.dtype == np.int32
+    bits = (masks.astype(np.int64)[:, None, :] >> np.arange(qb // 8)[None, :, None]) & 1
+    groups = bits.reshape(q_tiles * qb // 8, n_tiles).astype(bool)
+    # pad rows replicating the last real query: queries past B add nothing
+    own = np.asarray(js._tile_match(jnp.asarray(q_ids), jnp.asarray(bitmaps),
+                                    jnp.minimum(jnp.arange(bsz_pad), b - 1), 8))
+    np.testing.assert_array_equal(groups[: bsz_pad // 8], own)
+    assert not groups[bsz_pad // 8 :].any()  # groups past B never set a bit
+    # the wrapper's own replication (rows 0..) differs at most in a partial last group
+    jax_rows = np.asarray(js._tile_match(jnp.asarray(q_ids), jnp.asarray(bitmaps),
+                                         jnp.arange(bsz_pad) % b, 8))
+    np.testing.assert_array_equal(groups[: b // 8], jax_rows[: b // 8])
+    with pytest.raises(ValueError):
+        ts.tile_group_masks(torch.from_numpy(q_ids), torch.from_numpy(bitmaps), 264)
+
+
 def test_tile_match_no_false_negatives():
     _, _, doc_ids, _ = _data(11, clustered=True)
     bitmaps = torch.from_numpy(ts.build_tile_bitmaps(doc_ids, 128, n_words=64))
