@@ -37,6 +37,7 @@ products: with L2-normalized inputs, cosine similarity.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -61,6 +62,26 @@ FULL_MATERIALIZE_BUDGET = 2 << 30
 
 # Corpus rows per step of the int8 scan leg (JAX ``_dense_topk_int8_scan``)
 INT8_TILE_N = 131072
+
+# The streaming kernel's tile and shared-memory layout (csrc/dense_topk_stream.cu,
+# whose launcher refuses a plan whose bytes differ from its own count): a
+# 128 x 128 block tile; a ring of 3 staged slices of 32 k-columns from a
+# 1,024-byte boundary (f32: TMA boxes of 128 rows of both operands; bf16:
+# rows at a stride of 40) and its barriers; the per-row k-th entries,
+# counters and buffers of 32 candidates; then the [128, k] lists when they fit.
+STREAM_BQ = STREAM_BN = 128
+STREAM_STAGES = 3
+STREAM_CAP = 32
+STREAM_BK = 32
+STREAM_STAGE_BYTES = {
+    torch.float32: 2 * STREAM_BQ * STREAM_BK * 4,
+    torch.bfloat16: 2 * STREAM_BQ * (STREAM_BK + 8) * 2,
+}
+STREAM_RING_EXTRA = 1024 + 64  # alignment slack and the ring's barriers
+STREAM_EPI_BYTES = 4 * STREAM_BQ * 4 + 2 * STREAM_BQ * STREAM_CAP * 4
+# rows a part holds at least per list entry
+STREAM_PART_K = 4
+SMEM_BLOCK_MAX = 232448  # a block's shared memory on sm_90
 
 
 def reset_launch_counts() -> None:
@@ -179,13 +200,93 @@ def dense_topk_scan(
     return pad_to_k(scores, ids, k, k_eff)
 
 
-def _stream_parts(q: int, n: int, device: torch.device) -> tuple[int, int]:
-    """(part_rows, parts) for the streaming kernel: split the corpus so the
-    grid holds about eight 64-query x part blocks per SM."""
+class StreamPlan(NamedTuple):
+    """The tile plan of one ``csrc/dense_topk_stream.cu`` launch."""
+
+    bq: int  # queries of a block tile
+    bn: int  # corpus rows of a block tile
+    bk: int  # k-columns of a staged slice
+    stages: int  # slots of the staging ring
+    k_slices: int  # slices of one tile (d / bk, rounded up)
+    q_tiles: int
+    part_rows: int  # corpus rows of a part, a multiple of bn
+    parts: int
+    lists: str  # where the k-best lists live: "shared" or "global" (the output)
+    smem_bytes: int  # dynamic shared memory of a block
+    slots: int  # resident blocks of the card: SMs x blocks an SM
+    waves: int  # ceil(q_tiles x parts / slots)
+
+
+def dense_stream_layout(k: int, dtype: torch.dtype) -> tuple[str, int]:
+    """(where the lists live, shared-memory bytes) of ``dense_topk_stream.cu``'s
+    layout for lists of ``k``: the staging ring, the per-row k-th entries,
+    counters and candidate buffers, and the [BQ, k] lists while all of it fits
+    a block's 227 KB (else the lists live in the output)."""
+    fixed = STREAM_RING_EXTRA + STREAM_STAGES * STREAM_STAGE_BYTES[dtype] + STREAM_EPI_BYTES
+    lists = STREAM_BQ * k * 8
+    if fixed + lists <= SMEM_BLOCK_MAX:
+        return "shared", fixed + lists
+    return "global", fixed
+
+
+def dense_stream_plan(
+    q: int, n: int, d: int, k: int, dtype: torch.dtype, sms: int, blocks_per_sm: int
+) -> StreamPlan:
+    """Pure tile plan of the streaming kernel for Q = ``q`` queries, N = ``n``
+    rows of width ``d`` (a multiple of 8), lists of ``k`` (at most n), on a
+    card of ``sms`` SMs that holds ``blocks_per_sm`` of its blocks each.
+
+    One wave: the corpus splits into as many parts as the card's resident
+    block slots leave for each 128-query tile (a grid of more tiles than
+    slots takes one part, the fewest waves there are), at most one part per
+    ``STREAM_PART_K * k`` rows, so parts never grow with k (each part's list
+    fills with k candidates that all insert) and no part is empty."""
+    if min(q, n, d, k, sms, blocks_per_sm) < 1 or d % 8:
+        raise ValueError(f"no stream plan for q={q} n={n} d={d} k={k} sms={sms} "
+                         f"blocks_per_sm={blocks_per_sm}")
+    k = min(k, n)
+    lists, smem = dense_stream_layout(k, dtype)
+    q_tiles = -(-q // STREAM_BQ)
+    slots = sms * blocks_per_sm
+    parts = max(1, min(slots // q_tiles, -(-n // STREAM_BN), n // (STREAM_PART_K * k)))
+    part_rows = _round_up(-(-n // parts), STREAM_BN)
+    parts = -(-n // part_rows)
+    return StreamPlan(
+        bq=STREAM_BQ, bn=STREAM_BN, bk=STREAM_BK, stages=STREAM_STAGES, k_slices=-(-d // STREAM_BK),
+        q_tiles=q_tiles, part_rows=part_rows, parts=parts, lists=lists, smem_bytes=smem,
+        slots=slots, waves=-(-(q_tiles * parts) // slots),
+    )
+
+
+def _stream_plan_on_card(q: int, n: int, d: int, k: int, dtype: torch.dtype,
+                         device: torch.device) -> StreamPlan:
+    """The plan :func:`dense_topk_stream` launches on ``device``: its SM count and
+    the kernel's resident blocks an SM at the plan's shared memory."""
+    k = min(k, n)
+    smem = dense_stream_layout(k, dtype)[1]
+    bps = _stream_blocks_per_sm(device, dtype == torch.bfloat16, smem)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    parts = max(1, min(-(-n // 64), -(-8 * sms // -(-q // 64))))
-    part_rows = _round_up(-(-n // parts), 64)
-    return part_rows, -(-n // part_rows)
+    return dense_stream_plan(q, n, d, k, dtype, sms, bps)
+
+
+_BLOCKS_PER_SM: dict = {}
+
+
+def _stream_blocks_per_sm(device: torch.device, bf16: bool, smem: int) -> int:
+    """Resident blocks of the streaming kernel an SM holds at ``smem`` bytes,
+    from the CUDA occupancy calculator (its registers and shared memory)."""
+    key = (device.index, bf16, smem)
+    if key not in _BLOCKS_PER_SM:
+        fn = cuda_build.load("dense_topk_stream").dense_topk_stream_blocks_per_sm
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            cuda_build.check_launch(fn(int(bf16), smem, ctypes.byref(blocks)), "dense_topk_stream")
+        if blocks.value < 1:
+            raise RuntimeError(f"dense_topk_stream: no block fits an SM at {smem} bytes")
+        _BLOCKS_PER_SM[key] = blocks.value
+    return _BLOCKS_PER_SM[key]
 
 
 def _bounded_tile_n(q: int) -> int:
@@ -224,21 +325,22 @@ def dense_topk_stream(
         empty = torch.empty((queries.shape[0], 0), device=queries.device)
         return pad_to_k(empty, empty.to(torch.int32), k, 0)
     q, d = queries.shape
-    part_rows, parts = _stream_parts(q, n, queries.device)
-    out_s = torch.empty((q, parts, k_eff), dtype=torch.float32, device=queries.device)
-    out_i = torch.empty((q, parts, k_eff), dtype=torch.int32, device=queries.device)
+    dev = queries.device
+    plan = _stream_plan_on_card(q, n, d, k_eff, queries.dtype, dev)
+    out_s = torch.empty((q, plan.parts, k_eff), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, plan.parts, k_eff), dtype=torch.int32, device=dev)
     lib = cuda_build.load("dense_topk_stream")
     fn = (
-        lib.dense_topk_stream_f32_launch
-        if queries.dtype == torch.float32
-        else lib.dense_topk_stream_bf16_launch
+        lib.dense_topk_stream_bf16_launch
+        if queries.dtype == torch.bfloat16
+        else lib.dense_topk_stream_f32_launch
     )
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
         queries.data_ptr(), corpus.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        q, n, d, k_eff, part_rows, parts,
-        torch.cuda.current_stream(queries.device).cuda_stream,
+        q, n, d, k_eff, plan.part_rows, plan.parts, int(plan.lists == "shared"),
+        plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check_launch(rc, "dense_topk_stream")
     LAUNCHES["dense_topk_stream"] += 1

@@ -8,12 +8,20 @@ paths (``autorag_research_tpu_torch``), the MaxSim pins and the int8 and approx
 serving modes at full width and fails (non-zero exit) on any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
-   kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source);
+   kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source),
+   with one more ``nvcc -Xptxas -v`` of the streaming kernel beside it
+   (registers, shared memory and spills of its f32 and bf16 instantiations);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it, with its time, the plain version's, one PyTorch
    library yardstick's and the least time the card could take; the
-   streaming kernel also at k = 100, and the ``full`` path (scores within
-   the 2 GiB budget) at Q = 1024 with its peak memory;
+   streaming kernel also at k = 100 (checked) and 1,000 (timed), its tile
+   plan at the main path, ``torch.matmul(q, c.T)`` alone beside matmul +
+   ``topk``, the SM clock and power sampled beside its timing, a
+   ``torch.profiler`` split of its device time (kernel against
+   ``merge_topk``), and its bf16 instantiation at the same shapes (k = 10,
+   100, against its plain version, its own bound and library call); the
+   ``full`` path (scores within the 2 GiB budget) at Q = 1024 with its peak
+   memory;
 3. the main path with every launch count at 0 just before it: the encoder
    (hidden 512, 6 layers, 8 heads, seq 128, out 768, random weights from the
    seed) embeds 1024 query texts on the device and ``DenseIndex`` verified
@@ -101,7 +109,8 @@ serving modes at full width and fails (non-zero exit) on any fault:
     plain versions at phase 6's shapes (f32 text scale and bf16 page scale,
     k = 10), each with #9 timed beside it, #12's operand build timed apart;
     lists of any k (#11 and #2 at k = 1,000, #9 at k = 300, #2 at the main
-    path's Q = 2,048 x 500,000 x 768) and an odd width (d = 100: #1, #2, #9);
+    path's Q = 2,048 x 500,000 x 768, in f32 and bf16) and an odd width
+    (d = 100: #1, #2 in both dtypes, #9);
 16. the slice's path with every launch count at 0 just before it: the text
     ``MultiVectorIndex`` with the ``pallas`` and ``pallas_v3`` pins at k = 10
     (hits equal to auto's), an int8 page-scale ``MultiVectorIndex`` and the
@@ -1601,6 +1610,18 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     any_case(f"dense_topk_stream @ Q={Q_EXACT} x N={N_DOCS} x d={ODD_DIM} f32, k={K}",
              timed(lambda: td.dense_topk_stream(q100, c100, K)),
              td.dense_topk_plain(q100, c100, K), dense_check)
+    # the bf16 instantiation at k = 1,000 and d = 100
+    q16, c16 = q_ex.to(torch.bfloat16), c_f32.to(torch.bfloat16)
+    any_case(f"dense_topk_stream @ Q={Q_EXACT} x N={N_DOCS} x d={DIM} bf16, k={K_ANY} "
+             f"(lists in the output)",
+             timed(lambda: td.dense_topk_stream(q16, c16, K_ANY)),
+             td.dense_topk_plain(q16, c16, K_ANY), dense_check)
+    del c16
+    q16, c16 = q100.to(torch.bfloat16), c100.to(torch.bfloat16)
+    any_case(f"dense_topk_stream @ Q={Q_EXACT} x N={N_DOCS} x d={ODD_DIM} bf16, k={K}",
+             timed(lambda: td.dense_topk_stream(q16, c16, K)),
+             td.dense_topk_plain(q16, c16, K), dense_check)
+    del q16, c16
     q100b = q100[:Q_VERIFIED].to(torch.bfloat16)
     c100b = c100.to(torch.bfloat16)
     (got, seg_ms) = timed(lambda: td.seg_stats_bf16(q100b, c100b, N_DOCS))
@@ -1776,6 +1797,60 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     torch.cuda.empty_cache()
 
 
+def stream_ptxas_start(cuda_build, tmp: str):
+    """Start one more nvcc of csrc/dense_topk_stream.cu with ``-Xptxas -v``
+    (registers, shared memory and spills of each instantiation)."""
+    src = cuda_build.CSRC_DIR / "dense_topk_stream.cu"
+    return subprocess.Popen(
+        [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         f"{tmp}/ptxas.so", str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+
+
+def stream_ptxas_log(proc) -> None:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc -Xptxas -v of dense_topk_stream.cu failed:\n{out}")
+    kernel = None
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            kernel = "bf16" if "BF16" in line else "f32"
+        elif kernel and ("registers" in line or "spill" in line):
+            log(f"dense_topk_stream {kernel} ptxas: {line.split(':', 1)[-1].strip()}")
+
+
+class SmiSampler:
+    """``nvidia-smi --query-gpu=clocks.sm,power.draw`` every 100 ms while a
+    ``with`` block runs; ``summary()`` gives the samples' range and mean."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+             "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        )
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.rows = []
+        for line in out.splitlines():
+            try:
+                self.rows.append(tuple(float(v) for v in line.split(",")[:2]))
+            except ValueError:
+                continue
+
+    def summary(self) -> str:
+        if not self.rows:
+            return "no samples"
+        mhz = [r[0] for r in self.rows]
+        w = [r[1] for r in self.rows]
+        return (f"{len(self.rows)} samples: SM clock {min(mhz):.0f}-{max(mhz):.0f} MHz "
+                f"(mean {sum(mhz) / len(mhz):.0f}), power {min(w):.1f}-{max(w):.1f} W "
+                f"(mean {sum(w) / len(w):.1f})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1820,9 +1895,12 @@ def main() -> int:
 
     # ---- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    secs = cuda_build.build_all()
-    log(f"kernel build: {json.dumps({n: round(s, 2) for n, s in secs.items()})} "
-        f"({time.perf_counter() - t0:.2f} s in all)")
+    with tempfile.TemporaryDirectory() as tmp:
+        ptxas = stream_ptxas_start(cuda_build, tmp)  # beside the build, not in it
+        secs = cuda_build.build_all()
+        log(f"kernel build: {json.dumps({n: round(s, 2) for n, s in secs.items()})} "
+            f"({time.perf_counter() - t0:.2f} s in all)")
+        stream_ptxas_log(ptxas)
 
     # ---- data and indexes ---------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -1938,21 +2016,75 @@ def main() -> int:
     if not explained or not (np.abs(s_k - s_p) <= 1e-6 * np.abs(s_p) + 4e-7).all():
         fail(f"dense_topk_stream disagrees with its plain version at k={K_LONG}")
     del s_k, i_k, s_p, i_p
-    stream_ms = cuda_ms(lambda: td.dense_topk_stream(q_ex, c_f32, K), 3)
+    # the plan the wrapper takes at the main path, from this card's SMs and
+    # the kernel's resident blocks an SM (the occupancy calculator)
+    for dt in (torch.float32, torch.bfloat16):
+        log(f"dense_topk_stream plan @ Q={Q_EXACT} x N={N_DOCS} x d={DIM} {str(dt)[6:]}, k={K}: "
+            f"{td._stream_plan_on_card(Q_EXACT, N_DOCS, DIM, K, dt, dev)}")
+    with SmiSampler() as smi:
+        stream_ms = cuda_ms(lambda: td.dense_topk_stream(q_ex, c_f32, K), 30)
+    log(f"  beside the k={K} timing: {smi.summary()}")
+    k1000_ms = cuda_ms(lambda: td.dense_topk_stream(q_ex, c_f32, K_ANY), 2)
     stream_plain_ms = cuda_ms(lambda: td.dense_topk_plain(q_ex, c_f32, K), 2)
+    with SmiSampler() as smi:
+        mm_ms = cuda_ms(lambda: torch.matmul(q_ex, c_f32.T), 30)
     stream_lib_ms = cuda_ms(lambda: torch.topk(torch.matmul(q_ex, c_f32.T), K), 2)
     stream_bound, stream_by = bound(
         2.0 * Q_EXACT * N_DOCS * DIM,
         (Q_EXACT + N_DOCS) * DIM * 4 + Q_EXACT * K * 8,
         peak["f32"], peak["hbm"],
     )
+    log(f"dense_topk_stream f32 @ Q={Q_EXACT} x N={N_DOCS} x d={DIM}: k={K} / {K_LONG} / {K_ANY} "
+        f"{stream_ms:.3f} / {long_ms:.3f} / {k1000_ms:.3f} ms; bound {stream_bound:.3f} ms "
+        f"({stream_bound / stream_ms:.1%} of it at k={K}); torch.matmul(q, c.T) alone "
+        f"{mm_ms:.3f} ms ({smi.summary()}), matmul + topk {stream_lib_ms:.3f} ms; plain "
+        f"{stream_plain_ms:.3f} ms")
+    device_breakdown(f"dense_topk_stream f32 k={K} (kernel against merge_topk)",
+                     lambda: td.dense_topk_stream(q_ex, c_f32, K))
     kernels.append({
         "name": "dense_topk_stream", "route": "cuda",
         "source": "autorag_research_tpu_torch/csrc/dense_topk_stream.cu",
         "replaces": "autorag_research_tpu/ops/dense.py:166",
         "max_abs_err": stream_err, "ms": stream_ms, "plain_ms": stream_plain_ms,
         "bound_ms": stream_bound, "bound_by": stream_by, "library_ms": stream_lib_ms,
+        "matmul_ms": mm_ms, "k100_ms": long_ms, "k1000_ms": k1000_ms,
     })
+    # the bf16 instantiation at the same shapes (mma.sync, f32 sums), its own
+    # bound at the bf16 tensor rate and its own library call
+    q16, c16 = q_ex.to(torch.bfloat16), c_f32.to(torch.bfloat16)
+    b16_err = 0.0
+    for kk in (K, K_LONG):
+        s_k, i_k = td.dense_topk_stream(q16, c16, kk)
+        s_p, i_p = td.dense_topk_plain(q16, c16, kk)
+        s_k, i_k, s_p, i_p = (t.cpu().numpy() for t in (s_k, i_k, s_p, i_p))
+        n_mism, explained = ids_agree(i_k, s_k, i_p, s_p)
+        err = float(np.abs(s_k - s_p).max())
+        b16_err = max(b16_err, err)
+        log(f"dense_topk_stream vs plain @ Q={Q_EXACT} x N={N_DOCS} x d={DIM} bf16, k={kk}: "
+            f"ids mismatches {n_mism}/{i_k.size} (all sub-ulp: {explained}), "
+            f"max|d score| = {err:.3e}")
+        if not explained or not (np.abs(s_k - s_p) <= 1e-6 * np.abs(s_p) + 4e-7).all():
+            fail(f"dense_topk_stream bf16 disagrees with its plain version at k={kk}")
+    del s_k, i_k, s_p, i_p
+    b16_ms = cuda_ms(lambda: td.dense_topk_stream(q16, c16, K), 5)
+    b16_plain_ms = cuda_ms(lambda: td.dense_topk_plain(q16, c16, K), 2)
+    b16_lib_ms = cuda_ms(lambda: torch.topk(torch.matmul(q16, c16.T), K), 2)
+    b16_bound, b16_by = bound(
+        2.0 * Q_EXACT * N_DOCS * DIM,
+        (Q_EXACT + N_DOCS) * DIM * 2 + Q_EXACT * K * 8,
+        peak["bf16"], peak["hbm"],
+    )
+    log(f"dense_topk_stream bf16 @ Q={Q_EXACT} x N={N_DOCS} x d={DIM}, k={K}: {b16_ms:.3f} ms, "
+        f"bound {b16_bound:.3f} ms ({b16_by}), topk(matmul(q16, c16.T)) {b16_lib_ms:.3f} ms, "
+        f"plain {b16_plain_ms:.3f} ms")
+    kernels.append({
+        "name": "dense_topk_stream", "case": f"bf16 Q={Q_EXACT} x N={N_DOCS} x d={DIM}, k={K}",
+        "route": "cuda", "source": "autorag_research_tpu_torch/csrc/dense_topk_stream.cu",
+        "replaces": "autorag_research_tpu/ops/dense.py:166",
+        "max_abs_err": b16_err, "ms": b16_ms, "plain_ms": b16_plain_ms,
+        "bound_ms": b16_bound, "bound_by": b16_by, "library_ms": b16_lib_ms,
+    })
+    del q16, c16
 
     # the ``full`` path (scores within the 2 GiB budget): time and peak memory
     q_full = q_ex[:Q_VERIFIED]

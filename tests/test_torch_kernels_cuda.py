@@ -1151,3 +1151,112 @@ def test_bm25_packed_hash_body_unaligned_rows(cuda_device, width):
         rs, ri = ts.bm25_topk_packed_plain(*packed, 3001, k, pack)
         torch.testing.assert_close(i, ri, rtol=0, atol=0)
         torch.testing.assert_close(s, rs, rtol=0, atol=0)
+
+
+# ---- the streaming kernel's redesign: tails, ties at every boundary, rounds
+STREAM_TAIL_Q = (1, 127, 129, 300)
+STREAM_TAIL_N = (1, 127, 129, 7000)
+
+
+def _tie_case(rng, q, n, d, k, dtype):
+    """Eighths with exact ties planted across buffer, tile, part and block
+    boundaries: corpus rows around every multiple of 128 and every part
+    boundary copy row 0, and query rows 126-130 copy query 0."""
+    c_np = _eighths(rng, (n, d))
+    q_np = _eighths(rng, (q, d))
+    d8 = -(-d // 8) * 8  # the width the wrapper pads to
+    part_rows = td._stream_plan_on_card(q, n, d8, k, dtype, torch.device("cuda")).part_rows
+    for edge in sorted(set(range(128, n, 128 * 7)) | set(range(part_rows, n, part_rows))):
+        c_np[max(edge - 3, 0) : edge + 3] = c_np[0]
+    c_np[: min(n, 40)] = c_np[0]  # more than 32 equal candidates in the cold first tile
+    q_np[126:131] = q_np[0]
+    return (torch.from_numpy(q_np).to("cuda", dtype), torch.from_numpy(c_np).to("cuda", dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 12, 768])
+@pytest.mark.parametrize("k", [1, 10, 33, 128, 257, 1000, 7001])
+def test_stream_kernel_tails_and_ties_match_plain(cuda_device, dtype, d, k):
+    # bitwise the plain version on dyadic data at Q and N tails, any k (k > N
+    # too), lists in shared memory (k <= 128) and in the output (257, 1,000)
+    rng = np.random.default_rng(d * 10_000 + k)
+    for q in STREAM_TAIL_Q:
+        for n in STREAM_TAIL_N:
+            if d == 768 and q * n > 300 * 129 and k > 33:
+                continue  # the large width at small k only: the long lists run at d = 8, 12
+            qt, ct = _tie_case(rng, q, n, d, k, dtype)
+            before = td.LAUNCHES["dense_topk_stream"]
+            s, i = td.dense_topk_stream(qt, ct, k)
+            torch.cuda.synchronize()
+            assert td.LAUNCHES["dense_topk_stream"] == before + 1
+            rs, ri = td.dense_topk_plain(qt, ct, k)
+            torch.testing.assert_close(i, ri, rtol=0, atol=0, msg=f"q={q} n={n}")
+            torch.testing.assert_close(s, rs, rtol=0, atol=0, msg=f"q={q} n={n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [33, 100, 128, 300])
+def test_stream_kernel_cold_tile_rounds_keep_id_order(cuda_device, dtype, k):
+    # every row of the first tile scores the same for every query: 128
+    # winners a row from one tile, taken in rounds of 32, ordered by id
+    rng = np.random.default_rng(k)
+    c_np = _eighths(rng, (3000, 16))
+    c_np[:128] = 1.0
+    c_np[128:] *= 0.0625  # below the planted rows for a positive query
+    q_np = np.abs(_eighths(rng, (140, 16))) + 0.125
+    q = torch.from_numpy(q_np).to(cuda_device, dtype)
+    c = torch.from_numpy(c_np).to(cuda_device, dtype)
+    s, i = td.dense_topk_stream(q, c, k)
+    rs, ri = td.dense_topk_plain(q, c, k)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+    assert (i[:, : min(k, 128)].cpu() == torch.arange(min(k, 128), dtype=torch.int32)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_kernel_one_part(cuda_device, dtype):
+    # a corpus of two tiles at k = 33 is one part (fewer than 4 k rows a part)
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(_eighths(rng, (200, 24))).to(cuda_device, dtype)
+    c = torch.from_numpy(_eighths(rng, (250, 24))).to(cuda_device, dtype)
+    assert td._stream_plan_on_card(200, 250, 24, 33, dtype, cuda_device).parts == 1
+    s, i = td.dense_topk_stream(q, c, 33)
+    rs, ri = td.dense_topk_plain(q, c, 33)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_stream_launcher_checks_the_plan(cuda_device):
+    # the launcher's layout count equals the plan's; a plan that disagrees,
+    # or parts that do not cover N, is refused
+    import ctypes
+
+    lib = td.cuda_build.load("dense_topk_stream")
+    count = lib.dense_topk_stream_smem_bytes
+    count.argtypes = [ctypes.c_int] * 3
+    count.restype = ctypes.c_int
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (1, 10, 95, 96, 100, 131, 132, 257, 1000):
+            lists, smem = td.dense_stream_layout(k, dtype)
+            assert count(int(dtype == torch.bfloat16), k, int(lists == "shared")) == smem
+            assert smem <= td.SMEM_BLOCK_MAX
+    q = torch.zeros((10, 16), device=cuda_device)
+    c = torch.zeros((1000, 16), device=cuda_device)
+    out_s = torch.empty((10, 8, 10), device=cuda_device)
+    out_i = torch.empty((10, 8, 10), dtype=torch.int32, device=cuda_device)
+    fn = lib.dense_topk_stream_f32_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    smem = td.dense_stream_layout(10, torch.float32)[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (q.data_ptr(), c.data_ptr(), out_s.data_ptr(), out_i.data_ptr())
+    assert fn(*ptrs, 10, 1000, 16, 10, 128, 8, 1, smem, stream) == 0
+    assert fn(*ptrs, 10, 1000, 16, 10, 128, 8, 1, smem + 16, stream) != 0  # bytes differ
+    assert fn(*ptrs, 10, 1000, 16, 10, 128, 8, 0, smem, stream) != 0  # lists elsewhere
+    assert fn(*ptrs, 10, 1000, 16, 10, 128, 7, 1, smem, stream) != 0  # N not covered
+    assert fn(*ptrs, 10, 1000, 16, 10, 100, 8, 1, smem, stream) != 0  # rows not of 128
+    torch.cuda.synchronize()

@@ -70,6 +70,25 @@ def test_stream_long_list_matches_jax():
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=RTOL, atol=ATOL)
 
 
+def test_stream_q_and_n_tails_match_jax():
+    # Q past one 128-query tile and N past three 128-row tiles (the kernel's
+    # block tile), exact ties across tile edges: the plain version vs Pallas
+    rng = np.random.default_rng(15)
+    c = _corpus_with_dups(rng, 389, 24, n_dups=4)
+    c[125:131] = c[3]  # equal rows across the first tile edge
+    c[380:] = c[3]  # and in the ragged last tile
+    q = rng.normal(size=(130, 24)).astype(np.float32)
+    q[127:130] = c[3]  # queries across the query-tile edge that score those rows first
+    js, ji = jd.dense_topk_pallas(
+        jnp.asarray(q), jnp.asarray(c), 17, block_q=8, block_n=128, interpret=True
+    )
+    ts, ti = td.dense_topk_stream(torch.from_numpy(q), torch.from_numpy(c), 17)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=RTOL, atol=ATOL)
+    # the 16 rows equal to row 3 tie for query 128's top; the lowest ids come first
+    np.testing.assert_array_equal(ti.numpy()[128, :13], [3, *range(125, 131), *range(380, 386)])
+
+
 def test_exact_duplicate_rows_order_by_id_and_pad():
     c = np.tile(np.ones((1, 16), np.float32), (50, 1))
     q = np.ones((2, 16), np.float32)
