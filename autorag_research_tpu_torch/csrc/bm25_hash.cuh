@@ -1,13 +1,17 @@
 // bm25_hash: the BM25 scoring body, with a fused streaming top-k, of every
-// walk that scores whole document tiles. bm25_v2.cu launches it under four
-// names, each replacing a kernel of autorag_research_tpu/ops/sparse.py:
-//   bm25_topk_v2_launch       ::_bm25_kernel_v2, the whole-corpus walk (flat);
-//   bm25_topk_v1_launch       ::_bm25_kernel, the v1 pin (the same walk);
-//   bm25_topk_v2_skip_launch  ::_bm25_kernel_v2_skip, the walk skipping the
-//                             doc tiles that the Bloom predicate clears;
-//   bm25_topk_packed_launch   ::_bm25_kernel_packed, the whole-corpus walk
-//                             over the lane-packed [R, 128] layout.
-// All four TPU kernels compute
+// BM25 kernel of the port. bm25_v2.cu launches it under six names, each
+// replacing a kernel of autorag_research_tpu/ops/sparse.py:
+//   bm25_topk_v2_launch            ::_bm25_kernel_v2, the whole-corpus walk (flat);
+//   bm25_topk_v1_launch            ::_bm25_kernel, the v1 pin (the same walk);
+//   bm25_topk_v2_skip_launch       ::_bm25_kernel_v2_skip, the walk skipping the
+//                                  doc tiles that the Bloom predicate clears;
+//   bm25_topk_packed_launch        ::_bm25_kernel_packed, the whole-corpus walk
+//                                  over the lane-packed [R, 128] layout;
+//   bm25_topk_probe_launch         ::_bm25_kernel_probe, the skip walk over the
+//                                  doc tiles of candidate lists (positive_only);
+//   bm25_topk_probe_packed_launch  ::_bm25_kernel_probe_packed, the same over
+//                                  the packed layout.
+// All six TPU kernels compute
 //
 //   score(b, n) = fold over t = 0..T-1, in order: score += m(n, q_ids[b, t]) * q_w[b, t]
 //   m(n, term)  = sum of doc_w[n, l] over the slots l with doc_ids[n, l] == term, in slot order
@@ -56,7 +60,7 @@
 //   16-byte broadcasts. Warp w serves queries w, w + 8, ...: its lanes take D
 //   documents of 32 / D queries at once, and each lane folds its query's
 //   terms in order, one probe each. So the corpus is staged B / QB times,
-//   not B / 8 times as the first design did.
+//   not B / 8 times as with one warp a query.
 // - A lane loads the first buckets of four terms at once; a probe whose
 //   first bucket is full walks on alone, so the warp waits for the few lanes
 //   that collide, not for the longest of all its probes in lockstep. The four
@@ -64,7 +68,7 @@
 // - The epilogue: a ballot of the lanes whose score beats their list's k-th;
 //   each query meets its documents in increasing row order, so ties go to
 //   the lower row. Lists of up to 64 entries take each one by list_insert
-//   (common.cuh), the first design's. Longer lists gather up to 32
+//   (common.cuh). Longer lists gather up to 32
 //   candidates in a buffer in shared memory and merge them in one pass
 //   (merge_buffer): an insertion shifts a list of k entries, and v2's lists
 //   first fill with k zero scores, so k insertions one by one cost k^2 / 32
@@ -73,26 +77,34 @@
 // - Rows too wide for even one document's table beside its staged slots
 //   (the plan's `staged` = 0) take the same body with D = 1, the table in a
 //   global scratch slice of the block's own, and the slots read in place.
-// - The skip walk (SKIP_POS, SKIP_V2). The Bloom predicate comes as one
-//   32-bit mask per (query tile, skip tile of block_n documents),
-//   ops/sparse.py::tile_group_masks: bit g is set when some query of the
-//   tile's 8-query group g may hold a term of the skip tile (the TPU
-//   kernel's own rows of 8 queries; D divides block_n, so a staged tile lies
-//   in one skip tile; a part may start or end inside one). Warp w serves
-//   queries w + 8 j, and query w + 8 j lies in group j, so every warp holds
-//   one query of each group and a mask drops the same steps in every warp. A query whose group bit is 0 scores
-//   exactly 0 on every document of the skip tile (the filter has no false
-//   negatives), so it probes nothing there. positive_only (SKIP_POS): only
-//   scores > 0 enter a list (held at -inf; an unfilled entry leaves as
-//   (0.0, INT_MAX)), so such a query offers nothing, and a skip tile whose
-//   mask is 0 is neither staged nor given tables: the cp.async prefetch
-//   jumps to the next tile some group needs. v2 mode (SKIP_V2): the lists
-//   are #3's, zero fill included, so a query whose bit is 0 offers its zeros
-//   until its list holds a k-th score > 0; a tile is skipped where its mask
-//   is 0 and every list of the block held a k-th > 0 when its prefetch was
-//   decided (a vote at the barrier before). Lists only rise, so the decision
-//   is safe; a tile prefetched before the last lists warmed costs a copy and
-//   a table build, never a result.
+// - The skip walk (SKIP_POS, SKIP_V2). A predicate comes as one 32-bit mask
+//   per (query tile, skip tile of block_n documents): bit g is set when the
+//   tile's 8-query group g may score in the skip tile (the TPU kernels' own
+//   rows of 8 queries; D divides block_n, so a staged tile lies in one skip
+//   tile; a part may start or end inside one). Warp w serves queries w + 8 j,
+//   and query w + 8 j lies in group j, so every warp holds one query of each
+//   group and a mask drops the same steps in every warp. A query whose group
+//   bit is 0 probes nothing there. Two sources of masks:
+//   - the Bloom predicate (ops/sparse.py::tile_group_masks; #5): some query
+//     of the group may hold a term of the skip tile. A query whose bit is 0
+//     scores exactly 0 on every document there (the filter has no false
+//     negatives);
+//   - candidate lists (ops/sparse.py::probe_group_masks; the probes #6,
+//     #8, positive_only only): the group's list holds the skip tile. A query
+//     whose bit is 0 must not score there at all, which positive_only gives.
+//   positive_only (SKIP_POS): only scores > 0 enter a list (held at -inf; an
+//   unfilled entry leaves as (0.0, INT_MAX)), so such a query offers nothing,
+//   and a skip tile whose mask is 0 is neither staged nor given tables: the
+//   cp.async prefetch jumps to the next tile some group needs. Each block
+//   takes an equal share of the documents its query tile stages
+//   (staged_bounds, from a scan of the masks), not of all N, so sparse
+//   masks (the probes' lists) do not leave most blocks idle. v2 mode
+//   (SKIP_V2): the lists are #3's, zero fill included, so a query whose bit
+//   is 0 offers its zeros until its list holds a k-th score > 0; a tile is
+//   skipped where its mask is 0 and every list of the block held a k-th > 0
+//   when its prefetch was decided (a vote at the barrier before). Lists only
+//   rise, so the decision is safe; a tile prefetched before the last lists
+//   warmed costs a copy and a table build, never a result.
 // - The packed layout (PACKED): ops/sparse.py::pack_slots's [R, 128] rows
 //   hold P documents at stride L = 128 / P. Where P is a power of two the
 //   rows are the flat [R P, L] array, and the wrapper launches the flat walk
@@ -102,7 +114,9 @@
 //   n is staged word (n / P - the tile's first row) 128 + (n mod P) L + l,
 //   an offset the block writes per tile. The 128 - P L dead lanes are never
 //   read. A tile of whole rows instead would hold at most 32 / P rows, none
-//   at P = 42, and leave table entries of a power-of-two D empty.
+//   at P = 42, and leave table entries of a power-of-two D empty. The whole
+//   walk (#7) and the positive_only skip walk (the packed probe, #8) take
+//   this layout.
 // Outputs: per-part lists [B, parts, k] in (-score, row) order, merged by the
 // wrapper with merge_topk.
 #pragma once
@@ -300,6 +314,58 @@ __device__ __forceinline__ void stage(const int* __restrict__ doc_ids,
   }
 }
 
+// The positive_only skip walk's part p of `parts`: the documents [x(p W /
+// parts), x((p + 1) W / parts)) of the query tile's walk, W the documents of
+// the skip tiles whose mask `mrow` is not 0 (the only ones staged) and x(c)
+// the place of staged document c rounded down to a multiple of D; part 0
+// starts at 0 and the last ends at N. So every part stages about W / parts
+// documents: parts of N / parts documents each leave those over unlisted
+// skip tiles idle and the others as long as ever. Called by the whole
+// block; `scratch`: WARPS + 2 ints of shared memory.
+__device__ void staged_bounds(const unsigned* __restrict__ mrow, int n_tiles, int block_n, int N,
+                              int p, int parts, int log_d, int* scratch, int& begin, int& end) {
+  const unsigned full = 0xffffffffu;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = (n_tiles + THREADS - 1) / THREADS;  // this thread's skip tiles [j0, j1)
+  const int j0 = min(n_tiles, tid * chunk), j1 = min(n_tiles, j0 + chunk);
+  auto staged = [&](int j) { return __ldg(mrow + j) ? min(block_n, N - j * block_n) : 0; };
+  int mine = 0;
+  for (int j = j0; j < j1; ++j) mine += staged(j);
+  int incl = mine;  // a scan over the warp, then over the warps
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(full, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  int first = incl - mine, total = 0;  // staged documents before this thread's tiles, and in all
+  for (int w = 0; w < WARPS; ++w) {
+    const int v = scratch[w];
+    if (w < warp) first += v;
+    total += v;
+  }
+  if (tid < 2) scratch[WARPS + tid] = N;  // a target past the last staged document
+  __syncthreads();
+  for (int e = 0; e < 2; ++e) {
+    const int c = (int)((long long)(p + e) * total / parts);
+    if (c >= first && c < first + mine) {  // staged document c lies in this thread's tiles
+      int acc = first;
+      for (int j = j0; j < j1; ++j) {
+        const int s = staged(j);
+        if (c < acc + s) {
+          scratch[WARPS + e] = j * block_n + (((c - acc) >> log_d) << log_d);
+          break;
+        }
+        acc += s;
+      }
+    }
+  }
+  __syncthreads();
+  begin = p == 0 ? 0 : scratch[WARPS];
+  end = p == parts - 1 ? N : scratch[WARPS + 1];
+  __syncthreads();  // the scratch is free again
+}
+
 template <bool STAGED, int WALK, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 2)
 bm25_hash_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
@@ -350,9 +416,13 @@ bm25_hash_kernel(const int* __restrict__ q_ids, const float* __restrict__ q_w,
   };
 
   // the block walks the tiles d = 0, 1, ... of D documents of its part;
-  // the skip walks only those of the skip tiles they need
-  const int begin = p * part;
-  const int end = min(N, begin + part);
+  // the skip walks only those of the skip tiles they need, positive_only
+  // over parts of equal staged documents
+  int begin = p * part, end = min(N, begin + part);
+  if (WALK == SKIP_POS) {
+    staged_bounds(masks + (size_t)qt * n_tiles, n_tiles, block_n, N, p, parts, log_d, s_dup, begin,
+                  end);
+  }
   const int n_dt = end > begin ? (end - begin + D - 1) >> log_d : 0;
   // the mask of tile d's skip tile, documents [m_lo, m_hi): loaded, and
   // divided for, once per skip tile (a tile of D documents is a few
@@ -709,13 +779,15 @@ int start(int smem, int blocks, void* stream, const void* q_ids, const void* q_w
 // wrapper's choice where pack is no power of two), contiguous, 16-byte
 // aligned when vec != 0 (then docs * L % 4 == 0 on the flat layout). out_s /
 // out_i [B, parts, k]: part p covers documents [p*part, (p+1)*part), a
-// multiple of `docs`. The plan (qb, docs, table, list_smem, staged, smem) is
+// multiple of `docs` (SKIP_POS: an equal share of the staged documents,
+// staged_bounds). The plan (qb, docs, table, list_smem, staged, smem) is
 // ops/sparse.py::bm25_hash_plan's; smem must equal Layout's total. staged
 // == 0: docs == 1, and g_tab holds q_tiles * parts * table (key, weight)
 // pairs of scratch, 16-byte aligned. walk: FULL, or a skip walk (SKIP_POS /
 // SKIP_V2) with masks [q_tiles, n_tiles] uint32 (ops/sparse.py::
-// tile_group_masks at qb), n_tiles = ceil(N / block_n), block_n a multiple
-// of docs (a part may start inside a skip tile); stats, when not null, two
+// tile_group_masks or probe_group_masks at qb), n_tiles = ceil(N /
+// block_n), block_n a multiple of docs (a part may start inside a skip
+// tile; pack > 1 takes FULL or SKIP_POS); stats, when not null, two
 // uint64 counters that the skip walks add to: (query, document) pairs that
 // probed nothing, and (query tile, document) pairs never staged. `want` is the
 // walk the launcher serves (FULL, or SKIP_POS for either skip walk).
@@ -743,7 +815,7 @@ inline int launch(int want, const void* q_ids, const void* q_w, const void* doc_
                        (long long)(n_tiles - 1) * block_n >= N)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (pack < 1 || (pack > 1 && (walk != FULL || !staged || L != PACKED_LANES / pack)) ||
+  if (pack < 1 || (pack > 1 && (walk == SKIP_V2 || !staged || L != PACKED_LANES / pack)) ||
       (pack == 1 && vec && (docs * L) % 4)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -758,7 +830,9 @@ inline int launch(int want, const void* q_ids, const void* q_w, const void* doc_
   start<S, W, P>(smem, (int)blocks, stream, q_ids, q_w, doc_ids, doc_w, masks, out_s, out_i, \
                  g_tab, stats, B, T, N, L, k, part, parts, q_tiles, qb, log_d, log_h,         \
                  list_smem, vec, block_n, n_tiles, pack)
-  if (pack > 1) return BM25_HASH_START(true, FULL, true);
+  if (pack > 1) {
+    return walk == SKIP_POS ? BM25_HASH_START(true, SKIP_POS, true) : BM25_HASH_START(true, FULL, true);
+  }
   if (walk == SKIP_POS) {
     return staged ? BM25_HASH_START(true, SKIP_POS, false) : BM25_HASH_START(false, SKIP_POS, false);
   }
@@ -771,7 +845,7 @@ inline int launch(int want, const void* q_ids, const void* q_w, const void* doc_
 
 }  // namespace bm25_hash
 
-// The C signature of the four launchers (bm25_v2.cu).
+// The C signature of the six launchers (bm25_v2.cu).
 #define BM25_HASH_ARGS                                                                        \
   const void *q_ids, const void *q_w, const void *doc_ids, const void *doc_w,                 \
       const void *masks, void *out_s, void *out_i, void *g_tab, void *stats, int B, int T,    \

@@ -27,14 +27,15 @@ bit.
   body skipping, per 8-query group, the doc tiles that the 4-probe Bloom
   predicate clears (:func:`tile_group_masks`); ``positive_only`` masks
   scores <= 0 and pads under-full rows with ``(0.0, INT_MAX)``.
-- :func:`bm25_topk_probe` (JAX ``bm25_topk_pallas_probe``): the first body
-  of ``csrc/bm25_v2.cu`` over explicit per-query-tile candidate doc tiles,
-  from the exact host term -> tile lists (:func:`build_term_tile_lists`,
-  :func:`probe_candidates`) or the two-pass tile-WAND bound
-  (:func:`bm25_topk_wand`).
-- :func:`bm25_topk_packed` (JAX ``bm25_topk_pallas_packed``): the hash body
-  over the packed layout; :func:`bm25_topk_probe_packed` (JAX
-  ``bm25_topk_pallas_probe_packed``): the first body's probe walk over it.
+- :func:`bm25_topk_probe` (JAX ``bm25_topk_pallas_probe``): the hash body's
+  skip walk in ``positive_only`` mode over explicit candidate doc tiles per
+  8-query tile, from the exact host term -> tile lists
+  (:func:`build_term_tile_lists`, :func:`probe_candidates`) or the two-pass
+  tile-WAND bound (:func:`bm25_topk_wand`), folded into the walk's group
+  masks on the device (:func:`probe_group_masks`).
+- :func:`bm25_topk_packed` (JAX ``bm25_topk_pallas_packed``) and
+  :func:`bm25_topk_probe_packed` (JAX ``bm25_topk_pallas_probe_packed``):
+  the whole walk and the probe over the packed layout, on the same body.
 - :func:`bm25_route` / :func:`pruned_leg` / :func:`bm25_topk`: the dispatch.
 
 CPU tensors take each kernel's plain version; CUDA tensors launch the kernel
@@ -94,7 +95,7 @@ KERNEL_T_MAX = 2048
 SKIP_BLOCK_N = 2048
 # largest k the pruned routes serve (the JAX package's pruned_ok gate)
 PRUNED_K_MAX = 2048
-# queries per block of the probe walks, and per row of the tile predicate
+# queries per row of the probes' candidate lists and of the tile predicate
 BLOCK_Q = 8
 # words in a row of the lane-packed layout
 PACKED_LANES = 128
@@ -497,6 +498,19 @@ def tile_match(q_ids: torch.Tensor, bitmaps: torch.Tensor, bq: int = BLOCK_Q) ->
     return hits[:, row_src].reshape(n_tiles, q_tiles, bq).any(dim=2).T
 
 
+def _check_group_tile(qb: int) -> None:
+    if qb % BLOCK_Q or not BLOCK_Q <= qb <= HASH_QB_MAX:
+        raise ValueError(f"qb={qb} must be a multiple of {BLOCK_Q} in [{BLOCK_Q}, {HASH_QB_MAX}]")
+
+
+def _pack_group_bits(groups: torch.Tensor) -> torch.Tensor:
+    """[q_tiles, qb / 8, n_tiles] bool -> int32 [q_tiles, n_tiles] masks, bit g
+    from group g (bit 31 the sign bit)."""
+    bits = torch.arange(groups.shape[1], device=groups.device)[None, :, None]
+    masks = (groups.to(torch.int64) << bits).sum(dim=1)
+    return torch.where(masks >= 2**31, masks - 2**32, masks).to(torch.int32).contiguous()
+
+
 def tile_group_masks(q_ids: torch.Tensor, bitmaps: torch.Tensor, qb: int) -> torch.Tensor:
     """The skip walk's predicate, int32 [ceil(B/qb), n_tiles] on the bitmaps'
     device: bit g of entry (i, j) is set iff some query of the 8-query group
@@ -506,16 +520,41 @@ def tile_group_masks(q_ids: torch.Tensor, bitmaps: torch.Tensor, qb: int) -> tor
     that queries past B set no bit, where ``tile_match`` ORs rows of other
     tiles into its last row. ``qb`` is a multiple of 8 up to
     ``HASH_QB_MAX`` (32 groups, bit 31 the sign bit)."""
-    if qb % BLOCK_Q or not BLOCK_Q <= qb <= HASH_QB_MAX:
-        raise ValueError(f"qb={qb} must be a multiple of {BLOCK_Q} in [{BLOCK_Q}, {HASH_QB_MAX}]")
+    _check_group_tile(qb)
     hits = _query_tile_hits(q_ids, bitmaps)
     n_tiles, b = hits.shape
     q_tiles = -(-b // qb)
     hits = torch.cat([hits, hits.new_zeros((n_tiles, q_tiles * qb - b))], dim=1)
     groups = hits.reshape(n_tiles, q_tiles, qb // BLOCK_Q, BLOCK_Q).any(dim=3)
-    bits = torch.arange(qb // BLOCK_Q, device=hits.device)
-    masks = (groups.to(torch.int64) << bits).sum(dim=2).T
-    return torch.where(masks >= 2**31, masks - 2**32, masks).to(torch.int32).contiguous()
+    return _pack_group_bits(groups.permute(1, 2, 0))
+
+
+def probe_group_masks(cand: torch.Tensor, count: torch.Tensor, b: int, qb: int,
+                      n_tiles: int) -> torch.Tensor:
+    """The probes' skip masks from their candidate lists, int32 [ceil(B/qb),
+    n_tiles] on ``cand``'s device: bit g of entry (i, j) is set iff tile j is
+    a live, in-range entry of row ``i qb / 8 + g`` of ``cand`` [ceil(B/8),
+    cap] (the rows of :func:`_candidate_mask`): an entry before ``count``
+    (so a count past ``cap`` counts ``cap``), with ``0 <= tile < n_tiles``;
+    a repeated entry sets its bit once, in any order; rows past ceil(B/8)
+    set none. ``qb`` and the bit layout as in :func:`tile_group_masks`.
+    Tensor ops on the device only: no host sync."""
+    _check_group_tile(qb)
+    dev = cand.device
+    cand = cand.to(torch.int64)
+    rows, cap = cand.shape
+    q_tiles = -(-b // qb)
+    live = (cand >= 0) & (cand < n_tiles)
+    live &= torch.arange(cap, device=dev) < count.to(dev)[:, None]
+    if rows > -(-b // BLOCK_Q):
+        live[-(-b // BLOCK_Q):] = False
+    # one flag per (8-query group, tile) and one dump slot for dead entries:
+    # an index put, so repeats set a flag once and nothing is read back
+    size = q_tiles * (qb // BLOCK_Q) * n_tiles
+    flags = torch.zeros(size + 1, dtype=torch.bool, device=dev)
+    row_start = torch.arange(0, rows * n_tiles, n_tiles, device=dev)[:, None]
+    flags[torch.where(live, cand + row_start, size)] = True
+    return _pack_group_bits(flags[:size].view(q_tiles, qb // BLOCK_Q, n_tiles))
 
 
 # ------------------------------------------------- host term -> tile lists
@@ -649,15 +688,6 @@ def _check_kernel_operands(q_ids, q_w, doc_ids, doc_w) -> None:
         raise ValueError(f"the BM25 kernel stages at most {KERNEL_T_MAX} terms per query")
 
 
-def _kernel_parts(q_tiles: int, cap: int, device: torch.device) -> tuple[int, int]:
-    """(part, parts): split the ``cap`` candidate entries of a probe walk so
-    that the grid holds about eight blocks per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    parts = max(1, min(cap, -(-8 * sms // q_tiles)))
-    part = -(-cap // parts)
-    return part, -(-cap // part)
-
-
 def _kernel_queries(q_ids, q_w, dev):
     return (torch.as_tensor(q_ids).to(dev, torch.int32).contiguous(),
             torch.as_tensor(q_w).to(dev, torch.float32).contiguous())
@@ -774,13 +804,36 @@ def bm25_hash_plan(b: int, t: int, n: int, slots: int, k: int, sms: int,
     return HashPlan(qb, docs, table, list_smem, staged, smem, q_tiles, part, -(-n // part), per_sm)
 
 
-def _hash_topk(name: str, q_ids, q_w, doc_ids, doc_w, k: int, qb_max: int = HASH_QB, skip=None,
-               n_docs: int | None = None, pack: int = 1, stats: torch.Tensor | None = None):
+def bm25_tile_plan(b: int, t: int, n: int, slots: int, k: int, sms: int, qb_max: int = HASH_QB,
+                   block_n: int | None = None, pack: int = 1) -> HashPlan:
+    """The plan a hash-body launch takes (pure): :func:`bm25_hash_plan`'s,
+    but a query tile past ``HASH_QB`` only where it stages as many documents
+    a tile (D) as the ``HASH_QB`` plan, else that plan. A wider tile halves
+    the table builds, once per (query tile, document), which pays where they
+    are most of the walk, as for the probes' few live terms; past the lists'
+    shared-memory room it halves D too, and then costs more than it saves
+    (``chip_smoke.py``'s query-tile sweeps of the probe on an H100 SXM: QB
+    256 28% faster at k = 10, 41% slower at k = 1,000 with D 2 for 4)."""
+    plan = bm25_hash_plan(b, t, n, slots, k, sms, qb_max, block_n, pack)
+    if qb_max <= HASH_QB:
+        return plan
+    base = bm25_hash_plan(b, t, n, slots, k, sms, HASH_QB, block_n, pack)
+    return plan if plan.docs >= base.docs else base
+
+
+def _hash_topk(name: str, q_ids, q_w, doc_ids, doc_w, k: int, qb_max: int = HASH_QB, *,
+               group_masks: Callable[[int], torch.Tensor] | None = None, block_n: int | None = None,
+               positive_only: bool = True, n_docs: int | None = None, pack: int = 1,
+               stats: torch.Tensor | None = None):
     """Top-k of CUDA tensors through ``csrc/bm25_hash.cuh``'s body, launched
-    by ``csrc/bm25_v2.cu``'s ``<name>_launch`` on :func:`bm25_hash_plan`'s
-    plan and counted under ``LAUNCHES[name]``; per-part lists merged.
-    ``skip = (bitmaps, block_n, positive_only)`` takes the skip walk, with
-    :func:`tile_group_masks` at the plan's query tile. ``pack > 1``:
+    by ``csrc/bm25_v2.cu``'s ``<name>_launch`` on :func:`bm25_tile_plan`'s
+    plan (query tiles up to ``qb_max``) and counted under ``LAUNCHES[name]``;
+    per-part lists merged.
+    ``group_masks`` takes the skip walk over skip tiles of ``block_n``
+    documents: called with the plan's query tile ``qb``, it returns the
+    walk's int32 [ceil(B/qb), ceil(N/block_n)] masks (the caller's
+    predicate: :func:`tile_group_masks` or :func:`probe_group_masks`);
+    ``positive_only`` picks the walk's mode. ``pack > 1``:
     ``doc_ids`` / ``doc_w`` are :func:`pack_slots`'s rows holding ``n_docs``
     documents (a power-of-two pack is read as the flat [R pack, 128 / pack]
     array it is). ``stats``: a CUDA int64 [2] that the skip walk adds its
@@ -802,13 +855,16 @@ def _hash_topk(name: str, q_ids, q_w, doc_ids, doc_w, k: int, qb_max: int = HASH
             doc_ids, doc_w = (x.view(-1, slots)[:n] for x in (doc_ids, doc_w))
             pack = 1
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    block_n = skip[1] if skip is not None else None
-    plan = bm25_hash_plan(b, t, n, slots, k_eff, sms, qb_max, block_n, pack)
+    plan = bm25_tile_plan(b, t, n, slots, k_eff, sms, qb_max, block_n, pack)
     masks = None
     walk = _WALK_FULL
-    if skip is not None:
-        bitmaps, _, positive_only = skip
-        masks = tile_group_masks(q_ids, bitmaps.to(dev), plan.qb)
+    if group_masks is not None:
+        masks = group_masks(plan.qb)
+        if masks.shape != (plan.q_tiles, -(-n // block_n)) or masks.dtype != torch.int32 \
+                or masks.device != dev:
+            raise ValueError(f"group masks {tuple(masks.shape)} {masks.dtype} on {masks.device}: "
+                             f"the skip walk takes int32 [{plan.q_tiles}, {-(-n // block_n)}] on {dev}")
+        masks = masks.contiguous()
         walk = _WALK_SKIP_POS if positive_only else _WALK_SKIP_V2
     out_s = torch.empty((b, plan.parts, k_eff), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, plan.parts, k_eff), dtype=torch.int32, device=dev)
@@ -836,49 +892,6 @@ def _hash_topk(name: str, q_ids, q_w, doc_ids, doc_w, k: int, qb_max: int = HASH
     LAUNCHES[name] += 1
     scores, ids = merge_topk(out_s, out_i, k_eff)
     return pad_to_k(scores, ids, k, k_eff)
-
-
-def _launch(name: str, q_ids, q_w, doc_ids, doc_w, k_eff: int, cand, count,
-            block_n: int = SKIP_BLOCK_N, n_docs: int | None = None, pack: int = 1):
-    """Launch one probe walk of csrc/bm25_v2.cu's first body -> per-part
-    lists [B, P, k_eff] (scores, rows). ``pack > 1``: ``doc_ids`` /
-    ``doc_w`` hold ``n_docs`` documents in the packed layout, and
-    ``block_n`` counts documents."""
-    dev = doc_ids.device
-    q_ids, q_w = _kernel_queries(q_ids, q_w, dev)
-    _check_kernel_operands(q_ids, q_w, doc_ids, doc_w)
-    b, t = q_ids.shape
-    n, slots = (n_docs, PACKED_LANES // pack) if pack > 1 else doc_ids.shape
-    q_tiles = -(-b // BLOCK_Q)
-    n_tiles = -(-n // block_n)
-    cap = cand.shape[1]
-    part, parts = _kernel_parts(q_tiles, cap, dev)
-    out_s = torch.empty((b, parts, k_eff), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, parts, k_eff), dtype=torch.int32, device=dev)
-    # 16-byte loads: a flat row of a multiple of 4 slots, or any packed row
-    vec = (pack > 1 or slots % 4 == 0) and doc_ids.data_ptr() % 16 == 0 and doc_w.data_ptr() % 16 == 0
-    fn = getattr(cuda_build.load("bm25_v2"), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(
-        q_ids.data_ptr(), q_w.data_ptr(), doc_ids.data_ptr(), doc_w.data_ptr(),
-        cand.data_ptr(), count.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        b, t, n, slots, k_eff, part, parts, q_tiles, n_tiles, cap, block_n, int(vec), pack,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    cuda_build.check_launch(rc, name)
-    LAUNCHES[name] += 1
-    return out_s, out_i
-
-
-def _sorted_candidates(cand, count, dev):
-    """(cand, count) on the device for the probe walks: counts clamped to the
-    list length, the live entries sorted (then the walk meets rows in
-    increasing order), the dead ones INT_MAX."""
-    cand = torch.as_tensor(cand).to(dev, torch.int32)
-    count = torch.as_tensor(count).to(dev, torch.int32).clamp(0, cand.shape[1]).contiguous()
-    live = torch.arange(cand.shape[1], device=dev)[None, :] < count[:, None]
-    return torch.where(live, cand, INT_MAX).sort(dim=1).values.contiguous(), count
 
 
 def _empty_topk(b: int, k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -930,8 +943,10 @@ def bm25_topk_v2_skip(
             q_ids, q_weights, doc_ids, doc_weights, bitmaps, k, block_n, positive_only
         )
     _check_bitmaps(bitmaps, doc_ids.shape[0], block_n)
+    bitmaps = bitmaps.to(doc_ids.device)
     return _hash_topk("bm25_topk_v2_skip", q_ids, q_weights, doc_ids, doc_weights, k,
-                      skip=(bitmaps, block_n, positive_only))
+                      group_masks=lambda qb: tile_group_masks(q_ids, bitmaps, qb), block_n=block_n,
+                      positive_only=positive_only)
 
 
 def bm25_topk_probe(
@@ -947,25 +962,41 @@ def bm25_topk_probe(
     """Probe-mode BM25 top-k over explicit candidate doc tiles (JAX
     ``bm25_topk_pallas_probe``): ``cand`` [ceil(B/8), cap] int32 lists the
     tiles of ``block_n`` rows that each query tile of 8 queries scores,
-    ``count`` [ceil(B/8)] how many entries are live. Exact only if every
-    tile holding a positive score is listed. ``positive_only``: hits in
-    ``(-score, row)`` order, rows padded with ``(0.0, INT_MAX)``. CUDA
-    tensors launch ``csrc/bm25_v2.cu`` (the live entries sorted first, so
-    the walk meets rows in increasing order); CPU tensors take
-    :func:`bm25_topk_probe_plain`."""
+    ``count`` [ceil(B/8)] how many entries are live (entries past ``cap``,
+    outside the corpus's tiles or repeated change nothing; any order).
+    Exact only if every tile holding a positive score is listed.
+    ``positive_only``: hits in ``(-score, row)`` order, rows padded with
+    ``(0.0, INT_MAX)``. CUDA tensors launch ``csrc/bm25_v2.cu``'s
+    ``bm25_topk_probe_launch``: the hash body's skip walk in
+    ``positive_only`` mode over the lists' :func:`probe_group_masks`; CPU
+    tensors take :func:`bm25_topk_probe_plain`."""
     if not doc_ids.is_cuda:
         return bm25_topk_probe_plain(q_ids, q_weights, doc_ids, doc_weights, cand, count, k, block_n)
+    return _probe_topk("bm25_topk_probe", q_ids, q_weights, doc_ids, doc_weights, cand, count, k,
+                       block_n)
+
+
+def _probe_topk(name: str, q_ids, q_w, doc_ids, doc_w, cand, count, k: int, block_n: int,
+                n_docs: int | None = None, pack: int = 1):
+    """A probe on CUDA tensors: :func:`_hash_topk`'s skip walk in
+    ``positive_only`` mode over skip tiles of ``block_n`` documents, its
+    masks built on the device from (``cand``, ``count``) at the plan's
+    query tile (:func:`probe_group_masks`), that tile up to
+    ``HASH_QB_MAX`` (:func:`bm25_tile_plan`); the empty cases answer
+    ``(0.0, INT_MAX)`` without a launch."""
+    dev = doc_ids.device
     b = q_ids.shape[0]
     _check_candidates(cand, count, b)
-    k_eff = min(k, doc_ids.shape[0])
+    n = doc_ids.shape[0] if n_docs is None else n_docs
+    k_eff = min(k, n)
     if k_eff == 0 or b == 0 or cand.shape[1] == 0:
-        s, i = _empty_topk(b, k_eff, doc_ids.device)
+        s, i = _empty_topk(b, k_eff, dev)
         return pad_to_k(*_positive_filler(s, i), k, k_eff)
-    cand, count = _sorted_candidates(cand, count, doc_ids.device)
-    out_s, out_i = _launch("bm25_topk_probe", q_ids, q_weights, doc_ids, doc_weights, k_eff, cand, count,
-                           block_n)
-    scores, ids = merge_topk(out_s, out_i, k_eff)
-    return pad_to_k(scores, ids, k, k_eff)
+    cand, count = torch.as_tensor(cand).to(dev), torch.as_tensor(count).to(dev)
+    n_tiles = -(-n // block_n)
+    return _hash_topk(name, q_ids, q_w, doc_ids, doc_w, k, HASH_QB_MAX,
+                      group_masks=lambda qb: probe_group_masks(cand, count, b, qb, n_tiles),
+                      block_n=block_n, positive_only=True, n_docs=n_docs, pack=pack)
 
 
 def bm25_topk_packed(
@@ -1012,24 +1043,17 @@ def bm25_topk_probe_packed(
     contract of :func:`bm25_topk_probe`: positive hits in ``(-score, row)``
     order, rows padded with ``(0.0, INT_MAX)``. ``ValueError`` when
     ``min(k, n_docs) > block_n``, as in the JAX package. CUDA tensors launch
-    ``csrc/bm25_v2.cu``'s packed probe walk; CPU tensors take
+    ``csrc/bm25_v2.cu``'s ``bm25_topk_probe_packed_launch``, the probe's
+    skip walk over the packed rows (a power-of-two pack's rows read as the
+    flat array they are); CPU tensors take
     :func:`bm25_topk_probe_packed_plain`."""
     if not packed_ids.is_cuda:
         return bm25_topk_probe_packed_plain(q_ids, q_weights, packed_ids, packed_weights, n_docs,
                                             pack, cand, count, k, block_n)
     _check_packed(packed_ids, packed_weights, n_docs, pack)
-    k_eff = min(k, n_docs)
-    _check_probe_k(k_eff, block_n)
-    b = q_ids.shape[0]
-    _check_candidates(cand, count, b)
-    if k_eff == 0 or b == 0 or cand.shape[1] == 0:
-        s, i = _empty_topk(b, k_eff, packed_ids.device)
-        return pad_to_k(*_positive_filler(s, i), k, k_eff)
-    cand, count = _sorted_candidates(cand, count, packed_ids.device)
-    out_s, out_i = _launch("bm25_topk_probe_packed", q_ids, q_weights, packed_ids, packed_weights,
-                           k_eff, cand, count, block_n * pack, n_docs, pack)
-    scores, ids = merge_topk(out_s, out_i, k_eff)
-    return pad_to_k(scores, ids, k, k_eff)
+    _check_probe_k(min(k, n_docs), block_n)
+    return _probe_topk("bm25_topk_probe_packed", q_ids, q_weights, packed_ids, packed_weights, cand,
+                       count, k, block_n * pack, n_docs, pack)
 
 
 def bm25_topk_v1(

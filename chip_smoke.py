@@ -53,16 +53,20 @@ serving modes at full width and fails (non-zero exit) on any fault:
    ``VectorSearchPipeline(search_mode="multi")`` verified: 3,000 rows,
    recall@10 / ndcg@10, rows held against an exact search, the scores kernel
    launched;
-9. the three BM25 kernels (``csrc/bm25_v2.cu``; v2's whole-corpus walk and
-   the skip walk on the hash body of ``csrc/bm25_hash.cuh``, each launch's
-   tile plan logged, the probe walk on the first body) against their plain
+9. the three BM25 kernels (``csrc/bm25_v2.cu``'s launchers of the hash body
+   ``csrc/bm25_hash.cuh``: v2's whole-corpus walk, the skip walk, and the
+   probe as the skip walk over masks built from its candidate lists; each
+   launch's tile plan logged) against their plain
    versions at the repo's BM25 benchmark shapes (500,000 docs x 128 slots of
    unique terms, 25% padded at random places, vocabulary 200,000; 32
    queries x 16 terms): v2 at k = 10, 100 and 1,000, the skip kernel in both
    modes, and on a clustered variant (where tiles prune) the skip kernel and
    the probe kernel over the exact candidate tiles; the skip walk's own
    counts of (query, document) pairs that probed nothing and (query tile,
-   document) pairs never staged printed; each bitwise equal to its plain version, with its
+   document) pairs never staged printed, for the probe with the density of
+   its group masks and, at these sub-millisecond shapes, its kernel's own
+   device time by ``torch.profiler`` beside the call's CUDA-event time; each
+   bitwise equal to its plain version, with its
    time, the plain version's, a CSR ``sparse.mm`` + ``topk`` yardstick's and
    its bound;
 10. the BM25 main path with every launch count at 0 just before it: a
@@ -77,8 +81,9 @@ serving modes at full width and fails (non-zero exit) on any fault:
     main path's shapes, v1 (#4, v2's kernel under the pin's name) and the
     skip kernel in v2 mode (#5) bitwise equal to v2 (#3) there, the hash
     body's tile plans and the skip walk's counts on the Zipf batch logged,
-    and v2 and the skip kernel timed with their query tiles capped at 64,
-    128 (the default) and 256;
+    and v2, the skip kernel and the probe (at k = 10 and 1,000; its plan,
+    mask density, counters and a profiler split logged too) timed with their
+    query tiles capped at 64, 128 (the default) and 256;
 11. SciFact-size catalog runs through ``BM25Pipeline``, defaults and
     ``bucketize=2`` on the same catalog: 3,000 rows each, rows equal to an exact
     scan, equal recall@10 / ndcg@10, a pruned leg launched by the flat run;
@@ -87,8 +92,10 @@ serving modes at full width and fails (non-zero exit) on any fault:
     (pack 8) beside the v2 kernel over the flat layout of the same arrays,
     bitwise equal to both, k = 10 and 100; the packed probe at 500,000
     clustered log-uniform short docs (256-row tiles, 32 rare-term queries x 8
-    terms, k = 10) beside the flat probe; the v1 kernel (v2's hash body under
-    the pin's name) at phase 9's uniform shapes; each with its time, the plain
+    terms, k = 10) beside the flat probe (both the skip walk over
+    candidate-list masks; the packed probe's plan, mask density, counters and
+    profiler split logged); the v1 kernel (v2's hash body under the pin's
+    name) at phase 9's uniform shapes; each with its time, the plain
     version's, the CSR yardstick's and its bound;
 13. the short-doc main path with every launch count at 0 just before it: a
     packed ``SparseIndex`` of 522,931 texts of 4-19 Zipf words (BEIR Quora's
@@ -99,7 +106,9 @@ serving modes at full width and fails (non-zero exit) on any fault:
     a flat upload of the same index; the three new kernels launched, no plain
     version; then each new kernel at the main path's shapes, the packed
     kernel (pack 6, dead lanes: whole rows staged) bitwise equal to v2 over
-    the flat upload, its tile plan logged;
+    the flat upload, its tile plan logged, the packed probe (pack 6: whole
+    packed rows staged on the skip walk) with its plan, mask density and
+    counters, timed at QB = 64, 128 and 256;
 14. a bucketed ``SparseIndex`` (``bucketize=2``) of 500,000 texts, 90% of
     10-16 and 10% of 100-128 Zipf words: its buckets and ``device_bytes``
     against the flat layout's, 1,024 NQ-like queries at k = 10 and 100, hits
@@ -639,14 +648,14 @@ def zipf_texts(rng, words: list[str], n: int, lo: int, hi: int) -> list[str]:
 
 
 # source file and TPU kernel line (autorag_research_tpu/ops/sparse.py) of
-# each BM25 kernel wrapper (v2, v1, the skip and the packed walks run the
-# hash body, launched from bm25_v2.cu; the probe walks its first body)
+# each BM25 kernel wrapper (all six run the hash body, launched from
+# bm25_v2.cu)
 BM25_KERNELS = {
     "bm25_topk_v2": ("bm25_hash.cuh", 295),
     "bm25_topk_v2_skip": ("bm25_hash.cuh", 474),
-    "bm25_topk_probe": ("bm25_v2.cu", 722),
+    "bm25_topk_probe": ("bm25_hash.cuh", 722),
     "bm25_topk_packed": ("bm25_hash.cuh", 934),
-    "bm25_topk_probe_packed": ("bm25_v2.cu", 1088),
+    "bm25_topk_probe_packed": ("bm25_hash.cuh", 1088),
     "bm25_topk_v1": ("bm25_hash.cuh", 107),
 }
 
@@ -705,7 +714,7 @@ def bm25_check_equal(label, got, ref) -> float:
 
 
 def hash_plan_note(label: str, q_ids, doc_ids, k: int, block_n: int | None = None,
-                   n_docs: int | None = None, pack: int = 1):
+                   n_docs: int | None = None, pack: int = 1, qb_max: int | None = None):
     """Log the hash body's tile plan (csrc/bm25_hash.cuh) that a launch on
     these operands takes (the skip walk's with ``block_n``, the packed
     walk's with ``n_docs`` and ``pack``): D, QB, the table, the
@@ -720,7 +729,7 @@ def hash_plan_note(label: str, q_ids, doc_ids, k: int, block_n: int | None = Non
     if pack > 1:  # a power-of-two pack's rows are the flat array
         n, slots, pack = n_docs, 128 // pack, 1 if pack & (pack - 1) == 0 else pack
     sms = torch.cuda.get_device_properties(doc_ids.device).multi_processor_count
-    plan = ts.bm25_hash_plan(b, t, n, slots, min(k, n), sms, block_n=block_n, pack=pack)
+    plan = ts.bm25_tile_plan(b, t, n, slots, min(k, n), sms, qb_max or ts.HASH_QB, block_n, pack)
     log(f"  hash plan, {label}: D={plan.docs}, QB={plan.qb}, table {plan.table} entries, "
         f"{plan.smem} B shared memory, lists in "
         f"{'shared memory' if plan.list_smem else 'the output'}, "
@@ -742,8 +751,8 @@ def skip_counts(label: str, args, bitmaps, k: int, positive_only: bool, ref) -> 
     from autorag_research_tpu_torch.ops import sparse as ts
 
     stats = torch.zeros(2, dtype=torch.int64, device=args[0].device)
-    got = ts._hash_topk("bm25_topk_v2_skip", *args, k, skip=(bitmaps, ts.SKIP_BLOCK_N, positive_only),
-                        stats=stats)
+    got = ts._hash_topk("bm25_topk_v2_skip", *args, k, group_masks=skip_masks(args[0], bitmaps),
+                        block_n=ts.SKIP_BLOCK_N, positive_only=positive_only, stats=stats)
     bm25_check_equal(f"  bm25_topk_v2_skip with its counters, {label}", got, ref)
     sms = torch.cuda.get_device_properties(args[0].device).multi_processor_count
     (b, t), (n, slots) = args[0].shape, args[2].shape
@@ -756,10 +765,73 @@ def skip_counts(label: str, args, bitmaps, k: int, positive_only: bool, ref) -> 
     return out
 
 
+def skip_masks(q_ids, bitmaps):
+    """The skip walk's Bloom masks as ``bm25_topk_v2_skip`` builds them, a
+    function of the plan's query tile."""
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    return lambda qb: ts.tile_group_masks(q_ids, bitmaps, qb)
+
+
+def probe_masks(cand, count, b: int, n: int, block_n: int):
+    """The probes' masks as ``bm25_topk_probe`` builds them from its lists, a
+    function of the plan's query tile."""
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    return lambda qb: ts.probe_group_masks(cand, count, b, qb, -(-n // block_n))
+
+
+def probe_note(label: str, name: str, args, cand, count, k: int, block_n: int, ref,
+               n_docs: int | None = None, pack: int = 1) -> None:
+    """One probe launch (``name``: ``bm25_topk_probe`` or
+    ``bm25_topk_probe_packed``; ``block_n`` in documents) with the skip
+    walk's counters, outside any launch window, its result held bitwise
+    against ``ref``. Logs its plan (QB, D, parts), the density
+    of its group masks (the (8-query group, skip tile) pairs a list names,
+    and the (query tile, skip tile) pairs some group names: the tiles a
+    block stages) and the counters' shares: (query, document) pairs that
+    probed nothing, (query tile, document) pairs never staged."""
+    import torch
+
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    q_ids, doc_ids = args[0], args[2]
+    b = q_ids.shape[0]
+    n = doc_ids.shape[0] if n_docs is None else n_docs
+    stats = torch.zeros(2, dtype=torch.int64, device=q_ids.device)
+    got = ts._hash_topk(name, *args, k, ts.HASH_QB_MAX, block_n=block_n, n_docs=n_docs, pack=pack,
+                        stats=stats, group_masks=probe_masks(cand, count, b, n, block_n))
+    bm25_check_equal(f"  {name} with its counters, {label}", got, ref)
+    plan = hash_plan_note(label, q_ids, doc_ids, k, block_n=block_n, n_docs=n_docs, pack=pack,
+                          qb_max=ts.HASH_QB_MAX)
+    n_tiles = -(-n // block_n)
+    masks = ts.probe_group_masks(cand, count, b, plan.qb, n_tiles)
+    bits = (masks.long()[..., None] >> torch.arange(32, device=masks.device)) & 1
+    pairs, docs = stats.tolist()
+    log(f"  probe walk, {label}: QB={plan.qb}, D={plan.docs}, {plan.q_tiles} query tiles x "
+        f"{plan.parts} parts; (8-query group, skip tile of {block_n}) pairs listed "
+        f"{float(bits.sum()) / (-(-b // 8) * n_tiles):.4f}, (query tile, skip tile) pairs staged "
+        f"{float((masks != 0).float().mean()):.4f}; (query, document) pairs that probed nothing "
+        f"{pairs}/{b * n} = {pairs / (b * n):.4f}; (query tile, document) pairs never staged "
+        f"{docs}/{plan.q_tiles * n} = {docs / (plan.q_tiles * n):.4f}")
+
+
+def qb_sweep(label: str, fn) -> None:
+    """Log the device ms of ``fn(qb)``, a hash-body launch with its query
+    tile capped at ``qb`` (``bm25_tile_plan``), for QB = 64, 128 and 256, in
+    the order 128, 64, 256, 256, 64, 128."""
+    qb_ms = {}
+    for qb in (128, 64, 256, 256, 64, 128):
+        qb_ms.setdefault(qb, []).append(cuda_ms(lambda: fn(qb), 5))
+    log(f"  {label}, by query tile: " + ", ".join(
+        f"QB={qb}: {' / '.join(f'{m:.3f}' for m in ms)} ms" for qb, ms in sorted(qb_ms.items())))
+
+
 def device_breakdown(label: str, fn, calls: int = 3) -> None:
     """Log the device time per kernel name of ``calls`` runs of ``fn`` under
-    ``torch.profiler`` (CUPTI), ms per run, largest first; "not measured"
-    where the trace holds no device time."""
+    ``torch.profiler`` (CUPTI): ms a launch and the launches traced, largest
+    total first (the trace may drop a launch, so no per-run sums); "not
+    measured" where the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -776,14 +848,13 @@ def device_breakdown(label: str, fn, calls: int = 3) -> None:
         us = getattr(e, "self_device_time_total", None)
         us = getattr(e, "self_cuda_time_total", 0) if us is None else us
         if us > 0:
-            rows.append((us / 1e3 / calls, e.count // calls, e.key))
+            rows.append((us / 1e3 / max(e.count, 1), e.count, e.key))
     if not rows:
         log(f"  device time by kernel, {label}: not measured (the trace holds no device time)")
         return
-    rows.sort(reverse=True)
-    log(f"  device time by kernel, {label}: {sum(r[0] for r in rows):.3f} ms a run in "
-        f"{sum(r[1] for r in rows)} launches; " + "; ".join(
-            f"{ms:.3f} ms x{n} {name[:70]}" for ms, n, name in rows[:8]))
+    rows.sort(key=lambda r: r[0] * r[1], reverse=True)
+    log(f"  device time by kernel, {label}: {sum(r[1] for r in rows)} launches traced in {calls} "
+        f"runs; " + "; ".join(f"{ms:.3f} ms a launch x{n} {name[:70]}" for ms, n, name in rows[:8]))
 
 
 def tile_mask(cand, count, n_tiles: int):
@@ -894,8 +965,13 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
         log(f"  candidate tiles per query tile: max {maxc}, mean {float(count.float().mean()):.1f} "
             f"of {n_tiles}; (query tile, doc tile) pairs scored "
             f"{float(probe_tiles.float().mean()):.4f} (Bloom predicate: {1 - skipped:.4f})")
-        bm25_record(kernels, "bm25_topk_probe", case, err,
-                    cuda_ms(lambda: ts.bm25_topk_probe(*clu, cand, count, k), 10),
+        probe_note(case, "bm25_topk_probe", clu, cand, count, k, ts.SKIP_BLOCK_N,
+                   ts.bm25_topk_probe(*clu, cand, count, k))
+        ms = cuda_ms(lambda: ts.bm25_topk_probe(*clu, cand, count, k), 10)
+        log(f"  bm25_topk_probe call {ms:.3f} ms by CUDA events")
+        device_breakdown(f"bm25_topk_probe, {case}", lambda: ts.bm25_topk_probe(*clu, cand, count, k),
+                         calls=10)
+        bm25_record(kernels, "bm25_topk_probe", case, err, ms,
                     cuda_ms(lambda: ts.bm25_topk_probe_plain(*clu, cand, count, k), 2),
                     cuda_ms(lambda: lib_clu(k), 5),
                     *bm25_bound(peak, clu[0], BM25_L * 8, BM25_B * k * 8, tiles=probe_tiles))
@@ -1053,32 +1129,32 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
             bm25_check_equal(f"bm25_topk_v2_skip (positive_only=False) vs bm25_topk_v2, {case}",
                              ts.bm25_topk_v2_skip(qi, qw, di, dw, bitmaps, K, positive_only=False),
                              got)
-            # the query tile: #3 capped at QB = 64, 128 (the default) and 256,
-            # in the order 128, 64, 256, 256, 64, 128
-            qb_ms = {}
-            for qb in (128, 64, 256, 256, 64, 128):
-                qb_ms.setdefault(qb, []).append(cuda_ms(
-                    lambda: ts._hash_topk("bm25_topk_v2", qi, qw, di, dw, K, qb_max=qb), 5))
-            log(f"  v2 at the main path, k={K}, by query tile: " + ", ".join(
-                f"QB={qb}: {' / '.join(f'{m:.3f}' for m in ms)} ms" for qb, ms in sorted(qb_ms.items())))
+            qb_sweep(f"v2 at the main path, k={K}",
+                     lambda qb: ts._hash_topk("bm25_topk_v2", qi, qw, di, dw, K, qb_max=qb))
         if name == "bm25_topk_v2_skip":
             hash_plan_note(case, qi, di, K, block_n=ts.SKIP_BLOCK_N)
             skip_counts(case, (qi, qw, di, dw), bitmaps, K, True, got)
             skip_counts(f"{main_shape}, k={K}, positive_only=False", (qi, qw, di, dw), bitmaps, K,
                         False, ts.bm25_topk_v2(qi, qw, di, dw, K))
-            # the skip walk's query tile: QB = 64, 128 (the default) and 256,
-            # in the order 128, 64, 256, 256, 64, 128
-            qb_ms = {}
-            for qb in (128, 64, 256, 256, 64, 128):
-                qb_ms.setdefault(qb, []).append(cuda_ms(
-                    lambda: ts._hash_topk("bm25_topk_v2_skip", qi, qw, di, dw, K, qb_max=qb,
-                                          skip=(bitmaps, ts.SKIP_BLOCK_N, True)), 5))
-            log(f"  skip kernel at the main path, k={K}, positive_only=True, by query tile: "
-                + ", ".join(f"QB={qb}: {' / '.join(f'{m:.3f}' for m in ms)} ms"
-                            for qb, ms in sorted(qb_ms.items())))
+            qb_sweep(f"skip kernel at the main path, k={K}, positive_only=True",
+                     lambda qb: ts._hash_topk("bm25_topk_v2_skip", qi, qw, di, dw, K, qb_max=qb,
+                                              group_masks=skip_masks(qi, bitmaps),
+                                              block_n=ts.SKIP_BLOCK_N, positive_only=True))
             device_breakdown(f"bm25_topk_v2_skip, {case}", kern)
             device_breakdown(f"bm25_topk_v2, {main_shape}, k={K}",
                              lambda: ts.bm25_topk_v2(qi, qw, di, dw, K))
+        if name == "bm25_topk_probe":
+            pbn = index.probe_block_n
+            probe_note(case, name, (ri, rw, di, dw), cand, count, K, pbn, got)
+            probe_note(f"main path rare-term lookups, k={BM25_K_LONG}", name, (ri, rw, di, dw), cand,
+                       count, BM25_K_LONG, pbn, ts.bm25_topk_probe(ri, rw, di, dw, cand, count,
+                                                                   BM25_K_LONG))
+            for k in (K, BM25_K_LONG):
+                qb_sweep(f"probe at the main path, k={k}",
+                         lambda qb: ts._hash_topk(name, ri, rw, di, dw, k, qb_max=qb, block_n=pbn,
+                                                  group_masks=probe_masks(cand, count, BM25_Q, BM25_N,
+                                                                          pbn)))
+            device_breakdown(f"bm25_topk_probe, {case}", kern)
         del got, ref
         bm25_record(kernels, name, case, err, cuda_ms(kern, 5), plain_ms, cuda_ms(lambda: lib(K), 3),
                     *bm25_bound(peak, q_used, slots * 8, BM25_Q * K * 8, tiles=tiles_needed))
@@ -1256,7 +1332,13 @@ def bm25_packed_phases(seed: int, dev, peak: dict, kernels: list) -> None:
                                                    PROBE_ROWS), 10)
     flat_ms = cuda_ms(lambda: ts.bm25_topk_probe(rq, rw, ids_c, w_c, cand, count, K, tile), 10)
     full_ms = cuda_ms(lambda: ts.bm25_topk_packed(rq, rw, pids, pw, BM25_N, K, pack), 10)
-    log(f"  probe over the flat layout {flat_ms:.3f} ms; full packed walk {full_ms:.3f} ms")
+    log(f"  packed probe call {ms:.3f} ms by CUDA events; probe over the flat layout {flat_ms:.3f} ms; "
+        f"full packed walk {full_ms:.3f} ms")
+    probe_note(case, "bm25_topk_probe_packed", (rq, rw, pids, pw), cand, count, K, tile, got, BM25_N,
+               pack)
+    device_breakdown(f"bm25_topk_probe_packed, {case}",
+                     lambda: ts.bm25_topk_probe_packed(rq, rw, pids, pw, BM25_N, pack, cand, count, K,
+                                                       PROBE_ROWS), calls=10)
     bm25_record(kernels, "bm25_topk_probe_packed", case, err, ms, plain_ms,
                 cuda_ms(lambda: bm25_library(rq, rw, ids_c, w_c, PROBE_V)(K), 5),
                 *bm25_bound(peak, rq, PACKED_W * 8, BM25_B * K * 8,
@@ -1406,6 +1488,17 @@ def bm25_packed_phases(seed: int, dev, peak: dict, kernels: list) -> None:
             bm25_check_equal(f"bm25_topk_packed vs bm25_topk_v2 over the flat upload, {case}", got,
                              ts.bm25_topk_v2(qi, qw, di, dw, K))
             hash_plan_note(case, qi, pids, K, n_docs=QUORA_N, pack=pack)
+        if name == "bm25_topk_probe_packed":  # pack 6: whole packed rows on the skip walk
+            probe_note(case, name, (ri, rw, pids, pw), cand, count, K, bn_rows * pack, got, QUORA_N,
+                       pack)
+            bm25_check_equal(f"bm25_topk_probe_packed vs bm25_topk_probe over the flat upload, {case}",
+                             got, ts.bm25_topk_probe(ri, rw, di, dw, cand, count, K, bn_rows * pack))
+            tile = bn_rows * pack
+            qb_sweep(f"packed probe at the short-doc main path, k={K}",
+                     lambda qb: ts._hash_topk(name, ri, rw, pids, pw, K, qb_max=qb, block_n=tile,
+                                              n_docs=QUORA_N, pack=pack,
+                                              group_masks=probe_masks(cand, count, BM25_Q, QUORA_N, tile)))
+            device_breakdown(f"bm25_topk_probe_packed, {case}", kern)
         del ref, got
         bm25_record(kernels, name, case, err, cuda_ms(kern, 5), plain_ms, cuda_ms(lambda: lib(K), 3),
                     *bm25_bound(peak, q_used, doc_bytes, BM25_Q * K * 8, QUORA_N, tiles_needed,

@@ -6,10 +6,17 @@ shared memory within a block's 227 KB, a table of at least 2 L entries, parts
 that cover N exactly, lists in shared memory only within their budget. The
 kernel's launcher refuses a plan whose shared memory differs from its own
 layout's, so the CUDA tests in ``test_torch_kernels_cuda.py`` hold the two
-byte counts equal on the card.
+byte counts equal on the card. The probes' masks (``probe_group_masks``,
+built from candidate lists on the device) are decoded bit by bit against
+``_candidate_mask``, the rows the plain versions score, on seeded and
+hypothesis-drawn lists.
 """
 
+import numpy as np
 import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from autorag_research_tpu_torch.ops import sparse as ts
 
@@ -172,3 +179,119 @@ def test_short_doc_main_path_packed_plan():
     assert packed.smem - ts._hash_smem(packed.docs, packed.table, 21, 13, 128, 10, packed.list_smem,
                                        True) == 4 * ts._r16(rows * 128 * 4) + 128 - 4 * ts._r16(
                                            packed.docs * 21 * 4)
+
+
+# ---- the probes (#6 flat, #8 packed) on the skip walk
+
+def _check_probe_masks(cand, count, b, qb, n_tiles):
+    """``probe_group_masks`` decoded bit by bit against ``_candidate_mask``:
+    query q's row is the bits of its 8-query group q // 8; groups past
+    ceil(B/8) hold none."""
+    masks = ts.probe_group_masks(cand, count, b, qb, n_tiles)
+    q_tiles = -(-b // qb)
+    assert masks.shape == (q_tiles, n_tiles) and masks.dtype == torch.int32
+    bits = (masks.to(torch.int64)[:, None, :] >> torch.arange(qb // 8)[None, :, None]) & 1
+    groups = bits.reshape(q_tiles * qb // 8, n_tiles).bool()
+    ref = ts._candidate_mask(cand.long(), count.long(), b, n_tiles)
+    assert torch.equal(groups[torch.arange(b) // 8], ref)
+    assert not groups[-(-b // 8):].any()
+
+
+@pytest.mark.parametrize("qb", [8, 32, 128, 256])
+@pytest.mark.parametrize("b", [1, 5, 8, 13, 129, 300, 1024])
+def test_probe_group_masks_match_candidate_mask(b, qb):
+    # unsorted lists with repeats, -1 and out-of-range entries, empty rows,
+    # counts past the list length, and rows past ceil(B/8)
+    rng = np.random.default_rng(b * 7 + qb)
+    rows, cap, n_tiles = -(-b // 8) + b % 3, 12, 37
+    cand = rng.integers(-1, n_tiles + 3, size=(rows, cap)).astype(np.int32)
+    cand[:, 1] = cand[:, 0]  # a repeat in every row
+    count = rng.integers(0, cap + 5, size=rows).astype(np.int32)
+    count[0] = 0
+    if rows > 2:
+        count[2] = cap + 100
+    _check_probe_masks(torch.from_numpy(cand), torch.from_numpy(count), b, qb, n_tiles)
+
+
+def test_probe_group_masks_fill_every_bit_and_refuse_a_bad_query_tile():
+    # 256 queries in one tile of 256, every group listing every tile: all
+    # 32 bits set, bit 31 as the sign bit
+    cand = torch.arange(5, dtype=torch.int32).repeat(32, 1)
+    count = torch.full((32,), 5, dtype=torch.int32)
+    masks = ts.probe_group_masks(cand, count, 256, 256, 5)
+    assert masks.tolist() == [[-1] * 5]
+    # B = 250: the last group (queries 248, 249) still sets its bit
+    assert ts.probe_group_masks(cand, count, 250, 256, 5).tolist() == [[-1] * 5]
+    for qb in (0, 12, 264):
+        with pytest.raises(ValueError):
+            ts.probe_group_masks(cand, count, 256, qb, 5)
+
+
+@settings(max_examples=150, deadline=None, database=None)
+@given(b=st.integers(1, 600), qb=st.sampled_from([8, 16, 32, 64, 128, 256]),
+       n_tiles=st.integers(1, 70), cap=st.integers(0, 20), seed=st.integers(0, 2**32 - 1))
+def test_probe_group_masks_drawn_lists(b, qb, n_tiles, cap, seed):
+    rng = np.random.default_rng(seed)
+    rows = -(-b // 8)
+    cand = rng.integers(-3, n_tiles + 3, size=(rows, cap)).astype(np.int32)
+    count = rng.integers(-1, cap + 3, size=rows).astype(np.int32)
+    _check_probe_masks(torch.from_numpy(cand), torch.from_numpy(count), b, qb, n_tiles)
+
+
+# (B, T, N, L, k, block_n in documents, pack): the probe shapes. Flat: the
+# flat main path's lookups (1,024 x 2 live terms vs 500,000 x 104) at the
+# index's probe_block_n 2,048, tile-WAND's 128 and an odd 999, and phase 9's
+# clustered benchmark arrays; packed: the Quora-size main path's lookups
+# (pack 6, packed_block_rows(2048, 6) = 336 rows = 2,016 documents) and the
+# packed probe benchmark (pack 8 read as the flat [N, 16] view, 1,024 rows)
+PROBE_SHAPES = [
+    (1024, 2, 500_000, 104, 10, 2048, 1), (1024, 2, 500_000, 104, 1000, 2048, 1),
+    (1024, 2, 500_000, 104, 10, 128, 1), (1024, 2, 500_000, 104, 10, 999, 1),
+    (32, 16, 500_000, 128, 100, 2048, 1),
+    (1024, 2, 522_931, 21, 10, 336 * 6, 6), (1024, 2, 522_931, 21, 1000, 336 * 6, 6),
+    (32, 8, 500_000, 16, 10, 1024 * 8, 1), (33, 8, 3001, 16, 1000, 1024 * 8, 1),
+]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_probe_plans_tile_within_the_skip_tile(shape):
+    # the plan a probe launches with (query tiles up to 256): D divides the
+    # skip tile, shared memory within the budget and equal to the layout's
+    b, t, n, slots, k, block_n, pack = shape
+    for sms in (132, 114):
+        plan = ts.bm25_tile_plan(b, t, n, slots, min(k, n), sms, ts.HASH_QB_MAX, block_n, pack)
+        assert plan.staged and block_n % plan.docs == 0  # a staged tile lies in one skip tile
+        assert plan.smem == ts._hash_smem(plan.docs, plan.table, slots, t, plan.qb, min(k, n),
+                                          plan.list_smem, True, pack)
+        _check_packed(plan, b, t, n, slots, min(k, n))
+    # the main paths: query tiles of 256 at k = 10, of 128 at k = 1,000
+    # (where 256 would halve D), two blocks an SM, one wave; the odd
+    # block_n stages one document a tile
+    plan = ts.bm25_tile_plan(b, t, n, slots, min(k, n), 132, ts.HASH_QB_MAX, block_n, pack)
+    if b == 1024:
+        assert plan.qb == (256 if k == 10 else 128) and plan.blocks_per_sm == 2
+        assert plan.q_tiles * plan.parts == 264
+        assert (plan.docs == 1) == (block_n == 999)
+
+
+@pytest.mark.parametrize("k", [1, 10, 257, 1000])
+@pytest.mark.parametrize("slots", [1, 20, 104, 1500])
+def test_tile_plan_widens_the_query_tile_only_where_it_keeps_d(slots, k):
+    for b in BATCHES:
+        for t in (1, 2, 16, 33):
+            for block_n in (None, 128, 999, 2048):
+                args = (b, t, 500_000, slots, k, 132)
+                base = ts.bm25_hash_plan(*args, ts.HASH_QB, block_n)
+                for qb_max in (8, 64, ts.HASH_QB):  # up to 128: bm25_hash_plan's own
+                    assert ts.bm25_tile_plan(*args, qb_max, block_n) == \
+                        ts.bm25_hash_plan(*args, qb_max, block_n)
+                wide = ts.bm25_hash_plan(*args, ts.HASH_QB_MAX, block_n)
+                plan = ts.bm25_tile_plan(*args, ts.HASH_QB_MAX, block_n)
+                assert plan == (wide if wide.docs >= base.docs else base)
+                assert plan.docs >= base.docs
+                _check(plan, b, t, 500_000, slots, k, 132, ts.HASH_QB_MAX)
+    # the probes' main paths: flat k = 10 keeps D 8 at 256, k = 1,000 would
+    # halve D 4 to 2; pack 6 keeps D 32 at k = 10
+    assert ts.bm25_tile_plan(1024, 2, 500_000, 104, 10, 132, 256, 2048).qb == 256
+    assert ts.bm25_tile_plan(1024, 2, 500_000, 104, 1000, 132, 256, 2048)[:2] == (128, 4)
+    assert ts.bm25_tile_plan(1024, 2, 522_931, 21, 10, 132, 256, 2016, 6)[:2] == (256, 32)

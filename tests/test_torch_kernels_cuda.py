@@ -996,8 +996,9 @@ def _skip_check(args, bitmaps, k, block_n, positive_only, stats=None):
     if stats is None:
         s, i = ts.bm25_topk_v2_skip(*args, bitmaps, k, block_n=block_n, positive_only=positive_only)
     else:
-        s, i = ts._hash_topk("bm25_topk_v2_skip", *args, k, skip=(bitmaps, block_n, positive_only),
-                             stats=stats)
+        s, i = ts._hash_topk("bm25_topk_v2_skip", *args, k, block_n=block_n,
+                             positive_only=positive_only, stats=stats,
+                             group_masks=lambda qb: ts.tile_group_masks(args[0], bitmaps, qb))
     torch.cuda.synchronize()
     assert ts.LAUNCHES["bm25_topk_v2_skip"] == before + 1
     rs, ri = ts.bm25_topk_v2_skip_plain(*args, bitmaps, k, block_n=block_n,
@@ -1151,6 +1152,185 @@ def test_bm25_packed_hash_body_unaligned_rows(cuda_device, width):
         rs, ri = ts.bm25_topk_packed_plain(*packed, 3001, k, pack)
         torch.testing.assert_close(i, ri, rtol=0, atol=0)
         torch.testing.assert_close(s, rs, rtol=0, atol=0)
+
+
+# ---- the probes (#6 flat, #8 packed) on the hash body's skip walk
+PROBE_LISTS = ["exact", "truncated", "messy"]
+
+
+def _probe_queries(rng, b, t, n, slots, clustered=True):
+    """``_bm25_data``'s arrays for B queries; B < 3 keeps real queries (its
+    first two rows are an empty query and an unknown term)."""
+    q_ids, q_w, doc_ids, doc_w = _bm25_data(rng, max(b, 3), t, n, slots, clustered=clustered)
+    return q_ids[-b:].copy(), q_w[-b:].copy(), doc_ids, doc_w
+
+
+def _probe_lists(rng, q_ids, doc_ids, tile, kind):
+    """(cand, count) per 8-query tile over doc tiles of ``tile`` documents:
+    the exact lists (``probe_candidates``); a random subset of each, in
+    order, as a tile-WAND pass lists (documents of the dropped tiles stay
+    out though they score); or the exact lists unsorted, with repeats, -1,
+    entries past the corpus's tiles, and counts of 0 and past the length."""
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    n_tiles = -(-doc_ids.shape[0] // tile)
+    indptr, tiles = ts.build_term_tile_lists(doc_ids, tile)
+    cand, count, _ = ts.probe_candidates(q_ids, indptr, tiles, 8, n_tiles)
+    if kind == "truncated":
+        for r in range(len(count)):
+            keep = cand[r, : count[r]][rng.random(count[r]) < 0.5]
+            cand[r, : len(keep)], count[r] = keep, len(keep)
+    elif kind == "messy":
+        rows, cap = len(count), 2 * n_tiles + 8
+        messy = np.full((rows, cap), -1, np.int32)
+        for r in range(rows):
+            live = cand[r, : count[r]]
+            extra = np.array([-1, n_tiles, n_tiles + 5], np.int32)
+            row = np.concatenate([live, live[: len(live) // 2], extra])
+            messy[r, : len(row)] = rng.permutation(row)[:cap]
+        count = np.full(rows, cap + 3, np.int32)  # every entry counts, past the length too
+        count[0] = 0  # an empty list
+        cand = messy
+    return cand, count
+
+
+def _probe_check(name, got, ref, before):
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    torch.cuda.synchronize()
+    assert ts.LAUNCHES[name] == before + 1
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_n", [128, 1000])
+@pytest.mark.parametrize("b", [1, 33, 1024])
+@pytest.mark.parametrize("k", [10, 100, 257, 1000])
+@pytest.mark.parametrize("lists", PROBE_LISTS)
+def test_bm25_probe_hash_body_matches_plain(cuda_device, lists, k, b, block_n):
+    # #6 on the skip walk: bitwise its plain version, one launch counted, no
+    # plain call; block_n = 1,000 is no power of two (D = 8 divides it)
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    rng = np.random.default_rng(k + b + block_n)
+    arrays = _probe_queries(rng, b, 6, 6000, 20)
+    cand, count = _probe_lists(rng, arrays[0], arrays[2], block_n, lists)
+    args = _bm25_tensors(arrays, cuda_device)
+    cand_t, count_t = torch.from_numpy(cand).to(cuda_device), torch.from_numpy(count).to(cuda_device)
+    before, plain_before = ts.LAUNCHES["bm25_topk_probe"], sum(ts.PLAIN_CALLS.values())
+    got = ts.bm25_topk_probe(*args, cand_t, count_t, k, block_n)
+    assert sum(ts.PLAIN_CALLS.values()) == plain_before
+    _probe_check("bm25_topk_probe", got, ts.bm25_topk_probe_plain(*args, cand_t, count_t, k, block_n),
+                 before)
+    if lists == "messy":
+        assert bool((got[0][:8] == 0).all()) and bool((got[1][:8] == ts.INT_MAX).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 33, 1024])
+@pytest.mark.parametrize("k", [10, 100, 257, 1000])
+@pytest.mark.parametrize("width", [21, 16], ids=["pack6", "pack8"])
+@pytest.mark.parametrize("lists", PROBE_LISTS)
+def test_bm25_probe_packed_hash_body_matches_plain(cuda_device, lists, width, k, b):
+    # #8 on the skip walk: pack 6 on the packed rows, pack 8 on their flat
+    # view; tiles of an odd number of rows, just past k; bitwise its plain
+    # version and the flat probe over the same documents
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    rng = np.random.default_rng(k + b + width)
+    n = 20_000
+    q_ids, q_w, doc_ids, doc_w = _probe_queries(rng, b, 6, n, width)
+    pids, pw, pack = ts.pack_slots(doc_ids, doc_w, width)
+    assert pack == 128 // width
+    block_rows = max(37, k + 1) | 1
+    cand, count = _probe_lists(rng, q_ids, doc_ids, block_rows * pack, lists)
+    flat = _bm25_tensors((q_ids, q_w, doc_ids, doc_w), cuda_device)
+    packed = flat[:2] + _bm25_tensors((pids, pw), cuda_device)
+    cand_t, count_t = torch.from_numpy(cand).to(cuda_device), torch.from_numpy(count).to(cuda_device)
+    before, plain_before = ts.LAUNCHES["bm25_topk_probe_packed"], sum(ts.PLAIN_CALLS.values())
+    got = ts.bm25_topk_probe_packed(*packed, n, pack, cand_t, count_t, k, block_rows)
+    assert sum(ts.PLAIN_CALLS.values()) == plain_before
+    _probe_check("bm25_topk_probe_packed", got,
+                 ts.bm25_topk_probe_packed_plain(*packed, n, pack, cand_t, count_t, k, block_rows),
+                 before)
+    fs, fi = ts.bm25_topk_probe(*flat, cand_t, count_t, k, block_rows * pack)
+    torch.testing.assert_close(got[1], fi, rtol=0, atol=0)
+    torch.testing.assert_close(got[0], fs, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="block_n"):
+        ts.bm25_topk_probe_packed(*packed, n, pack, cand_t, count_t, block_rows + 1, block_rows)
+
+
+@pytest.mark.cuda
+def test_bm25_probe_hash_body_counters_and_query_tiles(cuda_device):
+    # the skip walk's counters on a probe: every listed (group, skip tile)
+    # pair probes, the rest not; a skip tile no group of a query tile lists
+    # is never staged; every query tile size gives the same lists
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    rng = np.random.default_rng(61)
+    b, n, block_n = 133, 6000, 128
+    arrays = _probe_queries(rng, b, 6, n, 20)
+    cand, count = _probe_lists(rng, arrays[0], arrays[2], block_n, "exact")
+    args = _bm25_tensors(arrays, cuda_device)
+    cand_t, count_t = torch.from_numpy(cand).to(cuda_device), torch.from_numpy(count).to(cuda_device)
+    ref = ts.bm25_topk_probe_plain(*args, cand_t, count_t, 10, block_n)
+    n_tiles = -(-n // block_n)
+    sizes = torch.full((n_tiles,), block_n, device=cuda_device)
+    sizes[-1] = n - block_n * (n_tiles - 1)
+    for qb in (8, 64, 128, 256):
+        stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+        got = ts._hash_topk("bm25_topk_probe", *args, 10, qb, block_n=block_n, stats=stats,
+                            group_masks=lambda q: ts.probe_group_masks(cand_t, count_t, b, q, n_tiles))
+        torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0)
+        torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        plan = ts.bm25_tile_plan(b, 6, n, 20, 10, sms, qb, block_n)
+        masks = ts.probe_group_masks(cand_t, count_t, b, plan.qb, n_tiles)
+        listed = ts._candidate_mask(cand_t.long(), count_t.long(), b, n_tiles)
+        pairs, docs = stats.tolist()
+        assert pairs == b * n - int((listed * sizes).sum())
+        assert docs == int(((masks == 0) * sizes).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [21, 16], ids=["pack6", "pack8"])
+def test_sparse_index_packed_probe_route_on_card(cuda_device, width):
+    # a packed SparseIndex of pack 6 / 8 takes the packed probe for a
+    # selective batch: the CPU route's hits; its flat counterpart at the
+    # same tile takes the flat probe with the same hits
+    from autorag_research_tpu_torch.index.sparse import SparseIndex
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    rng = np.random.default_rng(62 + width)
+    n, local_max = 6000, width - 3
+    texts = []
+    for i in range(n):
+        local = rng.choice(300, size=int(rng.integers(3, local_max + 1)), replace=False)
+        texts.append(" ".join([f"r{i * 10 // n}x{j}" for j in local]
+                              + [f"c{j}" for j in rng.choice(30, size=3, replace=False)]))
+    queries = [" ".join(f"r{q % 2}x{j}" for j in rng.choice(300, size=3)) for q in range(21)]
+    ids = list(range(n))
+    expected = [[(h.doc_id, h.score) for h in r]
+                for r in SparseIndex(ids, texts, device="cpu", probe_block_n=256).search(queries, 10)]
+    gpu = SparseIndex(ids, texts, device=cuda_device, probe_block_n=256)
+    ts.reset_launch_counts()
+    hits = gpu.search(queries, 10)
+    assert gpu._device_pack == 128 // width
+    assert ts.LAUNCHES["bm25_topk_probe_packed"] == 1 and sum(ts.LAUNCHES.values()) == 1
+    assert sum(ts.PLAIN_CALLS.values()) == 0
+    assert [[(h.doc_id, h.score) for h in r] for r in hits] == expected
+    # the flat probe through the pruned legs of a flat index (rows of more
+    # than 64 slots stay flat: 50 filler words no query holds)
+    wide = [t + " " + " ".join(f"f{j}" for j in rng.choice(5000, size=50, replace=False)) for t in texts]
+    flat_cpu = SparseIndex(ids, wide, device="cpu").search(queries, 10)
+    flat = SparseIndex(ids, wide, device=cuda_device, probe_block_n=128)
+    ts.reset_launch_counts()
+    flat_hits = flat.search(queries, 10)
+    assert flat._device_pack == 1 and ts.LAUNCHES["bm25_topk_probe"] == 1
+    assert sum(ts.PLAIN_CALLS.values()) == 0
+    assert [[(h.doc_id, h.score) for h in r] for r in flat_hits] == \
+        [[(h.doc_id, h.score) for h in r] for r in flat_cpu]
 
 
 # ---- the streaming kernel's redesign: tails, ties at every boundary, rounds
