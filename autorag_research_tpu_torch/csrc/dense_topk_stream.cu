@@ -83,10 +83,8 @@
 //   ops/dense.py reads the count (dense_topk_stream_blocks_per_sm) and plans
 //   parts so that q_tiles x parts fill one wave.
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder is looked up at run time)
-#include <dlfcn.h>
-
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -131,38 +129,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one 2-D box of a tensor map (x the inner coordinate) into shared memory,
-// counted on the barrier `bar` as it lands
-__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map, unsigned bar,
-                                            int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(x), "r"(y)
-      : "memory");
 }
 
 // ---- f32: FFMA on the CUDA cores, 8 x 8 accumulators a thread, TMA staging
@@ -588,36 +554,11 @@ dense_topk_stream_kernel(const typename Op::T* __restrict__ q, const typename Op
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has loaded:
-// looked up at run time, so the library is not linked against libcuda
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib != nullptr) fn = reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
 // The tensor map of a row-major [rows, d] f32 operand in boxes of 128 rows x
 // 32 floats with the 128-byte swizzle; rows and columns past the operand
 // land as zeros.
 bool f32_map(CUtensorMap* map, const void* base, int rows, int d) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(float)};
-  const cuuint32_t box[2] = {(cuuint32_t)BK32, (cuuint32_t)BQ};
-  const cuuint32_t step[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, box,
-            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tma_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rows, d, BK32, BQ);
 }
 
 template <class Op>

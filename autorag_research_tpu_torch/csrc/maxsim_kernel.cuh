@@ -1,20 +1,20 @@
-// The MaxSim tile body and kernel shared by maxsim_v2.cu, maxsim_v1.cu and
-// maxsim_v3.cu. The three differ only in how document tokens past a
-// document's length are kept out of the per-token max (the Mask policy):
+// The MaxSim tile body and kernel shared by maxsim_v1.cu and maxsim_v3.cu
+// (the pins; maxsim_v2.cu runs maxsim_tile.cuh). The two differ only in how
+// document tokens past a document's length are kept out of the per-token max
+// (the Mask policy):
 //
-//   LENS (v2): the kernel reads lengths [N] and walks the first len tokens;
-//   BIAS (v1): it walks all Td tokens and adds a [N, Td] f32 bias (0 or
-//              NEG_INF) to each product before the max;
+//   BIAS (v1): the kernel walks all Td tokens and adds a [N, Td] f32 bias (0
+//              or NEG_INF) to each product before the max;
 //   LANE (v3): it walks all Td tokens; the mask arrives inside the product,
 //              through a bias lane the wrapper wrote into both operands.
 //
-//   score(b, n) = sum_{t < Tq_pad} max_{s < walk_n} (q[b, t] . doc[n, s] (+ bias[n, s]))
+//   score(b, n) = sum_{t < Tq_pad} max_{s < Td} (q[b, t] . doc[n, s] (+ bias[n, s]))
 //
 // Inputs: q [QB, RT*ROWS, d], the wrapper's packing of BQ queries x Tq_pad
 // tokens per block of query rows (one ROWS-row tile, or RT tiles of one long
-// query); docs [N, Td, d] row-major and read in place. The fused epilogue
-// writes per-part lists [B, P, k] in (-score, row) order, merged by the
-// wrapper with merge_topk; the scores epilogue (v2 only) writes [B, N] f32.
+// query); docs [N, Td, d] row-major and read in place. The epilogue writes
+// per-part lists [B, P, k] in (-score, row) order, merged by the wrapper with
+// merge_topk.
 //
 // Arithmetic: f32 inputs run FFMA on the CUDA cores (no TF32, the
 // Precision.HIGHEST counterpart); bf16 inputs run mma.sync m16n8k16 with f32
@@ -24,11 +24,11 @@
 // Design: a block owns one block of query rows and one contiguous part of
 // the documents, and walks its part 32 documents per step. For each document
 // it computes 128 query-token rows x 64 document tokens product tiles over
-// the tokens it walks (f32: 8 x 4 outputs a thread from k chunks of 16 staged
+// the Td tokens (f32: 8 x 4 outputs a thread from k chunks of 16 staged
 // transposed in shared memory; bf16: 8 warps of 16 x 64 mma tiles) and keeps
 // a running max per row in registers; a shuffle reduction leaves each row's
 // max in shared memory. After the step's 32 documents one thread per (query,
-// document) adds the query's row maxima in order. The fused epilogue then
+// document) adds the query's row maxima in order. The epilogue then
 // offers the 32 scores of each query row to its k-best list (list_insert,
 // common.cuh), one document per lane: a ballot finds the scores above the
 // list's k-th, so a warm list costs one ballot per row and step. Lists of up
@@ -50,7 +50,7 @@ constexpr int BQ_MAX = ROWS / 8;  // queries of a block (Tq_pad >= 8)
 constexpr int KSMEM = 256;        // list entries per query held in shared memory
 constexpr int LDR = DOCS + 1;     // row-maxima stride
 
-enum Mask { LENS = 0, BIAS = 1, LANE = 2 };
+enum Mask { BIAS = 1, LANE = 2 };
 
 // ---- f32 tile: CUDA-core FFMA, 8 rows x 4 tokens per thread
 constexpr int BK32 = 16;
@@ -221,8 +221,8 @@ struct TileBF16 {
   }
 };
 
-// aux: int32 lengths [N] (LENS), f32 bias [N, Td] (BIAS), unused (LANE).
-template <typename Tile, bool FUSED, int MASK>
+// aux: f32 bias [N, Td] (BIAS), unused (LANE).
+template <typename Tile, int MASK>
 __global__ void __launch_bounds__(THREADS, 2)
 maxsim_kernel(const typename Tile::T* __restrict__ q, const typename Tile::T* __restrict__ docs,
               const void* __restrict__ aux, float* __restrict__ out_s, int* __restrict__ out_i,
@@ -232,9 +232,8 @@ maxsim_kernel(const typename Tile::T* __restrict__ q, const typename Tile::T* __
   __shared__ typename Tile::Smem sm;
   __shared__ float rm[ROWS * LDR];      // row maxima of the current row tile, per document
   __shared__ float ps[BQ_MAX * DOCS];   // per (query, document) sums
-  __shared__ int lens[DOCS];            // tokens walked per document of the step
   extern __shared__ __align__(16) unsigned char list_mem[];
-  const int list_n = FUSED && list_smem ? bq * k : 0;
+  const int list_n = list_smem ? bq * k : 0;
   float* Ls = reinterpret_cast<float*>(list_mem);  // [bq, k] when in shared memory
   int* Li = reinterpret_cast<int*>(Ls + list_n);   // [bq, k]
 
@@ -245,7 +244,6 @@ maxsim_kernel(const typename Tile::T* __restrict__ q, const typename Tile::T* __
   const int doc_begin = p * part_docs;
   const int doc_end = min(N, doc_begin + part_docs);
   const T* qblk = q + (size_t)qb * rt_count * ROWS * d;
-  const int* dlens = static_cast<const int*>(aux);
   const float* bias = static_cast<const float*>(aux);
   const unsigned full = 0xffffffffu;
   // query qi's list: shared memory, or its own slice of the output
@@ -256,25 +254,18 @@ maxsim_kernel(const typename Tile::T* __restrict__ q, const typename Tile::T* __
     return list_smem ? Li + qi * k : out_i + ((size_t)(b0 + qi) * parts + p) * k;
   };
 
-  if (FUSED) {
-    for (int qi = warp; qi < bq; qi += THREADS / 32) {
-      if (b0 + qi >= B) continue;  // warp-uniform
-      float* ls = list_s(qi);
-      int* li = list_i(qi);
-      for (int i = lane; i < k; i += 32) {
-        ls[i] = -INFINITY;
-        li[i] = ARTPU_INT_MAX;
-      }
+  for (int qi = warp; qi < bq; qi += THREADS / 32) {
+    if (b0 + qi >= B) continue;  // warp-uniform
+    float* ls = list_s(qi);
+    int* li = list_i(qi);
+    for (int i = lane; i < k; i += 32) {
+      ls[i] = -INFINITY;
+      li[i] = ARTPU_INT_MAX;
     }
   }
 
   for (int base = doc_begin; base < doc_end; base += DOCS) {
     const int nd = min(DOCS, doc_end - base);
-    if (tid < DOCS) {
-      int walk = 0;
-      if (tid < nd) walk = MASK == LENS ? min(max(dlens[base + tid], 0), Td) : Td;
-      lens[tid] = walk;
-    }
     for (int i = tid; i < BQ_MAX * DOCS; i += THREADS) ps[i] = 0.f;
     __syncthreads();
     for (int rt = 0; rt < rt_count; ++rt) {
@@ -282,7 +273,7 @@ maxsim_kernel(const typename Tile::T* __restrict__ q, const typename Tile::T* __
       for (int j = 0; j < nd; ++j) {
         const T* doc = docs + (size_t)(base + j) * Td * d;
         Tile::template rowmax<MASK == BIAS>(
-            qt, doc, lens[j], MASK == BIAS ? bias + (size_t)(base + j) * Td : nullptr, d, sm,
+            qt, doc, Td, MASK == BIAS ? bias + (size_t)(base + j) * Td : nullptr, d, sm,
             rm + j, tid);
       }
       __syncthreads();
@@ -297,76 +288,62 @@ maxsim_kernel(const typename Tile::T* __restrict__ q, const typename Tile::T* __
       }
       __syncthreads();
     }
-    if (FUSED) {
-      for (int qi = warp; qi < bq; qi += THREADS / 32) {
-        if (b0 + qi >= B) continue;  // warp-uniform
-        float* ls = list_s(qi);
-        int* li = list_i(qi);
-        float s = -INFINITY;
-        if (lane < nd) {
-          s = ps[qi * DOCS + lane];
-          // LENS: an empty document is NEG_INF with its row; BIAS: its sum
-          // of NEG_INF row maxima overflows to -inf and becomes NEG_INF;
-          // LANE: the wrapper resets empty documents after selection
-          if (MASK == LENS && lens[lane] == 0) s = ARTPU_NEG_INF;
-          if (MASK == BIAS) s = fmaxf(s, ARTPU_NEG_INF);
-        }
-        float kth = ls[k - 1];
-        unsigned want = __ballot_sync(full, s > kth);
-        while (want) {
-          const int src = __ffs(want) - 1;
-          want &= want - 1;
-          const float cs = __shfl_sync(full, s, src);
-          if (cs > kth) {
-            list_insert(ls, li, k, cs, base + src, lane);
-            kth = ls[k - 1];
-          }
-        }
+    for (int qi = warp; qi < bq; qi += THREADS / 32) {
+      if (b0 + qi >= B) continue;  // warp-uniform
+      float* ls = list_s(qi);
+      int* li = list_i(qi);
+      float s = -INFINITY;
+      if (lane < nd) {
+        s = ps[qi * DOCS + lane];
+        // BIAS: an empty document's sum of NEG_INF row maxima overflows to
+        // -inf and becomes NEG_INF; LANE: the wrapper resets empty documents
+        // after selection
+        if (MASK == BIAS) s = fmaxf(s, ARTPU_NEG_INF);
       }
-    } else {
-      for (int pr = tid; pr < bq * nd; pr += THREADS) {
-        const int qi = pr / nd, j = pr - qi * nd;
-        if (b0 + qi < B) {
-          out_s[(size_t)(b0 + qi) * N + base + j] =
-              lens[j] > 0 ? ps[qi * DOCS + j] : ARTPU_NEG_INF;
+      float kth = ls[k - 1];
+      unsigned want = __ballot_sync(full, s > kth);
+      while (want) {
+        const int src = __ffs(want) - 1;
+        want &= want - 1;
+        const float cs = __shfl_sync(full, s, src);
+        if (cs > kth) {
+          list_insert(ls, li, k, cs, base + src, lane);
+          kth = ls[k - 1];
         }
       }
     }
     __syncthreads();
   }
 
-  if (FUSED) {
-    for (int qi = warp; qi < bq; qi += THREADS / 32) {
-      if (b0 + qi >= B) continue;
-      const float* ls = list_s(qi);
-      const int* li = list_i(qi);
-      const size_t o = ((size_t)(b0 + qi) * parts + p) * k;
-      for (int i = lane; i < k; i += 32) {
-        const float v = ls[i];
-        const int id = li[i];
-        out_s[o + i] = v == -INFINITY ? ARTPU_NEG_INF : v;
-        out_i[o + i] = id;
-      }
+  for (int qi = warp; qi < bq; qi += THREADS / 32) {
+    if (b0 + qi >= B) continue;
+    const float* ls = list_s(qi);
+    const int* li = list_i(qi);
+    const size_t o = ((size_t)(b0 + qi) * parts + p) * k;
+    for (int i = lane; i < k; i += 32) {
+      const float v = ls[i];
+      const int id = li[i];
+      out_s[o + i] = v == -INFINITY ? ARTPU_NEG_INF : v;
+      out_i[o + i] = id;
     }
   }
 }
 
-template <typename Tile, bool FUSED, int MASK>
+template <typename Tile, int MASK>
 int launch(const void* q, const void* docs, const void* aux, void* out_s, void* out_i, int B,
            int N, int Td, int d, int tq_pad, int bq, int rt_count, int k, int part_docs,
            int parts, int q_blocks, void* stream) {
   if (B == 0 || N == 0 || parts == 0) return 0;
   if (bq < 1 || bq > BQ_MAX || rt_count < 1 || d < 8 || d % 8 || tq_pad % 8 ||
       bq * tq_pad > rt_count * ROWS || (long long)q_blocks * bq < B ||
-      (long long)parts * part_docs < N || part_docs % DOCS || (MASK != LENS && Td < 1)) {
+      (long long)parts * part_docs < N || part_docs % DOCS || Td < 1 || k < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  if (FUSED && k < 1) return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)q_blocks * parts;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  const int list_smem = FUSED && k <= KSMEM;
+  const int list_smem = k <= KSMEM;
   const int list_bytes = list_smem ? bq * k * (int)(sizeof(float) + sizeof(int)) : 0;
-  auto kernel = maxsim_kernel<Tile, FUSED, MASK>;
+  auto kernel = maxsim_kernel<Tile, MASK>;
   if (list_bytes > 0) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, list_bytes);
@@ -383,16 +360,15 @@ int launch(const void* q, const void* docs, const void* aux, void* out_s, void* 
 
 // q [q_blocks, rt_count*128, d] packed query-token rows (bq queries of tq_pad
 // rows each per block, zero-padded); docs [N, Td, d]; aux as the kernel's
-// Mask reads it; d % 8 == 0, 16-byte aligned. Fused: out_s / out_i
-// [B, parts, k] with part p covering documents [p*part_docs,
-// (p+1)*part_docs), any k >= 1. Scores: out_s [B, N] (out_i and k unused).
+// Mask reads it; d % 8 == 0, 16-byte aligned. out_s / out_i [B, parts, k]
+// with part p covering documents [p*part_docs, (p+1)*part_docs), any k >= 1.
 // Each returns cudaGetLastError().
-#define MAXSIM_LAUNCHER(name, Tile, FUSED, MASK)                                             \
+#define MAXSIM_LAUNCHER(name, Tile, MASK)                                             \
   extern "C" int name(const void* q, const void* docs, const void* aux, void* out_s,        \
                       void* out_i, int B, int N, int Td, int d, int tq_pad, int bq,          \
                       int rt_count, int k, int part_docs, int parts, int q_blocks,           \
                       void* stream) {                                                         \
-    return maxsim::launch<maxsim::Tile, FUSED, MASK>(q, docs, aux, out_s, out_i, B, N, Td,  \
+    return maxsim::launch<maxsim::Tile, MASK>(q, docs, aux, out_s, out_i, B, N, Td,         \
                                                      d, tq_pad, bq, rt_count, k, part_docs,  \
                                                      parts, q_blocks, stream);               \
   }

@@ -25,5 +25,5 @@
 
 #include "maxsim_kernel.cuh"
 
-MAXSIM_LAUNCHER(maxsim_topk_v1_f32_launch, TileF32, true, maxsim::BIAS)
-MAXSIM_LAUNCHER(maxsim_topk_v1_bf16_launch, TileBF16, true, maxsim::BIAS)
+MAXSIM_LAUNCHER(maxsim_topk_v1_f32_launch, TileF32, maxsim::BIAS)
+MAXSIM_LAUNCHER(maxsim_topk_v1_bf16_launch, TileBF16, maxsim::BIAS)

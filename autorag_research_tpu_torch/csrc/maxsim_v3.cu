@@ -26,5 +26,5 @@
 
 #include "maxsim_kernel.cuh"
 
-MAXSIM_LAUNCHER(maxsim_topk_v3_f32_launch, TileF32, true, maxsim::LANE)
-MAXSIM_LAUNCHER(maxsim_topk_v3_bf16_launch, TileBF16, true, maxsim::LANE)
+MAXSIM_LAUNCHER(maxsim_topk_v3_f32_launch, TileF32, maxsim::LANE)
+MAXSIM_LAUNCHER(maxsim_topk_v3_bf16_launch, TileBF16, maxsim::LANE)

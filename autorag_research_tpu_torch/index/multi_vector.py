@@ -304,7 +304,8 @@ class MultiVectorIndex:
             self.to_device()
         q_np, q_lens_np = self._queries(query_matrices)
         q = pad_width(torch.from_numpy(q_np), device_width(self.dim, self.device)).to(self.device)
-        q_lens = torch.from_numpy(q_lens_np).to(self.device)
+        # lengths stay on the host: the kernels' launch plans read them there
+        q_lens = torch.from_numpy(q_lens_np)
         if self._device_buckets is not None:
             scores, rows = self._search_bucketed(q, q_lens, k, method, kprime)
             return scores, rows, q_lens_np

@@ -9,7 +9,8 @@ query's token count.
 - :func:`maxsim_topk_scan` (JAX ``maxsim_topk_xla``): a loop over document
   tiles with a running ``(-score, row)`` merge, bounded memory.
 - :func:`maxsim_topk_v2` (JAX ``maxsim_topk_pallas_v2``): the fused kernel
-  ``csrc/maxsim_v2.cu``, streaming top-k; CPU tensors take
+  ``csrc/maxsim_v2.cu`` on the tile body ``csrc/maxsim_tile.cuh``, streaming
+  top-k, launched by the pure plan :func:`maxsim_plan`; CPU tensors take
   :func:`maxsim_topk_v2_plain`.
 - :func:`maxsim_topk_v1` (JAX ``maxsim_topk_pallas``, the ``pallas`` pin):
   ``csrc/maxsim_v1.cu``, an additive [N, Td] document-token bias in place of
@@ -48,12 +49,14 @@ as ``preferred_element_type=f32`` gives.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from autorag_research_tpu_torch.ops import cuda_build
 from autorag_research_tpu_torch.ops.dense import (
+    SMEM_BLOCK_MAX,
     _require_exact_f32,
     _round_up,
     int8_matmul,
@@ -92,7 +95,8 @@ FUSED_K_MAX = 16
 # v3's bias-lane value for pad document tokens (JAX ``_MASK_BIAS``): finite
 # in bf16, and Tq_pad times it stays finite in f32
 MASK_BIAS = -1.0e30
-# query-token rows and documents per step of the kernel (csrc/maxsim_v2.cu)
+# query-token rows and documents per step of the pins' kernel
+# (csrc/maxsim_kernel.cuh)
 _KERNEL_ROWS = 128
 _KERNEL_DOCS = 32
 # gathered [Bc, C, Td, d] f32 candidate tokens of one rerank chunk
@@ -356,11 +360,10 @@ def _kernel_operands(queries, docs):
 
 
 def _launch(source: str, name: str, queries, docs, aux, k_eff: int):
-    """Launch ``name`` (``maxsim_topk_v1`` / ``_v2`` / ``_v3`` fused, k_eff >
-    0; ``maxsim_scores_v2``, k_eff 0) of ``csrc/<source>.cu`` on masked
-    queries [B, Tq, d] and docs [N, Td, d], with the kernel's aux input
-    (lengths, bias or None) -> fused lists [B, P, k_eff] (scores, rows) or
-    scores [B, N]."""
+    """Launch the pin ``name`` (``maxsim_topk_v1`` / ``_v3``, k_eff > 0) of
+    ``csrc/<source>.cu`` on masked queries [B, Tq, d] and docs [N, Td, d],
+    with the kernel's aux input (bias or None) -> lists [B, P, k_eff]
+    (scores, rows)."""
     _require_exact_f32()
     dev = queries.device
     queries, docs = _kernel_operands(queries, docs)
@@ -369,20 +372,15 @@ def _launch(source: str, name: str, queries, docs, aux, k_eff: int):
     tq_pad, bq, rt, q_blocks = _kernel_layout(b, tq)
     qp = _pack_queries(queries, tq_pad, bq, rt, q_blocks)
     part_docs, parts = _kernel_parts(q_blocks, n, dev)
-    fused = k_eff > 0
-    if fused:
-        out_s = torch.empty((b, parts, k_eff), dtype=torch.float32, device=dev)
-        out_i = torch.empty((b, parts, k_eff), dtype=torch.int32, device=dev)
-    else:
-        out_s = torch.empty((b, n), dtype=torch.float32, device=dev)
-        out_i = None
+    out_s = torch.empty((b, parts, k_eff), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, parts, k_eff), dtype=torch.int32, device=dev)
     suffix = "f32" if queries.dtype == torch.float32 else "bf16"
     fn = getattr(cuda_build.load(source), f"{name}_{suffix}_launch")
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
         qp.data_ptr(), docs.data_ptr(), aux.data_ptr() if aux is not None else None,
-        out_s.data_ptr(), out_i.data_ptr() if out_i is not None else None,
+        out_s.data_ptr(), out_i.data_ptr(),
         b, n, td, d, tq_pad, bq, rt, k_eff, part_docs, parts, q_blocks,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -403,9 +401,296 @@ def _fused(source: str, name: str, queries, docs, aux, k: int):
     return pad_to_k(scores, ids, k, k_eff)
 
 
+# ------------------------------------------ the v2 tile body and its plan
+# csrc/maxsim_tile.cuh: row tiles of 128 query-token rows in f32 and 256 in
+# bf16 (a staged token then meets 256 rows, so staging no longer bounds the
+# tensor cores), document chunks of 16 tokens, 128-token product tiles,
+# groups of 32 documents, at most 32 queries a row tile, staged token k-boxes
+# of 128 tokens x 128 bytes
+MAXSIM_ROWS = {torch.float32: 128, torch.bfloat16: 256}
+MAXSIM_CHUNK, MAXSIM_TILE_TOK = 16, 128
+MAXSIM_GROUP, MAXSIM_QMAX = 32, 32
+MAXSIM_BOX = 128 * 128
+MAXSIM_STAGES = (3, 6)  # the fewest and the most ring slots
+# a fused part holds at least MAXSIM_PART_K * k documents, so parts never
+# grow with k; a row block takes at most MAXSIM_WAVE_PARTS times its share
+# of one wave's slots
+MAXSIM_PART_K, MAXSIM_WAVE_PARTS = 4, 4
+
+
+def maxsim_layout_bytes(rows: int, k_boxes: int, stages: int, resident: bool, smem_lists: bool,
+                        k: int) -> int:
+    """Shared-memory bytes of ``csrc/maxsim_tile.cuh``'s layout (its
+    ``layout_bytes``) for row tiles of ``rows``: 1,024 bytes of alignment
+    slack, the resident query k-boxes (``rows`` x 128 bytes each), the ring
+    (a token k-box a slot, and a query k-box beside it when the queries are
+    streamed), the [32, rows + 1] f32 row-maxima table, the ring's and the
+    query tile's barriers, and [32, k] lists when they live in shared
+    memory."""
+    qbox = rows * 128
+    q = k_boxes * qbox if resident else 0
+    slot = MAXSIM_BOX if resident else MAXSIM_BOX + qbox
+    lists = MAXSIM_QMAX * k * 8 if smem_lists else 0
+    return 1024 + q + stages * slot + MAXSIM_GROUP * (rows + 1) * 4 + 16 * (stages + 1) + lists
+
+
+def maxsim_layout(d: int, k: int, dtype: torch.dtype) -> tuple[int, int, bool, str | None, int]:
+    """(k_boxes, stages, resident, lists, smem_bytes) for width ``d`` and
+    lists of ``k`` (0: the scores epilogue, no lists): the query rows stay
+    resident while they fit beside the shortest ring, else each slot
+    streams them; the lists live in shared memory while they fit too, else
+    in the output; then the ring takes as many slots as fit, up to 6."""
+    rows = MAXSIM_ROWS[dtype]
+    k_boxes = -(-d * (2 if dtype == torch.bfloat16 else 4) // 128)
+    lo, hi = MAXSIM_STAGES
+    resident = maxsim_layout_bytes(rows, k_boxes, lo, True, False, 0) <= SMEM_BLOCK_MAX
+    lists = None
+    if k > 0:
+        fits = maxsim_layout_bytes(rows, k_boxes, lo, resident, True, k) <= SMEM_BLOCK_MAX
+        lists = "shared" if fits else "global"
+    shared = lists == "shared"
+    stages = max(s for s in range(lo, hi + 1)
+                 if maxsim_layout_bytes(rows, k_boxes, s, resident, shared, k) <= SMEM_BLOCK_MAX)
+    return k_boxes, stages, resident, lists, maxsim_layout_bytes(rows, k_boxes, stages, resident,
+                                                                  shared, k)
+
+
+@dataclass(frozen=True)
+class MaxSimPlan:
+    """The launch plan of one ``csrc/maxsim_v2.cu`` launch."""
+
+    rows: int  # query-token rows of a row tile
+    k_boxes: int  # staged k-boxes of a row (128 bytes each)
+    stages: int  # slots of the staging ring
+    resident: bool  # query rows resident (else streamed beside each slot)
+    lists: str | None  # "shared", "global" (the output) or None (scores)
+    smem_bytes: int
+    blocks: int  # row blocks: whole queries, in order
+    q_rows: int  # packed query rows, ``rows`` a row tile: the rows the kernel computes
+    parts: int
+    part_docs: int  # documents of a part, a multiple of 32
+    items: int  # (row block, part) pairs
+    grid: int  # blocks launched, each walking items in a grid-stride loop
+    slots: int  # resident block slots of the card
+    waves: int
+    rows_valid: int
+    tokens_walked: int | None = None  # with doc_lens: tokens walked per row tile
+    tokens_valid: int | None = None
+    # int32 [blocks, 4] (first query, queries, row tiles, first packed row)
+    # then [B, 2] (packed row, length): the kernel's table
+    table: np.ndarray = field(default=None, compare=False, repr=False)
+
+    def note(self) -> str:
+        """One line for logs: the plan and its work ratios."""
+        walk = ("" if self.tokens_walked is None else
+                f", tokens walked / valid {self.tokens_walked / max(self.tokens_valid, 1):.4f}")
+        return (f"{self.blocks} row blocks ({self.q_rows} rows, tiles of {self.rows}) x "
+                f"{self.parts} parts of "
+                f"{self.part_docs} docs = {self.items} items on a grid of {self.grid} "
+                f"({self.slots} slots, {self.waves} waves); ring {self.stages} x "
+                f"{self.k_boxes} k-boxes, queries {'resident' if self.resident else 'streamed'}"
+                f", lists {self.lists}, {self.smem_bytes} B shared; rows computed / valid "
+                f"{self.q_rows / max(self.rows_valid, 1):.4f}{walk}")
+
+
+def _row_blocks(q_lens: np.ndarray, tile: int) -> list[tuple[int, int, int]]:
+    """Whole queries packed in order into row tiles of ``tile`` rows: (first
+    query, queries, row tiles) per block. A tile closes when the next query
+    would overflow it or it holds 32 queries; a longer query takes
+    ceil(len / tile) tiles of a block of its own."""
+    blocks = []
+    first, count, rows = 0, 0, 0
+    for b, length in enumerate(q_lens.tolist()):
+        if length > tile:
+            if count:
+                blocks.append((first, count, 1))
+            blocks.append((b, 1, -(-length // tile)))
+            first, count, rows = b + 1, 0, 0
+            continue
+        if count and (rows + length > tile or count == MAXSIM_QMAX):
+            blocks.append((first, count, 1))
+            first, count, rows = b, 0, 0
+        count += 1
+        rows += length
+    if count:
+        blocks.append((first, count, 1))
+    return blocks
+
+
+def _parts(n: int, blocks: int, k: int, slots: int) -> tuple[int, int]:
+    """(parts, part_docs): the split of the N documents whose items fill
+    the card's waves best (ties to fewer parts), a part a multiple of 32
+    documents, at most MAXSIM_WAVE_PARTS x one wave's share a row block and,
+    with lists, at least MAXSIM_PART_K x k documents a part."""
+    p_max = min(-(-n // MAXSIM_GROUP), MAXSIM_WAVE_PARTS * max(1, slots // blocks))
+    if k > 0:
+        p_max = min(p_max, n // (MAXSIM_PART_K * k))
+    best = None
+    for p in range(1, max(1, p_max) + 1):
+        part_docs = _round_up(-(-n // p), MAXSIM_GROUP)
+        parts = -(-n // part_docs)
+        items = blocks * parts
+        fill = items / (-(-items // slots) * slots)
+        if best is None or fill > best[0]:
+            best = (fill, parts, part_docs)
+    return best[1], best[2]
+
+
+def maxsim_plan(q_lens, n: int, td: int, d: int, k: int, dtype: torch.dtype, sms: int,
+                blocks_per_sm: int, doc_lens=None) -> MaxSimPlan:
+    """Pure launch plan of the MaxSim tile body for queries of lengths
+    ``q_lens`` [B] (host integers, at most their padded length) against N =
+    ``n`` documents of ``td`` padded tokens of width ``d`` (a multiple of
+    8), lists of ``k`` (0 for the scores epilogue; clamped to n), on a card
+    of ``sms`` SMs that holds ``blocks_per_sm`` of its blocks each.
+
+    Row blocks pack whole queries by their own lengths into row tiles of
+    ``MAXSIM_ROWS[dtype]`` (:func:`_row_blocks`), so the kernel computes no
+    pad row beyond each tile's tail; items
+    (row block, part) fill whole waves of the card's resident slots
+    (:func:`_parts`). ``doc_lens`` [N], when given, adds the tokens the walk
+    covers (chunks of 16, product tiles of 8 chunks per group of 32
+    documents) against the valid tokens, which the launch does not need."""
+    q_lens = np.asarray(q_lens, dtype=np.int64).reshape(-1)
+    b = q_lens.size
+    if (min(b, n, td, d, sms, blocks_per_sm) < 1 or d % 8 or k < 0 or (q_lens < 0).any()
+            or n * td >= 2**31):
+        raise ValueError(f"no maxsim plan for B={b} n={n} td={td} d={d} k={k} sms={sms} "
+                         f"blocks_per_sm={blocks_per_sm}")
+    k = min(k, n)
+    rows = MAXSIM_ROWS[dtype]
+    k_boxes, stages, resident, lists, smem = maxsim_layout(d, k, dtype)
+    blocks = np.asarray(_row_blocks(q_lens, rows), dtype=np.int64).reshape(-1, 3)
+    tiles = blocks[:, 2]
+    row0 = np.concatenate([[0], np.cumsum(tiles)[:-1]]) * rows
+    q_start = np.concatenate([[0], np.cumsum(q_lens)[:-1]])
+    # a query's packed row: its block's first row plus the rows before it there
+    of_block = np.repeat(np.arange(len(blocks)), blocks[:, 1])
+    q_row = row0[of_block] + q_start - q_start[blocks[of_block, 0]]
+    table = np.concatenate([
+        np.stack([blocks[:, 0], blocks[:, 1], tiles, row0], axis=1).reshape(-1),
+        np.stack([q_row, q_lens], axis=1).reshape(-1),
+    ]).astype(np.int32)
+    slots = sms * blocks_per_sm
+    parts, part_docs = _parts(n, len(blocks), k, slots)
+    items = len(blocks) * parts
+    walked = valid = None
+    if doc_lens is not None:
+        lens = np.clip(np.asarray(doc_lens, dtype=np.int64).reshape(n), 0, td)
+        chunks = np.bincount(np.arange(n) // MAXSIM_GROUP, weights=-(-lens // MAXSIM_CHUNK))
+        walked = int((-(-chunks.astype(np.int64) // (MAXSIM_TILE_TOK // MAXSIM_CHUNK))).sum()
+                     * MAXSIM_TILE_TOK)
+        valid = int(lens.sum())
+    return MaxSimPlan(
+        rows=rows, k_boxes=k_boxes, stages=stages, resident=resident, lists=lists,
+        smem_bytes=smem, blocks=len(blocks), q_rows=int(tiles.sum()) * rows, parts=parts,
+        part_docs=part_docs, items=items, grid=min(items, slots), slots=slots,
+        waves=-(-items // slots), rows_valid=int(q_lens.sum()), tokens_walked=walked,
+        tokens_valid=valid, table=table,
+    )
+
+
+def _query_gather(plan: MaxSimPlan, b: int, tq: int) -> np.ndarray:
+    """Source row of each packed query row in [B * Tq + 1] rows (the padded
+    queries flattened, then one zero row for the tiles' empty rows)."""
+    qrow = plan.table[4 * plan.blocks:].reshape(b, 2).astype(np.int64)
+    lens = qrow[:, 1]
+    src = np.full(plan.q_rows, b * tq, dtype=np.int64)
+    owner = np.repeat(np.arange(b), lens)
+    tok = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens, lens)
+    src[qrow[owner, 0] + tok] = owner * tq + tok
+    return src
+
+
+def _host_lens(query_lens, b: int, tq: int) -> np.ndarray:
+    """Query lengths on the host, clamped to [0, Tq]: a numpy array or CPU
+    tensor costs nothing, a CUDA tensor one copy of 4 B bytes."""
+    if isinstance(query_lens, torch.Tensor):
+        query_lens = query_lens.detach().cpu().numpy()
+    lens = np.asarray(query_lens).reshape(-1).astype(np.int64)
+    if lens.shape != (b,):
+        raise ValueError("query_lens must be [B]")
+    return np.clip(lens, 0, tq)
+
+
+_V2_BLOCKS_PER_SM: dict = {}
+
+
+def _v2_blocks_per_sm(device: torch.device, bf16: bool, fused: bool, smem: int) -> int:
+    """Resident blocks of the tile body an SM holds at ``smem`` bytes, from
+    the CUDA occupancy calculator (its registers and shared memory)."""
+    key = (device.index, bf16, fused, smem)
+    if key not in _V2_BLOCKS_PER_SM:
+        fn = cuda_build.load("maxsim_v2").maxsim_v2_blocks_per_sm
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = fn(int(bf16), int(fused), smem, ctypes.byref(blocks))
+        cuda_build.check_launch(rc, "maxsim_v2")
+        if blocks.value < 1:
+            raise RuntimeError(f"maxsim_v2: no block fits an SM at {smem} bytes")
+        _V2_BLOCKS_PER_SM[key] = blocks.value
+    return _V2_BLOCKS_PER_SM[key]
+
+
+def v2_plan_on_card(query_lens, n: int, td: int, d: int, k: int, dtype: torch.dtype,
+                    device: torch.device, doc_lens=None) -> MaxSimPlan:
+    """The plan :func:`maxsim_topk_v2` (k > 0) or :func:`maxsim_scores_v2`
+    (k = 0) launches on ``device`` for host query lengths: its SM count and
+    the kernel's resident blocks an SM at the plan's shared memory."""
+    k = min(k, n)
+    smem = maxsim_layout(d, k, dtype)[-1]
+    bps = _v2_blocks_per_sm(device, dtype == torch.bfloat16, k > 0, smem)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return maxsim_plan(query_lens, n, td, d, k, dtype, sms, bps, doc_lens=doc_lens)
+
+
+def _v2_launch(name: str, queries, query_lens, docs, doc_lens, k_eff: int):
+    """Launch #9 (``maxsim_topk_v2``, k_eff > 0: lists [B, P, k_eff]) or #10
+    (``maxsim_scores_v2``, k_eff 0: scores [B, N]) of ``csrc/maxsim_v2.cu``.
+    The plan is made on the host from the query lengths; its table and the
+    packed rows' sources cross in one pinned copy, and the packed query rows
+    [q_rows, d] are gathered on the card."""
+    _require_exact_f32()
+    dev = queries.device
+    queries, docs = _kernel_operands(queries, docs)
+    b, tq, d = queries.shape
+    n, td, _ = docs.shape
+    dlens = torch.as_tensor(doc_lens).to(dev, torch.int32).contiguous()
+    if dlens.shape != (n,):
+        raise ValueError("doc_lens must be [N]")
+    plan = v2_plan_on_card(_host_lens(query_lens, b, tq), n, td, d, k_eff, queries.dtype, dev)
+    host = np.concatenate([plan.table, _query_gather(plan, b, tq)]).astype(np.int32)
+    on_card = torch.from_numpy(host).pin_memory().to(dev, non_blocking=True)
+    table = on_card[: plan.table.size]
+    flat = torch.cat([queries.reshape(b * tq, d), queries.new_zeros((1, d))])
+    qp = flat.index_select(0, on_card[plan.table.size:])
+    if k_eff > 0:
+        out_s = torch.empty((b, plan.parts, k_eff), dtype=torch.float32, device=dev)
+        out_i = torch.empty((b, plan.parts, k_eff), dtype=torch.int32, device=dev)
+    else:
+        out_s = torch.empty((b, n), dtype=torch.float32, device=dev)
+        out_i = None
+    suffix = "f32" if queries.dtype == torch.float32 else "bf16"
+    fn = getattr(cuda_build.load("maxsim_v2"), f"{name}_{suffix}_launch")
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(
+        qp.data_ptr(), docs.data_ptr(), dlens.data_ptr(), table.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr() if out_i is not None else None,
+        b, n, td, d, plan.q_rows, k_eff, plan.blocks, plan.parts, plan.part_docs, plan.grid,
+        plan.stages, int(plan.resident), int(plan.lists == "shared"), plan.smem_bytes,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check_launch(rc, name)
+    LAUNCHES[name] += 1
+    return out_s, out_i
+
+
 def maxsim_topk_v2(
     queries: torch.Tensor,
-    query_lens: torch.Tensor,
+    query_lens,
     docs: torch.Tensor,
     doc_lens: torch.Tensor,
     k: int,
@@ -413,18 +698,23 @@ def maxsim_topk_v2(
     """Fused MaxSim top-k (JAX ``maxsim_topk_pallas_v2``): queries and docs
     both f32 or both bf16, f32 sums, the [B, N] scores never materialized,
     any k and any d. CUDA tensors launch ``csrc/maxsim_v2.cu``; CPU tensors
-    take :func:`maxsim_topk_v2_plain`. Returns (scores [B, k], rows [B, k])
-    in ``(-score, row)`` order, empty documents at NEG_INF with their row."""
+    take :func:`maxsim_topk_v2_plain`. ``query_lens`` may stay on the host
+    (a numpy array or CPU tensor) beside CUDA queries: the launch plan reads
+    them there, and a CUDA tensor costs one copy of 4 B bytes. Returns
+    (scores [B, k], rows [B, k]) in ``(-score, row)`` order, empty documents
+    at NEG_INF with their row."""
     if queries.dtype != docs.dtype:
         raise ValueError("queries and docs must share a dtype")
     if not queries.is_cuda:
         return maxsim_topk_v2_plain(queries, query_lens, docs, doc_lens, k)
-    dlens = torch.as_tensor(doc_lens).to(queries.device, torch.int32).contiguous()
-    if dlens.shape != (docs.shape[0],):
-        raise ValueError("doc_lens must be [N]")
-    return _fused(
-        "maxsim_v2", "maxsim_topk_v2", _masked_queries(queries, query_lens), docs, dlens, k
-    )
+    b = queries.shape[0]
+    k_eff = min(k, docs.shape[0])
+    if k_eff == 0 or b == 0:
+        empty = torch.empty((b, 0), device=queries.device)
+        return pad_to_k(empty, empty.to(torch.int32), k, 0)
+    out_s, out_i = _v2_launch("maxsim_topk_v2", queries, query_lens, docs, doc_lens, k_eff)
+    scores, ids = merge_topk(out_s, out_i, k_eff)
+    return pad_to_k(scores, ids, k, k_eff)
 
 
 def maxsim_topk_v1(
@@ -476,26 +766,22 @@ def maxsim_topk_v3(
 
 def maxsim_scores_v2(
     queries: torch.Tensor,
-    query_lens: torch.Tensor,
+    query_lens,
     docs: torch.Tensor,
     doc_lens: torch.Tensor,
 ) -> torch.Tensor:
     """Raw [B, N] f32 MaxSim scores (JAX ``maxsim_scores_pallas_v2``, written
     [B, N] directly). CUDA tensors launch the scores epilogue of
-    ``csrc/maxsim_v2.cu``; CPU tensors take :func:`maxsim_scores_v2_plain`.
-    Empty documents score NEG_INF."""
+    ``csrc/maxsim_v2.cu`` (``query_lens`` as :func:`maxsim_topk_v2` takes
+    them); CPU tensors take :func:`maxsim_scores_v2_plain`. Empty documents
+    score NEG_INF."""
     if not queries.is_cuda:
         return maxsim_scores_v2_plain(queries, query_lens, docs, doc_lens)
     if queries.shape[0] == 0 or docs.shape[0] == 0:
         return torch.empty(
             (queries.shape[0], docs.shape[0]), dtype=torch.float32, device=queries.device
         )
-    dlens = torch.as_tensor(doc_lens).to(queries.device, torch.int32).contiguous()
-    if dlens.shape != (docs.shape[0],):
-        raise ValueError("doc_lens must be [N]")
-    return _launch(
-        "maxsim_v2", "maxsim_scores_v2", _masked_queries(queries, query_lens), docs, dlens, 0
-    )[0]
+    return _v2_launch("maxsim_scores_v2", queries, query_lens, docs, doc_lens, 0)[0]
 
 
 def _scores_chunk(b: int, n: int) -> int:
@@ -514,7 +800,11 @@ def maxsim_topk_via_scores(
     b = queries.shape[0]
     n = docs.shape[0]
     chunk_b = chunk_b or _scores_chunk(b, n)
-    lens = torch.as_tensor(query_lens, device=queries.device).reshape(b)
+    # lengths stay where they are: each chunk's launch plan reads them on the
+    # host, so lengths on the card cross once here, never per chunk
+    lens = torch.as_tensor(query_lens).reshape(b)
+    if lens.is_cuda and queries.is_cuda:
+        lens = lens.cpu()
     out_s, out_i = [], []
     for lo in range(0, b, chunk_b):
         s = maxsim_scores_v2(queries[lo : lo + chunk_b], lens[lo : lo + chunk_b], docs, doc_lens)
@@ -700,7 +990,9 @@ def _maxsim_topk_verified(
     f_cap = min(second_chance, b)
     dev = queries.device
     qf = queries.float()
-    query_lens = torch.as_tensor(query_lens, device=dev).reshape(b)
+    # the kernels' launch plans read the lengths where the caller keeps them
+    lens_in = torch.as_tensor(query_lens).reshape(b)
+    query_lens = lens_in.to(dev)
     q_mask = _query_mask(query_lens, b, tq, dev)
 
     # ---- pass 1: bf16 prescreen of every document -> top-(k'+1) candidates;
@@ -708,7 +1000,7 @@ def _maxsim_topk_verified(
     q_lo = qf.to(torch.bfloat16)
     q_hat = q_lo.float()
     eps = _maxsim_prescreen_eps(qf, q_hat, q_mask, nd_max, r_max)
-    ps, pi = maxsim_topk(q_lo, query_lens, docs_lo, doc_lens, kp_eff + 1, tile_n=tile_n)
+    ps, pi = maxsim_topk(q_lo, lens_in, docs_lo, doc_lens, kp_eff + 1, tile_n=tile_n)
     # (k'+1)-th prescreen score: any non-candidate prescreens <= this
     boundary = ps[:, kp_eff]
     cand = pi[:, :kp_eff]
@@ -737,7 +1029,7 @@ def _maxsim_topk_verified(
     n_fail = int((~ok_q).sum())
     covered = n_fail <= f_cap
     if not covered:
-        out_s, out_i = maxsim_topk(qf, query_lens, docs, doc_lens, k_eff, tile_n=tile_n)
+        out_s, out_i = maxsim_topk(qf, lens_in, docs, doc_lens, k_eff, tile_n=tile_n)
     out_s, out_i = pad_to_k(out_s, out_i, k, k_eff)
     return out_s, out_i, n_fail, covered
 

@@ -9,8 +9,9 @@ serving modes at full width and fails (non-zero exit) on any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source),
-   with one more ``nvcc -Xptxas -v`` of the streaming kernel beside it
-   (registers, shared memory and spills of its f32 and bf16 instantiations);
+   with one more ``nvcc -Xptxas -v`` each of the streaming kernel and of
+   ``maxsim_v2.cu`` beside it (registers, shared memory and spills of their
+   instantiations);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it, with its time, the plain version's, one PyTorch
    library yardstick's and the least time the card could take; the
@@ -38,17 +39,23 @@ serving modes at full width and fails (non-zero exit) on any fault:
    page scale (10,000 pages of 512-1,024 tokens, ColPali) in a verified one,
    and 128 query texts of up to 32 words through the multi-vector encoder
    (hidden 512, 6 layers, 8 heads, seq 128, out 128, random weights);
-6. both MaxSim kernels (``csrc/maxsim_v2.cu``) against their plain versions
-   at those shapes: fused top-k in f32 at text scale (k = 10) and bf16 at
-   page scale, raw scores in bf16 at page scale (the verified prescreen's
-   k'+1 = 65) and f32 at text scale (k = 100), each with its time, the plain
-   version's, a chunked-matmul yardstick's and its bound;
+6. both MaxSim kernels (``csrc/maxsim_v2.cu`` on the tile body
+   ``csrc/maxsim_tile.cuh``) against their plain versions at those shapes:
+   fused top-k in f32 at text scale (k = 10) and bf16 at page scale, raw
+   scores in bf16 at page scale (the verified prescreen's k'+1 = 65) and f32
+   at text scale (k = 100), each with its launch plan (``maxsim_plan``: rows
+   computed / valid, tokens walked / valid), its time with the SM clock and
+   power sampled beside it, the plain version's, a chunked-matmul
+   yardstick's and its bound; #11 (the ``pallas`` pin, the old tile body)
+   timed beside #9 at the text shape;
 7. the MaxSim main path with every launch count at 0 just before it: embed
    the 128 texts, exact search at k = 10 (fused kernel) and k = 100 (scores
    kernel), verified page-scale search at k = 10 (scores-kernel prescreen)
    with its own ``(n_fail, covered)``. Both kernels must have launched, no
    plain version or scan may have run, and verified ids must equal exact
    mode's on the same corpus (near-ties within the f32 rounding term aside);
+   a ``torch.profiler`` split of the exact text search and the verified page
+   search (kernels against the rest of their device time);
 8. a SciFact-size multi-vector catalog run through
    ``VectorSearchPipeline(search_mode="multi")`` verified: 3,000 rows,
    recall@10 / ndcg@10, rows held against an exact search, the scores kernel
@@ -397,15 +404,25 @@ def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -
     docs_lo = side["docs_lo"]
 
     # ---- 6. kernels vs plain at main-path shapes ---------------------------
+    ql_h = torch.from_numpy(ql_np)  # host lengths, as MultiVectorIndex passes them
+
+    def plan_note(label, q, docs, dlens, k):
+        plan = tm.v2_plan_on_card(ql_np, docs.shape[0], docs.shape[1], q.shape[2], k, q.dtype,
+                                  dev, doc_lens=dlens.cpu().numpy())
+        log(f"  plan, {label}: {plan.note()}")
+
     def fused_case(label, q, docs, dlens, k, d_max, pk, elt):
-        s, i = tm.maxsim_topk_v2(q, ql, docs, dlens, k)
+        s, i = tm.maxsim_topk_v2(q, ql_h, docs, dlens, k)
         rs, ri = tm.maxsim_topk_v2_plain(q, ql, docs, dlens, k)
         n_mism, ok, err = mv_agree(s, i, rs, ri, mv_tol(q, ql, d_max))
         log(f"maxsim_topk_v2 vs plain, {label}: ids mismatches {n_mism}/{i.numel()} (all within "
             f"the rounding term: {ok}), max|d score| = {err:.3e}")
         if not ok:
             fail(f"maxsim_topk_v2 disagrees with its plain version ({label})")
-        ms = cuda_ms(lambda: tm.maxsim_topk_v2(q, ql, docs, dlens, k), 3)
+        plan_note(label, q, docs, dlens, k)
+        with SmiSampler() as smi:
+            ms = cuda_ms(lambda: tm.maxsim_topk_v2(q, ql_h, docs, dlens, k), 3)
+        log(f"  beside the kernel's timing: {smi.summary()}")
         plain_ms = cuda_ms(lambda: tm.maxsim_topk_v2_plain(q, ql, docs, dlens, k), 1)
         lib_ms = cuda_ms(lambda: mv_library(q, ql, docs, dlens, k), 1)
         b_ms, b_by = mv_bound(ql, dlens, MV_DIM, elt, q.shape[0] * k * 8, peak[pk], peak["hbm"])
@@ -420,12 +437,12 @@ def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -
         })
 
     def scores_case(label, q, docs, dlens, k, d_max, pk, elt):
-        got = tm.maxsim_scores_v2(q, ql, docs, dlens)
+        got = tm.maxsim_scores_v2(q, ql_h, docs, dlens)
         ref = tm.maxsim_scores_v2_plain(q, ql, docs, dlens)
         tol = mv_tol(q, ql, d_max)
         err_t = (got - ref).abs()
         err = float(err_t.max())
-        s, i = tm.maxsim_topk_via_scores(q, ql, docs, dlens, k)
+        s, i = tm.maxsim_topk_via_scores(q, ql_h, docs, dlens, k)
         rs, ri = tm.maxsim_topk_v2_plain(q, ql, docs, dlens, k)
         n_mism, ok, _ = mv_agree(s, i, rs, ri, tol)
         log(f"maxsim_scores_v2 vs plain, {label}: max|d score| = {err:.3e} over [{q.shape[0]}, "
@@ -433,7 +450,10 @@ def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -
             f"{n_mism}/{i.numel()} (all within the rounding term: {ok})")
         if not (bool((err_t <= tol[:, None]).all()) and ok):
             fail(f"maxsim_scores_v2 disagrees with its plain version ({label})")
-        ms = cuda_ms(lambda: tm.maxsim_scores_v2(q, ql, docs, dlens), 3)
+        plan_note(label, q, docs, dlens, 0)
+        with SmiSampler() as smi:
+            ms = cuda_ms(lambda: tm.maxsim_scores_v2(q, ql_h, docs, dlens), 3)
+        log(f"  beside the kernel's timing: {smi.summary()}")
         plain_ms = cuda_ms(lambda: tm.maxsim_scores_v2_plain(q, ql, docs, dlens), 1)
         lib_ms = cuda_ms(lambda: mv_library(q, ql, docs, dlens, None), 1)
         b_ms, b_by = mv_bound(ql, dlens, MV_DIM, elt, q.shape[0] * docs.shape[0] * 4,
@@ -452,6 +472,13 @@ def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -
     text = f"text scale B={MV_Q} x {TEXT_N} docs x {TEXT_TD} x {MV_DIM}"
     page = f"page scale B={MV_Q} x {PAGE_N} pages x {PAGE_TD} x {MV_DIM}"
     fused_case(f"f32 {text}, k={K}", q32, docs_t, lens_t, K, 1.0, "f32", 4)
+    # the same-card yardstick of the old tile body: #11 (the pallas pin runs
+    # csrc/maxsim_kernel.cuh) beside #9, in turns
+    pin_ms = [cuda_ms(lambda: fn(q32, ql_h, docs_t, lens_t, K), 3)
+              for fn in (tm.maxsim_topk_v1, tm.maxsim_topk_v2, tm.maxsim_topk_v2,
+                         tm.maxsim_topk_v1)]
+    log(f"  #11 maxsim_topk_v1 (the old tile body) f32 {text}, k={K}: {pin_ms[0]:.3f} / "
+        f"{pin_ms[3]:.3f} ms; #9 beside it {pin_ms[1]:.3f} / {pin_ms[2]:.3f} ms")
     fused_case(f"bf16 {page}, k={K}", q16, docs_lo, lens_p, K, 1.0, "bf16", 2)
     scores_case(f"bf16 {page}, k'+1={K_PRESCREEN}", q16, docs_lo, lens_p, K_PRESCREEN, 1.0,
                 "bf16", 2)
@@ -502,6 +529,10 @@ def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -
         f"{MV_Q / ex_ms * 1e3:.1f} QPS; k={K_LONG} (scores kernel): {ex100_ms:.3f} ms/batch")
     log(f"MaxSim verified search, page scale, k={K}: {ver_ms:.3f} ms/batch, "
         f"{MV_Q / ver_ms * 1e3:.1f} QPS (n_fail {n_fail})")
+    device_breakdown(f"MaxSim exact search, text scale, k={K}",
+                     lambda: index_text.topk_rows(q_mats, K))
+    device_breakdown(f"MaxSim verified search, page scale, k={K}",
+                     lambda: index_page.topk_rows(q_mats, K))
     del index_text, index_page, docs_t, lens_t, docs_p, lens_p, side, docs_lo, es, ei
     torch.cuda.empty_cache()
 
@@ -1607,6 +1638,7 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     q_np, ql_np = pad_ragged([l2_normalize(m) for m in q_mats])
     q32 = torch.from_numpy(q_np).to(dev)
     ql = torch.from_numpy(ql_np).to(dev)
+    ql_h = torch.from_numpy(ql_np)  # host lengths for #9's launch plans
     q16 = q32.to(torch.bfloat16)
     docs_t, lens_t = index_text._device
     docs_p, lens_p = index_page._device
@@ -1639,7 +1671,7 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
         if not ok:
             fail(f"{name} disagrees with its plain version ({label})")
         ms = cuda_ms(call, 3)
-        v2_ms = cuda_ms(lambda: tm.maxsim_topk_v2(q, ql, docs, dlens, k), 3)
+        v2_ms = cuda_ms(lambda: tm.maxsim_topk_v2(q, ql_h, docs, dlens, k), 3)
         plain_ms = cuda_ms(lambda: plain(q, ql, docs, dlens, k), 1)
         lib_ms = cuda_ms(lambda: mv_library(q, ql, docs, dlens, k), 1)
         b_ms, b_by = mv_bound(ql, dlens, MV_DIM, elt, q.shape[0] * k * 8, peak[pk], peak["hbm"])
@@ -1689,7 +1721,7 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
              timed(lambda: tm.maxsim_topk_v1(q32, ql, docs_t, lens_t, K_ANY)),
              tm.maxsim_topk_v1_plain(q32, ql, docs_t, lens_t, K_ANY), mv_check)
     any_case(f"maxsim_topk_v2 f32 {text}, k={K_F1_MAXSIM} (lists in the output)",
-             timed(lambda: tm.maxsim_topk_v2(q32, ql, docs_t, lens_t, K_F1_MAXSIM)),
+             timed(lambda: tm.maxsim_topk_v2(q32, ql_h, docs_t, lens_t, K_F1_MAXSIM)),
              tm.maxsim_topk_v2_plain(q32, ql, docs_t, lens_t, K_F1_MAXSIM), mv_check)
     q_ex = index_e._device.new_tensor(l2_normalize(embedder.embed_texts(query_texts)))
     c_f32 = index_e._device
@@ -1732,10 +1764,10 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     del got, ref, q100, c100, q100b, c100b
     docs_t100 = docs_t[:, :, :ODD_DIM].contiguous()
     q32_100 = q32[:, :, :ODD_DIM].contiguous()
-    s, i = tm.maxsim_topk_v2(q32_100, ql, docs_t100, lens_t, K)
+    s, i = tm.maxsim_topk_v2(q32_100, ql_h, docs_t100, lens_t, K)
     rs, ri = tm.maxsim_topk_v2_plain(q32_100, ql, docs_t100, lens_t, K)
     n_mism, ok, err = mv_agree(s, i, rs, ri, mv_tol(q32_100, ql, 1.0))
-    v2_100_ms = cuda_ms(lambda: tm.maxsim_topk_v2(q32_100, ql, docs_t100, lens_t, K), 2)
+    v2_100_ms = cuda_ms(lambda: tm.maxsim_topk_v2(q32_100, ql_h, docs_t100, lens_t, K), 2)
     log(f"maxsim_topk_v2 f32 text scale d={ODD_DIM}, k={K}: ids mismatches {n_mism}/{i.numel()} "
         f"(within the rounding term: {ok}), max|d score| = {err:.3e}, kernel {v2_100_ms:.3f} ms")
     if not ok:
@@ -1890,27 +1922,34 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     torch.cuda.empty_cache()
 
 
-def stream_ptxas_start(cuda_build, tmp: str):
-    """Start one more nvcc of csrc/dense_topk_stream.cu with ``-Xptxas -v``
-    (registers, shared memory and spills of each instantiation)."""
-    src = cuda_build.CSRC_DIR / "dense_topk_stream.cu"
+PTXAS_SOURCES = ("dense_topk_stream", "maxsim_v2")
+
+
+def ptxas_start(cuda_build, tmp: str, name: str):
+    """Start one more nvcc of csrc/<name>.cu with ``-Xptxas -v`` (registers,
+    shared memory and spills of each instantiation)."""
+    src = cuda_build.CSRC_DIR / f"{name}.cu"
     return subprocess.Popen(
         [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         f"{tmp}/ptxas.so", str(src)],
+         f"{tmp}/ptxas_{name}.so", str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
 
 
-def stream_ptxas_log(proc) -> None:
+def ptxas_log(proc, name: str) -> None:
+    """Log each instantiation's registers and spills: f32 or bf16, and for
+    maxsim_v2 the fused (``Lb1``) or scores (``Lb0``) epilogue."""
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        fail(f"nvcc -Xptxas -v of dense_topk_stream.cu failed:\n{out}")
+        fail(f"nvcc -Xptxas -v of {name}.cu failed:\n{out}")
     kernel = None
     for line in out.splitlines():
         if "Compiling entry function" in line:
             kernel = "bf16" if "BF16" in line else "f32"
+            if "maxsim_tile_kernel" in line:
+                kernel += " fused" if "Lb1" in line else " scores"
         elif kernel and ("registers" in line or "spill" in line):
-            log(f"dense_topk_stream {kernel} ptxas: {line.split(':', 1)[-1].strip()}")
+            log(f"{name} {kernel} ptxas: {line.split(':', 1)[-1].strip()}")
 
 
 class SmiSampler:
@@ -1989,11 +2028,13 @@ def main() -> int:
     # ---- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        ptxas = stream_ptxas_start(cuda_build, tmp)  # beside the build, not in it
+        # beside the build, not in it
+        ptxas = {n: ptxas_start(cuda_build, tmp, n) for n in PTXAS_SOURCES}
         secs = cuda_build.build_all()
         log(f"kernel build: {json.dumps({n: round(s, 2) for n, s in secs.items()})} "
             f"({time.perf_counter() - t0:.2f} s in all)")
-        stream_ptxas_log(ptxas)
+        for n, proc in ptxas.items():
+            ptxas_log(proc, n)
 
     # ---- data and indexes ---------------------------------------------------
     rng = np.random.default_rng(args.seed)

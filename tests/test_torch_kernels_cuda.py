@@ -180,6 +180,127 @@ def test_maxsim_fused_kernel_matches_plain(cuda_device, dtype, k, shape):
     torch.testing.assert_close(s, rs, rtol=0, atol=0)
 
 
+# The tile body's packing and walk: query lengths that fill a row tile (128
+# rows in f32, 256 in bf16) exactly, run one row over, or span two and three
+# tiles (a zero-length query among them); documents of 0, 1, each chunk and
+# product-tile edge +- 1 and Td tokens; N = 1,307, a multiple of no step
+# (groups of 32, chunks of 16).
+MV_QUERY_MIXES = {
+    "fill": [32, 32, 32, 32, 0, 5, 123],
+    "over": [64, 65, 1, 128, 129, 256, 257],
+    "span3": [3, 300, 2, 600, 7],
+}
+MV_EDGE_LENS = [0, 1, 15, 16, 17, 31, 32, 33, 127, 128, 129, 139, 140]
+
+
+def _mv_edge_data(mix: str, d: int, n: int = 1307, td: int = 140):
+    rng = np.random.default_rng(len(mix) * 1000 + d)
+    ql = np.array(MV_QUERY_MIXES[mix], dtype=np.int32)
+    q = _eighths(rng, (ql.size, int(ql.max()), d))
+    q *= (np.arange(q.shape[1])[None, :] < ql[:, None])[:, :, None]
+    docs = _eighths(rng, (n, td, d))
+    dl = rng.integers(1, td + 1, size=n).astype(np.int32)
+    dl[20 : 20 + len(MV_EDGE_LENS)] = MV_EDGE_LENS
+    docs[[9, n - 3]] = docs[4]  # exact ties across groups and parts
+    dl[[9, n - 3]] = dl[4]
+    docs *= (np.arange(td)[None, :] < dl[:, None])[:, :, None]
+    return q, ql, docs, dl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [0, 1, 10, 16, 65, 256, 1000], ids=lambda k: f"k{k}" if k else "scores")
+@pytest.mark.parametrize("d", [8, 104, 128])
+@pytest.mark.parametrize("mix", list(MV_QUERY_MIXES))
+def test_maxsim_tile_body_edges_bitwise(cuda_device, mix, d, k, dtype):
+    # #9 (k > 0) and #10 (k = 0) against their plain versions on CPU tensors,
+    # bitwise; query lengths on the host as MultiVectorIndex passes them
+    from autorag_research_tpu_torch.ops import maxsim as tm
+
+    arrays = _mv_edge_data(mix, d)
+    cpu = _mv_tensors(arrays, "cpu", dtype)
+    q, ql, docs, dl = _mv_tensors(arrays, cuda_device, dtype)
+    tm.reset_launch_counts()
+    if k:
+        s, i = tm.maxsim_topk_v2(q, ql.cpu(), docs, dl, k)
+    else:
+        got = tm.maxsim_scores_v2(q, ql.cpu(), docs, dl)
+    torch.cuda.synchronize()
+    assert tm.LAUNCHES["maxsim_topk_v2" if k else "maxsim_scores_v2"] == 1
+    assert sum(tm.PLAIN_CALLS.values()) == 0  # no plain route on the card
+    if k:
+        rs, ri = tm.maxsim_topk_v2_plain(*cpu, k)
+        torch.testing.assert_close(i.cpu(), ri, rtol=0, atol=0)
+        torch.testing.assert_close(s.cpu(), rs, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got.cpu(), tm.maxsim_scores_v2_plain(*cpu), rtol=0, atol=0)
+        assert (got[:, 20] == tm.NEG_INF).all()  # the empty document keeps NEG_INF
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxsim_tile_body_streamed_queries(cuda_device, dtype):
+    # rows too wide to stay resident beside the ring (f32 d = 520, bf16 d =
+    # 1,040): every slot carries the query k-box beside the tokens'
+    from autorag_research_tpu_torch.ops import maxsim as tm
+
+    d = 520 if dtype == torch.float32 else 1040
+    arrays = _mv_data(np.random.default_rng(d), 9, 40, 700, 37, d, empty=(5,))
+    plan = tm.maxsim_plan(arrays[1], 700, 37, d, 10, dtype, 132, 1)
+    assert not plan.resident
+    args = _mv_tensors(arrays, cuda_device, dtype)
+    cpu = _mv_tensors(arrays, "cpu", dtype)
+    s, i = tm.maxsim_topk_v2(*args, 10)
+    rs, ri = tm.maxsim_topk_v2_plain(*cpu, 10)
+    torch.testing.assert_close(i.cpu(), ri, rtol=0, atol=0)
+    torch.testing.assert_close(s.cpu(), rs, rtol=0, atol=0)
+    torch.testing.assert_close(tm.maxsim_scores_v2(*args).cpu(), tm.maxsim_scores_v2_plain(*cpu),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [0, 1])
+@pytest.mark.parametrize("k", [0, 10, 1000])
+def test_maxsim_launcher_refuses_a_plan_off_its_layout(cuda_device, bf16, k):
+    # the plan's shared-memory bytes equal the launcher's own count; a plan
+    # whose bytes differ is refused before launch (cudaErrorInvalidValue)
+    import ctypes
+
+    from autorag_research_tpu_torch.ops import cuda_build
+    from autorag_research_tpu_torch.ops import maxsim as tm
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, ql, docs, dl = _mv_tensors(_mv_data(np.random.default_rng(5), 4, 9, 2000, 20, 128),
+                                  cuda_device, dtype)
+    plan = tm.v2_plan_on_card(ql.cpu().numpy(), 2000, 20, 128, k, dtype, cuda_device)
+    lib = cuda_build.load("maxsim_v2")
+    count = lib.maxsim_v2_smem_bytes
+    count.argtypes = [ctypes.c_int] * 6
+    count.restype = ctypes.c_int
+    assert count(bf16, plan.k_boxes, plan.stages, int(plan.resident),
+                 int(plan.lists == "shared"), min(k, 2000)) == plan.smem_bytes
+    table = torch.from_numpy(plan.table).to(cuda_device)
+    qp = torch.zeros((plan.q_rows, 128), dtype=dtype, device=cuda_device)
+    out_s = torch.empty((4, plan.parts, max(k, 1)) if k else (4, 2000), device=cuda_device)
+    out_i = torch.empty((4, plan.parts, max(k, 1)), dtype=torch.int32, device=cuda_device)
+    name = f"maxsim_{'topk' if k else 'scores'}_v2_{'bf16' if bf16 else 'f32'}_launch"
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(smem):
+        return fn(qp.data_ptr(), docs.data_ptr(), dl.data_ptr(), table.data_ptr(),
+                  out_s.data_ptr(), out_i.data_ptr(), 4, 2000, 20, 128, plan.q_rows, min(k, 2000),
+                  plan.blocks, plan.parts, plan.part_docs, plan.grid, plan.stages,
+                  int(plan.resident), int(plan.lists == "shared"), smem,
+                  torch.cuda.current_stream().cuda_stream)
+
+    assert launch(plan.smem_bytes + 16) == 1
+    assert launch(plan.smem_bytes - 16) == 1
+    assert launch(plan.smem_bytes) == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", [100, 256])

@@ -132,6 +132,31 @@ def test_v2_plain_empty_docs_and_k_beyond_n():
     assert (ti.numpy()[:, 18:20] == [0, 11]).all() and (ti.numpy()[:, 20:] == INT_MAX).all()
 
 
+def _tile_edge_data(seed):
+    """Dyadic queries of very unequal lengths (1 to 70 tokens: a query over
+    two 32-row spans, one of a single row) and documents whose lengths sit
+    on each token-tile edge of 32 and 64 (31, 32, 33, 63, 64, 65) among
+    ragged ones, the inputs the tile body's packing and chunked walk meet."""
+    q, ql, docs, dl = _data(seed, b=6, tq=70, n=40, td=70, d=24, dyadic=True)
+    ql[:] = [1, 70, 3, 33, 17, 2]
+    q *= (np.arange(70)[None, :] < ql[:, None])[:, :, None]
+    dl[10:16] = [31, 32, 33, 63, 64, 65]
+    dl[16] = 70
+    docs *= (np.arange(70)[None, :] < dl[:, None])[:, :, None]
+    return q, ql, docs, dl
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_v2_plain_versions_bitwise_on_unequal_queries_and_tile_edges(dtype):
+    arrays = _tile_edge_data(9)
+    js, ji = jm.maxsim_topk_pallas_v2(*_jax(dtype, *arrays), 10, block_n=8, interpret=True)
+    ts, ti = tm.maxsim_topk_v2_plain(*_torch(dtype, *arrays), 10)
+    _assert_topk(ts, ti, js, ji, exact=True)
+    jsc = jm.maxsim_scores_pallas_v2(*_jax(dtype, *arrays), block_n=8, interpret=True)
+    tsc = tm.maxsim_scores_v2_plain(*_torch(dtype, *arrays))
+    np.testing.assert_array_equal(tsc.numpy(), np.asarray(jsc))
+
+
 # ----------------------------------------------------- scores kernel plain
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_scores_plain_matches_pallas_scores(dtype):
