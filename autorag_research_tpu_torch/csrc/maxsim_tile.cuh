@@ -1,16 +1,32 @@
-// The MaxSim tile body for Hopper, behind the four launchers of maxsim_v2.cu
-// (#9 the fused top-k and #10 the raw scores, each in f32 and bf16):
+// The MaxSim tile body for Hopper, behind every MaxSim launcher: maxsim_v2.cu
+// (#9 the fused top-k and #10 the raw scores), maxsim_v1.cu (#11, the pallas
+// pin) and maxsim_v3.cu (#12, the pallas_v3 pin), each in f32 and bf16. The
+// three differ only in how a document token past the document's length is
+// kept out of the per-token max, the Mask policy:
 //
-//   score(b, n) = sum_{t < len_b} max_{s < len_n} q[b, t] . doc[n, s]
+//   LENS (#9, #10): score(b, n) = sum_{t < len_b} max_{s < len_n} q[b, t] . doc[n, s];
+//                   the lengths are read and a document is walked to round_up(len, 16)
+//   BIAS (#11):     ... max_{s < Td} (q[b, t] . doc[n, s] + bias[n, s]), bias [N, Td]
+//                   f32 (0 or NEG_INF) added before the max; no lengths read
+//   LANE (#12):     ... max_{s < Td} q'[b, t] . doc'[n, s] over operands that carry
+//                   the mask in lane d (1 on query rows, 0 or -1e30 on tokens)
 //
-// Inputs. qp [q_rows, d]: the valid token rows of whole queries, packed by
+// BIAS and LANE walk all Td tokens of every document, as their TPU kernels do;
+// a chunk's positions past Td (the next document's rows in the [N*Td, d]
+// view) are masked by position in every policy.
+//
+// Inputs. qp [q_rows, d]: the token rows of whole queries, packed by
 // ops/maxsim.py::maxsim_plan into row tiles of ROWS (128 in f32, 256 in bf16;
 // a longer query takes consecutive tiles of its own block), zero rows after
-// a tile's last query; docs [N, Td, d] row-major, read in place; dlens [N]; the plan's
-// tables blk [blocks, 4] (first query, queries, row tiles, first packed row)
-// and qrow [B, 2] (packed row, length). Outputs: per-part lists [B, P, k] in
-// (-score, row) order, merged by the wrapper with merge_topk, or [B, N] f32.
-// An empty document scores NEG_INF with its own row.
+// a tile's last query (BIAS and LANE keep one row of a query of length 0:
+// with none its sums would be 0 against an empty document too); docs
+// [N, Td, d] row-major, read in place; aux (dlens [N] or bias [N, Td]); the
+// plan's tables blk [blocks, 4] (first query, queries, row tiles, first packed
+// row) and qrow [B, 2] (packed row, rows). Outputs: per-part lists [B, P, k] in
+// (-score, row) order, merged by the wrapper with merge_topk, or [B, N] f32
+// (LENS only). An empty document scores NEG_INF with its own row under LENS
+// and BIAS (its rows' NEG_INF maxima overflow, and the sum is clamped); under
+// LANE it scores rows x -1e30, which the wrapper resets after selection.
 //
 // Arithmetic: f32 runs FFMA on the CUDA cores (no TF32, the exact paths'
 // rule); bf16 runs wgmma m64n128k16 with f32 accumulators (exact products,
@@ -29,7 +45,9 @@
 // - Documents come in groups of 32, one per lane. Each warp derives the
 //   group's chunk list in registers: a document is walked in chunks of 16
 //   tokens up to round_up(len, 16), and a 128-token product tile is 8
-//   chunks, which may belong to several documents. The producer stages each
+//   chunks, which may belong to several documents (under BIAS and LANE every
+//   document has the same chunks, so a chunk's document is arithmetic, the
+//   same in the producer and the consumers). The producer stages each
 //   chunk as one TMA box of 16 token rows x 128 bytes of the [N*Td, d] view
 //   into a ring of 3-6 slots of 16 KB (one k-box of a tile), counted on the
 //   slot's full mbarrier; consumers release a slot on its empty mbarrier.
@@ -41,8 +59,14 @@
 //   from the resident query k-box and the slot; a thread holds 4 rows x 32
 //   tokens, 4 of them per chunk. Each staged token is multiplied by 256 query
 //   rows: staging, not the tensor cores, bounds a tile of 128 rows.
+// - LANE multiplies the last k-box of a row over its live lanes only (d is
+//   a multiple of 8): at d' = 136 the bias lane costs 8 lanes, not a whole
+//   k-box. (The other policies keep one k-box loop: at d = 128 a second
+//   one cost #9 about 3% in bf16.)
 // - After a tile each thread folds its valid chunk columns into running row
-//   maxima in registers; at a document's last chunk the maxima are reduced
+//   maxima in registers (BIAS: each product plus its token's bias, loaded
+//   before the tile's products so that the loads overlap them); at a
+//   document's last chunk the maxima are reduced
 //   across the lanes that share the rows (16 in f32, a quad in bf16) and
 //   written to a [32 docs, ROWS] table in shared memory.
 // - After a group (two barriers of the consumer warps) one warp per query
@@ -86,13 +110,17 @@ inline long long layout_bytes(int rows, int k_boxes, int stages, bool resident, 
          (smem_lists ? (long long)QMAX * k * 8 : 0);
 }
 
+enum Mask { LENS = 0, BIAS = 1, LANE = 2 };
+
 struct Args {
-  const int* dlens;  // [N]
-  const int* blk;    // [blocks, 4]
-  const int* qrow;   // [B, 2]
+  const void* aux;  // LENS: int32 lengths [N]; BIAS: f32 bias [N, Td]; LANE: unused
+  const int* blk;   // [blocks, 4]
+  const int* qrow;  // [B, 2]
   float* out_s;
   int* out_i;
-  int N, Td, k, blocks, parts, part_docs, k_boxes, stages, resident, smem_lists;
+  // live: elements of a row's last k-box that hold data (the rest are TMA's
+  // zeros); LANE multiplies only those
+  int N, Td, k, blocks, parts, part_docs, k_boxes, live, stages, resident, smem_lists;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -104,17 +132,23 @@ __device__ __forceinline__ void consumer_sync() {
 }
 
 // One group of up to 32 documents from `base`, lane j holding document
-// base + j: its tokens walked (clamped to [0, Td]) and its chunk range
-// [start, end) in the group's chunk list.
+// base + j: its tokens walked (LENS: its length clamped to [0, Td]; BIAS and
+// LANE: all Td) and its chunk range [start, end) in the group's chunk list.
 struct Group {
   int nd, len, start, end, total;
 };
 
-__device__ __forceinline__ Group group_at(const int* dlens, int Td, int base, int doc_end,
-                                          int lane) {
+template <int MASK>
+__device__ __forceinline__ Group group_at(const Args& a, int base, int doc_end, int lane) {
   Group g;
   g.nd = min(GROUP, doc_end - base);
-  g.len = lane < g.nd ? min(max(__ldg(dlens + base + lane), 0), Td) : 0;
+  if (lane >= g.nd) {
+    g.len = 0;
+  } else if (MASK == LENS) {
+    g.len = min(max(__ldg(static_cast<const int*>(a.aux) + base + lane), 0), a.Td);
+  } else {
+    g.len = a.Td;
+  }
   const int nch = (g.len + CHUNK - 1) / CHUNK;
   int end = nch;
 #pragma unroll
@@ -132,6 +166,43 @@ __device__ __forceinline__ Group group_at(const int* dlens, int Td, int base, in
 // starts at or before cc (empty documents share their successor's start).
 __device__ __forceinline__ int chunk_owner(const Group& g, int cc) {
   return 31 - __clz(__ballot_sync(FULL, g.start <= cc));
+}
+
+// BIAS and LANE walk every document over the same nch chunks, so chunk cc
+// of a group is chunk cc % nch of its document cc / nch: a tile's chunks
+// need no ballot. The producer's staging, the bias loads and the fold all
+// take their chunks from here. (j, m) starts at tile t's first chunk; next()
+// steps it.
+struct UniformChunk {
+  int nch, j, m;
+  __device__ __forceinline__ UniformChunk(int Td, int t) {
+    nch = (Td + CHUNK - 1) / CHUNK;
+    j = t * CPT / nch;
+    m = t * CPT - j * nch;
+  }
+  __device__ __forceinline__ void next() {
+    if (++m == nch) {
+      m = 0;
+      ++j;
+    }
+  }
+};
+
+// BIAS: bv[c] = the bias of token lane % 16 of tile t's chunk c (0 past the
+// walk or past Td), loaded before the tile's products so that they hide the
+// loads' latency.
+__device__ __forceinline__ void tile_bias(const Args& a, const Group& g, int base, int t,
+                                          int lane, float (&bv)[CPT]) {
+  const float* bias = static_cast<const float*>(a.aux);
+  UniformChunk u(a.Td, t);
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    const int pos = u.m * CHUNK + (lane & 15);
+    bv[c] = t * CPT + c < g.total && pos < a.Td
+                ? __ldg(bias + (size_t)(base + u.j) * a.Td + pos)
+                : 0.f;
+    u.next();
+  }
 }
 
 // ---- f32: FFMA, 8 x 8 accumulators a thread
@@ -158,13 +229,16 @@ struct F32 {
     for (int i = 0; i < 64; ++i) st.acc[i] = 0.f;
   }
 
-  // one k-box: k-quad kq of a box row r sits at 16-byte chunk kq ^ (r % 8)
+  // one k-box: k-quad kq of a box row r sits at 16-byte chunk kq ^ (r % 8);
+  // TAIL: only the quads of the `live` elements that hold data
+  template <bool TAIL>
   __device__ __forceinline__ static void mma(State& st, const unsigned char* A,
-                                             const unsigned char* B, int) {
+                                             const unsigned char* B, int, int live) {
     const float* As = reinterpret_cast<const float*>(A) + st.ty * BOX_K;
     const float* Bs = reinterpret_cast<const float*>(B) + st.tx * BOX_K;
 #pragma unroll
     for (int kq = 0; kq < BOX_K / 4; ++kq) {
+      if (TAIL && kq * 4 >= live) break;
       const int ca = (kq ^ (st.ty & 7)) * 4, cb = (kq ^ (st.tx & 7)) * 4;
       float4 a[8], b[8];
 #pragma unroll
@@ -195,12 +269,16 @@ struct F32 {
   __device__ __forceinline__ static void wait_prev() {}
   __device__ __forceinline__ static void tile_end(State&) {}
 
-  // fold chunk c's valid tokens (positions < nv) into the running maxima;
-  // c is a constant once the caller's loop is unrolled
-  __device__ __forceinline__ static void chunk(State& st, int c, int nv) {
+  // fold chunk c's valid tokens (positions < nv) into the running maxima, each
+  // product plus its token's bias b under BIAS (this thread's token tx is
+  // lane % 16, whose bias tile_bias loaded); c is a constant once the
+  // caller's loop is unrolled
+  template <int MASK>
+  __device__ __forceinline__ static void chunk(State& st, int c, int nv, float b) {
     if (st.tx < nv) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) st.run[i] = fmaxf(st.run[i], st.acc[i * 8 + c]);
+      for (int i = 0; i < 8; ++i)
+        st.run[i] = fmaxf(st.run[i], MASK == BIAS ? st.acc[i * 8 + c] + b : st.acc[i * 8 + c]);
     }
   }
 
@@ -277,13 +355,16 @@ struct BF16 {
   __device__ __forceinline__ static void tile_begin(State&) {}  // the first wgmma scales by 0
 
   // one k-box: per k = 16 (32 bytes along the swizzled 128-byte rows) two
-  // wgmma, the warpgroup's 64-row halves against the same staged tokens
+  // wgmma, the warpgroup's 64-row halves against the same staged tokens;
+  // TAIL: only the k-steps of the `live` elements that hold data
+  template <bool TAIL>
   __device__ __forceinline__ static void mma(State& st, const unsigned char* A,
-                                             const unsigned char* B, int kb) {
+                                             const unsigned char* B, int kb, int live) {
     const unsigned char* Aw = A + (st.r0 >> 7) * 128 * 128;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
+      if (TAIL && kk * 16 >= live) break;
       const uint64_t db = sw128_desc(B + kk * 32);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -306,7 +387,15 @@ struct BF16 {
     wgmma_fence_acc(st.acc[1]);
   }
 
-  __device__ __forceinline__ static void chunk(State& st, int c, int nv) {
+  // a thread holds tokens 8 ii + 2 t + e of a chunk; under BIAS lane l holds
+  // the bias of token l % 16, so each token's bias is one shuffle away
+  template <int MASK>
+  __device__ __forceinline__ static void chunk(State& st, int c, int nv, float b) {
+    float bt[4] = {0.f, 0.f, 0.f, 0.f};
+    if (MASK == BIAS) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) bt[x] = __shfl_sync(FULL, b, 8 * (x >> 1) + 2 * st.t + (x & 1));
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float v0 = -INFINITY, v1 = -INFINITY;
@@ -315,8 +404,11 @@ struct BF16 {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if (8 * ii + 2 * st.t + e < nv) {
-            v0 = fmaxf(v0, st.acc[h][4 * (2 * c + ii) + e]);
-            v1 = fmaxf(v1, st.acc[h][4 * (2 * c + ii) + 2 + e]);
+            const float bb = bt[2 * ii + e];
+            const float p0 = st.acc[h][4 * (2 * c + ii) + e];
+            const float p1 = st.acc[h][4 * (2 * c + ii) + 2 + e];
+            v0 = fmaxf(v0, MASK == BIAS ? p0 + bb : p0);
+            v1 = fmaxf(v1, MASK == BIAS ? p1 + bb : p1);
           }
         }
       }
@@ -343,7 +435,7 @@ __device__ __forceinline__ bool needs_q(const Args& a, int rt_count, bool first)
   return a.resident && (rt_count > 1 || first);
 }
 
-template <class Op, bool FUSED>
+template <class Op, bool FUSED, int MASK>
 __global__ void __launch_bounds__(THREADS, 1)
 maxsim_tile_kernel(const Args a, const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_d) {
@@ -393,7 +485,7 @@ maxsim_tile_kernel(const Args a, const __grid_constant__ CUtensorMap map_q,
       const int4 blk = reinterpret_cast<const int4*>(a.blk)[it % a.blocks];
       const int d0 = (it / a.blocks) * a.part_docs, d1 = min(a.N, d0 + a.part_docs);
       for (int base = d0; base < d1; base += GROUP) {
-        const Group g = group_at(a.dlens, a.Td, base, d1, lane);
+        const Group g = group_at<MASK>(a, base, d1, lane);
         const int tiles = (g.total + CPT - 1) / CPT;
         for (int rt = 0; rt < blk.z; ++rt) {
           const int q_row = blk.w + rt * ROWS;
@@ -409,13 +501,22 @@ maxsim_tile_kernel(const Args a, const __grid_constant__ CUtensorMap map_q,
           for (int t = 0; t < tiles; ++t) {
             // lane c < 8 stages chunk c of the tile: its first token row
             int row = 0;
+            if constexpr (MASK == LENS) {
 #pragma unroll
-            for (int c = 0; c < CPT; ++c) {
-              const int cc = t * CPT + c;
-              if (cc < g.total) {
-                const int j = chunk_owner(g, cc);
-                const int st = __shfl_sync(FULL, g.start, j);
-                if (lane == c) row = (base + j) * a.Td + (cc - st) * CHUNK;
+              for (int c = 0; c < CPT; ++c) {
+                const int cc = t * CPT + c;
+                if (cc < g.total) {
+                  const int j = chunk_owner(g, cc);
+                  const int st = __shfl_sync(FULL, g.start, j);
+                  if (lane == c) row = (base + j) * a.Td + (cc - st) * CHUNK;
+                }
+              }
+            } else {
+              UniformChunk u(a.Td, t);
+#pragma unroll
+              for (int c = 0; c < CPT; ++c) {
+                if (lane == c) row = (base + u.j) * a.Td + u.m * CHUNK;
+                u.next();
               }
             }
             const int nch = min(CPT, g.total - t * CPT);
@@ -465,7 +566,7 @@ maxsim_tile_kernel(const Args a, const __grid_constant__ CUtensorMap map_q,
       __syncwarp();
     }
     for (int base = d0; base < d1; base += GROUP) {
-      const Group g = group_at(a.dlens, a.Td, base, d1, lane);
+      const Group g = group_at<MASK>(a, base, d1, lane);
       const int tiles = (g.total + CPT - 1) / CPT;
       float carry = 0.f;  // a long query's sums over its earlier row tiles
       for (int rt = 0; rt < blk.z; ++rt) {
@@ -474,12 +575,19 @@ maxsim_tile_kernel(const Args a, const __grid_constant__ CUtensorMap map_q,
           ++qloads;
         }
         for (int t = 0; t < tiles; ++t) {
+          float bv[CPT];
+          if constexpr (MASK == BIAS) tile_bias(a, g, base, t, lane, bv);
           Op::tile_begin(st);
           int prev = -1;
           for (int kb = 0; kb < a.k_boxes; ++kb) {
             mbar_wait(full0 + 8 * slot, phase);
             const unsigned char* s = ring + slot * slot_bytes;
-            Op::mma(st, a.resident ? qres + kb * QBOX : s + BOX, s, kb);
+            const unsigned char* qk = a.resident ? qres + kb * QBOX : s + BOX;
+            if (MASK == LANE && kb + 1 == a.k_boxes && a.live < Op::BOX_K) {
+              Op::template mma<true>(st, qk, s, kb, a.live);
+            } else {
+              Op::template mma<false>(st, qk, s, kb, Op::BOX_K);
+            }
             if constexpr (!Op::ASYNC) {
               __syncwarp();
               if (lane == 0) mbar_arrive(empty0 + 8 * slot);
@@ -495,17 +603,24 @@ maxsim_tile_kernel(const Args a, const __grid_constant__ CUtensorMap map_q,
           Op::tile_end(st);
           if (prev >= 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
           // fold the tile's chunks into the running maxima, in order
+          UniformChunk u(a.Td, t);
 #pragma unroll
           for (int c = 0; c < CPT; ++c) {
             const int cc = t * CPT + c;
             if (cc < g.total) {  // uniform
-              const int j = chunk_owner(g, cc);
-              const int st0 = __shfl_sync(FULL, g.start, j);
-              const int end = __shfl_sync(FULL, g.end, j);
-              const int len = __shfl_sync(FULL, g.len, j);
-              Op::chunk(st, c, len - (cc - st0) * CHUNK);
-              if (cc == end - 1) Op::emit(st, rm + j * LDR);
+              if constexpr (MASK == LENS) {
+                const int j = chunk_owner(g, cc);
+                const int st0 = __shfl_sync(FULL, g.start, j);
+                const int end = __shfl_sync(FULL, g.end, j);
+                const int len = __shfl_sync(FULL, g.len, j);
+                Op::template chunk<MASK>(st, c, len - (cc - st0) * CHUNK, 0.f);
+                if (cc == end - 1) Op::emit(st, rm + j * LDR);
+              } else {
+                Op::template chunk<MASK>(st, c, a.Td - u.m * CHUNK, MASK == BIAS ? bv[c] : 0.f);
+                if (u.m == u.nch - 1) Op::emit(st, rm + u.j * LDR);
+              }
             }
+            if constexpr (MASK != LENS) u.next();
           }
         }
         // the query tile is free once the pass ends, where the next pass restages it
@@ -525,7 +640,10 @@ maxsim_tile_kernel(const Args a, const __grid_constant__ CUtensorMap map_q,
             carry = sum;  // blk.z > 1: one query, warp 0
             continue;
           }
-          if (g.len == 0) sum = ARTPU_NEG_INF;  // an empty document keeps its row
+          // an empty document keeps its row at NEG_INF: LENS knows it by its
+          // length, BIAS by its rows' NEG_INF maxima, whose sum overflows
+          if (MASK == LENS && g.len == 0) sum = ARTPU_NEG_INF;
+          if (MASK == BIAS) sum = fmaxf(sum, ARTPU_NEG_INF);
           if (FUSED) {
             float* ls = list_s(qi);
             int* li = list_i(qi);
@@ -565,15 +683,16 @@ maxsim_tile_kernel(const Args a, const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <class Op, bool FUSED>
-int launch(const void* qp, const void* docs, const int* dlens, const int* table, void* out_s,
+template <class Op, bool FUSED, int MASK>
+int launch(const void* qp, const void* docs, const void* aux, const int* table, void* out_s,
            void* out_i, int B, int N, int Td, int d, int q_rows, int k, int blocks, int parts,
            int part_docs, int grid, int stages, int resident, int smem_lists, int smem_bytes,
            void* stream) {
   if (B == 0 || N == 0) return 0;
   if (Td < 1 || d < 8 || d % 8 || q_rows < Op::ROWS || q_rows % Op::ROWS || blocks < 1 ||
       grid < 1 || stages < 2 || part_docs < 1 || part_docs % GROUP || (long long)N * Td > 2147483647LL ||
-      (FUSED ? k < 1 : k != 0) || (!FUSED && smem_lists))
+      (FUSED ? k < 1 : k != 0) || (!FUSED && smem_lists) || (MASK != LENS && !FUSED) ||
+      (MASK != LANE && aux == nullptr))
     return (int)cudaErrorInvalidValue;
   // the parts cover the N documents exactly, none empty
   if (parts < 1 || (long long)(parts - 1) * part_docs >= N || (long long)parts * part_docs < N)
@@ -587,23 +706,60 @@ int launch(const void* qp, const void* docs, const int* dlens, const int* table,
       !tma_map_2d(&map_d, Op::TYPE, sizeof(typename Op::T), docs, (long long)N * Td, d, Op::BOX_K,
                   CHUNK))
     return (int)cudaErrorInvalidValue;
-  auto kernel = maxsim_tile_kernel<Op, FUSED>;
+  auto kernel = maxsim_tile_kernel<Op, FUSED, MASK>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  Args a{dlens, table, table + 4 * blocks, (float*)out_s, (int*)out_i, N, Td, k, blocks, parts,
-         part_docs, k_boxes, stages, resident, smem_lists};
+  const int live = d - (k_boxes - 1) * Op::BOX_K;
+  Args a{aux, table, table + 4 * blocks, (float*)out_s, (int*)out_i, N, Td, k, blocks, parts,
+         part_docs, k_boxes, live, stages, resident, smem_lists};
   kernel<<<(unsigned)grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(a, map_q, map_d);
   return (int)cudaGetLastError();
 }
 
-template <class Op, bool FUSED>
+template <class Op, bool FUSED, int MASK>
 int blocks_per_sm(int smem_bytes, int* blocks) {
-  auto kernel = maxsim_tile_kernel<Op, FUSED>;
+  auto kernel = maxsim_tile_kernel<Op, FUSED, MASK>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, THREADS, smem_bytes);
 }
 
+// Resident blocks an SM holds at `smem_bytes` of one Mask's fused
+// instantiation (or, for LENS, its scores one) in f32 or bf16: the occupancy
+// calculator, from the kernel's registers and shared memory. Returns the
+// CUDA error.
+template <int MASK>
+int blocks_per_sm_of(int bf16, int fused, int smem_bytes, int* blocks) {
+  if constexpr (MASK == LENS) {
+    if (!fused) {
+      return bf16 ? blocks_per_sm<BF16, false, LENS>(smem_bytes, blocks)
+                  : blocks_per_sm<F32, false, LENS>(smem_bytes, blocks);
+    }
+  } else if (!fused) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return bf16 ? blocks_per_sm<BF16, true, MASK>(smem_bytes, blocks)
+              : blocks_per_sm<F32, true, MASK>(smem_bytes, blocks);
+}
+
 }  // namespace mtile
+
+// qp [q_rows, d] packed query rows; docs [N, Td, d]; aux as the launcher's
+// Mask reads it (dlens [N] int32, bias [N, Td] f32, or none); table the
+// plan's int32 [blocks, 4] then [B, 2]; d % 8 == 0, 16-byte aligned. Fused:
+// out_s / out_i [B, parts, k] with part p covering documents
+// [p*part_docs, (p+1)*part_docs), any k >= 1. Scores (LENS only): out_s
+// [B, N], k = 0. grid, stages, resident, smem_lists and smem_bytes come from
+// the plan; the launch is refused unless smem_bytes equals this layout's
+// count. Each returns cudaGetLastError().
+#define MAXSIM_LAUNCHER(name, Op, FUSED, MASK)                                                 \
+  extern "C" int name(const void* qp, const void* docs, const void* aux, const int* table,     \
+                      void* out_s, void* out_i, int B, int N, int Td, int d, int q_rows, int k, \
+                      int blocks, int parts, int part_docs, int grid, int stages, int resident, \
+                      int smem_lists, int smem_bytes, void* stream) {                          \
+    return mtile::launch<mtile::Op, FUSED, mtile::MASK>(                                       \
+        qp, docs, aux, table, out_s, out_i, B, N, Td, d, q_rows, k, blocks, parts, part_docs,  \
+        grid, stages, resident, smem_lists, smem_bytes, stream);                               \
+  }

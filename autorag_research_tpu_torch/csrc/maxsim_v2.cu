@@ -30,29 +30,13 @@
 
 #include "maxsim_tile.cuh"
 
-// qp [q_rows, d] packed query rows; docs [N, Td, d]; dlens [N] int32; table
-// the plan's int32 [blocks, 4] then [B, 2]; d % 8 == 0, 16-byte aligned.
-// Fused: out_s / out_i [B, parts, k] with part p covering documents
-// [p*part_docs, (p+1)*part_docs), any k >= 1. Scores: out_s [B, N], k = 0.
-// grid, stages, resident, smem_lists and smem_bytes come from the plan; the
-// launch is refused unless smem_bytes equals this layout's count. Each
-// returns cudaGetLastError().
-#define MAXSIM_LAUNCHER(name, Op, FUSED)                                                       \
-  extern "C" int name(const void* qp, const void* docs, const int* dlens, const int* table,    \
-                      void* out_s, void* out_i, int B, int N, int Td, int d, int q_rows, int k, \
-                      int blocks, int parts, int part_docs, int grid, int stages, int resident, \
-                      int smem_lists, int smem_bytes, void* stream) {                          \
-    return mtile::launch<mtile::Op, FUSED>(qp, docs, dlens, table, out_s, out_i, B, N, Td, d,  \
-                                           q_rows, k, blocks, parts, part_docs, grid, stages,  \
-                                           resident, smem_lists, smem_bytes, stream);          \
-  }
+MAXSIM_LAUNCHER(maxsim_topk_v2_f32_launch, F32, true, LENS)
+MAXSIM_LAUNCHER(maxsim_topk_v2_bf16_launch, BF16, true, LENS)
+MAXSIM_LAUNCHER(maxsim_scores_v2_f32_launch, F32, false, LENS)
+MAXSIM_LAUNCHER(maxsim_scores_v2_bf16_launch, BF16, false, LENS)
 
-MAXSIM_LAUNCHER(maxsim_topk_v2_f32_launch, F32, true)
-MAXSIM_LAUNCHER(maxsim_topk_v2_bf16_launch, BF16, true)
-MAXSIM_LAUNCHER(maxsim_scores_v2_f32_launch, F32, false)
-MAXSIM_LAUNCHER(maxsim_scores_v2_bf16_launch, BF16, false)
-
-// This layout's shared-memory bytes for a block (-1 past a block's limit).
+// This layout's shared-memory bytes for a block (-1 past a block's limit);
+// the same for every Mask policy.
 extern "C" int maxsim_v2_smem_bytes(int bf16, int k_boxes, int stages, int resident,
                                     int smem_lists, int k) {
   const int rows = bf16 ? mtile::BF16::ROWS : mtile::F32::ROWS;
@@ -61,14 +45,6 @@ extern "C" int maxsim_v2_smem_bytes(int bf16, int k_boxes, int stages, int resid
   return b > mtile::SMEM_MAX ? -1 : (int)b;
 }
 
-// Resident blocks an SM holds at `smem_bytes` (the occupancy calculator, from
-// the kernel's registers and shared memory). Returns the CUDA error.
 extern "C" int maxsim_v2_blocks_per_sm(int bf16, int fused, int smem_bytes, int* blocks) {
-  using namespace mtile;
-  if (bf16) {
-    return fused ? blocks_per_sm<BF16, true>(smem_bytes, blocks)
-                 : blocks_per_sm<BF16, false>(smem_bytes, blocks);
-  }
-  return fused ? blocks_per_sm<F32, true>(smem_bytes, blocks)
-               : blocks_per_sm<F32, false>(smem_bytes, blocks);
+  return mtile::blocks_per_sm_of<mtile::LENS>(bf16, fused, smem_bytes, blocks);
 }

@@ -13,11 +13,13 @@ query's token count.
   top-k, launched by the pure plan :func:`maxsim_plan`; CPU tensors take
   :func:`maxsim_topk_v2_plain`.
 - :func:`maxsim_topk_v1` (JAX ``maxsim_topk_pallas``, the ``pallas`` pin):
-  ``csrc/maxsim_v1.cu``, an additive [N, Td] document-token bias in place of
-  lengths; CPU tensors take :func:`maxsim_topk_v1_plain`.
+  ``csrc/maxsim_v1.cu``, the same tile body under its ``bias`` policy (an
+  additive [N, Td] document-token bias in place of lengths); CPU tensors
+  take :func:`maxsim_topk_v1_plain`.
 - :func:`maxsim_topk_v3` (JAX ``maxsim_topk_pallas_v3``, the ``pallas_v3``
-  pin): ``csrc/maxsim_v3.cu``, the mask folded into the product through a
-  bias lane; CPU tensors take :func:`maxsim_topk_v3_plain`.
+  pin): ``csrc/maxsim_v3.cu``, the tile body under its ``lane`` policy (the
+  mask folded into the product through a bias lane); CPU tensors take
+  :func:`maxsim_topk_v3_plain`.
 - :func:`maxsim_scores_v2` (JAX ``maxsim_scores_pallas_v2``): the same
   kernel's raw-scores epilogue, ``[B, N]``; CPU tensors take
   :func:`maxsim_scores_v2_plain`. :func:`maxsim_topk_via_scores` selects
@@ -95,10 +97,6 @@ FUSED_K_MAX = 16
 # v3's bias-lane value for pad document tokens (JAX ``_MASK_BIAS``): finite
 # in bf16, and Tq_pad times it stays finite in f32
 MASK_BIAS = -1.0e30
-# query-token rows and documents per step of the pins' kernel
-# (csrc/maxsim_kernel.cuh)
-_KERNEL_ROWS = 128
-_KERNEL_DOCS = 32
 # gathered [Bc, C, Td, d] f32 candidate tokens of one rerank chunk
 _RERANK_BUDGET = 1 << 30
 
@@ -289,7 +287,12 @@ def maxsim_topk_v3_plain(queries, query_lens, docs, doc_lens, k: int):
     """Plain PyTorch version of :func:`maxsim_topk_v3`, the same function:
     the augmented operands of :func:`maxsim_v3_operands` multiplied, the max
     over all Td tokens and the sum over the tq_pad rows taken with no other
-    mask, empty documents reset to NEG_INF after selection."""
+    mask, empty documents at NEG_INF with their row.
+    The kernel scores every empty document of a query alike (rows x -1e30,
+    below every real score) and resets it after selection, so its empty
+    documents follow the real ones in row order; here they are set to
+    NEG_INF before selection, which gives that order too (a CPU sum of
+    tq_pad equal values may round differently from column to column)."""
     _require_exact_f32()
     PLAIN_CALLS["maxsim_topk_v3_plain"] += 1
     b = queries.shape[0]
@@ -297,48 +300,18 @@ def maxsim_topk_v3_plain(queries, query_lens, docs, doc_lens, k: int):
     qa, da = maxsim_v3_operands(queries, query_lens, docs, doc_lens)
     tq_pad, dp = qa.shape[1], qa.shape[2]
     qf = qa.float().reshape(b * tq_pad, dp)
+    lens = torch.as_tensor(doc_lens, device=queries.device).reshape(n)
 
     def tile_scores(lo, hi):
         tile = da[lo:hi].float().reshape((hi - lo) * td, dp)
         s = torch.matmul(qf, tile.T).view(b, tq_pad, hi - lo, td)
-        return torch.amax(s, dim=3).sum(dim=1)
+        scores = torch.amax(s, dim=3).sum(dim=1)
+        return scores.masked_fill(~(lens[lo:hi] > 0)[None, :], NEG_INF)
 
-    s, i = _select_tiles(b, n, k, _tile_rows(b, tq_pad, td, n, None), queries.device, tile_scores)
-    return _reset_empty(s, i, doc_lens, n)
+    return _select_tiles(b, n, k, _tile_rows(b, tq_pad, td, n, None), queries.device, tile_scores)
 
 
 # ----------------------------------------------------------------- kernels
-def _kernel_layout(b: int, tq: int) -> tuple[int, int, int, int]:
-    """(tq_pad, bq, rt, q_blocks): queries of tq_pad = round_up(Tq, 8) rows,
-    bq of them per 128-row tile, or one query over rt tiles when longer."""
-    tq_pad = _round_up(max(tq, 1), 8)
-    if tq_pad <= _KERNEL_ROWS:
-        bq, rt = _KERNEL_ROWS // tq_pad, 1
-    else:
-        bq, rt = 1, -(-tq_pad // _KERNEL_ROWS)
-    return tq_pad, bq, rt, -(-b // bq)
-
-
-def _pack_queries(q, tq_pad: int, bq: int, rt: int, q_blocks: int):
-    """[q_blocks, rt*128, d] query-token rows of the masked queries ``q``
-    [B, Tq, d], zero past Tq, past the last query and past each block's
-    bq * tq_pad rows."""
-    b, tq, d = q.shape
-    q = torch.nn.functional.pad(q, (0, 0, 0, tq_pad - tq, 0, q_blocks * bq - b))
-    q = q.reshape(q_blocks, bq * tq_pad, d)
-    q = torch.nn.functional.pad(q, (0, 0, 0, rt * _KERNEL_ROWS - bq * tq_pad))
-    return q.contiguous()
-
-
-def _kernel_parts(q_blocks: int, n: int, device: torch.device) -> tuple[int, int]:
-    """(part_docs, parts): split the documents so the grid holds about eight
-    blocks per SM; a part is a multiple of the kernel's 32-document step."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    parts = max(1, min(-(-n // _KERNEL_DOCS), -(-8 * sms // q_blocks)))
-    part_docs = _round_up(-(-n // parts), _KERNEL_DOCS)
-    return part_docs, -(-n // part_docs)
-
-
 def _kernel_operands(queries, docs):
     """Check the kernels' operands and zero-pad d to a multiple of 8 (a copy
     only when d % 8 != 0; ``MultiVectorIndex`` pads once at upload)."""
@@ -359,49 +332,7 @@ def _kernel_operands(queries, docs):
     return pad_width(queries, d8), pad_width(docs, d8)
 
 
-def _launch(source: str, name: str, queries, docs, aux, k_eff: int):
-    """Launch the pin ``name`` (``maxsim_topk_v1`` / ``_v3``, k_eff > 0) of
-    ``csrc/<source>.cu`` on masked queries [B, Tq, d] and docs [N, Td, d],
-    with the kernel's aux input (bias or None) -> lists [B, P, k_eff]
-    (scores, rows)."""
-    _require_exact_f32()
-    dev = queries.device
-    queries, docs = _kernel_operands(queries, docs)
-    b, tq, d = queries.shape
-    n, td, _ = docs.shape
-    tq_pad, bq, rt, q_blocks = _kernel_layout(b, tq)
-    qp = _pack_queries(queries, tq_pad, bq, rt, q_blocks)
-    part_docs, parts = _kernel_parts(q_blocks, n, dev)
-    out_s = torch.empty((b, parts, k_eff), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, parts, k_eff), dtype=torch.int32, device=dev)
-    suffix = "f32" if queries.dtype == torch.float32 else "bf16"
-    fn = getattr(cuda_build.load(source), f"{name}_{suffix}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(
-        qp.data_ptr(), docs.data_ptr(), aux.data_ptr() if aux is not None else None,
-        out_s.data_ptr(), out_i.data_ptr(),
-        b, n, td, d, tq_pad, bq, rt, k_eff, part_docs, parts, q_blocks,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    cuda_build.check_launch(rc, name)
-    LAUNCHES[name] += 1
-    return out_s, out_i
-
-
-def _fused(source: str, name: str, queries, docs, aux, k: int):
-    """One fused launch merged to (scores [B, k], rows [B, k])."""
-    b = queries.shape[0]
-    k_eff = min(k, docs.shape[0])
-    if k_eff == 0 or b == 0:
-        empty = torch.empty((b, 0), device=queries.device)
-        return pad_to_k(empty, empty.to(torch.int32), k, 0)
-    out_s, out_i = _launch(source, name, queries, docs, aux, k_eff)
-    scores, ids = merge_topk(out_s, out_i, k_eff)
-    return pad_to_k(scores, ids, k, k_eff)
-
-
-# ------------------------------------------ the v2 tile body and its plan
+# --------------------------------------------- the tile body and its plan
 # csrc/maxsim_tile.cuh: row tiles of 128 query-token rows in f32 and 256 in
 # bf16 (a staged token then meets 256 rows, so staging no longer bounds the
 # tensor cores), document chunks of 16 tokens, 128-token product tiles,
@@ -416,6 +347,16 @@ MAXSIM_STAGES = (3, 6)  # the fewest and the most ring slots
 # grow with k; a row block takes at most MAXSIM_WAVE_PARTS times its share
 # of one wave's slots
 MAXSIM_PART_K, MAXSIM_WAVE_PARTS = 4, 4
+# the tile body's mask policies (its Mask) and the source whose launchers
+# instantiate each: "lens" reads document lengths (#9, #10), "bias" adds an
+# [N, Td] bias before the max (#11), "lane" finds the mask in lane d of its
+# operands (#12); "bias" and "lane" walk all Td tokens of every document
+MAXSIM_MASKS = {"lens": "maxsim_v2", "bias": "maxsim_v1", "lane": "maxsim_v3"}
+# each launching wrapper's policy
+_WRAPPER_MASK = {
+    "maxsim_topk_v2": "lens", "maxsim_scores_v2": "lens",
+    "maxsim_topk_v1": "bias", "maxsim_topk_v3": "lane",
+}
 
 
 def maxsim_layout_bytes(rows: int, k_boxes: int, stages: int, resident: bool, smem_lists: bool,
@@ -457,7 +398,7 @@ def maxsim_layout(d: int, k: int, dtype: torch.dtype) -> tuple[int, int, bool, s
 
 @dataclass(frozen=True)
 class MaxSimPlan:
-    """The launch plan of one ``csrc/maxsim_v2.cu`` launch."""
+    """The launch plan of one launch of the tile body ``csrc/maxsim_tile.cuh``."""
 
     rows: int  # query-token rows of a row tile
     k_boxes: int  # staged k-boxes of a row (128 bytes each)
@@ -474,17 +415,24 @@ class MaxSimPlan:
     slots: int  # resident block slots of the card
     waves: int
     rows_valid: int
-    tokens_walked: int | None = None  # with doc_lens: tokens walked per row tile
-    tokens_valid: int | None = None
+    # tokens walked per row tile: with doc_lens ("lens"), always ("bias",
+    # "lane": every document's Td tokens)
+    tokens_walked: int | None = None
+    tokens_valid: int | None = None  # with doc_lens
+    mask: str = "lens"
     # int32 [blocks, 4] (first query, queries, row tiles, first packed row)
-    # then [B, 2] (packed row, length): the kernel's table
+    # then [B, 2] (packed row, rows): the kernel's table
     table: np.ndarray = field(default=None, compare=False, repr=False)
 
     def note(self) -> str:
         """One line for logs: the plan and its work ratios."""
-        walk = ("" if self.tokens_walked is None else
-                f", tokens walked / valid {self.tokens_walked / max(self.tokens_valid, 1):.4f}")
-        return (f"{self.blocks} row blocks ({self.q_rows} rows, tiles of {self.rows}) x "
+        walk = ""
+        if self.tokens_walked is not None and self.tokens_valid is not None:
+            walk = f", tokens walked / valid {self.tokens_walked / max(self.tokens_valid, 1):.4f}"
+        elif self.tokens_walked is not None:
+            walk = f", tokens walked {self.tokens_walked}"
+        policy = "" if self.mask == "lens" else f"{self.mask} policy: "
+        return (f"{policy}{self.blocks} row blocks ({self.q_rows} rows, tiles of {self.rows}) x "
                 f"{self.parts} parts of "
                 f"{self.part_docs} docs = {self.items} items on a grid of {self.grid} "
                 f"({self.slots} slots, {self.waves} waves); ring {self.stages} x "
@@ -536,63 +484,80 @@ def _parts(n: int, blocks: int, k: int, slots: int) -> tuple[int, int]:
     return best[1], best[2]
 
 
+def _tokens_walked(lens: np.ndarray) -> int:
+    """Tokens the tile body walks over documents walked to ``lens`` [N]:
+    chunks of 16, product tiles of 8 chunks per group of 32 documents."""
+    chunks = np.bincount(np.arange(lens.size) // MAXSIM_GROUP, weights=-(-lens // MAXSIM_CHUNK))
+    tiles = -(-chunks.astype(np.int64) // (MAXSIM_TILE_TOK // MAXSIM_CHUNK))
+    return int(tiles.sum() * MAXSIM_TILE_TOK)
+
+
 def maxsim_plan(q_lens, n: int, td: int, d: int, k: int, dtype: torch.dtype, sms: int,
-                blocks_per_sm: int, doc_lens=None) -> MaxSimPlan:
+                blocks_per_sm: int, doc_lens=None, mask: str = "lens") -> MaxSimPlan:
     """Pure launch plan of the MaxSim tile body for queries of lengths
     ``q_lens`` [B] (host integers, at most their padded length) against N =
     ``n`` documents of ``td`` padded tokens of width ``d`` (a multiple of
-    8), lists of ``k`` (0 for the scores epilogue; clamped to n), on a card
-    of ``sms`` SMs that holds ``blocks_per_sm`` of its blocks each.
+    8: the operand width the kernel sees, d' for "lane"), lists of ``k`` (0
+    for the scores epilogue; clamped to n), on a card of ``sms`` SMs that
+    holds ``blocks_per_sm`` of the policy's blocks each, under the mask
+    policy ``mask`` (:data:`MAXSIM_MASKS`; "bias" and "lane" are fused only).
 
     Row blocks pack whole queries by their own lengths into row tiles of
     ``MAXSIM_ROWS[dtype]`` (:func:`_row_blocks`), so the kernel computes no
-    pad row beyond each tile's tail; items
-    (row block, part) fill whole waves of the card's resident slots
-    (:func:`_parts`). ``doc_lens`` [N], when given, adds the tokens the walk
-    covers (chunks of 16, product tiles of 8 chunks per group of 32
-    documents) against the valid tokens, which the launch does not need."""
+    pad row beyond each tile's tail; under "bias" and "lane" a query of
+    length 0 keeps one row (its sums then tell an empty document from a full
+    one, as the TPU kernels' pad rows do; every other pad row adds exactly 0
+    there). Items (row block, part) fill whole waves of the card's resident
+    slots (:func:`_parts`). The tokens the walk covers are reported for
+    "bias" and "lane" (every document's Td tokens, N x round_up(Td, 16) up to
+    the last group's tile) and, with ``doc_lens`` [N], for "lens"; with
+    ``doc_lens`` the valid tokens too. The launch needs neither."""
     q_lens = np.asarray(q_lens, dtype=np.int64).reshape(-1)
     b = q_lens.size
     if (min(b, n, td, d, sms, blocks_per_sm) < 1 or d % 8 or k < 0 or (q_lens < 0).any()
-            or n * td >= 2**31):
+            or n * td >= 2**31 or mask not in MAXSIM_MASKS or (mask != "lens" and k < 1)):
         raise ValueError(f"no maxsim plan for B={b} n={n} td={td} d={d} k={k} sms={sms} "
-                         f"blocks_per_sm={blocks_per_sm}")
+                         f"blocks_per_sm={blocks_per_sm} mask={mask!r}")
     k = min(k, n)
     rows = MAXSIM_ROWS[dtype]
     k_boxes, stages, resident, lists, smem = maxsim_layout(d, k, dtype)
-    blocks = np.asarray(_row_blocks(q_lens, rows), dtype=np.int64).reshape(-1, 3)
+    own_rows = q_lens if mask == "lens" else np.maximum(q_lens, 1)
+    blocks = np.asarray(_row_blocks(own_rows, rows), dtype=np.int64).reshape(-1, 3)
     tiles = blocks[:, 2]
     row0 = np.concatenate([[0], np.cumsum(tiles)[:-1]]) * rows
-    q_start = np.concatenate([[0], np.cumsum(q_lens)[:-1]])
+    q_start = np.concatenate([[0], np.cumsum(own_rows)[:-1]])
     # a query's packed row: its block's first row plus the rows before it there
     of_block = np.repeat(np.arange(len(blocks)), blocks[:, 1])
     q_row = row0[of_block] + q_start - q_start[blocks[of_block, 0]]
     table = np.concatenate([
         np.stack([blocks[:, 0], blocks[:, 1], tiles, row0], axis=1).reshape(-1),
-        np.stack([q_row, q_lens], axis=1).reshape(-1),
+        np.stack([q_row, own_rows], axis=1).reshape(-1),
     ]).astype(np.int32)
     slots = sms * blocks_per_sm
     parts, part_docs = _parts(n, len(blocks), k, slots)
     items = len(blocks) * parts
-    walked = valid = None
+    walked = None if mask == "lens" else _tokens_walked(np.full(n, td, dtype=np.int64))
+    valid = None
     if doc_lens is not None:
         lens = np.clip(np.asarray(doc_lens, dtype=np.int64).reshape(n), 0, td)
-        chunks = np.bincount(np.arange(n) // MAXSIM_GROUP, weights=-(-lens // MAXSIM_CHUNK))
-        walked = int((-(-chunks.astype(np.int64) // (MAXSIM_TILE_TOK // MAXSIM_CHUNK))).sum()
-                     * MAXSIM_TILE_TOK)
         valid = int(lens.sum())
+        if mask == "lens":
+            walked = _tokens_walked(lens)
     return MaxSimPlan(
         rows=rows, k_boxes=k_boxes, stages=stages, resident=resident, lists=lists,
         smem_bytes=smem, blocks=len(blocks), q_rows=int(tiles.sum()) * rows, parts=parts,
         part_docs=part_docs, items=items, grid=min(items, slots), slots=slots,
         waves=-(-items // slots), rows_valid=int(q_lens.sum()), tokens_walked=walked,
-        tokens_valid=valid, table=table,
+        tokens_valid=valid, mask=mask, table=table,
     )
 
 
 def _query_gather(plan: MaxSimPlan, b: int, tq: int) -> np.ndarray:
     """Source row of each packed query row in [B * Tq + 1] rows (the padded
-    queries flattened, then one zero row for the tiles' empty rows)."""
+    queries flattened, then one zero row for the tiles' empty rows): a
+    query's row t comes from its row t (under "bias" and "lane" the one row
+    of a query of length 0 is its row 0, which the wrappers' operands hold
+    zero, bias lane aside)."""
     qrow = plan.table[4 * plan.blocks:].reshape(b, 2).astype(np.int64)
     lens = qrow[:, 1]
     src = np.full(plan.q_rows, b * tq, dtype=np.int64)
@@ -613,54 +578,73 @@ def _host_lens(query_lens, b: int, tq: int) -> np.ndarray:
     return np.clip(lens, 0, tq)
 
 
-_V2_BLOCKS_PER_SM: dict = {}
+_TILE_BLOCKS_PER_SM: dict = {}
 
 
-def _v2_blocks_per_sm(device: torch.device, bf16: bool, fused: bool, smem: int) -> int:
-    """Resident blocks of the tile body an SM holds at ``smem`` bytes, from
-    the CUDA occupancy calculator (its registers and shared memory)."""
-    key = (device.index, bf16, fused, smem)
-    if key not in _V2_BLOCKS_PER_SM:
-        fn = cuda_build.load("maxsim_v2").maxsim_v2_blocks_per_sm
+def _tile_blocks_per_sm(device: torch.device, mask: str, bf16: bool, fused: bool,
+                        smem: int) -> int:
+    """Resident blocks of the tile body's ``mask`` instantiation an SM holds
+    at ``smem`` bytes, from the CUDA occupancy calculator (its registers and
+    shared memory)."""
+    key = (device.index, mask, bf16, fused, smem)
+    if key not in _TILE_BLOCKS_PER_SM:
+        source = MAXSIM_MASKS[mask]
+        fn = getattr(cuda_build.load(source), f"{source}_blocks_per_sm")
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         blocks = ctypes.c_int(0)
         with torch.cuda.device(device):
             rc = fn(int(bf16), int(fused), smem, ctypes.byref(blocks))
-        cuda_build.check_launch(rc, "maxsim_v2")
+        cuda_build.check_launch(rc, source)
         if blocks.value < 1:
-            raise RuntimeError(f"maxsim_v2: no block fits an SM at {smem} bytes")
-        _V2_BLOCKS_PER_SM[key] = blocks.value
-    return _V2_BLOCKS_PER_SM[key]
+            raise RuntimeError(f"{source}: no block fits an SM at {smem} bytes")
+        _TILE_BLOCKS_PER_SM[key] = blocks.value
+    return _TILE_BLOCKS_PER_SM[key]
 
 
 def v2_plan_on_card(query_lens, n: int, td: int, d: int, k: int, dtype: torch.dtype,
-                    device: torch.device, doc_lens=None) -> MaxSimPlan:
-    """The plan :func:`maxsim_topk_v2` (k > 0) or :func:`maxsim_scores_v2`
-    (k = 0) launches on ``device`` for host query lengths: its SM count and
-    the kernel's resident blocks an SM at the plan's shared memory."""
+                    device: torch.device, doc_lens=None, mask: str = "lens") -> MaxSimPlan:
+    """The plan the tile body launches on ``device`` for host query lengths
+    under ``mask``: :func:`maxsim_topk_v2` (k > 0) or :func:`maxsim_scores_v2`
+    (k = 0) by default, :func:`maxsim_topk_v1` with "bias", #12 with "lane"
+    (``d`` then the augmented width). Its SM count and the policy's resident
+    blocks an SM at the plan's shared memory."""
     k = min(k, n)
     smem = maxsim_layout(d, k, dtype)[-1]
-    bps = _v2_blocks_per_sm(device, dtype == torch.bfloat16, k > 0, smem)
+    bps = _tile_blocks_per_sm(device, mask, dtype == torch.bfloat16, k > 0, smem)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return maxsim_plan(query_lens, n, td, d, k, dtype, sms, bps, doc_lens=doc_lens)
+    return maxsim_plan(query_lens, n, td, d, k, dtype, sms, bps, doc_lens=doc_lens, mask=mask)
 
 
-def _v2_launch(name: str, queries, query_lens, docs, doc_lens, k_eff: int):
-    """Launch #9 (``maxsim_topk_v2``, k_eff > 0: lists [B, P, k_eff]) or #10
-    (``maxsim_scores_v2``, k_eff 0: scores [B, N]) of ``csrc/maxsim_v2.cu``.
-    The plan is made on the host from the query lengths; its table and the
-    packed rows' sources cross in one pinned copy, and the packed query rows
-    [q_rows, d] are gathered on the card."""
+def _device_lens(doc_lens, n: int, device) -> torch.Tensor:
+    """Document lengths as the "lens" launch reads them: int32 [N] on the card."""
+    dlens = torch.as_tensor(doc_lens).to(device, torch.int32).contiguous()
+    if dlens.shape != (n,):
+        raise ValueError("doc_lens must be [N]")
+    return dlens
+
+
+def _tile_launch(name: str, queries, query_lens, docs, aux, k_eff: int):
+    """Launch ``name`` on the tile body: #9 (``maxsim_topk_v2``, k_eff > 0:
+    lists [B, P, k_eff]) or #10 (``maxsim_scores_v2``, k_eff 0: scores
+    [B, N]) of ``csrc/maxsim_v2.cu`` with ``aux`` the int32 lengths [N] on
+    the card, #11 (``maxsim_topk_v1``) of ``csrc/maxsim_v1.cu`` with ``aux``
+    the f32 bias [N, Td], or #12 (``maxsim_topk_v3``) of ``csrc/maxsim_v3.cu``
+    on the augmented operands, ``aux`` None. The plan is made on the host
+    from the query lengths; its table and the packed rows' sources cross in
+    one pinned copy, and the packed query rows [q_rows, d] are gathered on
+    the card."""
     _require_exact_f32()
+    mask = _WRAPPER_MASK[name]
     dev = queries.device
     queries, docs = _kernel_operands(queries, docs)
     b, tq, d = queries.shape
     n, td, _ = docs.shape
-    dlens = torch.as_tensor(doc_lens).to(dev, torch.int32).contiguous()
-    if dlens.shape != (n,):
-        raise ValueError("doc_lens must be [N]")
-    plan = v2_plan_on_card(_host_lens(query_lens, b, tq), n, td, d, k_eff, queries.dtype, dev)
+    if mask == "bias" and (aux.shape != (n, td) or aux.dtype != torch.float32
+                           or aux.device != dev or not aux.is_contiguous()):
+        raise ValueError("the bias must be a contiguous f32 [N, Td] tensor on the card")
+    plan = v2_plan_on_card(_host_lens(query_lens, b, tq), n, td, d, k_eff, queries.dtype, dev,
+                           mask=mask)
     host = np.concatenate([plan.table, _query_gather(plan, b, tq)]).astype(np.int32)
     on_card = torch.from_numpy(host).pin_memory().to(dev, non_blocking=True)
     table = on_card[: plan.table.size]
@@ -673,11 +657,12 @@ def _v2_launch(name: str, queries, query_lens, docs, doc_lens, k_eff: int):
         out_s = torch.empty((b, n), dtype=torch.float32, device=dev)
         out_i = None
     suffix = "f32" if queries.dtype == torch.float32 else "bf16"
-    fn = getattr(cuda_build.load("maxsim_v2"), f"{name}_{suffix}_launch")
+    fn = getattr(cuda_build.load(MAXSIM_MASKS[mask]), f"{name}_{suffix}_launch")
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
-        qp.data_ptr(), docs.data_ptr(), dlens.data_ptr(), table.data_ptr(), out_s.data_ptr(),
+        qp.data_ptr(), docs.data_ptr(), aux.data_ptr() if aux is not None else None,
+        table.data_ptr(), out_s.data_ptr(),
         out_i.data_ptr() if out_i is not None else None,
         b, n, td, d, plan.q_rows, k_eff, plan.blocks, plan.parts, plan.part_docs, plan.grid,
         plan.stages, int(plan.resident), int(plan.lists == "shared"), plan.smem_bytes,
@@ -686,6 +671,19 @@ def _v2_launch(name: str, queries, query_lens, docs, doc_lens, k_eff: int):
     cuda_build.check_launch(rc, name)
     LAUNCHES[name] += 1
     return out_s, out_i
+
+
+def _tile_topk(name: str, queries, query_lens, docs, aux, k: int):
+    """One fused launch of ``name`` (:func:`_tile_launch`) merged to (scores
+    [B, k], rows [B, k]), padded past N with ``(NEG_INF, INT_MAX)``."""
+    b = queries.shape[0]
+    k_eff = min(k, docs.shape[0])
+    if k_eff == 0 or b == 0:
+        empty = torch.empty((b, 0), device=queries.device)
+        return pad_to_k(empty, empty.to(torch.int32), k, 0)
+    out_s, out_i = _tile_launch(name, queries, query_lens, docs, aux, k_eff)
+    scores, ids = merge_topk(out_s, out_i, k_eff)
+    return pad_to_k(scores, ids, k, k_eff)
 
 
 def maxsim_topk_v2(
@@ -707,19 +705,13 @@ def maxsim_topk_v2(
         raise ValueError("queries and docs must share a dtype")
     if not queries.is_cuda:
         return maxsim_topk_v2_plain(queries, query_lens, docs, doc_lens, k)
-    b = queries.shape[0]
-    k_eff = min(k, docs.shape[0])
-    if k_eff == 0 or b == 0:
-        empty = torch.empty((b, 0), device=queries.device)
-        return pad_to_k(empty, empty.to(torch.int32), k, 0)
-    out_s, out_i = _v2_launch("maxsim_topk_v2", queries, query_lens, docs, doc_lens, k_eff)
-    scores, ids = merge_topk(out_s, out_i, k_eff)
-    return pad_to_k(scores, ids, k, k_eff)
+    dlens = _device_lens(doc_lens, docs.shape[0], queries.device)
+    return _tile_topk("maxsim_topk_v2", queries, query_lens, docs, dlens, k)
 
 
 def maxsim_topk_v1(
     queries: torch.Tensor,
-    query_lens: torch.Tensor,
+    query_lens,
     docs: torch.Tensor,
     doc_lens: torch.Tensor,
     k: int,
@@ -727,41 +719,51 @@ def maxsim_topk_v1(
     """Fused MaxSim top-k with an additive document-token bias (JAX
     ``maxsim_topk_pallas``, the ``pallas`` pin): the wrapper builds the
     [N, Td] f32 bias per call (:func:`v1_bias`) and the kernel
-    ``csrc/maxsim_v1.cu`` adds it before the per-token max, over all Td
-    tokens. Any k, any d; f32 or bf16. CPU tensors take
-    :func:`maxsim_topk_v1_plain`. Returns (scores [B, k], rows [B, k]) in
-    ``(-score, row)`` order, empty documents at NEG_INF with their row."""
+    ``csrc/maxsim_v1.cu`` (the tile body's "bias" policy) adds it before the
+    per-token max, over all Td tokens. Any k, any d; f32 or bf16.
+    ``query_lens`` may stay on the host, as :func:`maxsim_topk_v2` takes
+    them. CPU tensors take :func:`maxsim_topk_v1_plain`. Returns (scores
+    [B, k], rows [B, k]) in ``(-score, row)`` order, empty documents at
+    NEG_INF with their row."""
     if queries.dtype != docs.dtype:
         raise ValueError("queries and docs must share a dtype")
     if not queries.is_cuda:
         return maxsim_topk_v1_plain(queries, query_lens, docs, doc_lens, k)
     bias = v1_bias(doc_lens, docs.shape[0], docs.shape[1], queries.device)
-    return _fused(
-        "maxsim_v1", "maxsim_topk_v1", _masked_queries(queries, query_lens), docs, bias, k
+    return _tile_topk(
+        "maxsim_topk_v1", _masked_queries(queries, query_lens), query_lens, docs, bias, k
     )
 
 
 def maxsim_topk_v3(
     queries: torch.Tensor,
-    query_lens: torch.Tensor,
+    query_lens,
     docs: torch.Tensor,
     doc_lens: torch.Tensor,
     k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused MaxSim top-k with the mask folded into the product (JAX
     ``maxsim_topk_pallas_v3``, the ``pallas_v3`` pin): the wrapper builds the
-    augmented operands per call (:func:`maxsim_v3_operands`), the kernel ``csrc/maxsim_v3.cu`` reads no lengths,
+    augmented operands per call (:func:`maxsim_v3_operands`), the kernel
+    ``csrc/maxsim_v3.cu`` (the tile body's "lane" policy) reads no lengths,
     and empty documents are reset to NEG_INF with their row after selection
     (the JAX kernel leaves them at Tq_pad x -1e30). Any k, any d; f32 or
-    bf16. CPU tensors take :func:`maxsim_topk_v3_plain`. Returns (scores
-    [B, k], rows [B, k]) in ``(-score, row)`` order."""
+    bf16. ``query_lens`` may stay on the host, as :func:`maxsim_topk_v2`
+    takes them. CPU tensors take :func:`maxsim_topk_v3_plain`. Returns
+    (scores [B, k], rows [B, k]) in ``(-score, row)`` order."""
     if queries.dtype != docs.dtype:
         raise ValueError("queries and docs must share a dtype")
     if not queries.is_cuda:
         return maxsim_topk_v3_plain(queries, query_lens, docs, doc_lens, k)
     qa, da = maxsim_v3_operands(queries, query_lens, docs, doc_lens)
-    s, i = _fused("maxsim_v3", "maxsim_topk_v3", qa, da, None, k)
-    return _reset_empty(s, i, doc_lens, docs.shape[0])
+    return _v3_topk(qa, query_lens, da, doc_lens, k)
+
+
+def _v3_topk(qa, query_lens, da, doc_lens, k: int):
+    """#12's launch on the augmented operands of :func:`maxsim_v3_operands`,
+    its empty documents reset after selection."""
+    s, i = _tile_topk("maxsim_topk_v3", qa, query_lens, da, None, k)
+    return _reset_empty(s, i, doc_lens, da.shape[0])
 
 
 def maxsim_scores_v2(
@@ -781,7 +783,8 @@ def maxsim_scores_v2(
         return torch.empty(
             (queries.shape[0], docs.shape[0]), dtype=torch.float32, device=queries.device
         )
-    return _v2_launch("maxsim_scores_v2", queries, query_lens, docs, doc_lens, 0)[0]
+    dlens = _device_lens(doc_lens, docs.shape[0], queries.device)
+    return _tile_launch("maxsim_scores_v2", queries, query_lens, docs, dlens, 0)[0]
 
 
 def _scores_chunk(b: int, n: int) -> int:

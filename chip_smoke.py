@@ -10,7 +10,8 @@ serving modes at full width and fails (non-zero exit) on any fault:
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source),
    with one more ``nvcc -Xptxas -v`` each of the streaming kernel and of
-   ``maxsim_v2.cu`` beside it (registers, shared memory and spills of their
+   the MaxSim tile body's three sources (``maxsim_v2.cu``, ``maxsim_v1.cu``,
+   ``maxsim_v3.cu``) beside it (registers, spills and ``setmaxnreg`` of their
    instantiations);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it, with its time, the plain version's, one PyTorch
@@ -46,8 +47,8 @@ serving modes at full width and fails (non-zero exit) on any fault:
    at text scale (k = 100), each with its launch plan (``maxsim_plan``: rows
    computed / valid, tokens walked / valid), its time with the SM clock and
    power sampled beside it, the plain version's, a chunked-matmul
-   yardstick's and its bound; #11 (the ``pallas`` pin, the old tile body)
-   timed beside #9 at the text shape;
+   yardstick's and its bound; #11 (the ``pallas`` pin, the tile body's
+   ``bias`` policy) timed beside #9 at the text shape;
 7. the MaxSim main path with every launch count at 0 just before it: embed
    the 128 texts, exact search at k = 10 (fused kernel) and k = 100 (scores
    kernel), verified page-scale search at k = 10 (scores-kernel prescreen)
@@ -121,9 +122,13 @@ serving modes at full width and fails (non-zero exit) on any fault:
     against the flat layout's, 1,024 NQ-like queries at k = 10 and 100, hits
     equal to the flat layout's, the packed kernel launched;
 15. the last slice's kernels: #11 (``csrc/maxsim_v1.cu``, the ``pallas``
-    pin) and #12 (``csrc/maxsim_v3.cu``, the ``pallas_v3`` pin) against their
-    plain versions at phase 6's shapes (f32 text scale and bf16 page scale,
-    k = 10), each with #9 timed beside it, #12's operand build timed apart;
+    pin) and #12 (``csrc/maxsim_v3.cu``, the ``pallas_v3`` pin), both on the
+    tile body ``csrc/maxsim_tile.cuh`` (policies ``bias`` and ``lane``),
+    against their plain versions at phase 6's shapes (f32 text scale and bf16
+    page scale, k = 10), each launched on prebuilt inputs with its launch
+    plan logged (rows computed / valid, tokens walked / valid, k-boxes and
+    staged bytes) and #9 timed beside it, #11's bias build and #12's operand
+    build timed apart;
     lists of any k (#11 and #2 at k = 1,000, #9 at k = 300, #2 at the main
     path's Q = 2,048 x 500,000 x 768, in f32 and bf16) and an odd width
     (d = 100: #1, #2 in both dtypes, #9);
@@ -149,6 +154,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -472,13 +478,14 @@ def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -
     text = f"text scale B={MV_Q} x {TEXT_N} docs x {TEXT_TD} x {MV_DIM}"
     page = f"page scale B={MV_Q} x {PAGE_N} pages x {PAGE_TD} x {MV_DIM}"
     fused_case(f"f32 {text}, k={K}", q32, docs_t, lens_t, K, 1.0, "f32", 4)
-    # the same-card yardstick of the old tile body: #11 (the pallas pin runs
-    # csrc/maxsim_kernel.cuh) beside #9, in turns
+    # #11 (the pallas pin: the tile body's bias policy, every token walked)
+    # beside #9 on the same card, in turns
     pin_ms = [cuda_ms(lambda: fn(q32, ql_h, docs_t, lens_t, K), 3)
               for fn in (tm.maxsim_topk_v1, tm.maxsim_topk_v2, tm.maxsim_topk_v2,
                          tm.maxsim_topk_v1)]
-    log(f"  #11 maxsim_topk_v1 (the old tile body) f32 {text}, k={K}: {pin_ms[0]:.3f} / "
-        f"{pin_ms[3]:.3f} ms; #9 beside it {pin_ms[1]:.3f} / {pin_ms[2]:.3f} ms")
+    log(f"  #11 maxsim_topk_v1 (the tile body's bias policy, bias built per call) f32 {text}, "
+        f"k={K}: {pin_ms[0]:.3f} / {pin_ms[3]:.3f} ms; #9 beside it {pin_ms[1]:.3f} / "
+        f"{pin_ms[2]:.3f} ms")
     fused_case(f"bf16 {page}, k={K}", q16, docs_lo, lens_p, K, 1.0, "bf16", 2)
     scores_case(f"bf16 {page}, k'+1={K_PRESCREEN}", q16, docs_lo, lens_p, K_PRESCREEN, 1.0,
                 "bf16", 2)
@@ -1651,32 +1658,58 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     names = {"maxsim_topk_v1": ("maxsim_v1.cu", 125), "maxsim_topk_v3": ("maxsim_v3.cu", 572)}
 
     def pin_case(name, label, q, docs, dlens, k, pk, elt):
+        # each pin launched as its wrapper launches it, on inputs built once:
+        # #11 on the masked queries and the [N, Td] bias, #12 on the
+        # augmented operands; the builds, the wrappers' own per-call work,
+        # timed apart
         kernel, plain = getattr(tm, name), getattr(tm, f"{name}_plain")
-        build_ms = None
+        n, td = docs.shape[0], docs.shape[1]
         if name == "maxsim_topk_v3":
-            build_ms = cuda_ms(lambda: tm.maxsim_v3_operands(q, ql, docs, dlens), 2)
-            ops = tm.maxsim_v3_operands(q, ql, docs, dlens)
+            build_ms = cuda_ms(lambda: tm.maxsim_v3_operands(q, ql_h, docs, dlens), 2)
+            qa, da = tm.maxsim_v3_operands(q, ql_h, docs, dlens)
+            mask, width = "lane", qa.shape[2]
 
-            def call():  # the wrapper's launch on prebuilt operands
-                s, i = tm._fused("maxsim_v3", name, *ops, None, k)
-                return tm._reset_empty(s, i, dlens, docs.shape[0])
-        else:
             def call():
-                return kernel(q, ql, docs, dlens, k)
-        s, i = call()
+                return tm._v3_topk(qa, ql_h, da, dlens, k)
+        else:
+            def build():
+                return tm._masked_queries(q, ql_h), tm.v1_bias(dlens, n, td, dev)
+            build_ms = cuda_ms(build, 2)
+            qm, bias = build()
+            mask, width = "bias", q.shape[2]
+
+            def call():
+                return tm._tile_topk(name, qm, ql_h, docs, bias, k)
+        plan = tm.v2_plan_on_card(ql_np, n, td, width, k, q.dtype, dev,
+                                  doc_lens=dlens.cpu().numpy(), mask=mask)
+        log(f"  plan, {name} {label}: {plan.note()}; staged {plan.k_boxes * 128} B a token "
+            f"(data {width * elt} B)")
         rs, ri = plain(q, ql, docs, dlens, k)
-        n_mism, ok, err = mv_agree(s, i, rs, ri, mv_tol(q, ql, 1.0))
-        log(f"{name} vs plain, {label}: ids mismatches {n_mism}/{i.numel()} (all within the "
-            f"rounding term: {ok}), max|d score| = {err:.3e}")
-        if not ok:
-            fail(f"{name} disagrees with its plain version ({label})")
-        ms = cuda_ms(call, 3)
+        tol = mv_tol(q, ql, 1.0)
+        # the wrapper's whole call (its bias or operand build, host lengths)
+        # and the launch on the prebuilt inputs, each against the plain version
+        errs = []
+        for what_run, run in (("the wrapper's whole call", lambda: kernel(q, ql_h, docs, dlens, k)),
+                              ("the launch on prebuilt inputs", call)):
+            s, i = run()
+            n_mism, ok, err = mv_agree(s, i, rs, ri, tol)
+            log(f"{name} vs plain, {label}, {what_run}: ids mismatches {n_mism}/{i.numel()} "
+                f"(all within the rounding term: {ok}), max|d score| = {err:.3e}")
+            if not ok:
+                fail(f"{name} disagrees with its plain version ({label}, {what_run})")
+            errs.append(err)
+        err = max(errs)
+        with SmiSampler() as smi:
+            ms = cuda_ms(call, 3)
         v2_ms = cuda_ms(lambda: tm.maxsim_topk_v2(q, ql_h, docs, dlens, k), 3)
+        wrapper_ms = cuda_ms(lambda: kernel(q, ql_h, docs, dlens, k), 2)
         plain_ms = cuda_ms(lambda: plain(q, ql, docs, dlens, k), 1)
         lib_ms = cuda_ms(lambda: mv_library(q, ql, docs, dlens, k), 1)
         b_ms, b_by = mv_bound(ql, dlens, MV_DIM, elt, q.shape[0] * k * 8, peak[pk], peak["hbm"])
-        log(f"  kernel {ms:.3f} ms" + (f" (+ operand build {build_ms:.3f} ms)" if build_ms else "")
-            + f", #9 (maxsim_topk_v2) beside it {v2_ms:.3f} ms, plain {plain_ms:.3f} ms, chunked "
+        what = "operand" if mask == "lane" else "bias"
+        log(f"  kernel {ms:.3f} ms ({b_ms / ms:.1%} of the bound; {smi.summary()}), + {what} "
+            f"build {build_ms:.3f} ms, the wrapper's whole call {wrapper_ms:.3f} ms; #9 "
+            f"(maxsim_topk_v2) beside it {v2_ms:.3f} ms, plain {plain_ms:.3f} ms, chunked "
             f"matmul + amax + topk {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
         src, line = names[name]
         entry = {
@@ -1685,9 +1718,9 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
             "replaces": f"autorag_research_tpu/ops/maxsim.py:{line}",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "v2_ms": v2_ms,
+            f"{what}_build_ms": build_ms, "wrapper_ms": wrapper_ms,
+            "tokens_walked_per_valid": plan.tokens_walked / plan.tokens_valid,
         }
-        if build_ms is not None:
-            entry["operand_build_ms"] = build_ms
         kernels.append(entry)
 
     td._require_exact_f32()
@@ -1717,9 +1750,13 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
         return ok, (f"ids mismatches {n_mism}/{i.size} (all sub-ulp: {ok}), "
                     f"max|d score| = {np.abs(s - rs).max():.3e}")
 
+    # the pins with query lengths on the card (one copy to the host each call)
     any_case(f"maxsim_topk_v1 f32 {text}, k={K_ANY} (lists in the output)",
              timed(lambda: tm.maxsim_topk_v1(q32, ql, docs_t, lens_t, K_ANY)),
              tm.maxsim_topk_v1_plain(q32, ql, docs_t, lens_t, K_ANY), mv_check)
+    any_case(f"maxsim_topk_v3 f32 {text}, k={K_ANY} (lists in the output)",
+             timed(lambda: tm.maxsim_topk_v3(q32, ql, docs_t, lens_t, K_ANY)),
+             tm.maxsim_topk_v3_plain(q32, ql, docs_t, lens_t, K_ANY), mv_check)
     any_case(f"maxsim_topk_v2 f32 {text}, k={K_F1_MAXSIM} (lists in the output)",
              timed(lambda: tm.maxsim_topk_v2(q32, ql_h, docs_t, lens_t, K_F1_MAXSIM)),
              tm.maxsim_topk_v2_plain(q32, ql, docs_t, lens_t, K_F1_MAXSIM), mv_check)
@@ -1922,7 +1959,7 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     torch.cuda.empty_cache()
 
 
-PTXAS_SOURCES = ("dense_topk_stream", "maxsim_v2")
+PTXAS_SOURCES = ("dense_topk_stream", "maxsim_v2", "maxsim_v1", "maxsim_v3")
 
 
 def ptxas_start(cuda_build, tmp: str, name: str):
@@ -1936,9 +1973,11 @@ def ptxas_start(cuda_build, tmp: str, name: str):
     )
 
 
-def ptxas_log(proc, name: str) -> None:
-    """Log each instantiation's registers and spills: f32 or bf16, and for
-    maxsim_v2 the fused (``Lb1``) or scores (``Lb0``) epilogue."""
+def ptxas_log(proc, name: str, lib: str) -> None:
+    """Log each instantiation's registers, spills and anything ptxas says of
+    ``setmaxnreg``: f32 or bf16, and for the MaxSim tile body the fused
+    (``Lb1``) or scores (``Lb0``) epilogue and the mask policy (``Li0E``
+    lens, ``Li1E`` bias, ``Li2E`` lane)."""
     out, _ = proc.communicate()
     if proc.returncode != 0:
         fail(f"nvcc -Xptxas -v of {name}.cu failed:\n{out}")
@@ -1948,8 +1987,34 @@ def ptxas_log(proc, name: str) -> None:
             kernel = "bf16" if "BF16" in line else "f32"
             if "maxsim_tile_kernel" in line:
                 kernel += " fused" if "Lb1" in line else " scores"
-        elif kernel and ("registers" in line or "spill" in line):
+                kernel += " bias" if "Li1E" in line else " lane" if "Li2E" in line else " lens"
+        elif kernel and ("registers" in line or "spill" in line or "setmaxnreg" in line):
             log(f"{name} {kernel} ptxas: {line.split(':', 1)[-1].strip()}")
+    if name.startswith("maxsim"):
+        sass_setmaxreg(lib, name)
+
+
+def sass_setmaxreg(lib: str, name: str) -> None:
+    """Log the register moves (``SETMAXREG``) each tile-body kernel of the
+    library ``lib`` keeps in its machine code (``cuobjdump -sass``): the
+    producer's release and the consumers' claim of ``setmaxnreg``."""
+    from autorag_research_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        log(f"{name}: no cuobjdump beside nvcc, SASS not read")
+        return
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300).stdout
+    fn, moves = None, {}
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            moves[fn] = []
+        elif fn and "SETMAXREG" in line:
+            moves[fn].append(line.split("*/", 1)[-1].split(";")[0].strip())
+    for fn, ops in moves.items():
+        if "maxsim_tile_kernel" in fn:
+            log(f"{name} SASS {fn[:60]}: {len(ops)} SETMAXREG ({'; '.join(ops)})")
 
 
 class SmiSampler:
@@ -2034,7 +2099,7 @@ def main() -> int:
         log(f"kernel build: {json.dumps({n: round(s, 2) for n, s in secs.items()})} "
             f"({time.perf_counter() - t0:.2f} s in all)")
         for n, proc in ptxas.items():
-            ptxas_log(proc, n)
+            ptxas_log(proc, n, f"{tmp}/ptxas_{n}.so")
 
     # ---- data and indexes ---------------------------------------------------
     rng = np.random.default_rng(args.seed)

@@ -12,8 +12,11 @@ it prints the launch plan (``v2_plan_on_card``: rows computed / valid,
 tokens walked / valid), the kernel's mean CUDA-event time, the least time
 the card could take for the valid tokens' work, and the largest score
 difference from the plain version (f32 text: every id equal but within the
-proof's rounding term); with pins, #11 (``maxsim_topk_v1``, the old tile
-body) at the text shape beside #9. The card's name and power limit come
+proof's rounding term); with pins, at both scales #11 (``maxsim_topk_v1``,
+the tile body's bias policy, on its bias built once) and #12
+(``maxsim_topk_v3``, the lane policy, on its augmented operands built once)
+in turns with #9 at k = 10, each with its plan and its largest score
+difference from its plain version. The card's name and power limit come
 first, the SM clock and power sampled over the timings last. Imports
 nothing of JAX.
 """
@@ -113,11 +116,28 @@ def main() -> int:
             print(f"{name} {kind} {scale} k={k}: {ms:.3f} ms, bound {bound:.3f} ms "
                   f"({bound / ms:.1%}), max|d score| vs plain {err:.3e}, id mismatches {mism}; "
                   f"plan: {plan.note()}", flush=True)
-        if scale == "text" and not args.no_pins:
-            v1 = timed(lambda: tm.maxsim_topk_v1(qq, ql, docs, dl, 10))
-            v2 = timed(lambda: tm.maxsim_topk_v2(qq, ql, docs, dl, 10))
-            print(f"#11 maxsim_topk_v1 (old tile body) f32 text k=10: {v1:.3f} ms; #9 beside it "
-                  f"{v2:.3f} ms", flush=True)
+        if not args.no_pins:
+            qm, bias = tm._masked_queries(qq, ql), tm.v1_bias(dl, n, td, dev)
+            qa, da = tm.maxsim_v3_operands(qq, ql, docs, dl)
+
+            def v2_call():
+                return tm.maxsim_topk_v2(qq, ql, docs, dl, 10)
+            pins = {
+                "maxsim_topk_v1": ("bias", d, lambda: tm._tile_topk("maxsim_topk_v1", qm, ql, docs,
+                                                                    bias, 10)),
+                "maxsim_topk_v3": ("lane", qa.shape[2], lambda: tm._v3_topk(qa, ql, da, dl, 10)),
+            }
+            for name, (mask, width, call) in pins.items():
+                plan = tm.v2_plan_on_card(ql_np, n, td, width, 10, dt, dev,
+                                          doc_lens=dl.cpu().numpy(), mask=mask)
+                s, i = call()
+                rs, ri = getattr(tm, f"{name}_plain")(qq, ql, docs, dl, 10)
+                err = float((s - rs).abs().max())
+                pin_ms = [timed(f) for f in (call, v2_call, v2_call, call)]
+                print(f"{name} {kind} {scale} k=10: {pin_ms[0]:.3f} / {pin_ms[3]:.3f} ms, #9 "
+                      f"beside it {pin_ms[1]:.3f} / {pin_ms[2]:.3f} ms, bound {bound:.3f} ms "
+                      f"({bound / pin_ms[0]:.1%}), max|d score| vs plain {err:.3e}, id "
+                      f"mismatches {int((i != ri).sum())}; plan: {plan.note()}", flush=True)
         del docs, dl
         torch.cuda.empty_cache()
     smi.terminate()

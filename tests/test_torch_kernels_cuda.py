@@ -131,10 +131,11 @@ def test_dense_index_cuda_matches_cpu(cuda_device, mode):
 
 
 # ------------------------------------------------------------------ MaxSim
-def _mv_data(rng, b, tq, n, td, d, empty=(), dyadic=True):
-    """Padded token tensors with ragged lengths: queries [b, tq, d] + lens,
-    docs [n, td, d] + lens, ``empty`` docs of length 0, rows 9 and n - 3
-    duplicating row 4 (exact ties on dyadic data)."""
+def _mv_data(rng, b, tq, n, td, d, empty=(), dyadic=True, zero_q=()):
+    """Padded token tensors with ragged lengths: queries [b, tq, d] + lens
+    (the queries ``zero_q`` of length 0, their rows zero), docs [n, td, d] +
+    lens, ``empty`` docs of length 0, rows 9 and n - 3 duplicating row 4
+    (exact ties on dyadic data)."""
     def vals(shape):
         if dyadic:
             return _eighths(rng, shape)
@@ -143,6 +144,9 @@ def _mv_data(rng, b, tq, n, td, d, empty=(), dyadic=True):
     q = vals((b, tq, d))
     ql = rng.integers(1, tq + 1, size=b).astype(np.int32)
     ql[0] = tq
+    if zero_q:
+        ql[list(zero_q)] = 0
+        q *= (np.arange(tq)[None, :] < ql[:, None])[:, :, None]
     docs = vals((n, td, d))
     dl = rng.integers(1, td + 1, size=n).astype(np.int32)
     docs[[9, n - 3]] = docs[4]
@@ -435,17 +439,28 @@ def test_multi_vector_index_cuda_matches_cpu(cuda_device, opts, k):
 
 
 # ------------------------------------------- MaxSim pins (#11, #12), any k and d
+# MV_SHAPES, and d = 128 (v3's bias lane alone in the last k-box: d' = 136)
+# with a query of length 0 (the one row the pins keep for it) and Td = 37
+# (a tail chunk past Td in every document)
+PIN_CASES = {
+    "long-docs": (MV_SHAPES[0], ()), "blocks": (MV_SHAPES[1], ()),
+    "long-query": (MV_SHAPES[2], ()), "d128-empty-query": ((7, 20, 500, 37, 128), (2, 5)),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", [1, 10, 17, 300])
-@pytest.mark.parametrize("shape", MV_SHAPES, ids=["long-docs", "blocks", "long-query"])
+@pytest.mark.parametrize("shape", list(PIN_CASES))
 @pytest.mark.parametrize("pin", ["v1", "v3"])
 def test_maxsim_pin_kernels_match_plain(cuda_device, pin, dtype, k, shape):
     # dyadic tokens: every sum exact, so kernel and plain version agree
     # bitwise, empty documents at NEG_INF with their rows
     from autorag_research_tpu_torch.ops import maxsim as tm
 
-    args = _mv_tensors(_mv_data(np.random.default_rng(k), *shape, empty=(0, 11)), cuda_device, dtype)
+    dims, zero_q = PIN_CASES[shape]
+    args = _mv_tensors(_mv_data(np.random.default_rng(k), *dims, empty=(0, 11), zero_q=zero_q),
+                       cuda_device, dtype)
     kernel = {"v1": tm.maxsim_topk_v1, "v3": tm.maxsim_topk_v3}[pin]
     plain = {"v1": tm.maxsim_topk_v1_plain, "v3": tm.maxsim_topk_v3_plain}[pin]
     before = tm.LAUNCHES[f"maxsim_topk_{pin}"]
@@ -459,6 +474,29 @@ def test_maxsim_pin_kernels_match_plain(cuda_device, pin, dtype, k, shape):
     vs, vi = tm.maxsim_topk_v2(*args, k)
     torch.testing.assert_close(i, vi, rtol=0, atol=0)
     torch.testing.assert_close(s, vs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxsim_pins_launch_their_kernels_only(cuda_device, dtype):
+    # method="pallas" / "pallas_v3" on the card's tensors, query lengths on
+    # the host as MultiVectorIndex passes them: one launch of each pin's
+    # kernel, none of another, no plain version and no scan
+    from autorag_research_tpu_torch.ops import maxsim as tm
+
+    q, ql, docs, dl = _mv_tensors(
+        _mv_data(np.random.default_rng(13), 9, 12, 700, 30, 128, empty=(4,), zero_q=(1,)),
+        cuda_device, dtype)
+    tm.reset_launch_counts()
+    s1, i1 = tm.maxsim_topk(q, ql.cpu(), docs, dl, 10, method="pallas")
+    s3, i3 = tm.maxsim_topk(q, ql.cpu(), docs, dl, 10, method="pallas_v3")
+    torch.cuda.synchronize()
+    assert tm.LAUNCHES == {
+        "maxsim_topk_v2": 0, "maxsim_scores_v2": 0, "maxsim_topk_v1": 1, "maxsim_topk_v3": 1,
+    }
+    assert sum(tm.PLAIN_CALLS.values()) == 0
+    torch.testing.assert_close(i1, i3, rtol=0, atol=0)
+    torch.testing.assert_close(s1, s3, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -11,6 +11,11 @@ shared memory equal to an independent count of the layout and within a
 block's 227 KB, the ring as long as fits, and the refusals. The kernel's
 launcher refuses a plan whose bytes differ from its own layout's, which the
 CUDA tests in ``test_torch_kernels_cuda.py`` hold on the card.
+
+The pins' policies ("bias" for #11, "lane" for #12) keep those invariants
+over each query's rows, one row for a query of length 0, walk all Td
+tokens of every document, and size their k-boxes from the operand width
+they see (d' = 136 for "lane" at d = 128).
 """
 
 import numpy as np
@@ -61,11 +66,22 @@ def _layout(d: int, k: int, dtype, stages: int, resident: bool, lists: bool) -> 
     return 1024 + q + ring + 32 * (rows + 1) * 4 + 8 * (2 * stages + 2) + (32 * k * 8 if lists else 0)
 
 
-def _check(plan, lens, n, td, d, k, dtype, sms, bps):
+def _walked(lens, n: int) -> int:
+    """Tokens walked, counted apart from the plan: per group of 32 documents
+    its chunks of 16 (round_up(len, 16) / 16 a document) in product tiles of
+    8 chunks, 128 tokens a tile."""
+    chunks = [sum(-(-int(x) // 16) for x in lens[g : g + 32]) for g in range(0, n, 32)]
+    return sum(-(-c // 8) * 128 for c in chunks)
+
+
+def _check(plan, lens, n, td, d, k, dtype, sms, bps, mask="lens"):
     b = lens.size
     k_eff = min(k, n)
     rows = ROWS[dtype]
-    assert plan.rows == rows
+    assert plan.rows == rows and plan.mask == mask
+    # the rows the kernel computes: a query's own, one for a length-0 query
+    # under the pins' policies
+    valid, lens = lens, (lens if mask == "lens" else np.maximum(lens, 1))
     blk = plan.table[: 4 * plan.blocks].reshape(plan.blocks, 4).astype(np.int64)
     qrow = plan.table[4 * plan.blocks :].reshape(b, 2).astype(np.int64)
     assert plan.table.size == 4 * plan.blocks + 2 * b
@@ -75,7 +91,10 @@ def _check(plan, lens, n, td, d, k, dtype, sms, bps):
     assert first[-1] + count[-1] == b and (count >= 1).all() and (count <= 32).all()
     assert (row0 == np.concatenate([[0], np.cumsum(tiles)[:-1]]) * rows).all()
     assert plan.q_rows == int(tiles.sum()) * rows
-    assert plan.rows_valid == int(lens.sum())
+    assert plan.rows_valid == int(valid.sum())
+    if mask != "lens":  # every document walked over all Td tokens
+        assert plan.tokens_walked == _walked(np.full(n, td), n)
+        assert plan.tokens_walked >= n * (-(-td // 16) * 16)
     owner = np.repeat(np.arange(plan.blocks), count)
     for i in range(plan.blocks):
         q_lens = lens[first[i] : first[i] + count[i]]
@@ -137,6 +156,23 @@ def test_plan_invariants(mix, b, dtype):
                     _check(plan, lens, n, td, d, k, dtype, sms, bps)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", BS)
+@pytest.mark.parametrize("mix", MIXES)
+@pytest.mark.parametrize("mask", ["bias", "lane"])
+def test_pin_plan_invariants(mask, mix, b, dtype):
+    # the pins' plans over the same length mixes (zeros among them) and
+    # cards; fused only, so k >= 1; "lane" at the augmented widths d' too
+    lens = _lens(mix, b, seed=b)
+    for td in TDS:
+        n = 3 * td + 5
+        for d in DS + ((136,) if mask == "lane" else ()):
+            for sms, bps in CARDS:
+                for k in KS:
+                    plan = tm.maxsim_plan(lens, n, td, d, k, dtype, sms, bps, mask=mask)
+                    _check(plan, lens, n, td, d, k, dtype, sms, bps, mask=mask)
+
+
 @pytest.mark.parametrize("n", [1, 31, 33, 50_000])
 def test_plan_invariants_across_corpus_sizes(n):
     lens = _lens("uniform", 128, seed=n)
@@ -191,9 +227,89 @@ def test_main_path_plan():
     assert tm.maxsim_plan(lens, 10_000, 1024, 128, 65, torch.bfloat16, 132, 1).lists == "shared"
 
 
+def test_pin_plans_walk_all_tokens():
+    # "bias" and "lane" read no lengths: every document's Td tokens in
+    # chunks of 16, whatever doc_lens says; "lens" walks round_up(len, 16)
+    rng = np.random.default_rng(7)
+    q_lens = rng.integers(1, 33, size=40)
+    for n, td in ((64, 128), (1000, 37), (33, 16), (7, 1)):
+        doc_lens = rng.integers(0, td + 1, size=n)
+        lens_plan = tm.maxsim_plan(q_lens, n, td, 128, 10, torch.float32, 132, 1,
+                                   doc_lens=doc_lens)
+        assert lens_plan.tokens_walked == _walked(doc_lens, n)
+        for mask in ("bias", "lane"):
+            plan = tm.maxsim_plan(q_lens, n, td, 136 if mask == "lane" else 128, 10,
+                                  torch.float32, 132, 1, doc_lens=doc_lens, mask=mask)
+            assert plan.tokens_walked == _walked(np.full(n, td), n)
+            assert plan.tokens_valid == int(doc_lens.sum())
+            if n % 32 == 0:  # whole groups: exactly N x round_up(Td, 16)
+                assert plan.tokens_walked == n * (-(-td // 16) * 16)
+            # without doc_lens the walk is still known, the valid tokens not
+            bare = tm.maxsim_plan(q_lens, n, td, 128, 10, torch.float32, 132, 1, mask=mask)
+            assert bare.tokens_walked == plan.tokens_walked and bare.tokens_valid is None
+            assert "tokens walked" in bare.note() and f"{mask} policy" in bare.note()
+
+
+def test_pin_plans_keep_one_row_for_an_empty_query():
+    # a query of length 0 keeps one row under the pins' policies (its sums
+    # then put an empty document below a full one, as the TPU kernels' pad
+    # rows do) and none under "lens", where the kernel knows empty documents
+    # by their lengths; the row's source is the query's row 0
+    q_lens = np.array([0, 5, 0, 0, 3])
+    for mask, rows in (("lens", [0, 5, 0, 0, 3]), ("bias", [1, 5, 1, 1, 3]),
+                       ("lane", [1, 5, 1, 1, 3])):
+        plan = tm.maxsim_plan(q_lens, 100, 16, 136, 10, torch.float32, 132, 1, mask=mask)
+        qrow = plan.table[4 * plan.blocks :].reshape(5, 2)
+        assert qrow[:, 1].tolist() == rows and plan.rows_valid == 8
+        src = tm._query_gather(plan, 5, 6)
+        for q, (start, r) in enumerate(qrow):
+            assert src[start : start + r].tolist() == [q * 6 + t for t in range(r)]
+        assert (np.delete(src, np.concatenate([np.arange(s, s + r) for s, r in qrow])) == 30).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_lane_plan_sizes_k_boxes_from_the_augmented_width(dtype):
+    # d = 128 + the bias lane -> d' = 136: a fifth f32 k-box of 32 lanes (a
+    # third bf16 one of 64), 8 of them live; in bf16 the third resident
+    # query k-box (256 rows x 128 bytes) costs the ring its sixth slot
+    lens = np.full(128, 20)
+    lane = tm.maxsim_plan(lens, 50_000, 128, 136, 10, dtype, 132, 1, mask="lane")
+    bias = tm.maxsim_plan(lens, 50_000, 128, 128, 10, dtype, 132, 1, mask="bias")
+    f32 = dtype == torch.float32
+    assert (lane.k_boxes, bias.k_boxes) == ((5, 4) if f32 else (3, 2))
+    assert lane.resident and lane.smem_bytes == _layout(136, 10, dtype, lane.stages, True, True)
+    assert lane.stages == (6 if f32 else 5) and bias.stages == 6
+    _check(lane, lens, 50_000, 128, 136, 10, dtype, 132, 1, mask="lane")
+
+
+def test_pin_main_path_plans():
+    # the pinned text search on an H100's 132 SMs (one block an SM): the
+    # pins compute each query's own rows, as #9 does, and walk every token:
+    # about 1.33 tokens walked per valid token at Td = 128 (lengths 64-128)
+    # and 1,024 (512-1,024), against #9's 1.10 and 1.01
+    rng = np.random.default_rng(0)
+    lens = rng.integers(8, 33, size=128)
+    text_lens = rng.integers(64, 129, size=50_000)
+    page_lens = rng.integers(512, 1025, size=10_000)
+    for mask, d in (("bias", 128), ("lane", 136)):
+        text = tm.maxsim_plan(lens, 50_000, 128, d, 10, torch.float32, 132, 1,
+                              doc_lens=text_lens, mask=mask)
+        page = tm.maxsim_plan(lens, 10_000, 1024, d, 10, torch.bfloat16, 132, 1,
+                              doc_lens=page_lens, mask=mask)
+        print(f"{mask} text: {text.note()}\n{mask} page: {page.note()}")
+        v2 = tm.maxsim_plan(lens, 50_000, 128, 128, 10, torch.float32, 132, 1)
+        assert (text.blocks, text.q_rows, text.parts) == (v2.blocks, v2.q_rows, v2.parts)
+        assert text.tokens_walked == 50_000 * 128 and page.tokens_walked == 10_000 * 1024
+        assert 1.3 < text.tokens_walked / text.tokens_valid < 1.37
+        assert 1.3 < page.tokens_walked / page.tokens_valid < 1.37
+        assert text.q_rows / text.rows_valid <= 1.15 and page.q_rows / page.rows_valid <= 1.15
+
+
 @pytest.mark.parametrize("bad", [dict(q_lens=[]), dict(n=0), dict(td=0), dict(d=0), dict(d=12),
                                  dict(k=-1), dict(sms=0), dict(blocks_per_sm=0),
-                                 dict(q_lens=[3, -1]), dict(n=2**21, td=1024)])
+                                 dict(q_lens=[3, -1]), dict(n=2**21, td=1024),
+                                 dict(mask="none"), dict(mask="bias", k=0),
+                                 dict(mask="lane", k=0), dict(mask="lane", d=130)])
 def test_plan_refusals(bad):
     args = dict(q_lens=[4, 9], n=100, td=16, d=16, k=5, dtype=torch.float32, sms=132,
                 blocks_per_sm=1)

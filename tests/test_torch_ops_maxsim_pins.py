@@ -8,13 +8,19 @@ CPU tensors, where ``maxsim_topk_v1`` / ``_v3`` take their plain versions.
 
 Tolerances: ids equal; scores bitwise on dyadic tokens (small multiples of
 1/8: every product and sum exact, so the TPU kernel's grouping matmul and the
-port's token-order sum agree), ``rtol = atol = 1e-5`` on random ones (f32
-sums in another order). Empty documents: the JAX v1 kernel lets their sum
+port's sums agree), ``rtol = atol = 1e-5`` on random ones (f32 sums in
+another order). Empty documents: the JAX v1 kernel lets their sum
 overflow to -inf and leaves them out of its top-k, the JAX v3 kernel scores
 them Tq_pad x -1e30; the port lists them at NEG_INF with their row on every
 route, so against v1 the tests compare the entries JAX lists and against v3
 every id and the non-empty scores. The CUDA kernels are held against these
 plain versions in ``test_torch_kernels_cuda.py``.
+
+The CUDA kernels compute each query's own rows only (one row for a query of
+length 0), where the TPU kernels and the plain versions also sum the zero
+pad rows: a test here shows on random (non-dyadic) data that, summed in the
+kernels' order, those rows add exactly +0, so leaving them out changes no
+bit.
 """
 
 import jax.numpy as jnp
@@ -38,10 +44,10 @@ PINS = {
 }
 
 
-def _data(seed, b=5, tq=7, n=60, td=21, d=40, empty=(), dyadic=False):
+def _data(seed, b=5, tq=7, n=60, td=21, d=40, empty=(), dyadic=False, zero_q=()):
     """Padded queries [b, tq, d] + lens and docs [n, td, d] + lens; pads are
-    zero, ``empty`` rows have length 0; dyadic data also has two rows that
-    duplicate a third (exact ties)."""
+    zero, ``empty`` rows have length 0, and so do the queries ``zero_q``;
+    dyadic data also has two rows that duplicate a third (exact ties)."""
     rng = np.random.default_rng(seed)
 
     def vals(shape):
@@ -52,6 +58,7 @@ def _data(seed, b=5, tq=7, n=60, td=21, d=40, empty=(), dyadic=False):
     q = vals((b, tq, d))
     ql = rng.integers(1, tq + 1, size=b).astype(np.int32)
     ql[0] = tq
+    ql[list(zero_q)] = 0
     q *= (np.arange(tq)[None, :] < ql[:, None])[:, :, None]
     docs = vals((n, td, d))
     dl = rng.integers(1, td + 1, size=n).astype(np.int32)
@@ -133,6 +140,74 @@ def test_pin_plain_odd_widths(pin, d):
     js, ji = jax_fn(*_jax("f32", *arrays), 10, interpret=True)
     ts, ti = port(*_torch("f32", *arrays), 10)
     _compare(pin, ts, ti, js, ji, arrays[3], exact=False)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("pin", ["v1", "v3"])
+def test_pin_plain_edge_cases_match_pallas(pin, dtype):
+    # d = 128 (v3's bias lane then needs a lane past the first 128; on the
+    # card it is the only live lane group of the last k-box) and a query of
+    # length 0 (every non-empty document scores 0 for it, so its list is the
+    # rows in order; the empty ones last)
+    arrays = _data(60, b=4, tq=9, n=70, td=19, d=128, empty=(5, 66), zero_q=(2,))
+    port, jax_fn = PINS[pin]
+    js, ji = jax_fn(*_jax(dtype, *arrays), 73, interpret=True)
+    ts, ti = port(*_torch(dtype, *arrays), 73)
+    _compare(pin, ts, ti, js, ji, arrays[3], exact=False)
+    full = [r for r in range(70) if r not in (5, 66)]
+    assert ti.numpy()[2, :68].tolist() == full and (ts.numpy()[2, :68] == 0).all()
+    assert ti.numpy()[2, 68:70].tolist() == [5, 66] and (ts.numpy()[2, 68:70] == NEG_INF).all()
+
+
+def _row_sums(pin, q, ql, docs, dl, own: bool):
+    """[B, N] pin scores in the plain version's products and per-token
+    maxima, the rows summed one by one in token order from +0, as the kernels
+    sum: over all padded rows (own False: Tq for v1, Tq_pad for v3, the rows
+    the TPU kernels and the plain versions sum) or over each query's own rows
+    only (one row of a query of length 0, the rows the CUDA kernels compute);
+    then the v1 clamp, or NEG_INF for v3's empty documents."""
+    b, tq, _ = q.shape
+    n, td, _ = docs.shape
+    if pin == "v1":
+        qa, da = tm._masked_queries(q, ql), docs
+        extra = tm.v1_bias(dl, n, td, "cpu")[None, None]
+    else:
+        qa, da = tm.maxsim_v3_operands(q, ql, docs, dl)
+        extra = 0.0
+    rows = qa.shape[1]
+    s = torch.matmul(qa.float().reshape(b * rows, -1), da.float().reshape(n * td, -1).T)
+    per_token = torch.amax(s.view(b, rows, n, td) + extra, dim=3)
+    scores = torch.zeros((b, n))
+    for i in range(b):
+        for t in range(max(int(ql[i]), 1) if own else rows):
+            scores[i] = scores[i] + per_token[i, t]
+    if pin == "v1":
+        return torch.clamp(scores, min=NEG_INF)
+    return scores.masked_fill(~(dl > 0)[None, :], NEG_INF)
+
+
+@pytest.mark.parametrize("seed", [61, 62, 63])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("pin", ["v1", "v3"])
+def test_dropped_pad_rows_change_no_bit(pin, dtype, seed):
+    # random floats (no exact sums), empty documents, a query of length 0
+    # and queries shorter than Tq: summed in the kernels' order, each
+    # query's own rows give every score bitwise as all its padded rows do
+    # (each pad row adds exactly +0); and that function, ranked in
+    # (-score, row) order, is the plain version's (its sum over the padded
+    # rows in torch's order, so scores to RTOL / ATOL), every document listed
+    arrays = _data(seed, b=6, tq=11, n=90, td=23, d=48, empty=(3, 40, 89), zero_q=(4,))
+    args = _torch(dtype, *arrays)
+    own = _row_sums(pin, *args, own=True)
+    np.testing.assert_array_equal(own.numpy(), _row_sums(pin, *args, own=False).numpy())
+    ids = np.arange(90)[None, :].repeat(6, axis=0)
+    order = np.lexsort((ids, -own.numpy().astype(np.float64)), axis=1)
+    ps, pi = PINS[pin][0](*args, 90)
+    np.testing.assert_array_equal(pi.numpy(), order)
+    np.testing.assert_allclose(ps.numpy(), np.take_along_axis(own.numpy(), order, 1),
+                               rtol=RTOL, atol=ATOL)
+    assert (pi.numpy()[:, -3:] == [3, 40, 89]).all()
+    assert (ps.numpy()[:, -3:] == NEG_INF).all()
 
 
 def test_pins_route_through_maxsim_topk():
