@@ -20,6 +20,11 @@
 #define ARTPU_NEG_INF (-3.4e38f)
 #define ARTPU_INT_MAX 2147483647
 
+// the shared-memory address of a generic pointer into shared memory
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
 __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
                                                const uint32_t b[2]) {
   asm volatile(

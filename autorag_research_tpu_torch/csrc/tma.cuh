@@ -1,5 +1,6 @@
-// TMA staging helpers shared by dense_topk_stream.cu and maxsim_tile.cuh:
-// mbarriers in shared memory (init, expected bytes, arrival, parity wait),
+// TMA staging helpers shared by dense_topk_stream.cu, maxsim_tile.cuh and
+// seg_stats.cu: mbarriers in shared memory (init, expected bytes, arrival,
+// parity wait, with or without a watchdog),
 // 2-D tensor loads counted on a barrier, and the tensor-map encoder.
 //
 // cuTensorMapEncodeTiled lives in libcuda, which the CUDA runtime has already
@@ -24,16 +25,31 @@ __device__ __forceinline__ void mbar_arrive(unsigned bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+// one try: whether the phase of parity `parity` has completed
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // wait until the phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// mbar_wait that traps after about `limit` cycles, so a fault in a barrier
+// protocol ends the launch with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait_or_trap(unsigned bar, unsigned parity, long long limit) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > limit) __trap();
   }
 }
 

@@ -83,6 +83,14 @@ STREAM_EPI_BYTES = 4 * STREAM_BQ * 4 + 2 * STREAM_BQ * STREAM_CAP * 4
 STREAM_PART_K = 4
 SMEM_BLOCK_MAX = 232448  # a block's shared memory on sm_90
 
+# The seg-stats kernel's work items and shared-memory layout (csrc/seg_stats.cu,
+# whose launcher refuses a plan whose bytes differ from its own count): items
+# of 128 queries x 256 corpus rows (two segments of 128); a ring of 4 slices of
+# 64 k-columns of both operands (TMA boxes of 128 bytes a row) from a 1,024-byte
+# boundary; a full and an empty barrier per slot.
+SEG_BQ, SEG_BN, SEG_BK, SEG_STAGES = 128, 256, 64, 4
+SEG_SMEM_BYTES = 1024 + SEG_STAGES * (SEG_BQ + SEG_BN) * SEG_BK * 2 + 16 * SEG_STAGES
+
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
@@ -654,11 +662,98 @@ def _seg_stats_plain(q_rep, corpus_lo, corpus_scale, n: int, seg: int):
     return max1, loc1, max2
 
 
+class SegStatsPlan(NamedTuple):
+    """The work plan of one ``csrc/seg_stats.cu`` launch."""
+
+    bq: int  # queries of an item
+    bn: int  # corpus rows of an item: two segments
+    bk: int  # k-columns of a staged slice
+    stages: int  # slots of the staging ring
+    k_slices: int  # slices of one item (d / bk, rounded up)
+    q_tiles: int
+    c_tiles: int  # corpus tiles of bn rows
+    cluster: int  # blocks of a cluster; 2 share each corpus slice by TMA multicast
+    q_groups: int  # q_tiles / cluster: the query tiles a cluster's items step over
+    items: int  # q_groups x c_tiles, each done by all blocks of a cluster
+    grid: int  # blocks launched, a multiple of cluster
+    cluster_items: int  # the most items one cluster walks
+    smem_bytes: int  # dynamic shared memory of a block
+    slots: int  # resident blocks of the card: SMs x blocks an SM
+    resident: int  # clusters of this size the card holds at once
+    waves: int  # ceil(grid / cluster / resident)
+
+
+def seg_stats_plan(q: int, n: int, d: int, sms: int, blocks_per_sm: int,
+                   resident_clusters: int) -> SegStatsPlan:
+    """Pure work plan of the seg-stats kernel for Q = ``q`` queries against
+    ``n`` corpus rows of width ``d`` (a multiple of 8) on a card of ``sms`` SMs
+    that holds ``blocks_per_sm`` of its blocks each and ``resident_clusters``
+    clusters of two at once (the occupancy calculator's count, which knows how
+    SMs group: a GPC with an odd number of free SMs leaves one without a
+    partner).
+
+    One wave of persistent blocks: as many as the card holds at once, or one a
+    work item where there are fewer items. Blocks pair into clusters of two
+    whenever the 128-query tiles pair up and the card holds a cluster: the two
+    take a pair's query tiles and share every corpus slice by multicast, so no
+    block computes a query tile past Q. A cluster walks items with a stride of
+    the cluster count, query groups fastest."""
+    slots = sms * blocks_per_sm
+    if min(q, n, d, sms, blocks_per_sm) < 1 or d % 8 or not 0 <= resident_clusters <= slots // 2:
+        raise ValueError(f"no seg-stats plan for q={q} n={n} d={d} sms={sms} "
+                         f"blocks_per_sm={blocks_per_sm} resident_clusters={resident_clusters}")
+    q_tiles = -(-q // SEG_BQ)
+    c_tiles = -(-n // SEG_BN)
+    cluster = 2 if q_tiles % 2 == 0 and resident_clusters >= 1 else 1
+    resident = resident_clusters if cluster == 2 else slots
+    q_groups = q_tiles // cluster
+    items = q_groups * c_tiles
+    clusters = min(resident, items)
+    return SegStatsPlan(
+        bq=SEG_BQ, bn=SEG_BN, bk=SEG_BK, stages=SEG_STAGES, k_slices=-(-d // SEG_BK),
+        q_tiles=q_tiles, c_tiles=c_tiles, cluster=cluster, q_groups=q_groups, items=items,
+        grid=clusters * cluster, cluster_items=-(-items // clusters), smem_bytes=SEG_SMEM_BYTES,
+        slots=slots, resident=resident, waves=-(-clusters // resident),
+    )
+
+
+def _seg_occupancy(device: torch.device) -> tuple[int, int]:
+    """(blocks an SM, clusters of two the card) of the seg-stats kernel that
+    ``device`` holds at once, from the CUDA occupancy calculator."""
+    key = ("seg_stats", device.index, SEG_SMEM_BYTES)
+    if key not in _BLOCKS_PER_SM:
+        lib = cuda_build.load("seg_stats")
+        lib.seg_stats_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.seg_stats_max_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                      ctypes.POINTER(ctypes.c_int)]
+        lib.seg_stats_blocks_per_sm.restype = ctypes.c_int
+        lib.seg_stats_max_active_clusters.restype = ctypes.c_int
+        blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        with torch.cuda.device(device):
+            cuda_build.check_launch(
+                lib.seg_stats_blocks_per_sm(SEG_SMEM_BYTES, ctypes.byref(blocks)), "seg_stats_bf16")
+            cuda_build.check_launch(lib.seg_stats_max_active_clusters(
+                SEG_SMEM_BYTES, 2 * sms, ctypes.byref(clusters)), "seg_stats_bf16")
+        if blocks.value < 1:
+            raise RuntimeError(f"seg_stats_bf16: no block fits an SM at {SEG_SMEM_BYTES} bytes")
+        _BLOCKS_PER_SM[key] = (blocks.value, clusters.value)
+    return _BLOCKS_PER_SM[key]
+
+
+def _seg_plan_on_card(q: int, n: int, d: int, device: torch.device) -> SegStatsPlan:
+    """The plan :func:`seg_stats_bf16` launches on ``device``: its SM count and
+    the kernel's resident blocks an SM and clusters of two."""
+    blocks, clusters = _seg_occupancy(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return seg_stats_plan(q, n, d, sms, blocks, clusters)
+
+
 def seg_stats_bf16(q_lo: torch.Tensor, corpus_lo: torch.Tensor, n: int, seg: int = 128):
     """Fused bf16 prescreen + per-segment (max1, loc1, max2), each [Q, S],
     S = ceil(rows / seg) (JAX ``_seg_stats_pallas``). CUDA tensors launch
-    ``csrc/seg_stats.cu`` (seg must be 128); CPU tensors take
-    :func:`_seg_stats_plain`."""
+    ``csrc/seg_stats.cu`` (seg must be 128) from :func:`seg_stats_plan`; CPU
+    tensors take :func:`_seg_stats_plain`."""
     if not q_lo.is_cuda:
         return _seg_stats_plain((q_lo, None), corpus_lo, None, n, seg)
     if seg != 128:
@@ -673,12 +768,16 @@ def seg_stats_bf16(q_lo: torch.Tensor, corpus_lo: torch.Tensor, n: int, seg: int
     max1 = torch.empty((q, s_cnt), dtype=torch.float32, device=dev)
     loc1 = torch.empty((q, s_cnt), dtype=torch.int32, device=dev)
     max2 = torch.empty((q, s_cnt), dtype=torch.float32, device=dev)
+    if q == 0 or rows == 0:
+        return max1, loc1, max2
+    plan = _seg_plan_on_card(q, rows, d, dev)
     fn = cuda_build.load("seg_stats").seg_stats_bf16_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(
         q_lo.data_ptr(), corpus_lo.data_ptr(), max1.data_ptr(), loc1.data_ptr(),
-        max2.data_ptr(), q, rows, d, n, s_cnt, torch.cuda.current_stream(dev).cuda_stream,
+        max2.data_ptr(), q, rows, d, n, s_cnt, plan.cluster, plan.grid, plan.smem_bytes,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check_launch(rc, "seg_stats_bf16")
     LAUNCHES["seg_stats_bf16"] += 1

@@ -9,13 +9,17 @@ serving modes at full width and fails (non-zero exit) on any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source),
-   with one more ``nvcc -Xptxas -v`` each of the streaming kernel and of
-   the MaxSim tile body's three sources (``maxsim_v2.cu``, ``maxsim_v1.cu``,
-   ``maxsim_v3.cu``) beside it (registers, spills and ``setmaxnreg`` of their
-   instantiations);
+   with one more ``nvcc -Xptxas -v`` each of the seg-stats kernel, the
+   streaming kernel and the MaxSim tile body's three sources
+   (``maxsim_v2.cu``, ``maxsim_v1.cu``, ``maxsim_v3.cu``) beside it
+   (registers, spills and ``setmaxnreg`` of their instantiations);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it, with its time, the plain version's, one PyTorch
    library yardstick's and the least time the card could take; the
+   seg-stats kernel with its work plan (``seg_stats_plan``), the clusters
+   of two the card holds at once, ``torch.mm(q, c.T, out_dtype=f32)`` alone
+   beside the GEMM + reductions yardstick and the SM clock and power sampled
+   beside its timing; the
    streaming kernel also at k = 100 (checked) and 1,000 (timed), its tile
    plan at the main path, ``torch.matmul(q, c.T)`` alone beside matmul +
    ``topk``, the SM clock and power sampled beside its timing, a
@@ -31,7 +35,9 @@ serving modes at full width and fails (non-zero exit) on any fault:
    kernel); 2048 embedded queries then go through ``DenseIndex`` exact mode,
    whose [Q, N] scores exceed the 2 GiB budget (streaming top-k kernel).
    Verified ids must equal the exact ones (sub-ulp near-ties aside) and every
-   kernel must have launched;
+   kernel must have launched; a ``torch.profiler`` split of one verified
+   search (#1, the selections, the rescore's gather and ``bmm``, the rest,
+   and the wall time beside the device total);
 4. a SciFact-size catalog run (5,183 chunks, 300 queries, one planted gold
    chunk each) through ``VectorSearchPipeline`` verified, persisted and
    scored with recall@10 / ndcg@10, its rows held against an exact search;
@@ -131,7 +137,8 @@ serving modes at full width and fails (non-zero exit) on any fault:
     build timed apart;
     lists of any k (#11 and #2 at k = 1,000, #9 at k = 300, #2 at the main
     path's Q = 2,048 x 500,000 x 768, in f32 and bf16) and an odd width
-    (d = 100: #1, #2 in both dtypes, #9);
+    (d = 100: #1, also timed on operands stored at 104 with its plan, #2
+    in both dtypes, #9);
 16. the slice's path with every launch count at 0 just before it: the text
     ``MultiVectorIndex`` with the ``pallas`` and ``pallas_v3`` pins at k = 10
     (hits equal to auto's), an int8 page-scale ``MultiVectorIndex`` and the
@@ -152,6 +159,7 @@ the package beside it. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -865,22 +873,27 @@ def qb_sweep(label: str, fn) -> None:
         f"QB={qb}: {' / '.join(f'{m:.3f}' for m in ms)} ms" for qb, ms in sorted(qb_ms.items())))
 
 
-def device_breakdown(label: str, fn, calls: int = 3) -> None:
+def device_breakdown(label: str, fn, calls: int = 3):
     """Log the device time per kernel name of ``calls`` runs of ``fn`` under
     ``torch.profiler`` (CUPTI): ms a launch and the launches traced, largest
     total first (the trace may drop a launch, so no per-run sums); "not
-    measured" where the trace holds no device time."""
+    measured" where the trace holds no device time. Returns the rows (ms a
+    launch, launches, kernel name), the trace's ``key_averages()`` and the
+    wall ms a call under the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    events = prof.key_averages()
     rows = []
-    for e in prof.key_averages():
+    for e in events:
         if not str(e.device_type).endswith("CUDA"):
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -889,10 +902,11 @@ def device_breakdown(label: str, fn, calls: int = 3) -> None:
             rows.append((us / 1e3 / max(e.count, 1), e.count, e.key))
     if not rows:
         log(f"  device time by kernel, {label}: not measured (the trace holds no device time)")
-        return
+        return rows, events, wall
     rows.sort(key=lambda r: r[0] * r[1], reverse=True)
     log(f"  device time by kernel, {label}: {sum(r[1] for r in rows)} launches traced in {calls} "
         f"runs; " + "; ".join(f"{ms:.3f} ms a launch x{n} {name[:70]}" for ms, n, name in rows[:8]))
+    return rows, events, wall
 
 
 def tile_mask(cand, count, n_tiles: int):
@@ -1798,6 +1812,11 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
         f"{loc_bad}, kernel {seg_ms:.3f} ms")
     if not within or loc_bad:
         fail("seg_stats_bf16 disagrees with its plain version at d = 100")
+    q104, c104 = td.pad_width(q100b, 104).contiguous(), td.pad_width(c100b, 104).contiguous()
+    log(f"seg_stats_bf16 @ Q={Q_VERIFIED} x N={N_DOCS} x d={ODD_DIM}, operands stored at 104 "
+        f"(no pad copy a call): {cuda_ms(lambda: td.seg_stats_bf16(q104, c104, N_DOCS), 20):.3f} "
+        f"ms; plan {td._seg_plan_on_card(Q_VERIFIED, N_DOCS, 104, dev)}")
+    del q104, c104
     del got, ref, q100, c100, q100b, c100b
     docs_t100 = docs_t[:, :, :ODD_DIM].contiguous()
     q32_100 = q32[:, :, :ODD_DIM].contiguous()
@@ -1959,7 +1978,7 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     torch.cuda.empty_cache()
 
 
-PTXAS_SOURCES = ("dense_topk_stream", "maxsim_v2", "maxsim_v1", "maxsim_v3")
+PTXAS_SOURCES = ("seg_stats", "dense_topk_stream", "maxsim_v2", "maxsim_v1", "maxsim_v3")
 
 
 def ptxas_start(cuda_build, tmp: str, name: str):
@@ -1975,15 +1994,18 @@ def ptxas_start(cuda_build, tmp: str, name: str):
 
 def ptxas_log(proc, name: str, lib: str) -> None:
     """Log each instantiation's registers, spills and anything ptxas says of
-    ``setmaxnreg``: f32 or bf16, and for the MaxSim tile body the fused
+    ``setmaxnreg``: f32 or bf16, for the MaxSim tile body the fused
     (``Lb1``) or scores (``Lb0``) epilogue and the mask policy (``Li0E``
-    lens, ``Li1E`` bias, ``Li2E`` lane)."""
+    lens, ``Li1E`` bias, ``Li2E`` lane), for the seg-stats kernel clusters of
+    two (``ILi2E``) or single blocks (``ILi1E``)."""
     out, _ = proc.communicate()
     if proc.returncode != 0:
         fail(f"nvcc -Xptxas -v of {name}.cu failed:\n{out}")
     kernel = None
     for line in out.splitlines():
-        if "Compiling entry function" in line:
+        if "Compiling entry function" in line and "seg_stats_kernel" in line:
+            kernel = "bf16 clusters of two" if "ILi2E" in line else "bf16 single blocks"
+        elif "Compiling entry function" in line:
             kernel = "bf16" if "BF16" in line else "f32"
             if "maxsim_tile_kernel" in line:
                 kernel += " fused" if "Lb1" in line else " scores"
@@ -2015,6 +2037,44 @@ def sass_setmaxreg(lib: str, name: str) -> None:
     for fn, ops in moves.items():
         if "maxsim_tile_kernel" in fn:
             log(f"{name} SASS {fn[:60]}: {len(ops)} SETMAXREG ({'; '.join(ops)})")
+
+
+VERIFIED_PARTS = (  # (part, substrings of its kernels' names), first match wins
+    ("#1 seg_stats", ("seg_stats_kernel",)),
+    ("rescore bmm", ("gemm", "gemv", "xmma", "cutlass", "bmm")),
+    ("selection (topk / sort)", ("topk", "sort", "radix", "bitonic", "scan")),  # gatherTopK too
+    ("rescore gather", ("index", "gather")),
+)
+
+
+def verified_breakdown(label: str, fn, calls: int = 3) -> None:
+    """Log where one verified search spends its time, from one
+    :func:`device_breakdown` trace: device ms a call of #1, the rescore's
+    ``bmm`` and gather, the selections (``topk_ordered`` over [Q, S] and the
+    candidates), and the rest (the proof, masks, casts), with the kernels
+    counted under each part; the device total against the wall time a call,
+    whose difference is host work and the proof's host sync (the CPU time of
+    its ``.item``-style reads is logged too)."""
+    rows, events, wall = device_breakdown(label, fn, calls)
+    if not rows:
+        return
+    parts: dict = {}
+    for ms, n, name in rows:
+        key = name.lower()
+        part = next((p for p, subs in VERIFIED_PARTS if any(x in key for x in subs)), "other")
+        parts.setdefault(part, []).append((ms * n / calls, name))
+    sync_ms = sum(e.cpu_time_total for e in events
+                  if e.key in ("aten::_local_scalar_dense", "cudaStreamSynchronize")) / 1e3 / calls
+    total = {p: sum(ms for ms, _ in ks) for p, ks in parts.items()}
+    dev_ms = sum(total.values())
+    log(f"  {label}, device ms a call by part: " + "; ".join(
+        f"{p} {ms:.3f}" for p, ms in sorted(total.items(), key=lambda kv: -kv[1])) +
+        f"; device total {dev_ms:.3f} ms against {wall:.3f} ms wall a call under the profiler "
+        f"(host and the proof's sync {wall - dev_ms:.3f} ms; CPU time in host reads of device "
+        f"values {sync_ms:.3f} ms)")
+    for p in sorted(total, key=lambda p: -total[p]):
+        log(f"  {label}, kernels under {p}: " + "; ".join(
+            f"{ms:.3f} ms {name[:60]}" for ms, name in sorted(parts[p], reverse=True)))
 
 
 class SmiSampler:
@@ -2172,21 +2232,36 @@ def main() -> int:
         m1, l1 = s.max(dim=2)
         return m1, l1, s.scatter(2, l1[:, :, None], td.NEG_INF).amax(dim=2)
 
+    n_pad = c_lo.shape[0]
+    seg_plan = td._seg_plan_on_card(Q_VERIFIED, n_pad, DIM, dev)
+    log(f"seg_stats_bf16 plan @ Q={Q_VERIFIED} x N_pad={n_pad} x d={DIM}: {seg_plan}")
+    # 10 launches, as #1 was timed before its redesign and as the main path
+    # meets it (one launch a batch); then about a second back to back, with
+    # clock and power sampled: at 700 W the card lowers its clock under this load
     seg_ms = cuda_ms(lambda: td.seg_stats_bf16(q_lo, c_lo, N_DOCS), 10)
+    with SmiSampler() as smi:
+        seg_sustained_ms = cuda_ms(lambda: td.seg_stats_bf16(q_lo, c_lo, N_DOCS), 800)
     seg_plain_ms = cuda_ms(lambda: td._seg_stats_plain((q_lo, None), c_lo, None, N_DOCS, 128), 3)
     seg_lib_ms = cuda_ms(seg_library, 3)
-    n_pad = c_lo.shape[0]
+    seg_mm_ms = cuda_ms(seg_gemm, 10)
     seg_bound, seg_by = bound(
         2.0 * Q_VERIFIED * n_pad * DIM,
         (Q_VERIFIED + n_pad) * DIM * 2 + 3 * Q_VERIFIED * s_cnt * 4,
         peak["bf16"], peak["hbm"],
     )
+    log(f"seg_stats_bf16 @ Q={Q_VERIFIED} x N_pad={n_pad} x d={DIM}: {seg_ms:.3f} ms over 10 "
+        f"launches, {seg_sustained_ms:.3f} ms over 800 ({smi.summary()}); bound {seg_bound:.3f} "
+        f"ms ({seg_by}, {seg_bound / seg_ms:.1%} of it over 10, "
+        f"{seg_bound / seg_sustained_ms:.1%} over 800); "
+        f"{lib_name} alone {seg_mm_ms:.3f} ms, with the reductions {seg_lib_ms:.3f} ms; plain "
+        f"{seg_plain_ms:.3f} ms")
     kernels.append({
         "name": "seg_stats_bf16", "route": "cuda",
         "source": "autorag_research_tpu_torch/csrc/seg_stats.cu",
         "replaces": "autorag_research_tpu/ops/dense.py:690",
         "max_abs_err": seg_err, "ms": seg_ms, "plain_ms": seg_plain_ms,
         "bound_ms": seg_bound, "bound_by": seg_by, "library_ms": seg_lib_ms,
+        "matmul_ms": seg_mm_ms, "sustained_ms": seg_sustained_ms,
     })
     del got, ref, err1, err2
 
@@ -2333,6 +2408,7 @@ def main() -> int:
     ex_ms = wall_ms(lambda: index_e.topk_rows(emb_e, K), 2)
     log(f"embed {Q_VERIFIED} texts: {embed_ms:.3f} ms/batch ({Q_VERIFIED / embed_ms * 1e3:.1f} texts/s)")
     log(f"verified search Q={Q_VERIFIED}: {ver_ms:.3f} ms/batch, {Q_VERIFIED / ver_ms * 1e3:.1f} QPS")
+    verified_breakdown(f"verified search Q={Q_VERIFIED}", lambda: index_v.topk_rows(emb_v, K))
     log(f"exact search Q={Q_EXACT} (streaming kernel): {ex_ms:.3f} ms/batch, "
         f"{Q_EXACT / ex_ms * 1e3:.1f} QPS")
     del index_e, c_f32, q_ex, emb_e

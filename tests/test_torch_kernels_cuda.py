@@ -30,11 +30,24 @@ def _eighths(rng, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,n", [(3000, 2950), (2048, 2048), (77, 60)])
-def test_seg_stats_kernel_matches_plain(cuda_device, rows, n):
-    rng = np.random.default_rng(rows)
-    q_np, c_np = _eighths(rng, (200, 96)), _eighths(rng, (rows, 96))
-    c_np[40:44] = c_np[7]  # exact ties inside a segment and across segments
+@pytest.mark.parametrize("rows,n,d,q_cnt", [
+    (3000, 2950, 96, 200), (2048, 2048, 96, 200), (77, 60, 96, 200),
+    (2048, 1500, 96, 200),  # whole segments past n
+    (3000, 2950, 8, 70),  # d = 8, one query tile: single blocks
+    (1000, 777, 104, 256),  # d = 104 (100 padded), two query tiles: a cluster of two
+    (700, 700, 768, 130),
+])
+def test_seg_stats_kernel_matches_plain(cuda_device, rows, n, d, q_cnt):
+    # Q = 200, 70 and 130 are not multiples of 64; ties planted inside a
+    # segment, across the four threads of a quad (a whole segment of one row:
+    # all 128 lanes tie) and across the two segments of one 256-row item
+    rng = np.random.default_rng(rows + d)
+    q_np, c_np = _eighths(rng, (q_cnt, d)), _eighths(rng, (rows, d))
+    c_np[40:44] = c_np[7]
+    if rows >= 256:
+        c_np[128:256] = c_np[130]
+    if rows > 400:
+        c_np[300] = c_np[400] = 1.0
     q = torch.from_numpy(q_np).to(cuda_device, torch.bfloat16)
     c = torch.from_numpy(c_np).to(cuda_device, torch.bfloat16)
     before = td.LAUNCHES["seg_stats_bf16"]
@@ -44,6 +57,46 @@ def test_seg_stats_kernel_matches_plain(cuda_device, rows, n):
     ref = td._seg_stats_plain((q, None), c, None, n, 128)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
+    if rows >= 256:
+        assert bool((got[1][:, 1] == 0).all()) and torch.equal(got[0][:, 1], got[2][:, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_cnt", [200, 300])
+def test_seg_stats_launcher_refuses_a_plan_off_its_layout(cuda_device, q_cnt):
+    # the plan's shared-memory bytes equal the launcher's own count; a plan
+    # whose bytes differ, or whose cluster does not divide the query tiles,
+    # is refused before launch (cudaErrorInvalidValue)
+    import ctypes
+
+    from autorag_research_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("seg_stats")
+    count = lib.seg_stats_smem_bytes
+    count.argtypes = []
+    count.restype = ctypes.c_int
+    plan = td._seg_plan_on_card(q_cnt, 1000, 64, cuda_device)
+    assert count() == plan.smem_bytes == td.SEG_SMEM_BYTES
+    assert plan.cluster == (2 if q_cnt == 200 else 1) and plan.grid % plan.cluster == 0
+    assert plan.grid // plan.cluster <= plan.resident  # one wave of what the card holds
+    q = torch.zeros((q_cnt, 64), dtype=torch.bfloat16, device=cuda_device)
+    c = torch.zeros((1000, 64), dtype=torch.bfloat16, device=cuda_device)
+    out = [torch.empty((q_cnt, 8), device=cuda_device) for _ in range(3)]
+    fn = lib.seg_stats_bf16_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(smem, cluster=plan.cluster, grid=plan.grid):
+        return fn(q.data_ptr(), c.data_ptr(), *(t.data_ptr() for t in out), q_cnt, 1000, 64,
+                  1000, 8, cluster, grid, smem, torch.cuda.current_stream().cuda_stream)
+
+    assert launch(plan.smem_bytes + 16) == 1
+    assert launch(plan.smem_bytes - 16) == 1
+    assert launch(plan.smem_bytes, grid=plan.grid + 1) == (1 if plan.cluster == 2 else 0)
+    if plan.cluster == 1:
+        assert launch(plan.smem_bytes, cluster=2, grid=2) == 1  # three query tiles
+    assert launch(plan.smem_bytes) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
