@@ -5,16 +5,18 @@ scoring of every pending query of a page through one ``SparseIndex.search``
 on ``device``. Tokenizer names as the JAX package accepts them (``simple`` /
 ``wiki_tocken``, ``english``, the local HuggingFace presets). The registry
 key and the pipeline config are the JAX package's, so both packages share
-one pipeline and one index artifact. ``BM25Config`` waits for the port's
-pipeline-config registry.
+one pipeline and one index artifact. ``BM25Config`` builds it on the build
+context's device.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
 import torch
 
+from autorag_research_tpu_torch.config import BasePipelineConfig
 from autorag_research_tpu_torch.index import registry
 from autorag_research_tpu_torch.index.sparse import SparseIndex
 from autorag_research_tpu_torch.pipelines.retrieval.base import BaseRetrievalPipeline
@@ -99,3 +101,27 @@ class BM25Pipeline(BaseRetrievalPipeline):
     def _retrieve_batch_by_texts(self, texts, top_k):
         """Serving hot path: the whole micro-batch in one search."""
         return [[h.as_dict() for h in hits] for hits in self._index().search(list(texts), top_k)]
+
+
+@dataclass(kw_only=True)
+class BM25Config(BasePipelineConfig):
+    config_type = "bm25"
+    kind = "retrieval"
+
+    tokenizer: str = "simple"
+    k1: float = 1.2
+    b: float = 0.75
+    table: str = "chunk"
+    bucketize: int = 1
+
+    def build(self, catalog, context):
+        return BM25Pipeline(
+            catalog,
+            name=self.name,
+            tokenizer=self.tokenizer,
+            k1=self.k1,
+            b=self.b,
+            table=self.table,
+            bucketize=self.bucketize,
+            device=context.device,
+        )

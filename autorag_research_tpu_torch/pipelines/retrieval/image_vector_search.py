@@ -8,10 +8,12 @@ the search machinery of :class:`VectorSearchPipeline` over the
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
 import torch
 
+from autorag_research_tpu_torch.config import BasePipelineConfig
 from autorag_research_tpu_torch.pipelines.retrieval.vector_search import VectorSearchPipeline
 
 
@@ -39,3 +41,21 @@ class ImageVectorSearchPipeline(VectorSearchPipeline):
         config = super()._get_pipeline_config()
         config["type"] = "image_vector_search"
         return config
+
+
+@dataclass(kw_only=True)
+class ImageVectorSearchConfig(BasePipelineConfig):
+    config_type = "image_vector_search"
+    kind = "retrieval"
+
+    search_mode: str = "single"
+    embedding_model: Any = None
+
+    def build(self, catalog, context):
+        return ImageVectorSearchPipeline(
+            catalog,
+            name=self.name,
+            search_mode=self.search_mode,
+            embedding_model=context.load_embedding(self.embedding_model),
+            device=context.device,
+        )

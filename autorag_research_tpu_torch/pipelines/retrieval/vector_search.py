@@ -11,16 +11,19 @@ over the exact indexes (modes ``"exact"`` and ``"verified"`` through
   proxy prefilter plus exact rerank.
 
 The batch path scores every pending query of a page in one search. The IVF
-indexes arrive with a later slice of the port.
+indexes arrive with a later slice of the port; until then the pipeline, and
+so ``VectorSearchConfig``, refuses ``index_type="ivf"`` / ``"ivf_contiguous"``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Literal
 
 import numpy as np
 import torch
 
+from autorag_research_tpu_torch.config import BasePipelineConfig
 from autorag_research_tpu_torch.exceptions import EmbeddingMissingError
 from autorag_research_tpu_torch.index import registry
 from autorag_research_tpu_torch.index.dense import DenseIndex
@@ -164,3 +167,29 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
             return self.search_by_embedding(mat, top_k)
         vec = await self.embedding_model.aembed_query(query_text)
         return self.search_by_embedding(vec, top_k)
+
+
+@dataclass(kw_only=True)
+class VectorSearchConfig(BasePipelineConfig):
+    config_type = "vector_search"
+    kind = "retrieval"
+
+    search_mode: str = "single"
+    embedding_model: Any = None
+    table: str = "chunk"
+    index_type: str = "exact"
+    index_options: dict | None = None
+    maxsim_prefilter: int | None = None
+
+    def build(self, catalog, context):
+        return VectorSearchPipeline(
+            catalog,
+            name=self.name,
+            search_mode=self.search_mode,  # type: ignore[arg-type]
+            embedding_model=context.load_embedding(self.embedding_model),
+            table=self.table,
+            index_type=self.index_type,  # type: ignore[arg-type]
+            index_options=self.index_options,
+            maxsim_prefilter=self.maxsim_prefilter,
+            device=context.device,
+        )

@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed N]
 
 Drives the port's dense, MaxSim and BM25 (flat, packed, bucketed) retrieval
-paths (``autorag_research_tpu_torch``), the MaxSim pins and the int8 and approx
-serving modes at full width and fails (non-zero exit) on any fault:
+paths (``autorag_research_tpu_torch``), the MaxSim pins, the int8 and approx
+serving modes and the hybrid pipelines through the ``Executor`` at full width
+and fails (non-zero exit) on any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source),
@@ -149,7 +150,24 @@ serving modes at full width and fails (non-zero exit) on any fault:
     the first 64 queries' int8 dense hits bitwise equal to the same op on CPU
     tensors (4 queries within 1e-5 for int8 MaxSim); an int8 ``DenseIndex``
     of 499,993 rows (stored padded to 500,000, masked) with the full one's
-    hits, timed beside the op on the unaligned rows.
+    hits, timed beside the op on the unaligned rows;
+17. config #3 (HotpotQA hybrid) through the port's ``Executor`` with every
+    launch count at 0 just before its run: a catalog of 500,000 passages of
+    20-72 Zipf(1.1) words with seeded unit-norm 768-d embeddings and 1,024
+    queries of 12-23 words on two gold passages each (ingest time and both
+    index builds printed), ``Executor(catalog, ExecutorConfig(...))`` with no
+    context (so on the card), health checks on 2 queries, recall@10 /
+    ndcg@10, over ``vector_search`` (verified), ``bm25`` (defaults),
+    ``hybrid_rrf``, ``hybrid_cc`` (mm), ``hybrid_cc_tmm`` and ``gqr_hybrid``
+    (its first 128 queries); every pipeline and metric succeeds with 10 rows a
+    query and no health-check pipeline left; the dense leg equals an exact
+    ``DenseIndex`` search (sub-ulp near-ties aside), the BM25 leg an exact
+    scan; each RRF / CC pipeline's rows equal the host fusers over the legs'
+    fetch_k = 20 lists read back page by page; ``fuse_batch_rrf`` /
+    ``fuse_batch_cc`` on the card give those ids (near-ties within 1e-6
+    aside) and scores within 1e-6 relative; #1 and a BM25 kernel launched, no
+    plain version or scan. Pipelines' wall times, spans, metrics and the BM25
+    route are printed.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -208,6 +226,13 @@ INT8_AGREE_MIN, MV_INT8_AGREE_MIN = 0.9, 0.8
 INT8_CPU_Q, MV_INT8_CPU_Q, INT8_ODD_N = 64, 4, N_DOCS - 7
 QUORA_N, QUORA_WORDS, QUORA_QWORDS = 522_931, (4, 19), (6, 13)
 BUCKET_N, BUCKET_SHORT, BUCKET_LONG = 500_000, (10, 16), (100, 128)
+# config #3 through the Executor at HotpotQA's shape (BEIR, Table 1: 5,233,329
+# passages of 46.30 words on average, 7,405 test queries of 17.61 words, 2.0
+# relevant passages a query), cut to 500,000 passages and 1,024 queries;
+# GQR's refinement is host numpy, so it runs the first 128 queries
+HOTPOT_N, HOTPOT_Q, HOTPOT_GQR_Q = 500_000, 1024, 128
+HOTPOT_WORDS, HOTPOT_QWORDS, HOTPOT_FETCH_K = (20, 72), (12, 23), 20
+HOTPOT_NOISE = 0.12  # per-dimension noise on a query's summed gold embeddings
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
 # non-tensor FLOP/s, HBM bytes/s
@@ -1981,6 +2006,273 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
 PTXAS_SOURCES = ("seg_stats", "dense_topk_stream", "maxsim_v2", "maxsim_v1", "maxsim_v3")
 
 
+def hotpot_corpus(seed: int, n: int, q_cnt: int):
+    """HotpotQA's shape: ``n`` passages of 20-72 Zipf words over BM25_V with
+    seeded unit-norm 768-d embeddings; ``q_cnt`` queries, each on two distinct
+    gold passages, of 12-23 words drawn from both golds with 1-3 Zipf noise
+    words, embedded as the normalized sum of the gold embeddings plus noise."""
+    rng = np.random.default_rng(seed)
+    words = [f"h{i}" for i in range(BM25_V)]
+    texts = zipf_texts(rng, words, n, *HOTPOT_WORDS)
+    emb = rng.standard_normal((n, DIM), dtype=np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    noise_words = zipf_texts(rng, words, q_cnt, 1, 3)
+    gold = np.stack([rng.choice(n, size=2, replace=False) for _ in range(q_cnt)])
+    q_texts = []
+    for j, (g1, g2) in enumerate(gold):
+        noise = noise_words[j].split()
+        m = int(rng.integers(HOTPOT_QWORDS[0], HOTPOT_QWORDS[1] + 1)) - len(noise)
+        part = list(rng.choice(texts[g1].split(), size=m // 2)) + \
+            list(rng.choice(texts[g2].split(), size=m - m // 2)) + noise
+        rng.shuffle(part)
+        q_texts.append(" ".join(part))
+    q_emb = emb[gold[:, 0]] + emb[gold[:, 1]]
+    q_emb += HOTPOT_NOISE * rng.standard_normal(q_emb.shape, dtype=np.float32)
+    q_emb /= np.linalg.norm(q_emb, axis=1, keepdims=True)
+    return texts, emb, q_texts, q_emb, gold
+
+
+def fused_agree(dev_out, host_full: list, top_k: int) -> tuple[int, bool, float]:
+    """A device fuser's [Q, top_k] (scores, ids) against the host fuser's
+    Python-double lists over the same legs (``host_full``: every fused
+    document): (id mismatches, all of them near-ties within 1e-6 relative,
+    max relative score error). Scores must lie within 1e-6 relative."""
+    scores, ids = (t.cpu().numpy() for t in dev_out)
+    mism, explained, worst = 0, True, 0.0
+    for r, full in enumerate(host_full):
+        score_of = {h["doc_id"]: h["score"] for h in full}
+        for j, h in enumerate(full[:top_k]):
+            ref = h["score"]
+            err = abs(float(scores[r, j]) - ref) / abs(ref) if ref else abs(float(scores[r, j]))
+            worst = max(worst, err)
+            if int(ids[r, j]) != h["doc_id"]:
+                mism += 1
+                other = score_of.get(int(ids[r, j]))
+                explained &= other is not None and abs(other - ref) <= 1e-6 * abs(ref)
+    return mism, explained, worst
+
+
+def hybrid_executor_phase(seed: int, dev, n: int = HOTPOT_N, q_cnt: int = HOTPOT_Q,
+                          gqr_q: int = HOTPOT_GQR_Q) -> None:
+    """Phase 17: BASELINE config #3 (HotpotQA, hybrid RRF + CC of a dense and a
+    BM25 pipeline, plus GQR) through the port's ``Executor`` on the card."""
+    import torch
+
+    from autorag_research_tpu_torch.config import BaseMetricConfig, ExecutorConfig
+    from autorag_research_tpu_torch.executor import Executor
+    from autorag_research_tpu_torch.index.dense import DenseIndex
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.ops import sparse as ts
+    from autorag_research_tpu_torch.ops.fusion import (
+        cc_fuse,
+        fuse_batch_cc,
+        fuse_batch_rrf,
+        rrf_fuse,
+    )
+    from autorag_research_tpu_torch.ops.topk import INT_MAX, NEG_INF
+    from autorag_research_tpu_torch.pipelines.retrieval import (
+        BM25Config,
+        GQRHybridConfig,
+        HybridCCConfig,
+        HybridRRFConfig,
+        VectorSearchConfig,
+    )
+    from autorag_research_tpu_torch.store.catalog import Catalog
+    from autorag_research_tpu_torch.store.gt import and_all
+
+    t0 = time.perf_counter()
+    texts, emb, q_texts, q_emb, gold = hotpot_corpus(seed + 40, n, q_cnt)
+    gen_s = time.perf_counter() - t0
+    legs = dict(retrieval_pipeline_1_name="vector_search", retrieval_pipeline_2_name="bm25")
+    cfg = ExecutorConfig(
+        pipelines=[
+            VectorSearchConfig(name="vector_search", top_k=K, index_options={"mode": "verified"}),
+            BM25Config(name="bm25", top_k=K),
+            HybridRRFConfig(name="hybrid_rrf", top_k=K, rrf_k=60, fetch_k_multiplier=2, **legs),
+            HybridCCConfig(name="hybrid_cc", top_k=K, normalize_method="mm", **legs),
+            HybridCCConfig(name="hybrid_cc_tmm", top_k=K, normalize_method="tmm", **legs),
+            GQRHybridConfig(name="gqr_hybrid", top_k=K, query_limit=gqr_q, **legs),
+        ],
+        metrics=[BaseMetricConfig(name="recall"), BaseMetricConfig(name="ndcg")],
+        health_check=True,
+        health_check_queries=2,
+    )
+    names = [p.name for p in cfg.pipelines]
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        cat = Catalog(f"{tmp}/hotpotqa.db", embedding_dim=DIM)
+        cat.add_chunks({"id": i, "contents": t, "embedding": e} for i, (t, e) in enumerate(zip(texts, emb)))
+        cat.add_queries({"id": j, "contents": t, "embedding": e}
+                        for j, (t, e) in enumerate(zip(q_texts, q_emb)))
+        for j, (g1, g2) in enumerate(gold):
+            cat.add_retrieval_gt(j, and_all([int(g1), int(g2)]))
+        ingest_s = time.perf_counter() - t1
+        log(f"hybrid (config #3, HotpotQA's shape): {n} passages of {HOTPOT_WORDS[0]}-"
+            f"{HOTPOT_WORDS[1]} Zipf({BM25_ZIPF}) words over {BM25_V} (mean "
+            f"{sum(len(t.split()) for t in texts) / n:.2f}) x {DIM} f32, {q_cnt} queries of "
+            f"{HOTPOT_QWORDS[0]}-{HOTPOT_QWORDS[1]} words (mean "
+            f"{sum(len(t.split()) for t in q_texts) / q_cnt:.2f}), two gold passages each; drawn "
+            f"in {gen_s:.2f} s; catalog ingest {ingest_s:.2f} s")
+        del texts
+
+        # Executor(catalog, config) with no context: BuildContext() on the card;
+        # the legs' indexes built through its loader first (the run would build
+        # them in its first health checks), each build and upload timed
+        ex = Executor(cat, cfg)
+        if str(ex.context.device) != "cuda":
+            fail(f"Executor without a context builds for {ex.context.device}, not the card")
+        dense, bm25 = ex.loader.load("vector_search"), ex.loader.load("bm25")
+        for label, pipe in (("dense verified", dense), ("BM25", bm25)):
+            t1 = time.perf_counter()
+            idx = pipe._index()
+            t2 = time.perf_counter()
+            idx.to_device()
+            torch.cuda.synchronize()
+            log(f"hybrid: {label} index built from the catalog (artifact saved) in {t2 - t1:.2f} s, "
+                f"on {idx.device} (upload{', bf16 sidecar' if label.startswith('dense') else ''}) "
+                f"in {time.perf_counter() - t2:.2f} s")
+        sparse = bm25._index()
+
+        td.reset_launch_counts()
+        tm.reset_launch_counts()
+        ts.reset_launch_counts()
+        t1 = time.perf_counter()
+        result = ex.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        launches = {**{k: v for k, v in td.LAUNCHES.items() if v},
+                    **{k: v for k, v in ts.LAUNCHES.items() if v},
+                    **{k: v for k, v in tm.LAUNCHES.items() if v}}
+        plain_calls = {k: v for k, v in {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS}.items() if v}
+        log(f"hybrid Executor.run: {run_s:.2f} s for {len(names)} pipelines; launches "
+            f"{json.dumps(launches)}; plain calls {json.dumps(plain_calls)}")
+        log(f"hybrid Executor spans (ms): {json.dumps({k: round(v, 1) for k, v in result.spans.items()})}")
+        routes = {k: ts.bm25_route("auto", sparse.n_docs, k, dev.type, sparse.tile_skip,
+                                   sparse._layout(), sparse._device_pack, sparse.probe_block_n)
+                  for k in (K, HOTPOT_FETCH_K)}
+        log(f"hybrid: BM25 layout {sparse._layout()} (pack {sparse._device_pack}), routes by k "
+            f"{json.dumps(routes)}")
+        log(result.report())
+        for p in result.pipelines:
+            log(f"hybrid pipeline {p.name}: ok {p.success}, attempts {p.attempts}, execution_time "
+                f"{p.execution_time:.3f} s, run span {result.spans.get(f'{p.name}/run', 0):.1f} ms, "
+                f"{p.stats.get('total_results')} rows for {p.stats.get('total_queries')} queries, "
+                + ", ".join(f"{m.metric_name}@{K} {m.average} over {m.count}" for m in p.metrics))
+        if not result.success:
+            fail(f"hybrid Executor run failed: {result.report()}")
+        for p in result.pipelines:
+            want = gqr_q if p.name == "gqr_hybrid" else q_cnt
+            if p.stats["total_results"] != want * K or p.stats["failed_queries"]:
+                fail(f"hybrid pipeline {p.name} persisted {p.stats['total_results']} rows "
+                     f"(want {want * K}), failed {p.stats['failed_queries']}")
+            if len(p.metrics) != 2 or any(not m.success or m.count != want for m in p.metrics):
+                fail(f"hybrid pipeline {p.name}: a metric failed or missed queries: {p.metrics}")
+        left = [nm for nm in names if cat.get_pipeline(f"{nm}_health_check") is not None]
+        if left:
+            fail(f"health-check pipelines left in the catalog: {left}")
+        if launches.get("seg_stats_bf16", 0) < 1 or plain_calls:
+            fail("the hybrid run skipped #1 or took a plain route on the card")
+        if not any(launches.get(k, 0) for k in ts.LAUNCHES):
+            fail("the hybrid run launched no BM25 kernel")
+        if launches.get("dense_topk_stream"):
+            log(f"hybrid: the verified proof sent {launches['dense_topk_stream']} launches of the "
+                f"streaming kernel (#2) to its exact fallback")
+
+        # persisted rows of each pipeline, in query order
+        qids = cat.get_all_query_ids()
+        pid = {p.name: p.stats["pipeline_id"] for p in result.pipelines}
+        rows = {nm: [[(r["doc_id"], r["rel_score"]) for r in cat.get_retrieved(q, pid[nm])]
+                     for q in (qids[:gqr_q] if nm == "gqr_hybrid" else qids)] for nm in names}
+
+        # the dense leg against an exact DenseIndex search of the same rows
+        ref_s, ref_i = DenseIndex(list(range(n)), emb, mode="exact", device=dev).topk_rows(q_emb, K)
+        got_i = np.array([[d for d, _ in r] for r in rows["vector_search"]])
+        got_s = np.array([[s for _, s in r] for r in rows["vector_search"]], np.float32)
+        n_mism, explained = ids_agree(got_i, got_s, ref_i, ref_s)
+        log(f"hybrid dense leg vs exact DenseIndex: {n_mism} id mismatches (all sub-ulp: {explained})")
+        if not explained:
+            fail("the hybrid dense leg diverged from the exact search")
+        del emb
+        # the BM25 leg against an exact scan of the same device tensors
+        q_ids, q_w = sparse.encode_queries(q_texts)
+        ss, si = ts.bm25_topk_scan(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_w).to(dev),
+                                   *sparse._flat_device(), K)
+        ref = [[(sparse.ids[int(r)], float(s)) for s, r in zip(a, b) if s > 0]
+               for a, b in zip(ss.cpu().numpy(), si.cpu().numpy())]
+        n_diff = sum(a != b for a, b in zip(rows["bm25"], ref))
+        log(f"hybrid BM25 leg vs exact scan: {n_diff} of {q_cnt} queries differ")
+        if n_diff:
+            fail("the hybrid BM25 leg diverged from the exact scan")
+
+        # the legs' fetch_k lists, read back page by page as the run paged
+        l1, l2 = {}, {}
+        t1 = time.perf_counter()
+        for lo in range(0, q_cnt, cfg.pipelines[0].batch_size):
+            page = qids[lo : lo + cfg.pipelines[0].batch_size]
+            l1.update(dense._retrieve_batch_by_ids(page, HOTPOT_FETCH_K))
+            l2.update(bm25._retrieve_batch_by_ids(page, HOTPOT_FETCH_K))
+        log(f"hybrid: legs read back at fetch_k={HOTPOT_FETCH_K} in {time.perf_counter() - t1:.2f} s")
+        # the device's share of one page of the hybrid batch path (both legs'
+        # batched searches at fetch_k, then the host fuser)
+        rrf_pipe = ex.loader.load("hybrid_rrf")
+        page = qids[: cfg.pipelines[0].batch_size]
+        rows_, _, wall = device_breakdown(f"hybrid_rrf, a page of {len(page)} queries",
+                                          lambda: rrf_pipe._retrieve_batch_by_ids(page, K), calls=2)
+        if rows_:
+            busy = sum(ms * cnt for ms, cnt, _ in rows_) / 2
+            log(f"hybrid_rrf page: device busy {busy:.3f} ms of {wall:.3f} ms wall a call under the "
+                f"profiler ({busy / wall:.1%}; idle {1 - busy / wall:.1%})")
+        tmm = (-1.0, 0.0)  # _theoretical_min of a cosine leg and of BM25
+
+        def host_fuse(name, top_k):
+            if name == "hybrid_rrf":
+                return [rrf_fuse(l1[q], l2[q], k=60, top_k=top_k, fetch_k=HOTPOT_FETCH_K) for q in qids]
+            method, mins = ("mm", (None, None)) if name == "hybrid_cc" else ("tmm", tmm)
+            return [cc_fuse(l1[q], l2[q], weight=0.5, top_k=top_k, normalize_method=method,
+                            pipeline_1_min=mins[0], pipeline_2_min=mins[1]) for q in qids]
+
+        host_full = {}
+        for name in ("hybrid_rrf", "hybrid_cc", "hybrid_cc_tmm"):
+            t1 = time.perf_counter()
+            top = host_fuse(name, K)
+            host_ms = (time.perf_counter() - t1) * 1e3
+            same = rows[name] == [[(h["doc_id"], h["score"]) for h in hits] for hits in top]
+            log(f"hybrid {name}: persisted rows == host fuser over the legs' fetch_k lists: {same} "
+                f"(host fuser {host_ms:.1f} ms for {q_cnt} queries)")
+            if not same:
+                fail(f"{name}'s rows differ from the host fuser over its legs' lists")
+            host_full[name] = host_fuse(name, 2 * HOTPOT_FETCH_K)
+
+        # the device fusers on the card over the same lists as [Q, fetch_k] tensors
+        def padded(lists, f):
+            ids = np.full((q_cnt, f), INT_MAX, np.int32)
+            sc = np.full((q_cnt, f), NEG_INF, np.float32)
+            for r, q in enumerate(qids):
+                for j, h in enumerate(lists[q][:f]):
+                    ids[r, j], sc[r, j] = h["doc_id"], h["score"]
+            return torch.from_numpy(ids).to(dev), torch.from_numpy(sc).to(dev)
+
+        i1, s1 = padded(l1, HOTPOT_FETCH_K)
+        i2, s2 = padded(l2, HOTPOT_FETCH_K)
+        device_fusers = {
+            "hybrid_rrf": lambda: fuse_batch_rrf(i1, i2, k=60, top_k=K, fetch_k=HOTPOT_FETCH_K),
+            "hybrid_cc": lambda: fuse_batch_cc(i1, s1, i2, s2, weight=0.5, top_k=K),
+            "hybrid_cc_tmm": lambda: fuse_batch_cc(i1, s1, i2, s2, weight=0.5, top_k=K,
+                                                   normalize_method="tmm", pipeline_1_min=tmm[0],
+                                                   pipeline_2_min=tmm[1]),
+        }
+        for name, fn in device_fusers.items():
+            out = fn()
+            n_mism, explained, worst = fused_agree(out, host_full[name], K)
+            ms = cuda_ms(fn, 10)
+            log(f"hybrid {name}: device fuser on the card [{q_cnt}, {HOTPOT_FETCH_K}] x 2 -> top-{K}: "
+                f"{n_mism} id mismatches against the host fuser (all near-ties within 1e-6: "
+                f"{explained}), max relative score error {worst:.3e}; {ms:.3f} ms")
+            if out[0].device.type != "cuda" or not explained or worst > 1e-6:
+                fail(f"the device fuser of {name} disagrees with the host fuser on the card")
+        cat.close()
+
 def ptxas_start(cuda_build, tmp: str, name: str):
     """Start one more nvcc of csrc/<name>.cu with ``-Xptxas -v`` (registers,
     shared memory and spills of each instantiation)."""
@@ -2473,17 +2765,34 @@ def main() -> int:
     del index_v, side, c_lo, q_lo, q_emb, q_norm, emb_v, embedder, chunk_emb
     torch.cuda.empty_cache()
 
+    log(f"phases 1-4: {time.perf_counter() - t_start:.1f} s")
+
     # ---- 5-8. the MaxSim path --------------------------------------------
+    t0 = time.perf_counter()
     maxsim_phases(args.seed, dev, peak, kernels, vocab)
+    log(f"phases 5-8: {time.perf_counter() - t0:.1f} s")
 
     # ---- 9-11. the BM25 path ----------------------------------------------
+    t0 = time.perf_counter()
     bm25_phases(args.seed, dev, peak, kernels, vocab)
+    log(f"phases 9-11: {time.perf_counter() - t0:.1f} s")
 
     # ---- 12-14. BM25 slice B: packed and bucketed layouts, the v1 pin ------
+    t0 = time.perf_counter()
     bm25_packed_phases(args.seed, dev, peak, kernels)
+    log(f"phases 12-14: {time.perf_counter() - t0:.1f} s")
 
     # ---- 15-16. the MaxSim pins (#11, #12), any k and d, the serving modes ----
+    t0 = time.perf_counter()
     pin_serving_phases(args.seed, dev, peak, kernels, vocab, corpus, query_texts)
+    log(f"phases 15-16: {time.perf_counter() - t0:.1f} s")
+    del corpus
+    torch.cuda.empty_cache()
+
+    # ---- 17. config #3 (hybrid) through the Executor ----------------------
+    t0 = time.perf_counter()
+    hybrid_executor_phase(args.seed, dev)
+    log(f"phase 17 (hybrid Executor run): {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

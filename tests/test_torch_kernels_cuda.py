@@ -1652,3 +1652,35 @@ def test_stream_launcher_checks_the_plan(cuda_device):
     assert fn(*ptrs, 10, 1000, 16, 10, 128, 7, 1, smem, stream) != 0  # N not covered
     assert fn(*ptrs, 10, 1000, 16, 10, 100, 8, 1, smem, stream) != 0  # rows not of 128
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [-1, 2**31 - 1], ids=["pad-1", "pad-intmax"])
+def test_device_fusers_on_the_card_match_their_cpu_results(cuda_device, pad):
+    # the hybrid fusers are plain PyTorch (no kernel): on the card they give
+    # their CPU results' ids, scores within 1e-6 (f32 sums in another order)
+    from autorag_research_tpu_torch.ops.fusion import fuse_batch_cc, fuse_batch_rrf
+
+    rng = np.random.default_rng(11)
+    b, f = 64, 20
+    ids = [np.full((b, f), pad, np.int32) for _ in range(2)]
+    scores = [np.full((b, f), -3.4e38, np.float32) for _ in range(2)]
+    for r in range(b):
+        for leg, (lo, hi) in enumerate(((-0.5, 1.0), (0.0, 30.0))):
+            n = int(rng.integers(0, f + 1))
+            ids[leg][r, :n] = rng.choice(60, size=n, replace=False)
+            scores[leg][r, :n] = np.sort(rng.uniform(lo, hi, n))[::-1]
+
+    def both(fn, *args, **kw):
+        cpu = fn(*[torch.from_numpy(a) for a in args], **kw)
+        card = fn(*[torch.from_numpy(a).to(cuda_device) for a in args], **kw)
+        assert card[0].device.type == "cuda"
+        torch.testing.assert_close(card[1].cpu(), cpu[1], rtol=0, atol=0)
+        torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-6, atol=1e-6)
+
+    for top_k in (10, 2 * f + 5):
+        both(fuse_batch_rrf, ids[0], ids[1], k=60, top_k=top_k, fetch_k=f)
+        for method, mins in (("mm", (None, None)), ("tmm", (-1.0, 0.0)), ("z", (None, None)),
+                             ("dbsf", (None, None))):
+            both(fuse_batch_cc, ids[0], scores[0], ids[1], scores[1], weight=0.5, top_k=top_k,
+                 normalize_method=method, pipeline_1_min=mins[0], pipeline_2_min=mins[1])
