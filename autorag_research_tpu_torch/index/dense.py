@@ -14,6 +14,7 @@ gets zero rows up to a multiple of 16, which its search masks.
 from __future__ import annotations
 
 import json
+import threading
 from pathlib import Path
 from typing import Any, Sequence
 
@@ -101,6 +102,8 @@ class DenseIndex:
         self._host = mat
         self._device: torch.Tensor | None = None
         self._n = mat.shape[0]
+        # a first search from several threads uploads once
+        self._lazy = threading.Lock()
 
     # ------------------------------------------------------------- lifecycle
     @classmethod
@@ -173,9 +176,10 @@ class DenseIndex:
         return self
 
     def _ensure_device(self) -> torch.Tensor:
-        if self._device is None:
-            self.to_device()
-        return self._device
+        with self._lazy:
+            if self._device is None:
+                self.to_device()
+            return self._device
 
     # ----------------------------------------------------------------- search
     def topk_rows(self, query_embeddings, k: int) -> tuple[np.ndarray, np.ndarray]:

@@ -24,6 +24,7 @@ either package loads what the other saved.
 from __future__ import annotations
 
 import json
+import threading
 from pathlib import Path
 from typing import Any, Sequence
 
@@ -123,6 +124,8 @@ class MultiVectorIndex:
         self._device_buckets: list[dict] | None = None
         # (n_fail, covered) of the last verified search: the proof's outcome
         self.last_stats: tuple[int, bool] | None = None
+        # a first search from several threads uploads once
+        self._lazy = threading.Lock()
 
     @classmethod
     def from_catalog(cls, catalog, table: str = "chunk", **kwargs) -> "MultiVectorIndex":
@@ -300,8 +303,11 @@ class MultiVectorIndex:
             )
         if method is None:
             method = self.search_method
-        if self._device is None and self._device_buckets is None:
-            self.to_device()
+        with self._lazy:
+            if self._device is None and self._device_buckets is None:
+                self.to_device()
+            if prefilter is not None and self._proxies_device is None:
+                self._proxies_device = torch.from_numpy(self._proxies).to(self.device)
         q_np, q_lens_np = self._queries(query_matrices)
         q = pad_width(torch.from_numpy(q_np), device_width(self.dim, self.device)).to(self.device)
         # lengths stay on the host: the kernels' launch plans read them there
@@ -311,8 +317,6 @@ class MultiVectorIndex:
             return scores, rows, q_lens_np
         docs, lens = self._device  # type: ignore[misc]
         if prefilter is not None:
-            if self._proxies_device is None:
-                self._proxies_device = torch.from_numpy(self._proxies).to(self.device)
             # stage 1: candidates from the mean-token proxies
             q_proxy = l2_normalize(q_np.sum(axis=1) / np.maximum(q_lens_np[:, None], 1))
             n_cand = min(self._n, max(k, k * prefilter))

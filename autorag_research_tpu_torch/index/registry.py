@@ -12,18 +12,23 @@ pre-computed-embedding dumps (``data/hf_storage.py``). An artifact is reused
 only when its fingerprint (row count for its source table) still matches the
 catalog; mutating a corpus in place past that check requires clearing the
 ``indexes/`` directory.
+
+Safe to call from several threads (a server's batch threads): a miss builds
+under one lock, so two callers never build the same index twice.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import threading
 from pathlib import Path
 from typing import Any
 
 logger = logging.getLogger("AutoRAG-Research-TPU")
 
 _CACHE: dict[tuple, Any] = {}
+_BUILD_LOCK = threading.RLock()  # held across a miss's load or build
 
 # kinds whose index class this package has; artifacts of other kinds are
 # left alone (the JAX package's loaders cover them)
@@ -101,22 +106,27 @@ def get_or_build(
     idx = _CACHE.get(key)
     if idx is not None:
         return idx
-    if persist and kind in _LOADERS:
-        idx = _try_load_artifact(catalog, kind, table, extra, device)
-    if idx is None:
-        if builder is None:
-            raise ValueError("index not cached and no builder provided")
-        idx = builder()
+    with _BUILD_LOCK:
+        idx = _CACHE.get(key)  # built by another thread while this one waited
+        if idx is not None:
+            return idx
         if persist and kind in _LOADERS:
-            _save_artifact(catalog, kind, table, idx, extra)
-    _CACHE[key] = idx
-    return idx
+            idx = _try_load_artifact(catalog, kind, table, extra, device)
+        if idx is None:
+            if builder is None:
+                raise ValueError("index not cached and no builder provided")
+            idx = builder()
+            if persist and kind in _LOADERS:
+                _save_artifact(catalog, kind, table, idx, extra)
+        _CACHE[key] = idx
+        return idx
 
 
 def invalidate(catalog=None) -> None:
     """Drop cached indexes (all, or those of one catalog)."""
-    if catalog is None:
-        _CACHE.clear()
-        return
-    for key in [k for k in _CACHE if k[0] == id(catalog) or k[1] == catalog.path]:
-        del _CACHE[key]
+    with _BUILD_LOCK:
+        if catalog is None:
+            _CACHE.clear()
+            return
+        for key in [k for k in _CACHE if k[0] == id(catalog) or k[1] == catalog.path]:
+            del _CACHE[key]

@@ -41,6 +41,7 @@ the other saved.
 from __future__ import annotations
 
 import json
+import threading
 from pathlib import Path
 from typing import Any, Sequence
 
@@ -147,6 +148,9 @@ class SparseIndex:
         self._bitmaps: torch.Tensor | None = None
         self._term_tiles: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self._term_tiles_maxw: dict[int, tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+        # the lazily built state below (upload, flat upload, bitmaps, term ->
+        # tile lists) is built once under this lock when threads search at once
+        self._lazy = threading.RLock()
         if texts is not None:
             self._build(texts)
 
@@ -331,11 +335,12 @@ class SparseIndex:
         """The flat device arrays: the flat upload itself, or else (a packed
         index) a flat upload of the same slot arrays, made on first use and
         kept."""
-        if self._device is not None and self._device_pack == 1:
-            return self._device
-        if self._device_flat is None:
-            self._device_flat = self._upload(*_pad_slots(self._slot_ids, self._slot_weights))
-        return self._device_flat
+        with self._lazy:
+            if self._device is not None and self._device_pack == 1:
+                return self._device
+            if self._device_flat is None:
+                self._device_flat = self._upload(*_pad_slots(self._slot_ids, self._slot_weights))
+            return self._device_flat
 
     def _layout(self) -> str:
         """The device layout searched: bucketed, packed or flat."""
@@ -356,27 +361,30 @@ class SparseIndex:
     def _ensure_bitmaps(self) -> torch.Tensor:
         """Tile term-presence bitmaps for the skip kernel, built once per
         layout at its ``SKIP_BLOCK_N``."""
-        if self._bitmaps is None:
-            assert self._slot_ids is not None
-            self._bitmaps = torch.from_numpy(build_tile_bitmaps(self._slot_ids, SKIP_BLOCK_N)).to(self.device)
-        return self._bitmaps
+        with self._lazy:
+            if self._bitmaps is None:
+                assert self._slot_ids is not None
+                self._bitmaps = torch.from_numpy(build_tile_bitmaps(self._slot_ids, SKIP_BLOCK_N)).to(self.device)
+            return self._bitmaps
 
     def _ensure_term_tiles(self, block_n: int) -> tuple[np.ndarray, np.ndarray]:
         """Host CSR term -> tile lists, built once per (layout, tile size)."""
-        if block_n not in self._term_tiles:
-            assert self._slot_ids is not None
-            self._term_tiles[block_n] = build_term_tile_lists(self._slot_ids, block_n)
-        return self._term_tiles[block_n]
+        with self._lazy:
+            if block_n not in self._term_tiles:
+                assert self._slot_ids is not None
+                self._term_tiles[block_n] = build_term_tile_lists(self._slot_ids, block_n)
+            return self._term_tiles[block_n]
 
     def _ensure_term_tiles_maxw(self, block_n: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Host CSR term -> (tile, max weight) for the WAND bound, built once
         per (layout, tile size)."""
-        if block_n not in self._term_tiles_maxw:
-            assert self._slot_ids is not None
-            self._term_tiles_maxw[block_n] = build_term_tile_maxw(
-                self._slot_ids, self._slot_weights, block_n
-            )
-        return self._term_tiles_maxw[block_n]
+        with self._lazy:
+            if block_n not in self._term_tiles_maxw:
+                assert self._slot_ids is not None
+                self._term_tiles_maxw[block_n] = build_term_tile_maxw(
+                    self._slot_ids, self._slot_weights, block_n
+                )
+            return self._term_tiles_maxw[block_n]
 
     def _queries_on_device(self, q_ids: np.ndarray, q_w: np.ndarray):
         return torch.from_numpy(q_ids).to(self.device), torch.from_numpy(q_w).to(self.device)
@@ -469,8 +477,9 @@ class SparseIndex:
         entries with score <= 0 are no hits."""
         if self._slot_ids is None:
             raise IndexNotBuiltError("sparse index not built")
-        if self._device is None and self._device_buckets is None:
-            self.to_device()
+        with self._lazy:
+            if self._device is None and self._device_buckets is None:
+                self.to_device()
         q_ids, q_w = self.encode_queries(queries)
         route = bm25_route(method, self.n_docs, k, self.device.type, self.tile_skip, self._layout(),
                            self._device_pack, self.probe_block_n)

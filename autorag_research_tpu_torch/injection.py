@@ -1,0 +1,213 @@
+"""Model registry / dependency injection: names -> cached model instances.
+
+Role parity with the reference ``injection.py:86-370`` (``ModelManager`` per
+model kind + ``load_llm``/``load_embedding_model``/``load_reranker`` and the
+``@with_llm``/``@with_embedding`` decorators): a model name resolves to a YAML
+file under ``configs/{llm,embedding,reranker}/<name>.yaml`` (``type:`` +
+constructor kwargs) or to a builtin shortcut; instances are health-checked on
+first load and cached for the process.
+
+Builtin types registered here replace the reference's Hydra ``_target_``
+strings; third-party types can be registered via
+``register_model_type(kind, name, factory)`` or ``type: module.path:Class``.
+
+The port's copy of the JAX package's ``injection.py``, with the embedding
+kinds whose classes the port has: ``mock``, ``mock_multi`` and
+``torch_encoder`` (``multi_vector: true`` gives the token-level encoder).
+A registry builds its on-device models on its ``device`` (``"cuda"`` unless
+the caller asks for another). The JAX package's other kinds are named in
+``DEFERRED`` and refused with :class:`ModelLoadError`, whose message names
+the ROADMAP.md item that ports them.
+"""
+
+from __future__ import annotations
+
+import importlib
+import logging
+from pathlib import Path
+from typing import Any, Callable
+
+import yaml
+
+from autorag_research_tpu_torch.exceptions import ModelLoadError
+
+logger = logging.getLogger("AutoRAG-Research-TPU")
+
+_FACTORIES: dict[str, dict[str, Callable[..., Any]]] = {
+    "llm": {},
+    "embedding": {},
+    "reranker": {},
+}
+# (kind, type) pairs whose factory takes the registry's device
+_ON_DEVICE: set[tuple[str, str]] = set()
+
+_ITEM_7 = "ROADMAP.md queue 1, item 7 (host-side layers for the generation side)"
+_ITEM_9 = "ROADMAP.md queue 1, item 9 (models)"
+# the JAX package's builtin kinds that the port does not have yet -> the item
+# that ports them
+DEFERRED: dict[str, dict[str, str]] = {
+    "llm": {
+        **dict.fromkeys(
+            ("mock", "scripted", "openai_compat", "openai", "vllm", "ollama", "together",
+             "xai", "huggingface", "azure_openai", "anthropic", "gemini", "bedrock"),
+            _ITEM_7,
+        ),
+        "jax_lm": _ITEM_9,
+    },
+    "embedding": {
+        **dict.fromkeys(
+            ("openai", "openai_compat", "together", "jina", "ollama", "vllm", "colpali",
+             "colqwen", "bipali", "infinity", "infinity_multi"),
+            _ITEM_7,
+        ),
+        "jax_encoder": "the port's encoder kind is 'torch_encoder'",
+    },
+    "reranker": {
+        **dict.fromkeys(
+            ("mock", "llm_listwise", "embedding_similarity", "colbert", "cross_encoder",
+             "monot5", "upr", "flag_embedding", "koreranker", "sentence_transformer",
+             "flag_embedding_llm", "tart", "flashrank", "openvino", "cohere", "jina",
+             "voyageai", "mixedbreadai"),
+            _ITEM_7,
+        ),
+        "jax_cross_encoder": _ITEM_9,
+    },
+}
+
+
+def register_model_type(
+    kind: str, name: str, factory: Callable[..., Any], on_device: bool = False
+) -> None:
+    """Register ``factory`` for ``type: name``; ``on_device`` factories are
+    given the registry's ``device`` unless the spec names one."""
+    _FACTORIES[kind][name] = factory
+    if on_device:
+        _ON_DEVICE.add((kind, name))
+
+
+def _builtin_factories() -> None:
+    from autorag_research_tpu_torch.embeddings import MockEmbedding, MockMultiVectorEmbedding
+
+    register_model_type("embedding", "mock", MockEmbedding)
+    register_model_type("embedding", "mock_multi", MockMultiVectorEmbedding)
+
+    def _torch_encoder(multi_vector: bool = False, **kw):
+        from autorag_research_tpu_torch.embeddings.torch_encoder import (
+            TorchEncoderEmbedding,
+            TorchEncoderMultiVectorEmbedding,
+        )
+        from autorag_research_tpu_torch.models.encoder import EncoderConfig
+
+        config_keys = {f for f in EncoderConfig.__dataclass_fields__}
+        config_kw = {k: v for k, v in kw.items() if k in config_keys}
+        rest = {k: v for k, v in kw.items() if k not in config_keys}
+        if multi_vector:
+            return TorchEncoderMultiVectorEmbedding(
+                EncoderConfig(multi_vector=True, **config_kw), **rest
+            )
+        return TorchEncoderEmbedding(EncoderConfig(**config_kw), **rest)
+
+    register_model_type("embedding", "torch_encoder", _torch_encoder, on_device=True)
+
+
+_builtin_factories()
+
+
+class ModelRegistry:
+    """Per-experiment model loader with health checks + instance cache."""
+
+    def __init__(
+        self,
+        config_dir: str | Path | None = None,
+        health_check: bool = True,
+        device: str = "cuda",
+    ):
+        self.config_dir = Path(config_dir) if config_dir else None
+        self.health_check = health_check
+        self.device = device
+        self._cache: dict[tuple[str, str], Any] = {}
+
+    # ------------------------------------------------------------ resolution
+    def _resolve_spec(self, kind: str, name: str) -> dict:
+        if self.config_dir is not None:
+            yaml_path = self.config_dir / kind / f"{name}.yaml"
+            if yaml_path.exists():
+                spec = yaml.safe_load(yaml_path.read_text()) or {}
+                if "type" not in spec:
+                    raise ModelLoadError(f"{yaml_path} missing 'type'")
+                return spec
+        if name in _FACTORIES[kind] or name in DEFERRED[kind]:
+            return {"type": name}
+        raise ModelLoadError(
+            f"unknown {kind} '{name}': no configs/{kind}/{name}.yaml and no builtin; "
+            f"builtins: {sorted(_FACTORIES[kind])}"
+        )
+
+    def _instantiate(self, kind: str, spec: dict) -> Any:
+        spec = dict(spec)
+        type_name = spec.pop("type")
+        if ":" in type_name:  # module.path:Class escape hatch
+            module, cls = type_name.split(":", 1)
+            factory = getattr(importlib.import_module(module), cls)
+        else:
+            factory = _FACTORIES[kind].get(type_name)
+            if factory is None:
+                if type_name in DEFERRED[kind]:
+                    raise ModelLoadError(
+                        f"{kind} type '{type_name}' is not in the PyTorch port yet: "
+                        f"{DEFERRED[kind][type_name]}"
+                    )
+                raise ModelLoadError(f"unknown {kind} type '{type_name}'")
+            if (kind, type_name) in _ON_DEVICE:
+                spec.setdefault("device", self.device)
+        # nested model references resolve recursively
+        for key in ("llm", "embedding_model"):
+            if isinstance(spec.get(key), str):
+                loader = self.load_llm if key == "llm" else self.load_embedding
+                spec[key] = loader(spec[key])
+        return factory(**spec)
+
+    def _load(self, kind: str, name: str) -> Any:
+        key = (kind, name)
+        if key in self._cache:
+            return self._cache[key]
+        instance = self._instantiate(kind, self._resolve_spec(kind, name))
+        if self.health_check and hasattr(instance, "health_check"):
+            try:
+                instance.health_check()
+            except Exception as exc:  # noqa: BLE001
+                raise ModelLoadError(f"{kind} '{name}' failed health check: {exc}") from exc
+        self._cache[key] = instance
+        return instance
+
+    # --------------------------------------------------------------- loaders
+    def load_llm(self, name: str) -> Any:
+        return self._load("llm", name)
+
+    def load_embedding(self, name: str) -> Any:
+        return self._load("embedding", name)
+
+    def load_reranker(self, name: str) -> Any:
+        return self._load("reranker", name)
+
+
+_default_registry: ModelRegistry | None = None
+
+
+def get_default_registry() -> ModelRegistry:
+    global _default_registry
+    if _default_registry is None:
+        _default_registry = ModelRegistry()
+    return _default_registry
+
+
+def load_llm(name: str):
+    return get_default_registry().load_llm(name)
+
+
+def load_embedding_model(name: str):
+    return get_default_registry().load_embedding(name)
+
+
+def load_reranker(name: str):
+    return get_default_registry().load_reranker(name)

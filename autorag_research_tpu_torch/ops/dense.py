@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from autorag_research_tpu_torch.ops import cuda_build
+from autorag_research_tpu_torch.utils.concurrency import count_call
 from autorag_research_tpu_torch.ops.topk import (  # noqa: F401 - re-exported
     INT_MAX,
     NEG_INF,
@@ -351,7 +352,7 @@ def dense_topk_stream(
         plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check_launch(rc, "dense_topk_stream")
-    LAUNCHES["dense_topk_stream"] += 1
+    count_call(LAUNCHES, "dense_topk_stream")
     scores, ids = merge_topk(out_s, out_i, k_eff)
     return pad_to_k(scores, ids, k, k_eff)
 
@@ -780,7 +781,7 @@ def seg_stats_bf16(q_lo: torch.Tensor, corpus_lo: torch.Tensor, n: int, seg: int
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check_launch(rc, "seg_stats_bf16")
-    LAUNCHES["seg_stats_bf16"] += 1
+    count_call(LAUNCHES, "seg_stats_bf16")
     return max1, loc1, max2
 
 

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from autorag_research_tpu_torch.ops import cuda_build
+from autorag_research_tpu_torch.utils.concurrency import count_call
 from autorag_research_tpu_torch.ops.dense import (
     SMEM_BLOCK_MAX,
     _require_exact_f32,
@@ -181,7 +182,7 @@ def maxsim_topk_scan(
     Td] f32 product (``MAXSIM_TILE_BUDGET`` by default). Returns (scores f32
     [B, k], rows int32 [B, k]) in ``(-score, row)`` order."""
     _require_exact_f32()
-    PLAIN_CALLS["maxsim_topk_scan"] += 1
+    count_call(PLAIN_CALLS, "maxsim_topk_scan")
     return _scan(queries, query_lens, docs, doc_lens, k, tile_n)
 
 
@@ -189,7 +190,7 @@ def maxsim_topk_v2_plain(queries, query_lens, docs, doc_lens, k: int):
     """Plain PyTorch version of :func:`maxsim_topk_v2`: the same
     ``(-score, row)`` top-k by a tiled scan with bounded product tiles."""
     _require_exact_f32()
-    PLAIN_CALLS["maxsim_topk_v2_plain"] += 1
+    count_call(PLAIN_CALLS, "maxsim_topk_v2_plain")
     return _scan(queries, query_lens, docs, doc_lens, k, None)
 
 
@@ -197,7 +198,7 @@ def maxsim_scores_v2_plain(queries, query_lens, docs, doc_lens) -> torch.Tensor:
     """Plain PyTorch version of :func:`maxsim_scores_v2`: raw [B, N] f32
     MaxSim scores, document tile by document tile."""
     _require_exact_f32()
-    PLAIN_CALLS["maxsim_scores_v2_plain"] += 1
+    count_call(PLAIN_CALLS, "maxsim_scores_v2_plain")
     b, tq, _ = queries.shape
     n, td, _ = docs.shape
     dev = queries.device
@@ -238,7 +239,7 @@ def maxsim_topk_v1_plain(queries, query_lens, docs, doc_lens, k: int):
     document) becomes NEG_INF. Returns (scores [B, k], rows [B, k]) in
     ``(-score, row)`` order."""
     _require_exact_f32()
-    PLAIN_CALLS["maxsim_topk_v1_plain"] += 1
+    count_call(PLAIN_CALLS, "maxsim_topk_v1_plain")
     b, tq, d = queries.shape
     n, td, _ = docs.shape
     dev = queries.device
@@ -294,7 +295,7 @@ def maxsim_topk_v3_plain(queries, query_lens, docs, doc_lens, k: int):
     NEG_INF before selection, which gives that order too (a CPU sum of
     tq_pad equal values may round differently from column to column)."""
     _require_exact_f32()
-    PLAIN_CALLS["maxsim_topk_v3_plain"] += 1
+    count_call(PLAIN_CALLS, "maxsim_topk_v3_plain")
     b = queries.shape[0]
     n, td, _ = docs.shape
     qa, da = maxsim_v3_operands(queries, query_lens, docs, doc_lens)
@@ -669,7 +670,7 @@ def _tile_launch(name: str, queries, query_lens, docs, aux, k_eff: int):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check_launch(rc, name)
-    LAUNCHES[name] += 1
+    count_call(LAUNCHES, name)
     return out_s, out_i
 
 

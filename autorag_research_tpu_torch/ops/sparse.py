@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from autorag_research_tpu_torch.ops import cuda_build
+from autorag_research_tpu_torch.utils.concurrency import count_call
 from autorag_research_tpu_torch.ops.dense import _round_up
 from autorag_research_tpu_torch.ops.topk import (
     INT_MAX,
@@ -213,14 +214,14 @@ def bm25_topk_scan(
     ``SCAN_TILE_BUDGET`` by default. Zero-score documents are candidates.
     Returns (scores f32 [B, k], rows int32 [B, k]) in ``(-score, row)``
     order, padded past the corpus with ``(NEG_INF, INT_MAX)``."""
-    PLAIN_CALLS["bm25_topk_scan"] += 1
+    count_call(PLAIN_CALLS, "bm25_topk_scan")
     return _scan(q_ids, q_weights, doc_ids, doc_weights, k, tile_n)
 
 
 def bm25_topk_v2_plain(q_ids, q_weights, doc_ids, doc_weights, k: int):
     """Plain PyTorch version of :func:`bm25_topk_v2`: the same top-k, zero
     scores included, by a tiled scan."""
-    PLAIN_CALLS["bm25_topk_v2_plain"] += 1
+    count_call(PLAIN_CALLS, "bm25_topk_v2_plain")
     return _scan(q_ids, q_weights, doc_ids, doc_weights, k, None)
 
 
@@ -245,7 +246,7 @@ def bm25_topk_v2_skip_plain(
     scores > 0, under-full rows padded with ``(0.0, INT_MAX)``. The bitmaps
     are checked against ``block_n`` as the kernel checks them."""
     _check_bitmaps(bitmaps, doc_ids.shape[0], block_n)
-    PLAIN_CALLS["bm25_topk_v2_skip_plain"] += 1
+    count_call(PLAIN_CALLS, "bm25_topk_v2_skip_plain")
     return _scan(q_ids, q_weights, doc_ids, doc_weights, k, None, positive_only)
 
 
@@ -279,7 +280,7 @@ def bm25_topk_probe_plain(
     order, under-full rows padded with ``(0.0, INT_MAX)``."""
     b = q_ids.shape[0]
     _check_candidates(cand, count, b)
-    PLAIN_CALLS["bm25_topk_probe_plain"] += 1
+    count_call(PLAIN_CALLS, "bm25_topk_probe_plain")
     dev = doc_ids.device
     n_tiles = -(-doc_ids.shape[0] // block_n)
     allowed = _candidate_mask(
@@ -292,7 +293,7 @@ def bm25_topk_probe_plain(
 def bm25_topk_v1_plain(q_ids, q_weights, doc_ids, doc_weights, k: int):
     """Plain PyTorch version of :func:`bm25_topk_v1`: v2's function, so the
     same tiled scan."""
-    PLAIN_CALLS["bm25_topk_v1_plain"] += 1
+    count_call(PLAIN_CALLS, "bm25_topk_v1_plain")
     return _scan(q_ids, q_weights, doc_ids, doc_weights, k, None)
 
 
@@ -357,7 +358,7 @@ def bm25_topk_packed_plain(q_ids, q_weights, packed_ids, packed_weights, n_docs:
     unpacked documents, bitwise :func:`bm25_topk_v2_plain` on the flat
     arrays (pad slots add zeros)."""
     _check_packed(packed_ids, packed_weights, n_docs, pack)
-    PLAIN_CALLS["bm25_topk_packed_plain"] += 1
+    count_call(PLAIN_CALLS, "bm25_topk_packed_plain")
     doc_ids, doc_w = _unpack(packed_ids, packed_weights, n_docs, pack)
     return _scan(q_ids, q_weights, doc_ids, doc_w, k, None)
 
@@ -380,7 +381,7 @@ def bm25_topk_probe_packed_plain(q_ids, q_weights, packed_ids, packed_weights, n
     _check_probe_k(min(k, n_docs), block_n)
     b = q_ids.shape[0]
     _check_candidates(cand, count, b)
-    PLAIN_CALLS["bm25_topk_probe_packed_plain"] += 1
+    count_call(PLAIN_CALLS, "bm25_topk_probe_packed_plain")
     dev = packed_ids.device
     tile = block_n * pack
     allowed = _candidate_mask(
@@ -889,7 +890,7 @@ def _hash_topk(name: str, q_ids, q_w, doc_ids, doc_w, k: int, qb_max: int = HASH
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check_launch(rc, name)
-    LAUNCHES[name] += 1
+    count_call(LAUNCHES, name)
     scores, ids = merge_topk(out_s, out_i, k_eff)
     return pad_to_k(scores, ids, k, k_eff)
 

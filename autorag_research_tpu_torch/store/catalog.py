@@ -122,7 +122,7 @@ class Catalog:
             path = Path(self._tmpdir.name) / "catalog.db"
         self.path = str(path)
         self._local = threading.local()
-        self._all_conns: list = []  # every thread's connection, for close()
+        self._all_conns: list = []  # (thread, connection) of every thread, for close()
         self._conns_lock = threading.Lock()
         with self.connect() as conn:
             conn.executescript(_SCHEMA)
@@ -144,7 +144,17 @@ class Catalog:
             conn = self._new_conn()
             self._local.conn = conn
             with self._conns_lock:
-                self._all_conns.append(conn)
+                # close the connections of threads that have ended: a server
+                # that starts a thread per request would otherwise keep one
+                # connection (three file descriptors in WAL mode) per request
+                live = []
+                for thread, c in self._all_conns:
+                    if thread.is_alive():
+                        live.append((thread, c))
+                    else:
+                        c.close()
+                live.append((threading.current_thread(), conn))
+                self._all_conns = live
         return conn
 
     def close(self) -> None:
@@ -153,7 +163,7 @@ class Catalog:
         # and the tmpdir cleanup below would unlink files still held open
         with self._conns_lock:
             conns, self._all_conns = self._all_conns, []
-        for conn in conns:
+        for _, conn in conns:
             try:
                 conn.close()
             except Exception:  # noqa: BLE001 - already closed / in use
@@ -304,10 +314,15 @@ class Catalog:
         return int(row["n"])
 
     def fetch_unembedded(
-        self, table: str, limit: int, exclude_ids: Sequence[Any] = (), multi: bool = False
+        self, table: str, limit: int, exclude_ids: Sequence[Any] = (), multi: bool = False,
+        after_id: Any = None,
     ) -> list[sqlite3.Row]:
         """Resume-friendly batch fetch of rows lacking embeddings
-        (reference ``base_ingestion.py:439-459`` + failed-ID quarantine ``:386-401``)."""
+        (reference ``base_ingestion.py:439-459`` + failed-ID quarantine ``:386-401``),
+        in id order. ``after_id`` starts the walk past that id: a caller that
+        has handled every row up to it passes its last id, so that each
+        batch does not walk the embedded rows again (the walk from the start
+        makes a table's embedding pass quadratic in its rows)."""
         self._check_table(table)
         col = "multi_embedding" if multi else "embedding"
         conn = self.connect()
@@ -329,6 +344,9 @@ class Catalog:
             # WAL checkpointing) until some later write happens to commit
             conn.commit()
             sql += " AND id NOT IN (SELECT id FROM _quarantine)"
+        if after_id is not None:
+            sql += " AND id > ?"
+            params.append(after_id)
         sql += " ORDER BY id LIMIT ?"
         params.append(limit)
         return conn.execute(sql, params).fetchall()

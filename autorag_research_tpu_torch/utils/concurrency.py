@@ -12,6 +12,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import random
+import threading
 from collections.abc import Awaitable, Callable, Sequence
 from dataclasses import dataclass
 from typing import Any, TypeVar
@@ -19,6 +20,17 @@ from typing import Any, TypeVar
 logger = logging.getLogger("AutoRAG-Research-TPU")
 
 T = TypeVar("T")
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_call(counts: dict[str, int], name: str) -> None:
+    """Add one to ``counts[name]``. The kernels' launch and plain-call
+    counters are shared by every thread of the process (a server's batch
+    threads among them), and ``+=`` on a dict entry is a read-modify-write
+    that the interpreter lock does not make atomic."""
+    with _COUNT_LOCK:
+        counts[name] += 1
 
 
 @dataclass

@@ -5,8 +5,8 @@
 
 Drives the port's dense, MaxSim and BM25 (flat, packed, bucketed) retrieval
 paths (``autorag_research_tpu_torch``), the MaxSim pins, the int8 and approx
-serving modes and the hybrid pipelines through the ``Executor`` at full width
-and fails (non-zero exit) on any fault:
+serving modes, the hybrid pipelines through the ``Executor``, and the CLI and
+HTTP serving layer at full width and fails (non-zero exit) on any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source),
@@ -167,7 +167,30 @@ and fails (non-zero exit) on any fault:
     ``fuse_batch_cc`` on the card give those ids (near-ties within 1e-6
     aside) and scores within 1e-6 relative; #1 and a BM25 kernel launched, no
     plain version or scan. Pipelines' wall times, spans, metrics and the BM25
-    route are printed.
+    route are printed;
+18. the port's user entry points on the card, in a temporary directory:
+    the CLI (``main(argv)``, ``--device cuda``) runs ``init``, then ``ingest
+    --name synthetic`` at 100,000 passages and 1,000 queries (the
+    ingestor's other defaults; ``scripts/bench_serving.py``'s corpus size)
+    embedded by ``torch_encoder`` at the encoder widths above with seeded
+    weights (ingest s split into generation, row writes, fetches,
+    tokenization, encoder launches, readback and embedding writes), ``run``
+    of ``vector_search_verified``, ``bm25`` and ``hybrid_rrf`` scored by
+    recall / ndcg, ``report`` and ``show``; the dense leg's rows equal an
+    exact ``DenseIndex`` over the catalog (sub-ulp near-ties aside), BM25's
+    an exact scan, the hybrid's the host fuser over its legs' lists. Then
+    ``serve_workspace`` of the three pipelines, ``warmup()`` through bucket
+    256, and closed-loop HTTP clients (a process of their own) at 1, 32 and
+    128 clients, 1,024 ``/search`` requests a level and pipeline: QPS,
+    p50 / p95 / p99 latency, mean batch size and device-batch ms from
+    ``/metrics``, the batch thread's CPU time; ``max_inflight`` 1 against
+    3 and a 0.5 ms switch interval on ``vector_search_verified`` at 32
+    clients; a profiler split of one batch of 16 a pipeline. Checks: 0 HTTP
+    errors, ``/metrics`` counts every request, ``/health``'s corpus, #1 and
+    #5 or #6 launched while serving with no plain call, every served hit
+    list equal to the pipeline's direct ``_retrieve_batch_by_texts([q],
+    10)`` (scores within 1e-6 of max(1, |s|); near-ties of the encoder's
+    batch-dependent sums aside), ``stop()`` leaving no thread behind.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -233,6 +256,14 @@ BUCKET_N, BUCKET_SHORT, BUCKET_LONG = 500_000, (10, 16), (100, 128)
 HOTPOT_N, HOTPOT_Q, HOTPOT_GQR_Q = 500_000, 1024, 128
 HOTPOT_WORDS, HOTPOT_QWORDS, HOTPOT_FETCH_K = (20, 72), (12, 23), 20
 HOTPOT_NOISE = 0.12  # per-dimension noise on a query's summed gold embeddings
+# phase 18: the CLI and a served workspace at scripts/bench_serving.py's
+# default corpus size (100,000 passages; the synthetic ingestor's 20-120 words
+# and its other defaults), embedded at the 768-d width of the other phases;
+# closed-loop HTTP clients send about 1,024 /search requests a level
+SERVE_N, SERVE_Q = 100_000, 1000
+SERVE_PIPELINES = ("vector_search_verified", "bm25", "hybrid_rrf")
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BUCKET = (1, 32, 128), 1024, 256
+SERVE_TIMEOUT = 120  # seconds for one HTTP request
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
 # non-tensor FLOP/s, HBM bytes/s
@@ -2273,6 +2304,483 @@ def hybrid_executor_phase(seed: int, dev, n: int = HOTPOT_N, q_cnt: int = HOTPOT
                 fail(f"the device fuser of {name} disagrees with the host fuser on the card")
         cat.close()
 
+def load_level(port: int, pipeline: str, queries: list[str], clients: int, n: int) -> dict:
+    """Closed-loop HTTP load (run in a process of its own): ``clients``
+    threads each send one /search at a time, the i-th request asking for
+    ``queries[i % len(queries)]``, until ``n`` are answered. Returns the wall
+    seconds, each request's latency and status, and the hits as (ids,
+    scores) by request."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    lock = threading.Lock()
+    nxt = [0]
+    out = {"lat": [0.0] * n, "code": [0] * n, "ids": [None] * n, "scores": [None] * n,
+           "errors": []}
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= n:
+                return
+            body = json.dumps({"query": queries[i % len(queries)], "top_k": K,
+                               "pipeline": pipeline}).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/search", data=body,
+                                         headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT) as resp:
+                    code, data = resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as exc:
+                code, data = exc.code, {}
+            except OSError as exc:
+                code, data = -1, {}
+                out["errors"].append(f"{type(exc).__name__}: {exc}")
+            out["lat"][i] = time.perf_counter() - t0
+            out["code"][i] = code
+            if code == 200:
+                hits = data["results"][0]
+                out["ids"][i] = [h["doc_id"] for h in hits]
+                out["scores"][i] = [h["score"] for h in hits]
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def scrape(port: int) -> dict[str, float]:
+    """``GET /metrics`` as {series: value}."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+        text = resp.read().decode()
+    series = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            series[key] = float(val)
+    return series
+
+
+def batch_stats(before: dict, after: dict, pipeline: str) -> tuple[float, float, int, float]:
+    """(mean batch size, mean device-batch wall ms, batches, mean server-side
+    /search latency ms) of one search batcher between two scrapes."""
+    lab = f'{{kind="search",pipeline="{pipeline}"}}'
+
+    def delta(name, label=lab):
+        return after.get(name + label, 0.0) - before.get(name + label, 0.0)
+
+    n = delta("autorag_batch_size_count")
+    if not n:
+        return 0.0, 0.0, 0, 0.0
+    req = '{endpoint="/search"}'
+    server_ms = (delta("autorag_request_latency_seconds_sum", req) * 1e3
+                 / max(delta("autorag_request_latency_seconds_count", req), 1))
+    return (delta("autorag_batch_size_sum") / n,
+            delta("autorag_batch_device_seconds_sum") * 1e3 / n, int(n), server_ms)
+
+
+class BatchClock:
+    """Wraps a batcher's search function: each batch's wall time and the CPU
+    time of the thread that ran it (the rest of the wall is waiting: for the
+    interpreter lock, the device or a lock)."""
+
+    def __init__(self, fn):
+        import threading
+
+        self.fn, self.lock, self.rows = fn, threading.Lock(), []
+
+    def __call__(self, queries, top_k):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        try:
+            return self.fn(queries, top_k)
+        finally:
+            with self.lock:
+                self.rows.append((time.perf_counter() - t0, time.thread_time() - c0))
+
+    def take(self) -> tuple[float, float]:
+        """(mean wall ms, mean thread CPU ms) since the last take."""
+        with self.lock:
+            rows, self.rows = self.rows, []
+        if not rows:
+            return 0.0, 0.0
+        return (sum(w for w, _ in rows) * 1e3 / len(rows), sum(c for _, c in rows) * 1e3 / len(rows))
+
+
+def cli_serving_phase(seed: int, dev, pool, n: int = SERVE_N, q_cnt: int = SERVE_Q,
+                      requests: int = SERVE_REQUESTS, encoder: dict = ENCODER) -> None:
+    """Phase 18: the port's CLI (``init``, ``ingest``, ``run``, ``report``,
+    ``show``) and ``serve_workspace`` on the card, driven as a user drives
+    them; ``pool`` is a one-process executor for the HTTP load clients."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from autorag_research_tpu_torch.cli.app import main as cli
+    from autorag_research_tpu_torch.cli.config_resolver import ConfigResolver
+    from autorag_research_tpu_torch.config import BuildContext
+    from autorag_research_tpu_torch.data.synthetic import SyntheticIngestor
+    from autorag_research_tpu_torch.index.dense import DenseIndex
+    from autorag_research_tpu_torch.injection import ModelRegistry
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.ops import sparse as ts
+    from autorag_research_tpu_torch.ops.fusion import rrf_fuse
+    from autorag_research_tpu_torch.pipelines.loader import PipelineLoader
+    from autorag_research_tpu_torch.reporting.service import ReportingService
+    from autorag_research_tpu_torch.serving.server import ServingHandle, serve_workspace
+    from autorag_research_tpu_torch.store.catalog import Catalog
+    from autorag_research_tpu_torch.store.ingestion import IngestionService
+
+    def counts():
+        return ({**td.LAUNCHES, **ts.LAUNCHES, **tm.LAUNCHES},
+                {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS})
+
+    def grown(a: dict, b: dict) -> dict:
+        return {k: b[k] - a[k] for k in b if b[k] != a[k]}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, ws = f"{tmp}/configs", f"{tmp}/ws"
+
+        def run_cli(*argv: str) -> float:
+            t0 = time.perf_counter()
+            rc = cli(["--config-path", cfg, "--device", dev.type, *argv])
+            if rc != 0:
+                fail(f"the port's CLI `{' '.join(argv)}` exited {rc}")
+            return time.perf_counter() - t0
+
+        # ---- setup through the CLI ---------------------------------------
+        run_cli("init")
+        enc = {**encoder, "seed": seed, "batch_size": 256}
+        with open(f"{cfg}/embedding/torch_encoder_768.yaml", "w") as f:
+            f.write("type: torch_encoder\n" + "".join(f"{k}: {v}\n" for k, v in enc.items()))
+        # text queries of the served dense pipelines go through the encoder
+        for name in ("vector_search", "vector_search_verified"):
+            with open(f"{cfg}/pipelines/retrieval/{name}.yaml", "a") as f:
+                f.write("embedding_model: torch_encoder_768\n")
+        # the template's BM25 tokenizer is "english", which needs nltk: a
+        # machine without it (the chip machine) takes "simple"
+        bm25_yaml = f"{cfg}/pipelines/retrieval/bm25.yaml"
+        with open(bm25_yaml) as f:
+            text = f.read()
+        with open(bm25_yaml, "w") as f:
+            f.write(text.replace("tokenizer: english", "tokenizer: simple"))
+        with open(f"{cfg}/experiment.yaml", "w") as f:
+            f.write("pipelines:\n  retrieval:\n" + "".join(f"    - {p}\n" for p in SERVE_PIPELINES)
+                    + "  generation: []\nmetrics:\n  retrieval:\n    - recall\n    - ndcg\n"
+                    "  generation: []\nexecutor:\n  health_check: true\n  health_check_queries: 2\n")
+
+        # ingest s split by wrapping the layers it passes through: the
+        # ingestor's generation, the catalog's row writes, the embedding
+        # loop's fetches, tokenization, the encoder's launches, the
+        # readback (which waits for the device) and the embedding writes
+        import autorag_research_tpu_torch.embeddings.torch_encoder as te
+        import autorag_research_tpu_torch.store.ingestion as ingestion
+
+        wrapped = [(SyntheticIngestor, "ingest", "ingest"), (IngestionService, "add_chunks", "rows"),
+                   (IngestionService, "add_queries", "rows"),
+                   (IngestionService, "add_retrieval_gt", "rows"), (IngestionService, "clean", "rows"),
+                   (IngestionService, "embed_table", "embed_table"),
+                   (Catalog, "fetch_unembedded", "fetch"), (te, "hash_tokenize", "tokenize"),
+                   (te.TorchEncoderEmbedding, "embed_texts_device", "embed_texts_device"),
+                   (ingestion, "_to_host", "readback"), (Catalog, "set_embeddings", "writes")]
+        split = {key: 0.0 for _, _, key in wrapped}
+        saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in wrapped]
+
+        def timing(fn, key):
+            def inner(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    split[key] += time.perf_counter() - t0
+            return inner
+
+        for (owner, attr, key), (_, _, fn) in zip(wrapped, saved):
+            setattr(owner, attr, timing(fn, key))
+        try:
+            ingest_s = run_cli("ingest", "--name", "synthetic", "--db", ws, "--extra",
+                               f"n_docs={n}", "--extra", f"n_queries={q_cnt}",
+                               "--embedding-model", "torch_encoder_768")
+        finally:
+            for owner, attr, fn in saved:
+                setattr(owner, attr, fn)
+        encode = split["embed_texts_device"] - split["tokenize"]
+        loop_rest = (split["embed_table"] - split["fetch"] - split["embed_texts_device"]
+                  - split["readback"] - split["writes"])
+        log(f"serve: `ingest --name synthetic` {n} passages + {q_cnt} queries embedded by "
+            f"torch_encoder ({encoder}) on {dev.type}: {ingest_s:.2f} s = generation "
+            f"{split['ingest'] - split['rows']:.2f} s, row writes {split['rows']:.2f} s, embedding "
+            f"{split['embed_table']:.2f} s (fetches {split['fetch']:.2f}, tokenization "
+            f"{split['tokenize']:.2f}, encoder launches {encode:.2f}, readback and device wait "
+            f"{split['readback']:.2f}, embedding writes {split['writes']:.2f}, the rest "
+            f"{loop_rest:.2f}), the rest {ingest_s - split['ingest'] - split['embed_table']:.2f} s")
+
+        # ---- run, report, show --------------------------------------------
+        l0, p0 = counts()
+        run_s = run_cli("run", "--db", ws)
+        torch.cuda.synchronize()
+        l1, p1 = counts()
+        log(f"serve: `run` of {', '.join(SERVE_PIPELINES)} (health checks, recall, ndcg): "
+            f"{run_s:.2f} s; launches {json.dumps(grown(l0, l1))}; plain calls "
+            f"{json.dumps(grown(p0, p1))}")
+        if not grown(l0, l1).get("seg_stats_bf16") or grown(p0, p1):
+            fail("`run` skipped #1 or took a plain route on the card")
+        run_cli("report", "--db", ws)
+        run_cli("show", "pipelines")
+        board = ReportingService([ws]).leaderboard()
+        for row in board.itertuples():
+            log(f"serve: leaderboard {row.pipeline}: recall@{K} {row.recall}, ndcg@{K} {row.ndcg}")
+        if sorted(board.pipeline) != sorted(SERVE_PIPELINES):
+            fail(f"the leaderboard lists {list(board.pipeline)}")
+
+        cat = Catalog(f"{ws}/catalog.db")
+        qids = cat.get_all_query_ids()
+        q_texts = [r["contents"] for r in cat.get_queries()]
+        pid = {n: cat.get_pipeline(n)["id"] for n in SERVE_PIPELINES}
+        rows = {n: [[(r["doc_id"], r["rel_score"]) for r in cat.get_retrieved(q, pid[n])]
+                    for q in qids] for n in SERVE_PIPELINES}
+        if any(len(r) != K for n in ("vector_search_verified", "hybrid_rrf") for r in rows[n]):
+            fail("a dense or hybrid query of `run` has fewer than k rows")
+        # the dense leg against an exact DenseIndex over the same catalog
+        exact = DenseIndex.from_catalog(cat, mode="exact", device=dev)
+        _, q_emb = cat.get_embeddings_matrix("query")
+        ref_s, ref_r = exact.topk_rows(q_emb, K)
+        doc_of = np.asarray(exact.ids)
+        got_i = np.array([[d for d, _ in r] for r in rows["vector_search_verified"]])
+        got_s = np.array([[s for _, s in r] for r in rows["vector_search_verified"]], np.float32)
+        n_mism, explained = ids_agree(got_i, got_s, doc_of[ref_r], ref_s)
+        log(f"serve: `run`'s vector_search_verified vs an exact DenseIndex: {n_mism} id mismatches "
+            f"(all sub-ulp: {explained})")
+        if not explained:
+            fail("the served workspace's dense leg diverged from the exact search")
+        del exact
+        # the BM25 leg against an exact scan of its own index's device tensors
+        resolver = ConfigResolver(cfg)
+        configs = {n: resolver.resolve_pipeline("retrieval", n) for n in SERVE_PIPELINES}
+        ctx = BuildContext(device=dev.type, models=ModelRegistry(cfg, device=dev.type),
+                           pipeline_configs=configs)
+        ctx.pipeline_configs.update(resolver.resolve_transitive_dependencies(configs))
+        loader = PipelineLoader(cat, ctx)
+        sparse = loader.load("bm25")._index()
+        qi, qw = sparse.encode_queries(q_texts)
+        ss, si = ts.bm25_topk_scan(torch.from_numpy(qi).to(dev), torch.from_numpy(qw).to(dev),
+                                   *sparse._flat_device(), K)
+        ref = [[(sparse.ids[int(r)], float(s)) for s, r in zip(a, b) if s > 0]
+               for a, b in zip(ss.cpu().numpy(), si.cpu().numpy())]
+        n_diff = sum(a != b for a, b in zip(rows["bm25"], ref))
+        log(f"serve: `run`'s bm25 vs an exact scan: {n_diff} of {len(qids)} queries differ")
+        if n_diff:
+            fail("the served workspace's BM25 leg diverged from the exact scan")
+        # the hybrid rows against the host fuser over its legs' fetch_k lists
+        hyb = loader.load("hybrid_rrf")
+        fetch_k = K * hyb.fetch_k_multiplier
+        l_1, l_2 = {}, {}
+        for lo in range(0, len(qids), 128):
+            page = qids[lo : lo + 128]
+            l_1.update(hyb.pipeline_1._retrieve_batch_by_ids(page, fetch_k))
+            l_2.update(hyb.pipeline_2._retrieve_batch_by_ids(page, fetch_k))
+        host = [[(h["doc_id"], h["score"]) for h in rrf_fuse(l_1[q], l_2[q], k=hyb.rrf_k, top_k=K,
+                                                             fetch_k=fetch_k)] for q in qids]
+        same = rows["hybrid_rrf"] == host
+        log(f"serve: `run`'s hybrid_rrf rows == the host fuser over its legs' fetch_k={fetch_k} "
+            f"lists: {same}")
+        if not same:
+            fail("hybrid_rrf's rows differ from the host fuser over its legs' lists")
+        cat.close()
+
+        # ---- the served workspace -------------------------------------------
+        pool.submit(len, ()).result()  # the pool's own threads exist before the snapshot
+        before_threads = set(threading.enumerate())
+        t0 = time.perf_counter()
+        handle = serve_workspace(ws, config_path=cfg, retrieval=list(SERVE_PIPELINES), port=0,
+                                 device=dev.type)
+        built_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        handle.warmup(max_bucket=SERVE_BUCKET, top_k=K)
+        torch.cuda.synchronize()
+        log(f"serve: serve_workspace built {len(SERVE_PIPELINES)} pipelines in {built_s:.2f} s; "
+            f"warmup through bucket {SERVE_BUCKET} at k={K} in {time.perf_counter() - t0:.2f} s")
+        with urllib.request.urlopen(f"http://127.0.0.1:{handle.port}/health", timeout=30) as resp:
+            health = json.loads(resp.read())
+        if health["corpus"] != n:
+            fail(f"/health reports a corpus of {health['corpus']}, not {n}")
+        order = np.random.default_rng(seed + 18).permutation(len(q_texts))
+        pool_q = [q_texts[i] for i in order]
+
+        sent, errors, served = 0, 0, []
+        clocks = {}
+        for name, batcher in handle._batchers.items():
+            clocks[name] = batcher.search_batch_fn = BatchClock(batcher.search_batch_fn)
+        l0, p0 = counts()
+        levels = {}
+
+        def level(h, name, clients, label=""):
+            nonlocal sent, errors
+            before = scrape(h.port)
+            clocks[name].take()
+            res = pool.submit(load_level, h.port, name, pool_q, clients, requests).result()
+            after = scrape(h.port)
+            sent += requests
+            bad = sum(c != 200 for c in res["code"])
+            errors += bad
+            lat = np.asarray(res["lat"]) * 1e3
+            bsize, bms, nb, server_ms = batch_stats(before, after, name)
+            wall_ms, cpu_ms = clocks[name].take()
+            served.extend((name, pool_q[i % len(pool_q)], res["ids"][i], res["scores"][i])
+                          for i in range(requests) if res["code"][i] == 200)
+            log(f"serve: {name} x {clients} clients{label}: {requests / res['wall']:.1f} QPS, "
+                f"latency p50 {np.percentile(lat, 50):.2f} / p95 {np.percentile(lat, 95):.2f} / "
+                f"p99 {np.percentile(lat, 99):.2f} ms (mean {lat.mean():.2f} at the client, "
+                f"{server_ms:.2f} in the server), {nb} batches of {bsize:.2f} on average, "
+                f"{bms:.2f} ms a device batch (embed + kernels + readback; its thread's CPU "
+                f"{cpu_ms:.2f} of {wall_ms:.2f} ms), {bad} HTTP errors"
+                + (f" {res['errors'][:3]}" if res["errors"] else ""))
+            return res
+
+        for name in SERVE_PIPELINES:
+            for clients in SERVE_CLIENTS:
+                res = level(handle, name, clients)
+                levels[(name, clients)] = requests / res["wall"]
+        torch.cuda.synchronize()
+        l1, p1 = counts()
+        log(f"serve: launches while serving {json.dumps(grown(l0, l1))}; plain calls "
+            f"{json.dumps(grown(p0, p1))}")
+        if not grown(l0, l1).get("seg_stats_bf16"):
+            fail("serving launched no #1 (seg_stats_bf16)")
+        if not (grown(l0, l1).get("bm25_topk_v2_skip") or grown(l0, l1).get("bm25_topk_probe")):
+            fail("serving launched neither #5 (skip walk) nor #6 (probe)")
+        if grown(p0, p1):
+            fail("serving took a plain route on the card")
+        if errors:
+            fail(f"{errors} HTTP errors while serving")
+        # the request counter, read until the last response's record landed
+        for _ in range(100):
+            counted = scrape(handle.port).get(
+                'autorag_requests_total{code="200",endpoint="/search"}', 0.0)
+            if counted >= sent:
+                break
+            time.sleep(0.05)
+        log(f"serve: /metrics counts {counted:.0f} /search 200s for {sent} sent; /health corpus "
+            f"{health['corpus']}")
+        if counted != sent:
+            fail(f"/metrics counted {counted} /search requests, {sent} were sent")
+
+        # max_inflight 1 against the default 3, vector_search_verified at 32
+        # clients; then the default handle with the interpreter's switch
+        # interval at 0.5 ms (5 ms by default), which shortens a thread's wait
+        # for the interpreter lock after a blocking call (a kernel launch
+        # through ctypes, a copy to the host)
+        name = SERVE_PIPELINES[0]
+        one = ServingHandle(handle.catalog, {name: handle.retrieval_pipelines[name]},
+                            max_inflight=1).start(port=0)
+        one._batchers[name].search_batch_fn = clocks[name]
+        try:
+            res = level(one, name, 32, ", max_inflight 1")
+        finally:
+            one.stop()
+        log(f"serve: {name} x 32 clients: max_inflight 1 {requests / res['wall']:.1f} QPS against "
+            f"{levels[(name, 32)]:.1f} QPS at the default 3")
+        old_switch = sys.getswitchinterval()
+        sys.setswitchinterval(0.0005)
+        try:
+            res = level(handle, name, 32, ", switch interval 0.5 ms")
+        finally:
+            sys.setswitchinterval(old_switch)
+        if errors:
+            fail(f"{errors} HTTP errors while serving")
+        # one device batch of 16 (the 32-client level's bucket) alone, by
+        # torch.profiler: the device's busy share of the batch's wall time
+        for name in SERVE_PIPELINES:
+            fn = handle._batchers[name].search_batch_fn
+            rows_, _, wall = device_breakdown(f"{name}, a served batch of 16 alone",
+                                              lambda: fn(pool_q[:16], K), calls=3)
+            if rows_:
+                busy = sum(ms * cnt for ms, cnt, _ in rows_) / 3
+                log(f"serve: {name}, a batch of 16 alone: device busy {busy:.3f} ms of {wall:.3f} "
+                    f"ms wall a call under the profiler ({busy / wall:.1%}; idle {1 - busy / wall:.1%})")
+
+        # every served hit list against the pipeline's direct call on that
+        # query. Scores agree within 1e-6 relative (of max(1, |s|): cosine
+        # and RRF scores are at most 1). The encoder's sums depend on the
+        # batch it runs in (about 1e-7 between a query alone and in a
+        # batch), so a dense list may swap documents whose scores lie within
+        # that tolerance, and a hybrid list may differ where its dense leg's
+        # fetch_k list holds such a near-tie; any other difference fails.
+        def tol(v):
+            return 1e-6 * np.maximum(1.0, np.abs(v))
+
+        def near_tie(scores) -> bool:
+            sc = np.asarray(scores)
+            return bool(len(sc) > 1 and (np.abs(np.diff(sc)) <= tol(sc[1:])).any())
+
+        t0 = time.perf_counter()
+        direct, leg, worst = {}, {}, 0.0
+        stats = {name: {"lists": 0, "differ": 0, "near_ties": 0} for name in SERVE_PIPELINES}
+        for name, q, ids, scores in served:
+            pipe = handle.retrieval_pipelines[name]
+            if (name, q) not in direct:
+                hits = pipe._retrieve_batch_by_texts([q], K)[0]
+                direct[(name, q)] = ([h["doc_id"] for h in hits],
+                                     np.array([h["score"] for h in hits], np.float64))
+            r_ids, r_scores = direct[(name, q)]
+            st = stats[name]
+            st["lists"] += 1
+            same_len = len(ids) == len(r_ids)
+            err = np.abs(np.asarray(scores) - r_scores) / np.maximum(1.0, np.abs(r_scores)) \
+                if same_len else np.array([np.inf])
+            if ids == r_ids and (err <= 1e-6).all():
+                worst = max(worst, float(err.max(initial=0.0)))
+                continue
+            st["differ"] += 1
+            if name == "vector_search_verified" and same_len:
+                d_ids = np.asarray(ids) != np.asarray(r_ids)
+                ok = (err <= 1e-6).all() and bool((np.abs(np.asarray(scores) - r_scores)[d_ids]
+                                                   <= tol(r_scores[d_ids])).all())
+            elif name == "hybrid_rrf":
+                if q not in leg:
+                    fetch = K * pipe.fetch_k_multiplier + 1
+                    leg[q] = [h["score"] for h in pipe.pipeline_1._retrieve_batch_by_texts([q], fetch)[0]]
+                ok = near_tie(leg[q])
+            else:
+                ok = False
+            st["near_ties"] += ok
+            if not ok:
+                log(f"serve: {name} on {q[:60]!r}: served {list(zip(ids, scores))} against direct "
+                    f"{list(zip(r_ids, r_scores.tolist()))}")
+        log(f"serve: served hit lists vs the pipelines' direct _retrieve_batch_by_texts([q], {K}) "
+            f"({len(direct)} direct calls, {time.perf_counter() - t0:.2f} s): {json.dumps(stats)}; "
+            f"max relative score error where the ids agree {worst:.3e}")
+        if any(st["differ"] != st["near_ties"] for st in stats.values()):
+            fail("served hits differ from the pipelines' direct calls")
+
+        # stop: returns, and leaves no batcher or server thread behind
+        t0 = time.perf_counter()
+        handle.stop()
+        stop_s = time.perf_counter() - t0
+        for t in [b._thread for b in handle._batchers.values()]:
+            t.join(timeout=5)
+        for _ in range(50):  # handler threads finish their last records
+            left = [t.name for t in set(threading.enumerate()) - before_threads if t.is_alive()]
+            if not left:
+                break
+            time.sleep(0.1)
+        log(f"serve: handle.stop() returned in {stop_s:.2f} s; threads the handle started that "
+            f"are still running: {left}")
+        if left:
+            fail(f"threads still running after handle.stop(): {left}")
+        handle.catalog.close()
+
+
 def ptxas_start(cuda_build, tmp: str, name: str):
     """Start one more nvcc of csrc/<name>.cu with ``-Xptxas -v`` (registers,
     shared memory and spills of each instantiation)."""
@@ -2793,6 +3301,18 @@ def main() -> int:
     t0 = time.perf_counter()
     hybrid_executor_phase(args.seed, dev)
     log(f"phase 17 (hybrid Executor run): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- 18. the CLI and a served workspace ---------------------------------
+    t0 = time.perf_counter()
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        cli_serving_phase(args.seed, dev, pool)
+    log(f"phase 18 (CLI and served workspace): {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,577 @@
+"""The port's CLI, config resolver, model registry, reporting and plugins
+against the JAX package's, case by case with ``tests/test_cli.py``.
+
+Each workspace case runs both CLIs (the port's with ``--device cpu``) in
+directories of their own from the same inputs. ``init`` writes the same
+tree but for the model files of the JAX package's own models
+(``embedding/jax_encoder*.yaml`` become ``embedding/torch_encoder*.yaml``;
+``llm/jax_lm.yaml`` and ``reranker/jax_cross_encoder.yaml`` wait for
+ROADMAP.md queue 1, item 9). ``ingest`` then ``run`` give equal result rows
+(ids equal; the dense legs' scores within 1e-5 relative, BM25's within
+1e-6; the fused scores within 1e-5 absolute plus 1e-6 relative, ids equal up
+to near-ties within that) and equal metric averages; ``report`` prints the
+same leaderboard. ``health-check`` runs on the CPU; ``--device cuda``
+without a GPU, ``--mesh``, ``train`` and the hub actions are refused with
+their ROADMAP.md items.
+"""
+
+import importlib
+import json
+import sqlite3
+
+import numpy as np
+import pytest
+import yaml
+
+from autorag_research_tpu.cli.app import main as jax_main
+from autorag_research_tpu_torch.cli.app import main as torch_main
+
+JAX, TORCH = "autorag_research_tpu", "autorag_research_tpu_torch"
+SMALL = dict(vocab_size=512, hidden=64, layers=2, heads=4, max_len=16, out_dim=32)
+MAINS = {JAX: jax_main, TORCH: lambda argv: torch_main(["--device", "cpu", *argv])}
+JAX_MODEL_FILES = {"llm/jax_lm.yaml", "reranker/jax_cross_encoder.yaml",
+                   "embedding/jax_encoder.yaml", "embedding/jax_encoder_multi.yaml"}
+TORCH_MODEL_FILES = {"embedding/torch_encoder.yaml", "embedding/torch_encoder_multi.yaml"}
+EXACT = ("vector_search", "vector_search_verified", "bm25", "hybrid_rrf")
+FUSED = ("hybrid_cc",)
+EXPERIMENT = {
+    "pipelines": {"retrieval": [*EXACT, *FUSED], "generation": []},
+    "metrics": {"retrieval": ["recall", "ndcg", "mrr"], "generation": []},
+    "executor": {"health_check": True, "health_check_queries": 2},
+}
+
+
+def _mod(pkg, name):
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+@pytest.fixture(autouse=True)
+def clear_cache():
+    for pkg in (JAX, TORCH):
+        _mod(pkg, "index.registry").invalidate()
+    yield
+    for pkg in (JAX, TORCH):
+        _mod(pkg, "index.registry").invalidate()
+
+
+def _docs_dir(root):
+    data = root / "data"
+    data.mkdir()
+    docs = ["quick brown fox", "lazy dog", "gpu vector search", "rag systems"]
+    (data / "corpus.jsonl").write_text(
+        "\n".join(json.dumps({"id": i, "contents": d}) for i, d in enumerate(docs))
+    )
+    (data / "queries.jsonl").write_text(
+        json.dumps({"id": 100, "contents": "fox", "gt": [[0]], "generation_gt": ["fox"]})
+        + "\n"
+        + json.dumps({"id": 101, "contents": "gpu search", "gt": [[2]]})
+    )
+
+
+@pytest.fixture
+def workspaces(tmp_path, monkeypatch):
+    """``tests/test_cli.py``'s workspace, once per package."""
+    out = {}
+    for pkg in (JAX, TORCH):
+        root = tmp_path / pkg
+        root.mkdir()
+        monkeypatch.chdir(root)
+        assert MAINS[pkg](["init"]) == 0
+        _docs_dir(root)
+        assert MAINS[pkg](["ingest", "--name", "local", "--db", "ws", "--extra", "data_dir=data",
+                           "--embedding-model", "mock"]) == 0
+        out[pkg] = root
+    return out
+
+
+def _rows(db):
+    """Result rows per pipeline name, and metric averages per (pipeline, metric)."""
+    with sqlite3.connect(db) as conn:
+        rows = conn.execute(
+            "SELECT p.name, r.query_id, r.chunk_id, r.rel_score FROM chunk_retrieved_result r "
+            "JOIN pipeline p ON p.id = r.pipeline_id ORDER BY p.name, r.query_id, r.rel_score DESC, "
+            "r.chunk_id"
+        ).fetchall()
+        avgs = conn.execute(
+            "SELECT p.name, m.name, AVG(e.value), COUNT(e.value) FROM evaluation_result e "
+            "JOIN pipeline p ON p.id = e.pipeline_id JOIN metric m ON m.id = e.metric_id "
+            "GROUP BY p.name, m.name ORDER BY p.name, m.name"
+        ).fetchall()
+    by = {}
+    for name, q, c, s in rows:
+        by.setdefault(name, {}).setdefault(q, []).append((c, s))
+    return by, avgs
+
+
+def _assert_runs_equal(db_j, db_t, exact=EXACT, fused=FUSED):
+    (rj, aj), (rt, at) = _rows(db_j), _rows(db_t)
+    assert sorted(rt) == sorted(rj) == sorted([*exact, *fused])
+    for name in rj:
+        assert rt[name].keys() == rj[name].keys(), name
+        for q in rj[name]:
+            tj, tt = rj[name][q], rt[name][q]
+            sj = np.array([s for _, s in tj])
+            st = np.array([s for _, s in tt])
+            if name in exact:
+                assert [c for c, _ in tt] == [c for c, _ in tj], (name, q)
+                rtol = 1e-6 if name == "bm25" else 1e-5
+                np.testing.assert_allclose(st, sj, rtol=rtol, err_msg=f"{name} {q}")
+            else:
+                np.testing.assert_allclose(st, sj, rtol=1e-6, atol=1e-5, err_msg=f"{name} {q}")
+                score_j = dict(tj)
+                for (cj, s), (ct, _) in zip(tj, tt):
+                    # ids equal up to fused near-ties within the tolerance
+                    assert ct == cj or abs(score_j.get(ct, np.inf) - s) <= 1e-5 + 1e-6 * abs(s)
+    assert at == aj
+
+
+def test_init_idempotent_and_same_tree(tmp_path, monkeypatch):
+    trees = {}
+    for pkg in (JAX, TORCH):
+        root = tmp_path / pkg
+        root.mkdir()
+        monkeypatch.chdir(root)
+        assert MAINS[pkg](["init"]) == 0
+        assert (root / "configs" / "experiment.yaml").exists()
+        assert MAINS[pkg](["init"]) == 0  # second call: no overwrite, still ok
+        trees[pkg] = {p.relative_to(root / "configs").as_posix(): p.read_text()
+                      for p in (root / "configs").rglob("*.yaml")}
+    assert set(trees[JAX]) - set(trees[TORCH]) == JAX_MODEL_FILES
+    assert set(trees[TORCH]) - set(trees[JAX]) == TORCH_MODEL_FILES
+    for rel in set(trees[JAX]) & set(trees[TORCH]):
+        assert trees[TORCH][rel] == trees[JAX][rel], rel
+    for suffix in ("", "_multi"):
+        jspec = yaml.safe_load(trees[JAX][f"embedding/jax_encoder{suffix}.yaml"])
+        tspec = yaml.safe_load(trees[TORCH][f"embedding/torch_encoder{suffix}.yaml"])
+        assert tspec.pop("type") == "torch_encoder" and jspec.pop("type") == "jax_encoder"
+        assert tspec == jspec
+
+
+def test_full_run_and_report(workspaces, capsys, monkeypatch):
+    """``test_full_run_and_report`` through both CLIs: the template's
+    experiment, then ``report --html``."""
+    out = {}
+    for pkg, root in workspaces.items():
+        monkeypatch.chdir(root)
+        capsys.readouterr()
+        assert MAINS[pkg](["run", "--db", "ws"]) == 0
+        text = capsys.readouterr().out
+        assert "vector_search" in text and "hybrid_rrf" in text and "recall" in text
+        assert MAINS[pkg](["report", "--db", "ws", "--html", "report.html"]) == 0
+        out[pkg] = capsys.readouterr().out.split("wrote")[0]
+        html = (root / "report.html").read_text()
+        assert "hybrid_rrf" in html and "Borda" in html
+    assert out[TORCH] == out[JAX]
+    _assert_runs_equal(workspaces[JAX] / "ws" / "catalog.db", workspaces[TORCH] / "ws" / "catalog.db",
+                       exact=("vector_search", "bm25", "hybrid_rrf"), fused=())
+
+
+def test_synthetic_ingest_run_report_match(tmp_path, capsys, monkeypatch):
+    """The synthetic ingestor at ``scripts/parity_run.py``'s smoke scale,
+    embedded by ``mock``, through both CLIs: an experiment of the dense
+    legs (exact and verified), BM25, RRF and CC. Rows, averages, the
+    printed leaderboard and ``show`` agree."""
+    boards = {}
+    for pkg in (JAX, TORCH):
+        root = tmp_path / pkg
+        root.mkdir()
+        monkeypatch.chdir(root)
+        main = MAINS[pkg]
+        assert main(["init"]) == 0
+        (root / "configs" / "experiment.yaml").write_text(yaml.safe_dump(EXPERIMENT))
+        assert main(["ingest", "--name", "synthetic", "--db", "ws", "--extra", "n_docs=300",
+                     "--extra", "n_queries=20", "--embedding-model", "mock"]) == 0
+        assert main(["run", "--db", "ws"]) == 0
+        capsys.readouterr()
+        assert main(["report", "--db", "ws"]) == 0
+        boards[pkg] = capsys.readouterr().out
+        assert main(["show", "databases"]) == 0
+        assert "ws" in capsys.readouterr().out
+    _assert_runs_equal(tmp_path / JAX / "ws" / "catalog.db", tmp_path / TORCH / "ws" / "catalog.db")
+    assert boards[TORCH] == boards[JAX]
+
+
+def test_run_resume_is_a_noop(workspaces, monkeypatch):
+    monkeypatch.chdir(workspaces[TORCH])
+    assert MAINS[TORCH](["run", "--db", "ws"]) == 0
+    before = _rows(workspaces[TORCH] / "ws" / "catalog.db")
+    _mod(TORCH, "index.registry").invalidate()
+    assert MAINS[TORCH](["run", "--db", "ws"]) == 0
+    assert _rows(workspaces[TORCH] / "ws" / "catalog.db") == before
+
+
+def test_dump_restore_cycle(workspaces, monkeypatch):
+    for pkg, root in workspaces.items():
+        monkeypatch.chdir(root)
+        main = MAINS[pkg]
+        assert main(["data", "dump", "--db", "ws", "--file", "ws.tar.gz"]) == 0
+        assert main(["data", "restore", "--db", "ws2", "--file", "ws.tar.gz"]) == 0
+        assert (root / "ws2" / "catalog.db").exists()
+        assert (root / "ws" / "catalog.db").exists()  # original untouched
+        assert main(["data", "restore", "--db", "ws2", "--file", "ws.tar.gz"]) == 1
+
+
+def test_drop(workspaces, monkeypatch):
+    for pkg, root in workspaces.items():
+        monkeypatch.chdir(root)
+        assert MAINS[pkg](["drop", "--db", "ws", "-y"]) == 0
+        assert not (root / "ws").exists()
+        assert MAINS[pkg](["drop", "--db", "ws", "-y"]) == 1
+
+
+@pytest.mark.parametrize("what,needle", [("ingestors", "synthetic"), ("pipelines", "hybrid_rrf"),
+                                         ("metrics", "ndcg")])
+def test_show_variants(workspaces, capsys, monkeypatch, what, needle):
+    monkeypatch.chdir(workspaces[TORCH])
+    capsys.readouterr()
+    assert MAINS[TORCH](["show", what]) == 0
+    assert needle in capsys.readouterr().out
+
+
+def test_show_lists_what_the_port_has(capsys):
+    assert torch_main(["show", "pipelines"]) == 0
+    names = {line.split()[0] for line in capsys.readouterr().out.splitlines()}
+    assert names == set(_mod(TORCH, "config").BasePipelineConfig.registry)
+    assert torch_main(["show", "metrics"]) == 0
+    out = capsys.readouterr().out
+    assert "[generation]" not in out and "recall" in out
+
+
+def test_health_check(workspaces, capsys, monkeypatch):
+    monkeypatch.chdir(workspaces[TORCH])
+    capsys.readouterr()
+    assert MAINS[TORCH](["health-check", "--db", "ws", "--embedding", "mock"]) == 0
+    out = capsys.readouterr().out
+    assert "db ok" in out and "embedding 'mock' ok" in out and "device cpu" in out
+    assert MAINS[TORCH](["health-check", "--llm", "mock"]) == 1
+    assert "item 7" in capsys.readouterr().out
+    assert MAINS[TORCH](["health-check", "--llm", "no_such_model"]) == 1
+    assert MAINS[TORCH](["health-check", "--db", "nope.db"]) == 1
+
+
+@pytest.mark.parametrize("argv", [
+    ["run", "--db", "ws"],
+    ["ingest", "--name", "local", "--db", "ws", "--extra", "data_dir=data"],
+    ["serve", "--db", "ws"],
+    ["health-check"],
+], ids=["run", "ingest", "serve", "health-check"])
+def test_cuda_without_gpu_fails(workspaces, capsys, monkeypatch, argv):
+    """The default ``--device cuda`` on a machine with no GPU fails before
+    the command does anything; it does not carry on on the CPU."""
+    import torch
+
+    monkeypatch.chdir(workspaces[TORCH])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = _rows(workspaces[TORCH] / "ws" / "catalog.db")
+    capsys.readouterr()
+    assert torch_main(argv) == 2
+    assert "no CUDA GPU" in capsys.readouterr().err
+    assert _rows(workspaces[TORCH] / "ws" / "catalog.db") == before
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["run", "--db", "ws", "--mesh"], "item 6"),
+    (["serve", "--db", "ws", "--mesh"], "item 6"),
+    (["train"], "item 9"),
+    (["data", "upload", "--db", "ws", "--ingestor", "local"], "item 7"),
+    (["data", "download", "--db", "ws3", "--ingestor", "local"], "item 7"),
+    (["show", "dumps", "--ingestor", "local"], "item 7"),
+], ids=["run-mesh", "serve-mesh", "train", "upload", "download", "show-dumps"])
+def test_refused_commands_name_their_item(workspaces, capsys, monkeypatch, argv, item):
+    monkeypatch.chdir(workspaces[TORCH])
+    capsys.readouterr()
+    assert MAINS[TORCH](argv) == 2
+    err = capsys.readouterr().err
+    assert item in err and "ROADMAP.md" in err
+    assert not (workspaces[TORCH] / "ws3").exists()
+
+
+def test_serve_workspace_mesh_raises(workspaces):
+    server = _mod(TORCH, "serving.server")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        server.serve_workspace(str(workspaces[TORCH] / "ws"), mesh=True, device="cpu")
+
+
+def test_python_dash_m_entry(tmp_path):
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-m", "autorag_research_tpu_torch.cli", "--help"],
+                         cwd=repo, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0 and "--device" in out.stdout
+
+
+class TestInjection:
+    def test_builtin_and_yaml(self, tmp_path):
+        reg_t = _mod(TORCH, "injection").ModelRegistry
+        (tmp_path / "embedding").mkdir()
+        (tmp_path / "embedding" / "small.yaml").write_text(yaml.dump({"type": "mock", "dim": 8}))
+        reg = reg_t(tmp_path, device="cpu")
+        emb = reg.load_embedding("small")
+        assert emb.dim == 8
+        assert reg.load_embedding("small") is emb  # cached
+        jemb = _mod(JAX, "injection").ModelRegistry(tmp_path).load_embedding("small")
+        assert emb.embed_texts(["a b"]).tobytes() == jemb.embed_texts(["a b"]).tobytes()
+
+    def test_nested_model_resolution_refused(self, tmp_path):
+        (tmp_path / "reranker").mkdir()
+        (tmp_path / "reranker" / "lw.yaml").write_text(
+            yaml.dump({"type": "llm_listwise", "llm": "mock"}))
+        reg = _mod(TORCH, "injection").ModelRegistry(tmp_path, device="cpu")
+        with pytest.raises(_mod(TORCH, "exceptions").ModelLoadError, match="item 7"):
+            reg.load_reranker("lw")
+
+    def test_unknown_raises(self):
+        with pytest.raises(_mod(TORCH, "exceptions").ModelLoadError, match="unknown llm"):
+            _mod(TORCH, "injection").ModelRegistry().load_llm("nope")
+
+    @pytest.mark.parametrize("kind,name,item", [
+        ("llm", "mock", "item 7"), ("llm", "openai", "item 7"), ("llm", "jax_lm", "item 9"),
+        ("embedding", "openai", "item 7"), ("embedding", "colpali", "item 7"),
+        ("embedding", "infinity", "item 7"), ("embedding", "jax_encoder", "torch_encoder"),
+        ("reranker", "mock", "item 7"), ("reranker", "colbert", "item 7"),
+        ("reranker", "jax_cross_encoder", "item 9"),
+    ])
+    def test_deferred_kinds_name_their_item(self, kind, name, item):
+        reg = _mod(TORCH, "injection").ModelRegistry(device="cpu")
+        with pytest.raises(_mod(TORCH, "exceptions").ModelLoadError, match=item):
+            getattr(reg, f"load_{kind}")(name)
+
+    @pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
+    def test_torch_encoder_on_registry_device_matches_jax(self, tmp_path, multi):
+        """``torch_encoder`` on the registry's device, carried JAX weights:
+        within 1e-5 of ``jax_encoder``; ``multi_vector: true`` gives the
+        token-level class."""
+        from autorag_research_tpu.embeddings.jax_encoder import save_params
+        from autorag_research_tpu.models import encoder as jenc
+        from autorag_research_tpu_torch.embeddings.torch_encoder import (
+            TorchEncoderEmbedding,
+            TorchEncoderMultiVectorEmbedding,
+        )
+
+        params = tmp_path / "enc.npz"
+        save_params(jenc.RetrievalEncoder(jenc.EncoderConfig(multi_vector=multi, **SMALL)).init(5),
+                    params)
+        (tmp_path / "embedding").mkdir()
+        for t in ("jax_encoder", "torch_encoder"):
+            (tmp_path / "embedding" / f"{t}.yaml").write_text(yaml.dump(
+                {"type": t, "multi_vector": multi, "params_path": str(params), **SMALL}))
+        temb = _mod(TORCH, "injection").ModelRegistry(tmp_path, device="cpu").load_embedding(
+            "torch_encoder")
+        jemb = _mod(JAX, "injection").ModelRegistry(tmp_path).load_embedding("jax_encoder")
+        assert type(temb) is (TorchEncoderMultiVectorEmbedding if multi else TorchEncoderEmbedding)
+        assert str(temb.device) == "cpu"
+        texts = ["find the gpu", "a b c", ""]
+        if multi:
+            for a, b in zip(temb.embed_texts_multi(texts), jemb.embed_texts_multi(texts)):
+                np.testing.assert_allclose(a, b, atol=1e-5)
+        else:
+            np.testing.assert_allclose(temb.embed_texts(texts), jemb.embed_texts(texts), atol=1e-5)
+
+    def test_default_device_is_cuda(self):
+        assert _mod(TORCH, "injection").ModelRegistry().device == "cuda"
+
+
+class TestReporting:
+    def test_borda(self, workspaces, monkeypatch):
+        frames = {}
+        for pkg, root in workspaces.items():
+            monkeypatch.chdir(root)
+            assert MAINS[pkg](["run", "--db", "ws"]) == 0
+            service = _mod(pkg, "reporting.service").ReportingService([root / "ws"])
+            lb = service.leaderboard()
+            assert set(lb.pipeline) == {"vector_search", "bm25", "hybrid_rrf"}
+            borda = service.borda_ranking()
+            assert borda.iloc[0].borda_points >= borda.iloc[-1].borda_points
+            cross = service.cross_dataset("recall")
+            assert "ws" in cross.columns
+            frames[pkg] = (lb, borda, cross, service.summary())
+        for a, b in zip(frames[TORCH], frames[JAX]):
+            assert a.equals(b)
+
+    def test_html_and_live_ui(self, workspaces, monkeypatch):
+        import urllib.request
+
+        monkeypatch.chdir(workspaces[TORCH])
+        assert MAINS[TORCH](["run", "--db", "ws"]) == 0
+        ui = _mod(TORCH, "reporting.ui").serve_report([workspaces[TORCH] / "ws"], port=0)
+        try:
+            with urllib.request.urlopen(ui.url, timeout=10) as resp:
+                page = resp.read().decode()
+        finally:
+            ui.shutdown()
+        service = _mod(TORCH, "reporting.service").ReportingService([workspaces[TORCH] / "ws"])
+        assert page == _mod(TORCH, "reporting.html").render_html(service)
+        assert "hybrid_rrf" in page
+
+
+class TestPlugins:
+    def test_scaffold(self, tmp_path):
+        import sys
+
+        root = _mod(TORCH, "plugin_registry").create_plugin_scaffold("my_torch_plugin", tmp_path)
+        assert (root / "pyproject.toml").exists()
+        assert "autorag_research_tpu_torch.pipelines" in (root / "pyproject.toml").read_text()
+        assert (root / "my_torch_plugin" / "configs" / "pipelines" / "retrieval"
+                / "my_torch_plugin.yaml").exists()
+        sys.path.insert(0, str(root))
+        try:
+            importlib.import_module("my_torch_plugin.pipeline")
+            registry = _mod(TORCH, "config").BasePipelineConfig.registry
+            assert "my_torch_plugin" in registry
+            assert "my_torch_plugin" not in _mod(JAX, "config").BasePipelineConfig.registry
+        finally:
+            sys.path.remove(str(root))
+            registry.pop("my_torch_plugin", None)
+
+    def test_register_metric(self):
+        from autorag_research_tpu_torch.evaluation.metrics.retrieval import RETRIEVAL_METRICS
+
+        plugins = _mod(TORCH, "plugin_registry")
+        plugins.register_metric("always_one", "retrieval", lambda inputs: [1.0] * len(inputs))
+        try:
+            assert "always_one" in RETRIEVAL_METRICS
+        finally:
+            del RETRIEVAL_METRICS["always_one"]
+        with pytest.raises(_mod(TORCH, "exceptions").MetricNotFoundError, match="item 7"):
+            plugins.register_metric("always_two", "generation", lambda inputs: [2.0])
+
+    def test_sync_and_cli(self, tmp_path, capsys, monkeypatch):
+        monkeypatch.chdir(tmp_path)
+        assert torch_main(["plugin", "create", "--name", "cli_plugin", "--dir", "."]) == 0
+        assert (tmp_path / "cli_plugin" / "pyproject.toml").exists()
+        assert torch_main(["plugin", "sync"]) == 0  # no installed plugin: nothing to copy
+        assert "no plugin configs" in capsys.readouterr().out
+
+
+class TestConfigResolver:
+    def test_experiment_with_wrapper_deps(self, tmp_path, monkeypatch):
+        monkeypatch.chdir(tmp_path)
+        torch_main(["init"])
+        resolver = _mod(TORCH, "cli.config_resolver").ConfigResolver(tmp_path / "configs")
+        config = resolver.load_experiment()
+        names = [p.name for p in config.pipelines]
+        assert names == ["vector_search", "bm25", "hybrid_rrf"]
+        assert all(type(p).__module__.startswith(TORCH) for p in config.pipelines)
+        assert config.extra_pipeline_configs == {}
+        m = resolver.resolve_metric("retrieval", "mrr")
+        assert m.name == "mrr"
+
+    def test_transitive_dependency_resolved(self, tmp_path, monkeypatch):
+        monkeypatch.chdir(tmp_path)
+        torch_main(["init"])
+        (tmp_path / "configs" / "experiment.yaml").write_text(yaml.safe_dump(
+            {"pipelines": {"retrieval": ["hybrid_cc"]}, "metrics": {"retrieval": ["recall"]}}))
+        config = _mod(TORCH, "cli.config_resolver").ConfigResolver(
+            tmp_path / "configs").load_experiment()
+        assert sorted(config.extra_pipeline_configs) == ["bm25", "vector_search"]
+
+
+def test_every_template_pipeline_config_resolves_or_names_its_item(tmp_path, monkeypatch):
+    """Every shipped pipeline YAML resolves to the port's typed config, or
+    (a pipeline still to port) is refused naming ROADMAP.md item 8; the
+    same files resolve in the JAX package."""
+    monkeypatch.chdir(tmp_path)
+    torch_main(["init"])
+    resolver = _mod(TORCH, "cli.config_resolver").ConfigResolver(tmp_path / "configs")
+    jresolver = _mod(JAX, "cli.config_resolver").ConfigResolver(tmp_path / "configs")
+    resolved = 0
+    for kind in ("retrieval", "generation"):
+        names = resolver.all_pipeline_names(kind)
+        assert names, kind
+        for name in names:
+            assert jresolver.resolve_pipeline(kind, name).name == name
+            try:
+                config = resolver.resolve_pipeline(kind, name)
+            except _mod(TORCH, "exceptions").PipelineConfigError as exc:
+                assert "item 8" in str(exc), name
+                continue
+            assert config.name == name and config.kind == kind == "retrieval"
+            resolved += 1
+    assert resolved >= 10  # the dense, MaxSim, BM25 and hybrid presets
+
+
+def test_every_model_preset_type_is_registered_or_deferred():
+    from autorag_research_tpu_torch.cli.templates import DEFAULT_CONFIGS
+    from autorag_research_tpu_torch.injection import _FACTORIES, DEFERRED
+
+    checked = 0
+    for rel, content in DEFAULT_CONFIGS.items():
+        kind = rel.split("/", 1)[0]
+        if kind not in ("llm", "embedding", "reranker"):
+            continue
+        t = yaml.safe_load(content)["type"]
+        assert t in _FACTORIES[kind] or t in DEFERRED[kind], f"{rel}: type '{t}'"
+        checked += 1
+    assert checked >= 30
+
+
+class TestIndexArtifacts:
+    def test_artifact_persist_and_reload(self, workspaces):
+        registry = _mod(TORCH, "index.registry")
+        DenseIndex = _mod(TORCH, "index.dense").DenseIndex
+        cat = _mod(TORCH, "store.catalog").Catalog(workspaces[TORCH] / "ws" / "catalog.db")
+        idx = registry.get_or_build(cat, "dense", "chunk", device="cpu",
+                                    builder=lambda: DenseIndex.from_catalog(cat, device="cpu"))
+        assert (workspaces[TORCH] / "ws" / "indexes" / "dense_chunk" / "fingerprint.json").exists()
+        registry.invalidate()
+
+        def explode():
+            raise AssertionError("builder should not be called; artifact present")
+
+        idx2 = registry.get_or_build(cat, "dense", "chunk", builder=explode, device="cpu")
+        assert idx2.ids == idx.ids
+        cat.close()
+
+    def test_artifact_stale_on_growth(self, workspaces):
+        registry = _mod(TORCH, "index.registry")
+        DenseIndex = _mod(TORCH, "index.dense").DenseIndex
+        cat = _mod(TORCH, "store.catalog").Catalog(workspaces[TORCH] / "ws" / "catalog.db")
+        registry.get_or_build(cat, "dense", "chunk", device="cpu",
+                              builder=lambda: DenseIndex.from_catalog(cat, device="cpu"))
+        registry.invalidate()
+        emb = _mod(TORCH, "embeddings").MockEmbedding(dim=64)
+        cat.add_chunks([{"id": 999, "contents": "new doc", "embedding": emb.embed_query("new doc")}])
+        built = []
+        idx = registry.get_or_build(
+            cat, "dense", "chunk", device="cpu",
+            builder=lambda: (built.append(1), DenseIndex.from_catalog(cat, device="cpu"))[1],
+        )
+        assert built == [1]  # stale artifact rebuilt
+        assert 999 in idx.ids
+        cat.close()
+
+    def test_concurrent_misses_build_once(self, workspaces):
+        """Eight threads miss the cache at once: one build, one index."""
+        import sys
+        import threading
+
+        registry = _mod(TORCH, "index.registry")
+        cat = _mod(TORCH, "store.catalog").Catalog(workspaces[TORCH] / "ws" / "catalog.db")
+        calls, got = [], []
+        start = threading.Barrier(8)
+
+        def builder():
+            calls.append(1)
+            return object()
+
+        def worker():
+            start.wait(timeout=10)
+            got.append(registry.get_or_build(cat, "probe", "chunk", builder=builder,
+                                             persist=False, device="cpu"))
+
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=worker) for _ in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=10)
+        finally:
+            sys.setswitchinterval(old)
+        assert not any(t.is_alive() for t in threads)
+        assert len(calls) == 1 and len(got) == 8 and all(g is got[0] for g in got)
+        cat.close()

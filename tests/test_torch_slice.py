@@ -130,8 +130,21 @@ import chip_smoke  # noqa: F401  (the smoke script imports nothing of JAX either
 
 leaked = [m for m in sys.modules if m == "autorag_research_tpu" or m.startswith("autorag_research_tpu.")]
 assert not leaked, leaked
+print(" ".join(names))
 print("imported", len(names))
 """
+
+# the user entry points, each of which must import with jax and the JAX
+# package blocked (the CLI's ``__main__`` imports without running)
+ENTRY_MODULES = [
+    f"autorag_research_tpu_torch.{m}"
+    for m in (
+        "cli.app", "cli.config_resolver", "cli.templates", "cli.__main__",
+        "serving.server", "serving.metrics", "injection", "plugin_registry",
+        "store.ingestion", "data.base", "data.registry", "data.synthetic", "data.local",
+        "reporting.service", "reporting.html", "reporting.ui",
+    )
+]
 
 
 def test_port_imports_without_jax_or_jax_package():
@@ -140,6 +153,8 @@ def test_port_imports_without_jax_or_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 25
+    imported = set(out.stdout.splitlines()[-2].split())
+    assert set(ENTRY_MODULES) <= imported, set(ENTRY_MODULES) - imported
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "script-alone"])
