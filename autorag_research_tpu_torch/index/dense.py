@@ -33,6 +33,7 @@ from autorag_research_tpu_torch.ops.dense import (
     pad_width,
     quantize_int8,
 )
+from autorag_research_tpu_torch.utils.concurrency import map_row_chunks
 
 # the verified sidecar pads its bf16 rows to this multiple
 _SIDECAR_PAD_ROWS = 2048
@@ -46,11 +47,28 @@ def _device_memory_bytes(device: torch.device) -> int:
     return int(total)
 
 
+# rows of a matrix normalized at a time, chunks in threads: each row's
+# arithmetic is its own, so the result is the whole matrix's bit for bit
+_NORMALIZE_CHUNK_ROWS = 16384
+
+
+def _l2_normalize_rows(x: np.ndarray) -> np.ndarray:
+    norms = np.linalg.norm(x, axis=-1, keepdims=True)
+    return np.where(norms > 0, x / np.where(norms == 0, 1.0, norms), 0.0)
+
+
 def l2_normalize(x: np.ndarray) -> np.ndarray:
     """Row-normalize; zero rows stay zero (cosine undefined -> score 0)."""
     x = np.asarray(x, dtype=np.float32)
-    norms = np.linalg.norm(x, axis=-1, keepdims=True)
-    return np.where(norms > 0, x / np.where(norms == 0, 1.0, norms), 0.0)
+    if x.ndim != 2 or x.shape[0] <= _NORMALIZE_CHUNK_ROWS:
+        return _l2_normalize_rows(x)
+    out = np.empty_like(x)
+
+    def part(rows: slice) -> None:
+        out[rows] = _l2_normalize_rows(x[rows])
+
+    map_row_chunks(part, x.shape[0], _NORMALIZE_CHUNK_ROWS)
+    return out
 
 
 def _l2_normalize_device(q: torch.Tensor) -> torch.Tensor:

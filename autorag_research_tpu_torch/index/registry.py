@@ -30,12 +30,14 @@ logger = logging.getLogger("AutoRAG-Research-TPU")
 _CACHE: dict[tuple, Any] = {}
 _BUILD_LOCK = threading.RLock()  # held across a miss's load or build
 
-# kinds whose index class this package has; artifacts of other kinds are
-# left alone (the JAX package's loaders cover them)
+# the index class of each kind that persists as an artifact; each one's
+# ``load(path, device=)`` reads what either package's ``save`` wrote
 _LOADERS = {
     "dense": ("autorag_research_tpu_torch.index.dense", "DenseIndex"),
     "multi_vector": ("autorag_research_tpu_torch.index.multi_vector", "MultiVectorIndex"),
     "sparse": ("autorag_research_tpu_torch.index.sparse", "SparseIndex"),
+    "ivf": ("autorag_research_tpu_torch.index.ivf", "IVFIndex"),
+    "ivf_contiguous": ("autorag_research_tpu_torch.index.ivf_contiguous", "IVFContiguousIndex"),
 }
 
 

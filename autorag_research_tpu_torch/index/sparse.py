@@ -1,11 +1,17 @@
 """BM25 sparse index: tokenization -> document statistics -> slot arrays on one GPU.
 
-Counterpart of ``autorag_research_tpu/index/sparse.py``. The build tokenizes
-in Python and fills the slot arrays with vectorized numpy: document
-frequencies, lengths and per-(doc, term) BM25 weights
+Counterpart of ``autorag_research_tpu/index/sparse.py``. The build computes
+document frequencies, lengths and per-(doc, term) BM25 weights
 ``tf (k1 + 1) / (tf + k1 (1 - b + b dl / avgdl))`` in float64, cast to f32,
-bitwise equal to the JAX package's ``_build_python`` (vocabulary in first-seen
-order, slots in first-occurrence order, the same ``max_slots`` truncation).
+vocabulary in first-seen order, by the JAX package's rule: with the
+``simple`` or ``wiki_tocken`` tokenizer, no ``max_slots`` and an all-ASCII
+corpus, the native C++ builder (``native.py``, the JAX package's
+``build_sparse_native``, slots in its hash table's order); otherwise the
+plain builder, Python tokenization and vectorized numpy, bitwise equal to the
+JAX package's ``_build_python`` (slots in first-occurrence order, the same
+``max_slots`` truncation). Per (doc, term) the two give the same weights.
+The pruned legs' term -> tile lists and Bloom bitmaps come from the native
+aux builders.
 Query weights are Lucene's ``idf = ln(1 + (N - df + 0.5) / (df + 0.5))``
 times the query term count. Scores are positive, higher is better; hits
 with score <= 0 (no term overlap) are dropped.
@@ -48,6 +54,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from autorag_research_tpu_torch import native
 from autorag_research_tpu_torch.exceptions import IndexNotBuiltError
 from autorag_research_tpu_torch.index.base import SearchHit
 from autorag_research_tpu_torch.index.buckets import _plan_buckets
@@ -171,6 +178,28 @@ class SparseIndex:
         return cls([r["id"] for r in rows], [r["contents"] for r in rows], **kwargs)
 
     def _build(self, texts: Sequence[str]) -> None:
+        """The native C++ builder for the ``simple`` / ``wiki_tocken``
+        tokenizers with no ``max_slots`` over an all-ASCII corpus (its
+        tokenizer has no Unicode tables), :meth:`_build_plain` otherwise:
+        the JAX package's rule (``index/sparse.py:141-150``). A native build
+        that fails raises."""
+        if (
+            self.tokenizer_name in ("simple", "wiki_tocken")
+            and self.max_slots is None
+            and all((t or "").isascii() for t in texts)
+        ):
+            built = native.build_sparse_native(list(texts), self.k1, self.b)
+            self.vocab = built["vocab"]
+            self.doc_freq = built["doc_freq"]
+            self.doc_lengths = built["doc_lengths"]
+            self.avgdl = built["avgdl"]
+            self._slot_ids = built["slot_ids"]
+            self._slot_weights = built["slot_weights"]
+            self._apply_cluster_layout()
+            return
+        self._build_plain(texts)
+
+    def _build_plain(self, texts: Sequence[str]) -> None:
         """Tokenize in Python, then fill the slot arrays with numpy."""
         tok = get_tokenizer(self.tokenizer_name)
         n = len(texts)

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from autorag_research_tpu_torch.ops import cuda_build
-from autorag_research_tpu_torch.utils.concurrency import count_call
+from autorag_research_tpu_torch.utils.concurrency import count_call, map_row_chunks
 from autorag_research_tpu_torch.ops.topk import (  # noqa: F401 - re-exported
     INT_MAX,
     NEG_INF,
@@ -562,6 +562,9 @@ def _dense_topk_int8_scan(
 
 
 # ------------------------------------------------------- verified exact fast
+_SIDECAR_CHUNK_ROWS = 65536
+
+
 def build_verified_sidecar(corpus, rep: str = "int8", pad_rows_to: int | None = None) -> dict:
     """Host-side prescreen sidecar for :func:`dense_topk_verified`.
 
@@ -575,15 +578,12 @@ def build_verified_sidecar(corpus, rep: str = "int8", pad_rows_to: int | None = 
     c = np.asarray(corpus, dtype=np.float32)
     if c.size == 0:
         raise ValueError("cannot build a verified sidecar for an empty corpus")
-    c64 = c.astype(np.float64)
     if rep == "int8":
         lo_np, scale_np = quantize_int8(c)
         corpus_lo, corpus_scale = torch.from_numpy(lo_np), torch.from_numpy(scale_np)
-        deq = lo_np.astype(np.float64) * scale_np.astype(np.float64)[:, None]
     elif rep == "bf16":
         corpus_lo = torch.from_numpy(c).to(torch.bfloat16)
         corpus_scale = None
-        deq = corpus_lo.float().numpy().astype(np.float64)
     else:
         raise ValueError(f"unknown verified prescreen rep: {rep}")
 
@@ -591,8 +591,20 @@ def build_verified_sidecar(corpus, rep: str = "int8", pad_rows_to: int | None = 
         x32 = np.float32(x * (1.0 + 1e-6))
         return float(np.nextafter(x32, np.float32(np.inf)))
 
-    r_max = _up(float(np.linalg.norm(c64 - deq, axis=1).max()))
-    nd_max = _up(float(np.linalg.norm(c64, axis=1).max()))
+    # float64 row norms over row chunks in threads: the same per-row values,
+    # and so the same maxima, as over the whole matrix, without float64
+    # copies of it
+    def part(rows: slice) -> tuple[float, float]:
+        c64 = c[rows].astype(np.float64)
+        if rep == "int8":
+            deq = lo_np[rows].astype(np.float64) * scale_np[rows].astype(np.float64)[:, None]
+        else:
+            deq = corpus_lo[rows].float().numpy().astype(np.float64)
+        return float(np.linalg.norm(c64 - deq, axis=1).max()), float(np.linalg.norm(c64, axis=1).max())
+
+    maxima = map_row_chunks(part, c.shape[0], _SIDECAR_CHUNK_ROWS)
+    r_max = _up(max(m[0] for m in maxima))
+    nd_max = _up(max(m[1] for m in maxima))
     if pad_rows_to:
         pad = _round_up(corpus_lo.shape[0], pad_rows_to) - corpus_lo.shape[0]
         if pad:

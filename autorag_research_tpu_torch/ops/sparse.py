@@ -51,6 +51,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from autorag_research_tpu_torch import native
 from autorag_research_tpu_torch.ops import cuda_build
 from autorag_research_tpu_torch.utils.concurrency import count_call
 from autorag_research_tpu_torch.ops.dense import _round_up
@@ -418,13 +419,7 @@ def bitmap_words_for(doc_ids: np.ndarray, block_n: int) -> int:
     return max(64, int(2 ** np.ceil(np.log2(distinct * 16 / 32))))
 
 
-def build_tile_bitmaps(doc_ids: np.ndarray, block_n: int, n_words: int | None = None) -> np.ndarray:
-    """Per-doc-tile 4-probe Bloom term filters, [n_tiles, n_words] int32:
-    tile t covers doc rows [t*block_n, (t+1)*block_n), and a term is possibly
-    present iff all 4 probe bits are set. False positives only cost a missed
-    skip. The numpy path of the JAX ``build_tile_bitmaps``, bit for bit."""
-    n = doc_ids.shape[0]
-    n_tiles = -(-n // block_n)
+def _bitmap_words(doc_ids: np.ndarray, block_n: int, n_words: int | None) -> int:
     if n_words is None:
         n_words = bitmap_words_for(doc_ids, block_n)
     space = 32 * n_words
@@ -434,6 +429,28 @@ def build_tile_bitmaps(doc_ids: np.ndarray, block_n: int, n_words: int | None = 
             "query-side probe reduces modulo 2^32 first, which agrees with these "
             "bitmap residues only when the space divides 2^32"
         )
+    return n_words
+
+
+def build_tile_bitmaps(doc_ids: np.ndarray, block_n: int, n_words: int | None = None) -> np.ndarray:
+    """Per-doc-tile 4-probe Bloom term filters, [n_tiles, n_words] int32:
+    tile t covers doc rows [t*block_n, (t+1)*block_n), and a term is possibly
+    present iff all 4 probe bits are set. False positives only cost a missed
+    skip. Built by the native library (JAX ``build_tile_bitmaps``, which
+    routes to its native builder); :func:`build_tile_bitmaps_plain` is the
+    same function in numpy."""
+    n_words = _bitmap_words(doc_ids, block_n, n_words)
+    return native.build_tile_bitmaps_native(np.asarray(doc_ids), block_n, n_words)
+
+
+def build_tile_bitmaps_plain(doc_ids: np.ndarray, block_n: int, n_words: int | None = None) -> np.ndarray:
+    """:func:`build_tile_bitmaps` in numpy (the numpy path of the JAX
+    ``build_tile_bitmaps``, bit for bit; an empty corpus gives no tile where
+    the native builder gives one empty tile)."""
+    n = doc_ids.shape[0]
+    n_tiles = -(-n // block_n)
+    n_words = _bitmap_words(doc_ids, block_n, n_words)
+    space = 32 * n_words
     rows, cols = np.nonzero(doc_ids >= 0)
     keys = np.unique((rows // block_n).astype(np.int64) * (2**32) + doc_ids[rows, cols])
     tile_of = (keys >> 32).astype(np.int64)
@@ -567,8 +584,15 @@ def _csr_by_term(terms: np.ndarray) -> np.ndarray:
 def build_term_tile_lists(doc_ids: np.ndarray, block_n: int) -> tuple[np.ndarray, np.ndarray]:
     """Exact host inverted index at tile granularity: CSR (indptr, tiles)
     mapping term id -> sorted unique doc tiles holding it, the probe's
-    candidate source. The numpy path of the JAX ``build_term_tile_lists``,
-    bit for bit."""
+    candidate source. Built by the native library (JAX
+    ``build_term_tile_lists``, which routes to its native builder);
+    :func:`build_term_tile_lists_plain` is the same function in numpy."""
+    return native.build_term_tile_lists_native(np.asarray(doc_ids), block_n)
+
+
+def build_term_tile_lists_plain(doc_ids: np.ndarray, block_n: int) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`build_term_tile_lists` in numpy (the numpy path of the JAX
+    ``build_term_tile_lists``, bit for bit)."""
     n = doc_ids.shape[0]
     n_tiles = max(1, -(-n // block_n))
     rows, cols = np.nonzero(doc_ids >= 0)

@@ -1,18 +1,21 @@
 """Vector search pipeline (single-vector cosine / multi-vector MaxSim).
 
-Counterpart of ``autorag_research_tpu/pipelines/retrieval/vector_search.py``
-over the exact indexes (modes ``"exact"`` and ``"verified"`` through
-``index_options={"mode": ...}``):
+Counterpart of ``autorag_research_tpu/pipelines/retrieval/vector_search.py``:
 
-- ``search_mode="single"``: cosine top-k over the :class:`DenseIndex`; score
-  = cosine similarity (the reference's ``1 - distance``).
+- ``search_mode="single"``: cosine top-k over the index of ``index_type``:
+  ``"exact"`` the :class:`DenseIndex` (modes through
+  ``index_options={"mode": ...}``), ``"ivf"`` the :class:`IVFIndex`,
+  ``"ivf_contiguous"`` the :class:`IVFContiguousIndex` (ANN); score = cosine
+  similarity (the reference's ``1 - distance``). ``index_options`` are the
+  index's build options and part of its cache and artifact identity, so two
+  configs with different options never share an index. A JAX config's
+  ``device`` option of ``ivf_contiguous`` (``"tpu"`` / ``"host"``) is read as
+  its placement.
 - ``search_mode="multi"``: MaxSim over the :class:`MultiVectorIndex`; score =
   MaxSim / n_query_vectors. ``maxsim_prefilter`` opts into the two-stage
   proxy prefilter plus exact rerank.
 
-The batch path scores every pending query of a page in one search. The IVF
-indexes arrive with a later slice of the port; until then the pipeline, and
-so ``VectorSearchConfig``, refuses ``index_type="ivf"`` / ``"ivf_contiguous"``.
+The batch path scores every pending query of a page in one search.
 """
 
 from __future__ import annotations
@@ -27,8 +30,18 @@ from autorag_research_tpu_torch.config import BasePipelineConfig
 from autorag_research_tpu_torch.exceptions import EmbeddingMissingError
 from autorag_research_tpu_torch.index import registry
 from autorag_research_tpu_torch.index.dense import DenseIndex
+from autorag_research_tpu_torch.index.ivf import IVFIndex
+from autorag_research_tpu_torch.index.ivf_contiguous import IVFContiguousIndex, placement_of
 from autorag_research_tpu_torch.index.multi_vector import MultiVectorIndex
 from autorag_research_tpu_torch.pipelines.retrieval.base import BaseRetrievalPipeline
+
+
+# index_type -> (registry kind, index class) of a single-vector search
+_INDEX_CLASSES = {
+    "exact": ("dense", DenseIndex),
+    "ivf": ("ivf", IVFIndex),
+    "ivf_contiguous": ("ivf_contiguous", IVFContiguousIndex),
+}
 
 
 class VectorSearchPipeline(BaseRetrievalPipeline):
@@ -41,15 +54,15 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
         search_mode: Literal["single", "multi"] = "single",
         embedding_model=None,
         table: str = "chunk",
-        index_type: Literal["exact"] = "exact",
+        index_type: Literal["exact", "ivf", "ivf_contiguous"] = "exact",
         index_options: dict | None = None,
         maxsim_prefilter: int | None = None,
         device: str | torch.device = "cuda",
     ):
         if search_mode not in ("single", "multi"):
             raise ValueError(f"unknown search_mode: {search_mode}")
-        if index_type != "exact":
-            raise NotImplementedError(f"index_type={index_type!r} is ported with the IVF slice")
+        if index_type not in _INDEX_CLASSES:
+            raise ValueError(f"unknown index_type: {index_type!r} (one of {', '.join(_INDEX_CLASSES)})")
         self.search_mode = search_mode
         self.embedding_model = embedding_model
         self.table = table
@@ -76,17 +89,20 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
 
     # ------------------------------------------------------------------ index
     def _index(self):
-        multi = self.search_mode == "multi"
-        cls = MultiVectorIndex if multi else DenseIndex
+        if self.search_mode == "multi":  # index_type is for single vectors
+            kind, cls = "multi_vector", MultiVectorIndex
+        else:
+            kind, cls = _INDEX_CLASSES[self.index_type]
+        options = dict(self.index_options)
+        if kind == "ivf_contiguous" and "device" in options:
+            options["placement"] = placement_of(options.pop("device"))
         return registry.get_or_build(
             self.catalog,
-            "multi_vector" if multi else "dense",
+            kind,
             self.table,
-            builder=lambda: cls.from_catalog(
-                self.catalog, self.table, device=self.device, **self.index_options
-            ),
+            builder=lambda: cls.from_catalog(self.catalog, self.table, device=self.device, **options),
             device=self.device,
-            **{str(k): str(v) for k, v in sorted(self.index_options.items())},
+            **{str(k): str(v) for k, v in sorted(options.items())},
         )
 
     # ----------------------------------------------------------------- search

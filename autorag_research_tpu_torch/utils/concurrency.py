@@ -11,8 +11,10 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import random
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from collections.abc import Awaitable, Callable, Sequence
 from dataclasses import dataclass
 from typing import Any, TypeVar
@@ -31,6 +33,18 @@ def count_call(counts: dict[str, int], name: str) -> None:
     that the interpreter lock does not make atomic."""
     with _COUNT_LOCK:
         counts[name] += 1
+
+
+def map_row_chunks(fn: Callable[[slice], T], n_rows: int, chunk: int) -> list[T]:
+    """``fn`` over consecutive slices of ``chunk`` rows, in threads, results
+    in row order: for host array passes whose rows are independent (numpy
+    releases the interpreter lock inside its array loops), so the result is
+    the sequential one."""
+    parts = [slice(lo, lo + chunk) for lo in range(0, n_rows, chunk)]
+    if len(parts) <= 1:
+        return [fn(p) for p in parts]
+    with ThreadPoolExecutor(max_workers=min(len(parts), os.cpu_count() or 1)) as pool:
+        return list(pool.map(fn, parts))
 
 
 @dataclass

@@ -5,11 +5,14 @@
 
 Drives the port's dense, MaxSim and BM25 (flat, packed, bucketed) retrieval
 paths (``autorag_research_tpu_torch``), the MaxSim pins, the int8 and approx
-serving modes, the hybrid pipelines through the ``Executor``, and the CLI and
-HTTP serving layer at full width and fails (non-zero exit) on any fault:
+serving modes, the hybrid and IVF pipelines through the ``Executor``, the CLI
+and HTTP serving layer, and the IVF indexes at 2,000,000 x 768 at full width
+and fails (non-zero exit) on any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
-   kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source),
+   kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source)
+   and, beside them, of the native BM25 builder (``g++`` of
+   ``csrc/bm25_native.cpp``, which every BM25 index below is built with),
    with one more ``nvcc -Xptxas -v`` each of the seg-stats kernel, the
    streaming kernel and the MaxSim tile body's three sources
    (``maxsim_v2.cu``, ``maxsim_v1.cu``, ``maxsim_v3.cu``) beside it
@@ -154,12 +157,22 @@ HTTP serving layer at full width and fails (non-zero exit) on any fault:
 17. config #3 (HotpotQA hybrid) through the port's ``Executor`` with every
     launch count at 0 just before its run: a catalog of 500,000 passages of
     20-72 Zipf(1.1) words with seeded unit-norm 768-d embeddings and 1,024
-    queries of 12-23 words on two gold passages each (ingest time and both
-    index builds printed), ``Executor(catalog, ExecutorConfig(...))`` with no
+    queries of 12-23 words on two gold passages each (ingest time and every
+    index build printed: the BM25 one split into the native build and the
+    artifact save, the first pruned search's host structures built ahead
+    and timed, the IVF ones by their build steps), a 50,000-passage prefix
+    built by the native builder held bitwise against the numpy plain builder
+    (vocabulary, document frequencies, lengths, avgdl, each document's
+    slots sorted by term, the term -> tile lists and Bloom bitmaps of the
+    native aux builders against their plain versions), then
+    ``Executor(catalog, ExecutorConfig(...))`` with no
     context (so on the card), health checks on 2 queries, recall@10 /
     ndcg@10, over ``vector_search`` (verified), ``bm25`` (defaults),
-    ``hybrid_rrf``, ``hybrid_cc`` (mm), ``hybrid_cc_tmm`` and ``gqr_hybrid``
-    (its first 128 queries); every pipeline and metric succeeds with 10 rows a
+    ``hybrid_rrf``, ``hybrid_cc`` (mm), ``hybrid_cc_tmm``, ``gqr_hybrid``
+    (its first 128 queries), ``vector_search_ivf`` (``index_type: ivf``) and
+    ``vector_search_ivf_contiguous`` (their recall and run seconds printed
+    beside dense's, their rows equal to a direct search of their index,
+    near-ties aside); every pipeline and metric succeeds with 10 rows a
     query and no health-check pipeline left; the dense leg equals an exact
     ``DenseIndex`` search (sub-ulp near-ties aside), the BM25 leg an exact
     scan; each RRF / CC pipeline's rows equal the host fusers over the legs'
@@ -178,10 +191,12 @@ HTTP serving layer at full width and fails (non-zero exit) on any fault:
     of ``vector_search_verified``, ``bm25`` and ``hybrid_rrf`` scored by
     recall / ndcg, ``report`` and ``show``; the dense leg's rows equal an
     exact ``DenseIndex`` over the catalog (sub-ulp near-ties aside), BM25's
-    an exact scan, the hybrid's the host fuser over its legs' lists. Then
+    an exact scan, the hybrid's the host fuser over its legs' lists; a
+    native rebuild of ``run``'s BM25 index from the catalog, timed, equal to
+    its artifact, and its pruned search's host structures timed. Then
     ``serve_workspace`` of the three pipelines, ``warmup()`` through bucket
     256, and closed-loop HTTP clients (a process of their own) at 1, 32 and
-    128 clients, 1,024 ``/search`` requests a level and pipeline: QPS,
+    128 clients, 384 ``/search`` requests a level and pipeline: QPS,
     p50 / p95 / p99 latency, mean batch size and device-batch ms from
     ``/metrics``, the batch thread's CPU time; ``max_inflight`` 1 against
     3 and a 0.5 ms switch interval on ``vector_search_verified`` at 32
@@ -190,7 +205,23 @@ HTTP serving layer at full width and fails (non-zero exit) on any fault:
     #5 or #6 launched while serving with no plain call, every served hit
     list equal to the pipeline's direct ``_retrieve_batch_by_texts([q],
     10)`` (scores within 1e-6 of max(1, |s|); near-ties of the encoder's
-    batch-dependent sums aside), ``stop()`` leaving no thread behind.
+    batch-dependent sums aside), ``stop()`` leaving no thread behind;
+19. the IVF indexes at ``scripts/bench_ann_scale.py``'s scale: 2,000,000 x
+    768 f32 rows around 2,000 centres (noise 0.3, unit norm) and 256
+    queries, drawn on the card from the seed and read back; the exact rows
+    (k = 10) of a verified ``DenseIndex`` (#1, its launches printed), timed;
+    ``IVFIndex`` and ``IVFContiguousIndex`` (256-row blocks) with their
+    defaults, each with its build seconds (normalize, upload, sampling and
+    k-means, assignment, packing), ``n_cells`` / ``cell_pad`` / ``n_blocks``
+    and bytes on the card, recall@10 against the exact rows at the default
+    probes and at twice them, QPS of the 256-query batch, p50 / p99 of 32
+    single-query searches and device ms by CUDA events beside the exact
+    search's; the contiguous index's host placement (blocks in pinned host
+    memory) beside its card placement. Fails if recall@10 at the default
+    probes is below 0.9, a hit's score is more than 1e-6 relative off its
+    document's float64 cosine, a document is missing from the members or
+    the blocks, the host placement's ids differ from the card's, or a second
+    build with the seed (at 200,000 rows) is not bitwise equal.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -200,6 +231,8 @@ the package beside it. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import ctypes
 import json
 import math
@@ -259,11 +292,21 @@ HOTPOT_NOISE = 0.12  # per-dimension noise on a query's summed gold embeddings
 # phase 18: the CLI and a served workspace at scripts/bench_serving.py's
 # default corpus size (100,000 passages; the synthetic ingestor's 20-120 words
 # and its other defaults), embedded at the 768-d width of the other phases;
-# closed-loop HTTP clients send about 1,024 /search requests a level
+# closed-loop HTTP clients send 384 /search requests a level (1,024 before
+# phase 19 joined the run: fewer keep the whole run near 15 minutes on a
+# slower host)
 SERVE_N, SERVE_Q = 100_000, 1000
 SERVE_PIPELINES = ("vector_search_verified", "bm25", "hybrid_rrf")
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BUCKET = (1, 32, 128), 1024, 256
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BUCKET = (1, 32, 128), 384, 256
 SERVE_TIMEOUT = 120  # seconds for one HTTP request
+# phase 19: the IVF indexes at scripts/bench_ann_scale.py's scale (2,000,000 x
+# 768, 2,000 centres, noise 0.3, unit norm; 256 queries at k = 10), the JAX
+# test's recall floor (tests/test_ivf.py:38), 32 single-query searches for
+# the latency percentiles, and the determinism check's rebuild size
+IVF_N, IVF_Q, IVF_CENTERS, IVF_NOISE = 2_000_000, 256, 2000, 0.3
+IVF_RECALL_MIN, IVF_LAT_Q, IVF_DET_N = 0.9, 32, 200_000
+# phase 17: a prefix of its corpus built natively and by the numpy builder
+PREFIX_N = 50_000
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
 # non-tensor FLOP/s, HBM bytes/s
@@ -2037,6 +2080,124 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
 PTXAS_SOURCES = ("seg_stats", "dense_topk_stream", "maxsim_v2", "maxsim_v1", "maxsim_v3")
 
 
+@contextlib.contextmanager
+def layer_seconds(layers):
+    """Seconds spent in each wrapped ``(owner, attribute, key)`` while the
+    block runs, summed by key; the originals are restored after it."""
+    split = {key: 0.0 for _, _, key in layers}
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in layers]
+
+    def timing(fn, key):
+        def inner(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                split[key] += time.perf_counter() - t0
+        return inner
+
+    for (owner, attr, key), (_, _, fn) in zip(layers, saved):
+        setattr(owner, attr, timing(fn, key))
+    try:
+        yield split
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def index_build_layers() -> list:
+    """The layers of an index build from a catalog: the embeddings' read, the
+    BM25 build and the native builder inside it, and the registry's artifact
+    save (what is left of a build's wall time is the constructor's own work,
+    and for BM25 the catalog's text read)."""
+    from autorag_research_tpu_torch import native
+    from autorag_research_tpu_torch.index.dense import DenseIndex
+    from autorag_research_tpu_torch.index.ivf import IVFIndex
+    from autorag_research_tpu_torch.index.ivf_contiguous import IVFContiguousIndex
+    from autorag_research_tpu_torch.index.sparse import SparseIndex
+    from autorag_research_tpu_torch.store.catalog import Catalog
+
+    return [(Catalog, "get_embeddings_matrix", "embeddings read"),
+            (SparseIndex, "_build", "BM25 build"), (native, "build_sparse_native", "native build"),
+            *((cls, "save", "artifact save")
+              for cls in (DenseIndex, SparseIndex, IVFIndex, IVFContiguousIndex))]
+
+
+def aux_seconds(label: str, sparse) -> float:
+    """Build the host structures of a ``SparseIndex``'s first pruned search
+    ahead of it, each timed: the term -> tile lists and the Bloom bitmaps by
+    the native aux builders, the WAND maxima in numpy. Returns the sum."""
+    import torch
+
+    from autorag_research_tpu_torch.ops.sparse import packed_block_rows
+
+    bn = sparse.probe_block_n
+    if sparse._layout() == "packed":
+        bn = packed_block_rows(bn, sparse._device_pack) * sparse._device_pack
+    t0 = time.perf_counter()
+    sparse._ensure_term_tiles(bn)
+    t1 = time.perf_counter()
+    sparse._ensure_bitmaps()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sparse._ensure_term_tiles_maxw(bn)
+    t3 = time.perf_counter()
+    log(f"{label}: the first pruned search's host structures built ahead in {t3 - t0:.2f} s: "
+        f"term -> tile lists (native, {bn}-doc tiles) {t1 - t0:.2f} s, Bloom bitmaps (native, and "
+        f"their upload) {t2 - t1:.2f} s, WAND maxima (numpy) {t3 - t2:.2f} s")
+    return t3 - t0
+
+
+def native_prefix_check(texts: list[str], dev) -> None:
+    """A prefix of phase 17's corpus built by the native builder and by the
+    numpy plain builder: vocabulary, document frequencies, lengths and avgdl
+    equal; each document's (term, weight) slots equal bitwise once sorted by
+    term (the builders fill slots in different orders); the term -> tile
+    lists and Bloom bitmaps of the native aux builders bitwise their plain
+    versions'. Fails on any difference."""
+    from autorag_research_tpu_torch.index.sparse import SparseIndex
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    ids = list(range(len(texts)))
+    t0 = time.perf_counter()
+    nat = SparseIndex(ids, texts, device=dev)
+    nat_s = time.perf_counter() - t0
+    plain = SparseIndex(ids, None, device=dev)
+    t0 = time.perf_counter()
+    plain._build_plain(texts)
+    plain_s = time.perf_counter() - t0
+
+    def by_term(idx):
+        order = np.argsort(np.where(idx._slot_ids >= 0, idx._slot_ids, np.iinfo(np.int32).max),
+                           axis=1, kind="stable")
+        return (np.take_along_axis(idx._slot_ids, order, axis=1),
+                np.take_along_axis(idx._slot_weights, order, axis=1).view(np.int32))
+
+    same = {
+        "vocab": nat.vocab == plain.vocab and list(nat.vocab) == list(plain.vocab),
+        "doc_freq": np.array_equal(nat.doc_freq, plain.doc_freq),
+        "doc_lengths": np.array_equal(nat.doc_lengths, plain.doc_lengths),
+        "avgdl": nat.avgdl == plain.avgdl,
+        "slots": all(np.array_equal(a, b) for a, b in zip(by_term(nat), by_term(plain))),
+    }
+    secs = {}
+    for name, fn in (("term_tiles", ts.build_term_tile_lists), ("term_tiles_plain", ts.build_term_tile_lists_plain),
+                     ("bitmaps", ts.build_tile_bitmaps), ("bitmaps_plain", ts.build_tile_bitmaps_plain)):
+        block_n = nat.probe_block_n if name.startswith("term") else ts.SKIP_BLOCK_N
+        t0 = time.perf_counter()
+        secs[name] = (fn(nat._slot_ids, block_n), time.perf_counter() - t0)
+    same["term_tiles"] = all(np.array_equal(a, b) for a, b in
+                             zip(secs["term_tiles"][0], secs["term_tiles_plain"][0]))
+    same["bitmaps"] = np.array_equal(secs["bitmaps"][0], secs["bitmaps_plain"][0])
+    log(f"native BM25 builder on a {len(texts)}-passage prefix: build {nat_s:.2f} s (numpy plain "
+        f"builder {plain_s:.2f} s), term -> tile lists {secs['term_tiles'][1]:.3f} s (plain "
+        f"{secs['term_tiles_plain'][1]:.3f}), Bloom bitmaps {secs['bitmaps'][1]:.3f} s (plain "
+        f"{secs['bitmaps_plain'][1]:.3f}); {nat._slot_ids.shape[1]} slots, vocabulary "
+        f"{len(nat.vocab)}; equal to the plain builders: {json.dumps(same)}")
+    if not all(same.values()):
+        fail(f"the native BM25 builders differ from the plain builders: {same}")
+
+
 def hotpot_corpus(seed: int, n: int, q_cnt: int):
     """HotpotQA's shape: ``n`` passages of 20-72 Zipf words over BM25_V with
     seeded unit-norm 768-d embeddings; ``q_cnt`` queries, each on two distinct
@@ -2091,6 +2252,7 @@ def hybrid_executor_phase(seed: int, dev, n: int = HOTPOT_N, q_cnt: int = HOTPOT
 
     from autorag_research_tpu_torch.config import BaseMetricConfig, ExecutorConfig
     from autorag_research_tpu_torch.executor import Executor
+    from autorag_research_tpu_torch.index import registry
     from autorag_research_tpu_torch.index.dense import DenseIndex
     from autorag_research_tpu_torch.ops import dense as td
     from autorag_research_tpu_torch.ops import maxsim as tm
@@ -2124,6 +2286,9 @@ def hybrid_executor_phase(seed: int, dev, n: int = HOTPOT_N, q_cnt: int = HOTPOT
             HybridCCConfig(name="hybrid_cc", top_k=K, normalize_method="mm", **legs),
             HybridCCConfig(name="hybrid_cc_tmm", top_k=K, normalize_method="tmm", **legs),
             GQRHybridConfig(name="gqr_hybrid", top_k=K, query_limit=gqr_q, **legs),
+            VectorSearchConfig(name="vector_search_ivf", top_k=K, index_type="ivf"),
+            VectorSearchConfig(name="vector_search_ivf_contiguous", top_k=K,
+                               index_type="ivf_contiguous"),
         ],
         metrics=[BaseMetricConfig(name="recall"), BaseMetricConfig(name="ndcg")],
         health_check=True,
@@ -2145,25 +2310,34 @@ def hybrid_executor_phase(seed: int, dev, n: int = HOTPOT_N, q_cnt: int = HOTPOT
             f"{HOTPOT_QWORDS[0]}-{HOTPOT_QWORDS[1]} words (mean "
             f"{sum(len(t.split()) for t in q_texts) / q_cnt:.2f}), two gold passages each; drawn "
             f"in {gen_s:.2f} s; catalog ingest {ingest_s:.2f} s")
+        native_prefix_check(texts[:PREFIX_N], dev)
         del texts
 
         # Executor(catalog, config) with no context: BuildContext() on the card;
-        # the legs' indexes built through its loader first (the run would build
-        # them in its first health checks), each build and upload timed
+        # the indexes built through its loader first (the run would build
+        # them in its first health checks), each build and upload timed, the
+        # BM25 build split by the layers it passes through
         ex = Executor(cat, cfg)
         if str(ex.context.device) != "cuda":
             fail(f"Executor without a context builds for {ex.context.device}, not the card")
         dense, bm25 = ex.loader.load("vector_search"), ex.loader.load("bm25")
-        for label, pipe in (("dense verified", dense), ("BM25", bm25)):
-            t1 = time.perf_counter()
-            idx = pipe._index()
-            t2 = time.perf_counter()
+        ivf_pipes = {nm: ex.loader.load(nm) for nm in ("vector_search_ivf", "vector_search_ivf_contiguous")}
+        for label, pipe in (("dense verified", dense), ("BM25", bm25), *ivf_pipes.items()):
+            with layer_seconds(index_build_layers()) as split:
+                t1 = time.perf_counter()
+                idx = pipe._index()
+                t2 = time.perf_counter()
             idx.to_device()
             torch.cuda.synchronize()
-            log(f"hybrid: {label} index built from the catalog (artifact saved) in {t2 - t1:.2f} s, "
-                f"on {idx.device} (upload{', bf16 sidecar' if label.startswith('dense') else ''}) "
-                f"in {time.perf_counter() - t2:.2f} s")
+            parts = {k: round(v, 2) for k, v in split.items() if v}
+            if hasattr(idx, "build_seconds"):
+                parts["steps"] = {k: round(v, 2) for k, v in idx.build_seconds.items()}
+            log(f"hybrid: {label} index built from the catalog (artifact saved) in {t2 - t1:.2f} s "
+                f"({json.dumps(parts)}), on {idx.device} (upload"
+                f"{', bf16 sidecar' if label.startswith('dense') else ''}) in "
+                f"{time.perf_counter() - t2:.2f} s; {idx.device_bytes() / 2**30:.2f} GiB on the card")
         sparse = bm25._index()
+        aux_seconds("hybrid", sparse)
 
         td.reset_launch_counts()
         tm.reset_launch_counts()
@@ -2215,6 +2389,24 @@ def hybrid_executor_phase(seed: int, dev, n: int = HOTPOT_N, q_cnt: int = HOTPOT
         pid = {p.name: p.stats["pipeline_id"] for p in result.pipelines}
         rows = {nm: [[(r["doc_id"], r["rel_score"]) for r in cat.get_retrieved(q, pid[nm])]
                      for q in (qids[:gqr_q] if nm == "gqr_hybrid" else qids)] for nm in names}
+
+        # the IVF pipelines beside dense: recall, run seconds, and rows equal
+        # to a direct search of the index the run used
+        by_name = {p.name: p for p in result.pipelines}
+        for nm in ("vector_search", *ivf_pipes):
+            p = by_name[nm]
+            log(f"hybrid {nm}: recall@{K} {p.metrics[0].average:.4f}, ndcg@{K} "
+                f"{p.metrics[1].average:.4f}, execution_time {p.execution_time:.2f} s, run span "
+                f"{result.spans.get(f'{nm}/run', 0) / 1e3:.2f} s")
+        for nm, pipe in ivf_pipes.items():
+            ref_s, ref_i = pipe._index().topk_rows(q_emb, K)
+            got_i = np.array([[d for d, _ in r] for r in rows[nm]])
+            got_s = np.array([[s for _, s in r] for r in rows[nm]], np.float32)
+            n_mism, explained = ids_agree(got_i, got_s, ref_i, ref_s)
+            log(f"hybrid {nm}: persisted rows vs a direct search of its index: {n_mism} id "
+                f"mismatches (all sub-ulp: {explained})")
+            if not explained:
+                fail(f"{nm}'s rows differ from a direct search of its index")
 
         # the dense leg against an exact DenseIndex search of the same rows
         ref_s, ref_i = DenseIndex(list(range(n)), emb, mode="exact", device=dev).topk_rows(q_emb, K)
@@ -2302,7 +2494,183 @@ def hybrid_executor_phase(seed: int, dev, n: int = HOTPOT_N, q_cnt: int = HOTPOT
                 f"{explained}), max relative score error {worst:.3e}; {ms:.3f} ms")
             if out[0].device.type != "cuda" or not explained or worst > 1e-6:
                 fail(f"the device fuser of {name} disagrees with the host fuser on the card")
+        registry.invalidate(cat)
         cat.close()
+
+def ivf_search_report(label: str, idx, q_np, q_dev, gt_rows, probes: dict, host_mat, n: int) -> dict:
+    """Phase 19's numbers for one ANN index: recall@10 against the exact
+    rows at its default probes and twice them, every hit's score against its
+    document's cosine in float64 (at most 1e-6 relative), the 256-query
+    batch's QPS, p50 / p99 of single-query searches and device ms by CUDA
+    events. Fails on a recall below the floor or a score off its cosine."""
+    import torch
+
+    from autorag_research_tpu_torch.index.dense import l2_normalize
+
+    out = {}
+    q64 = l2_normalize(q_np).astype(np.float64)
+    for name, kw in probes.items():
+        scores, rows = idx.topk_rows(q_np, K, **kw)
+        recall = float(np.mean([len(set(r.tolist()) & set(g.tolist())) / K for r, g in zip(rows, gt_rows)]))
+        valid = rows < n
+        cos = np.einsum("qkd,qd->qk", host_mat[np.where(valid, rows, 0)].astype(np.float64), q64)
+        rel = float(np.max(np.where(valid, np.abs(scores - cos) / np.maximum(np.abs(cos), 1e-30), 0.0)))
+        out[name] = {"recall": recall, "max_rel_err": rel, "hits": int(valid.sum())}
+        log(f"ivf {label} {name} ({json.dumps(kw)}): recall@{K} {recall:.4f} against exact, "
+            f"{int(valid.sum())} hits, max |score - cosine| / |cosine| {rel:.3e}")
+        if rel > 1e-6:
+            fail(f"{label}: a hit's score is {rel:.3e} off its document's cosine")
+    if out["default"]["recall"] < IVF_RECALL_MIN:
+        fail(f"{label}: recall@{K} {out['default']['recall']:.4f} at the default probes is below "
+             f"{IVF_RECALL_MIN}")
+    batch_ms = wall_ms(lambda: idx.topk_rows(q_np, K), 3)
+    dev_ms = cuda_ms(lambda: idx.topk_rows(q_dev, K), 3)
+    lat = []
+    for i in range(IVF_LAT_Q):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.topk_rows(q_np[i : i + 1], K)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    out.update(batch_ms=batch_ms, qps=len(q_np) / batch_ms * 1e3, device_ms=dev_ms,
+               p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)))
+    log(f"ivf {label}: {len(q_np)}-query batch {batch_ms:.3f} ms wall ({out['qps']:.1f} QPS), "
+        f"{dev_ms:.3f} ms by CUDA events; {IVF_LAT_Q} single queries p50 {out['p50_ms']:.3f} ms, "
+        f"p99 {out['p99_ms']:.3f} ms")
+    return out
+
+
+def ivf_phase(seed: int, dev, n: int = IVF_N, q_cnt: int = IVF_Q, det_n: int = IVF_DET_N) -> None:
+    """Phase 19: the IVF indexes at ``scripts/bench_ann_scale.py``'s scale
+    (2,000,000 x 768, clustered) on the card, against the exact rows of a
+    verified ``DenseIndex`` (#1)."""
+    import copy
+
+    import torch
+
+    from autorag_research_tpu_torch.index.dense import DenseIndex
+    from autorag_research_tpu_torch.index.ivf import IVFIndex
+    from autorag_research_tpu_torch.index.ivf_contiguous import IVFContiguousIndex
+    from autorag_research_tpu_torch.ops import dense as td
+
+    # the clustered corpus of scripts/bench_ann_scale.py:30-38, drawn on the card
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 60)
+    centers = torch.randn((IVF_CENTERS, DIM), generator=gen, device=dev)
+
+    def draw(m: int) -> np.ndarray:
+        x = centers[torch.randint(0, IVF_CENTERS, (m,), generator=gen, device=dev)]
+        x.add_(torch.randn((m, DIM), generator=gen, device=dev).mul_(IVF_NOISE))
+        x.div_(torch.linalg.vector_norm(x, dim=1, keepdim=True))
+        return x.cpu().numpy()
+
+    corpus, queries = draw(n), draw(q_cnt)
+    q_dev = torch.from_numpy(queries).to(dev)
+    del centers
+    torch.cuda.empty_cache()
+    ids = list(range(n))
+    log(f"ivf: {n} x {DIM} f32 around {IVF_CENTERS} centres (noise {IVF_NOISE}, unit norm) and "
+        f"{q_cnt} queries drawn on the card and read back in {time.perf_counter() - t0:.2f} s "
+        f"({corpus.nbytes / 2**30:.2f} GiB)")
+
+    # exact rows: the verified DenseIndex (#1) over the unit-norm rows as they
+    # are (inner product = cosine), its launches counted
+    t0 = time.perf_counter()
+    dense = DenseIndex(ids, corpus, metric="ip", mode="verified", device=dev).to_device()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    td.reset_launch_counts()
+    gt_s, gt_rows = dense.topk_rows(queries, K)
+    launches = {k: v for k, v in td.LAUNCHES.items() if v}
+    n_fail, covered = dense.last_stats
+    exact_batch = wall_ms(lambda: dense.topk_rows(queries, K), 5)
+    exact_dev = cuda_ms(lambda: dense.topk_rows(q_dev, K), 5)
+    log(f"ivf exact: verified DenseIndex built and on the card in {build_s:.2f} s; ground truth of "
+        f"{q_cnt} queries at k={K}: launches {json.dumps(launches)}, n_fail {n_fail}, covered "
+        f"{covered}; batch {exact_batch:.3f} ms wall ({q_cnt / exact_batch * 1e3:.1f} QPS), "
+        f"{exact_dev:.3f} ms by CUDA events")
+    if not launches.get("seg_stats_bf16"):
+        fail("phase 19's exact ground truth did not launch #1")
+    del dense
+    torch.cuda.empty_cache()
+
+    report = {"exact": {"batch_ms": exact_batch, "qps": q_cnt / exact_batch * 1e3,
+                        "device_ms": exact_dev, "launches": launches}}
+    # ---- IVFIndex, defaults ------------------------------------------------
+    t0 = time.perf_counter()
+    ivf = IVFIndex(ids, corpus, device=dev)
+    torch.cuda.synchronize()
+    host_mat = ivf._host  # the rows as both ANN indexes normalize them, for the cosines
+    packed = ivf.members[ivf.members < n]
+    log(f"ivf IVFIndex: built in {time.perf_counter() - t0:.2f} s "
+        f"({json.dumps({k: round(v, 2) for k, v in ivf.build_seconds.items()})}); n_cells "
+        f"{ivf.n_cells}, nprobe {ivf.nprobe}, cell_pad {ivf.cell_pad}, cells {int(ivf.cell_counts.min())}-"
+        f"{int(ivf.cell_counts.max())} documents; {ivf.device_bytes() / 2**30:.2f} GiB on the card")
+    if len(packed) != n or len(np.unique(packed)) != n:
+        fail(f"IVFIndex members hold {len(np.unique(packed))} distinct of {n} documents")
+    report["ivf"] = ivf_search_report(
+        "IVFIndex", ivf, queries, q_dev, gt_rows,
+        {"default": {}, "twice": {"nprobe": 2 * ivf.nprobe}}, host_mat, n)
+    report["ivf"].update(build_seconds=ivf.build_seconds, n_cells=ivf.n_cells, nprobe=ivf.nprobe,
+                         cell_pad=ivf.cell_pad, device_bytes=ivf.device_bytes())
+    del ivf
+    torch.cuda.empty_cache()
+
+    # ---- IVFContiguousIndex, defaults (block_rows 256) ---------------------
+    t0 = time.perf_counter()
+    cc = IVFContiguousIndex(ids, corpus, device=dev).to_device()
+    torch.cuda.synchronize()
+    real = cc._row_ids[cc._row_ids < n]
+    log(f"ivf IVFContiguousIndex: built and on the card in {time.perf_counter() - t0:.2f} s "
+        f"({json.dumps({k: round(v, 2) for k, v in cc.build_seconds.items()})}); n_cells "
+        f"{cc.n_cells}, n_blocks {cc.n_blocks} of {cc.block_rows} rows, nprobe_blocks "
+        f"{cc.nprobe_blocks}; {cc.device_bytes() / 2**30:.2f} GiB on the card")
+    if len(real) != n or len(np.unique(real)) != n:
+        fail(f"IVFContiguousIndex blocks hold {len(np.unique(real))} distinct of {n} rows")
+    report["ivf_contiguous"] = ivf_search_report(
+        "IVFContiguousIndex", cc, queries, q_dev, gt_rows,
+        {"default": {}, "twice": {"nprobe_blocks": 2 * cc.nprobe_blocks}}, host_mat, n)
+    report["ivf_contiguous"].update(build_seconds=cc.build_seconds, n_cells=cc.n_cells,
+                                    n_blocks=cc.n_blocks, nprobe_blocks=cc.nprobe_blocks,
+                                    device_bytes=cc.device_bytes())
+    # the host placement (the JAX "host" mode): the same index's blocks in
+    # pinned host memory, the union of a batch's probed blocks copied per batch
+    card_s, card_r = cc.topk_rows(queries, K)
+    host = copy.copy(cc)
+    host.placement = "host"
+    t0 = time.perf_counter()
+    host.to_device()
+    pin_s = time.perf_counter() - t0
+    host_s, host_r = host.topk_rows(queries, K)
+    host_ms = wall_ms(lambda: host.topk_rows(queries, K), 3)
+    same = bool(np.array_equal(host_r, card_r))
+    log(f"ivf IVFContiguousIndex host placement: blocks pinned in {pin_s:.2f} s, "
+        f"{host.device_bytes() / 2**20:.1f} MiB on the card; {q_cnt}-query batch {host_ms:.3f} ms "
+        f"wall ({q_cnt / host_ms * 1e3:.1f} QPS); ids equal to the card placement's: {same}, "
+        f"scores bitwise: {bool(np.array_equal(host_s, card_s))}")
+    if not same:
+        fail("the host placement's ids differ from the card placement's")
+    report["ivf_contiguous"].update(host_batch_ms=host_ms, host_qps=q_cnt / host_ms * 1e3)
+    del cc, host
+    torch.cuda.empty_cache()
+
+    # ---- a second build with the seed, at det_n rows -----------------------
+    t0 = time.perf_counter()
+    sub = corpus[:det_n]
+    a, b = (IVFIndex(ids[:det_n], sub, device=dev) for _ in range(2))
+    same_ivf = (a.centroids.tobytes() == b.centroids.tobytes() and np.array_equal(a.members, b.members)
+                and np.array_equal(a.cell_counts, b.cell_counts))
+    del a, b
+    c, d = (IVFContiguousIndex(ids[:det_n], sub, device=dev) for _ in range(2))
+    same_cc = all(getattr(c, f).tobytes() == getattr(d, f).tobytes()
+                  for f in ("centroids", "_blocks", "_row_ids", "_keys"))
+    del c, d
+    log(f"ivf determinism: two builds at {det_n} rows with one seed bitwise equal: IVFIndex "
+        f"{same_ivf}, IVFContiguousIndex {same_cc} ({time.perf_counter() - t0:.2f} s)")
+    if not (same_ivf and same_cc):
+        fail("a second IVF build with the same seed differs")
+    log("ivf phase 19: " + json.dumps(report, default=float))
+
 
 def load_level(port: int, pipeline: str, queries: list[str], clients: int, n: int) -> dict:
     """Closed-loop HTTP load (run in a process of its own): ``clients``
@@ -2572,6 +2940,22 @@ def cli_serving_phase(seed: int, dev, pool, n: int = SERVE_N, q_cnt: int = SERVE
         ctx.pipeline_configs.update(resolver.resolve_transitive_dependencies(configs))
         loader = PipelineLoader(cat, ctx)
         sparse = loader.load("bm25")._index()
+        # the native build of `run`'s BM25 index again, timed, and its host aux
+        from autorag_research_tpu_torch.index.sparse import SparseIndex
+
+        with layer_seconds(index_build_layers()) as split:
+            t0 = time.perf_counter()
+            rebuilt = SparseIndex.from_catalog(cat, tokenizer=sparse.tokenizer_name, k1=sparse.k1,
+                                               b=sparse.b, device=dev)
+            rebuild_s = time.perf_counter() - t0
+        same = all(np.array_equal(getattr(rebuilt, a), getattr(sparse, a))
+                   for a in ("_slot_ids", "_slot_weights", "doc_freq", "doc_lengths"))
+        log(f"serve: BM25 index of {rebuilt.n_docs} passages from the catalog in {rebuild_s:.2f} s "
+            f"(native build {split['native build']:.2f} s), equal to `run`'s artifact: {same}")
+        if not same:
+            fail("a native rebuild of the workspace's BM25 index differs from `run`'s")
+        aux_seconds("serve", rebuilt)
+        del rebuilt
         qi, qw = sparse.encode_queries(q_texts)
         ss, si = ts.bm25_topk_scan(torch.from_numpy(qi).to(dev), torch.from_numpy(qw).to(dev),
                                    *sparse._flat_device(), K)
@@ -2919,6 +3303,7 @@ def main() -> int:
         print("FAIL: no CUDA device: this smoke run measures the GPU port", file=sys.stderr)
         return 1
     try:
+        from autorag_research_tpu_torch import native
         from autorag_research_tpu_torch.ops import cuda_build
     except ImportError as exc:
         print(f"FAIL: the port package is not beside this script: {exc}", file=sys.stderr)
@@ -2955,9 +3340,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # beside the build, not in it
         ptxas = {n: ptxas_start(cuda_build, tmp, n) for n in PTXAS_SOURCES}
-        secs = cuda_build.build_all()
+        def build_native():
+            t = time.perf_counter()
+            return native.build(), time.perf_counter() - t
+
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            native_build = pool.submit(build_native)  # g++ beside the nvcc builds
+            secs = cuda_build.build_all()
+            native_lib, native_s = native_build.result()
         log(f"kernel build: {json.dumps({n: round(s, 2) for n, s in secs.items()})} "
-            f"({time.perf_counter() - t0:.2f} s in all)")
+            f"({time.perf_counter() - t0:.2f} s in all); native BM25 builder {native_lib.name} "
+            f"by g++ in {native_s:.2f} s")
         for n, proc in ptxas.items():
             ptxas_log(proc, n, f"{tmp}/ptxas_{n}.so")
 
@@ -3305,7 +3698,6 @@ def main() -> int:
 
     # ---- 18. the CLI and a served workspace ---------------------------------
     t0 = time.perf_counter()
-    import concurrent.futures
     import multiprocessing
 
     with concurrent.futures.ProcessPoolExecutor(
@@ -3313,6 +3705,12 @@ def main() -> int:
     ) as pool:
         cli_serving_phase(args.seed, dev, pool)
     log(f"phase 18 (CLI and served workspace): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- 19. the IVF indexes at 2,000,000 x 768 ------------------------------
+    t0 = time.perf_counter()
+    ivf_phase(args.seed, dev)
+    log(f"phase 19 (IVF at {IVF_N} x {DIM}): {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

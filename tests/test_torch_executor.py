@@ -6,8 +6,8 @@ catalog of ``tests/conftest.py`` built with the port's ``Catalog``; where a
 case reads numbers, the JAX package's Executor or service runs the same case
 on its own catalog and the two must agree. Also: each package's config
 registry resolves its own classes in one process, ``Executor`` without a
-context builds for the card, and a generation metric is refused until the
-generation metrics are ported.
+context builds for the card, the IVF index types build, and a generation
+metric is refused until the generation metrics are ported.
 """
 
 from dataclasses import dataclass
@@ -321,9 +321,21 @@ def test_from_dict_refusals():
 
 
 def test_vector_search_config_refuses_ivf_until_ported(tcat):
-    cfg = VectorSearchConfig(name="ivf", index_type="ivf")
-    with pytest.raises(NotImplementedError, match="IVF"):
-        cfg.build(tcat, CPU)
+    """The IVF indexes are ported: both index types build and search on the
+    configured device, a full probe as the exact index does; an index type
+    neither package has is refused."""
+    query = np.linspace(-1, 1, 8).astype(np.float32)
+    exact = VectorSearchConfig(name="vs", top_k=3).build(tcat, CPU).search_by_embedding(query, 3)
+    full_probe = {"ivf": {"nprobe": 8}, "ivf_contiguous": {"nprobe_blocks": 8}}
+    for index_type, options in full_probe.items():
+        cfg = VectorSearchConfig(name=index_type, index_type=index_type, index_options=options)
+        pipe = cfg.build(tcat, CPU)
+        assert pipe.index_type == index_type and pipe.device.type == "cpu"
+        hits = pipe.search_by_embedding(query, 3)
+        assert [h["doc_id"] for h in hits] == [h["doc_id"] for h in exact]
+        np.testing.assert_allclose([h["score"] for h in hits], [h["score"] for h in exact], rtol=1e-6)
+    with pytest.raises(ValueError, match="unknown index_type"):
+        VectorSearchConfig(name="hnsw", index_type="hnsw").build(tcat, CPU)
 
 
 @pytest.mark.parametrize("name", ["faithfulness", "bleu"])

@@ -143,6 +143,7 @@ ENTRY_MODULES = [
         "serving.server", "serving.metrics", "injection", "plugin_registry",
         "store.ingestion", "data.base", "data.registry", "data.synthetic", "data.local",
         "reporting.service", "reporting.html", "reporting.ui",
+        "native", "index.ivf", "index.ivf_contiguous",
     )
 ]
 

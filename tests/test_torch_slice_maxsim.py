@@ -150,6 +150,9 @@ def test_multi_pipeline_config_and_refusals(tmp_path):
     assert (img.retrieval_unit, img._get_pipeline_config()["type"]) == ("image_chunk", "image_vector_search")
     with pytest.raises(ValueError):
         VectorSearchPipeline(cat, name="x", search_mode="sparse", device="cpu")
-    with pytest.raises(NotImplementedError):
-        VectorSearchPipeline(cat, name="y", index_type="ivf", device="cpu")
+    # the IVF index types are ported; a type neither package has is refused
+    ivf = VectorSearchPipeline(cat, name="y", index_type="ivf", device="cpu")
+    assert ivf._get_pipeline_config()["index_type"] == "ivf"
+    with pytest.raises(ValueError):
+        VectorSearchPipeline(cat, name="z", index_type="hnsw", device="cpu")
     cat.close()
