@@ -141,15 +141,19 @@ def cmd_show(args) -> int:
             print(f"{info.name:16s} {info.description}  ({params})")
     elif what == "pipelines":
         from autorag_research_tpu_torch.config import BasePipelineConfig
+        import autorag_research_tpu_torch.pipelines.generation  # noqa: F401
         import autorag_research_tpu_torch.pipelines.retrieval  # noqa: F401
 
         for name, cls in sorted(BasePipelineConfig.registry.items()):
             print(f"{name:28s} [{cls.kind}]")
     elif what == "metrics":
+        from autorag_research_tpu_torch.evaluation.metrics.generation import GENERATION_METRICS
         from autorag_research_tpu_torch.evaluation.metrics.retrieval import RETRIEVAL_METRICS
 
         for name in RETRIEVAL_METRICS:
             print(f"{name:28s} [retrieval]")
+        for name in GENERATION_METRICS:
+            print(f"{name:28s} [generation]")
     elif what == "databases":
         root = Path(args.root or ".")
         for p in sorted(root.glob("**/catalog.db")):

@@ -10,8 +10,9 @@ defaults to the file stem.
 
 The port's copy of the JAX package's ``cli/config_resolver.py``. It resolves
 against the port's own config registry, which holds the ported retrieval
-pipelines; a file naming another type (a generation pipeline, or a retrieval
-pipeline still to port) is refused with the ROADMAP.md item that ports it.
+pipelines and ``basic_rag``; a file naming another type (a generation or
+retrieval pipeline still to port) is refused with the ROADMAP.md item that
+ports it.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from autorag_research_tpu_torch.exceptions import (
     PipelineNotFoundError,
 )
 
-# importing the pipeline package populates the config-type registry
+# importing the pipeline packages populates the config-type registry
+import autorag_research_tpu_torch.pipelines.generation  # noqa: F401
 import autorag_research_tpu_torch.pipelines.retrieval  # noqa: F401
 
 UNPORTED_PIPELINES = (

@@ -6,8 +6,9 @@ The reference fetches its default ``configs/`` from GitHub
 
 The port's copy of the JAX package's ``cli/templates.py``: the same tree,
 but for the model files of the JAX package's own models. The encoder presets
-are ``embedding/torch_encoder*.yaml``; the decoder and cross-encoder presets
-come back with their models (ROADMAP.md queue 1, item 9). The tree also
+are ``embedding/torch_encoder*.yaml`` and the decoder's is ``llm/torch_lm.yaml``
+(the JAX template's defaults); the cross-encoder preset comes back with its
+model (ROADMAP.md queue 1, item 9). The tree also
 names pipelines and model kinds the port does not have yet: the config
 resolver and the model registry refuse those when they are used, naming the
 ROADMAP.md item that ports them.
@@ -186,6 +187,12 @@ DEFAULT_CONFIGS: dict[str, str] = {
         "name: rouge\nmetric_type: generation\nkwargs:\n  rouge_type: rougeL\n"
     ),
     "llm/mock.yaml": "type: mock\n",
+    "llm/torch_lm.yaml": (
+        "type: torch_lm\n# local causal decoder on the GPU (models/decoder.py);\n"
+        "# point checkpoint at a trained .npz (JaxLM.save's format) for non-random output\n"
+        "max_prompt_len: 384\nmax_new_tokens: 96\ntemperature: 0.0\n"
+        "# checkpoint: /path/to/lm.npz\n"
+    ),
     "llm/openai.yaml": (
         "type: openai_compat\nmodel: gpt-4o-mini\nbase_url: https://api.openai.com/v1\n"
     ),

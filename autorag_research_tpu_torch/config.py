@@ -89,13 +89,14 @@ class BaseMetricConfig:
     kwargs: dict = field(default_factory=dict)
 
     def metric_func(self, context: "BuildContext") -> Callable:
-        if self.metric_type != "retrieval":
-            raise MetricNotFoundError(
-                f"{self.metric_type} metric '{self.name}': the port has retrieval metrics "
-                "only; the generation metrics come with the generation-side slice "
-                "(ROADMAP.md queue 1, item 7)"
+        if self.metric_type == "retrieval":
+            fn = RETRIEVAL_METRICS.get(self.name)
+        else:
+            from autorag_research_tpu_torch.evaluation.metrics.generation import (
+                GENERATION_METRICS,
             )
-        fn = RETRIEVAL_METRICS.get(self.name)
+
+            fn = GENERATION_METRICS.get(self.name)
         if fn is None:
             raise MetricNotFoundError(f"{self.metric_type} metric '{self.name}'")
         kwargs = dict(self.kwargs)
@@ -147,8 +148,17 @@ class BuildContext:
 
     def metric_extras(self, metric_config: BaseMetricConfig) -> dict:
         """Resolve llm/embedding names inside metric kwargs (the reference's
-        @with_llm/@with_embedding decorators, ``injection.py:344-370``)."""
+        @with_llm/@with_embedding decorators, ``injection.py:344-370``), and
+        give a model-backed generation metric this context's device unless
+        its kwargs name one."""
         extras = {}
+        if metric_config.metric_type == "generation" and "device" not in metric_config.kwargs:
+            from autorag_research_tpu_torch.evaluation.metrics.generation import (
+                MODEL_SCORER_METRICS,
+            )
+
+            if metric_config.name in MODEL_SCORER_METRICS:
+                extras["device"] = str(self.device)
         for key in ("llm", "embedding_model", "reranker"):
             if key in metric_config.kwargs:
                 val = metric_config.kwargs[key]

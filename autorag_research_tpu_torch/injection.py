@@ -11,13 +11,16 @@ Builtin types registered here replace the reference's Hydra ``_target_``
 strings; third-party types can be registered via
 ``register_model_type(kind, name, factory)`` or ``type: module.path:Class``.
 
-The port's copy of the JAX package's ``injection.py``, with the embedding
-kinds whose classes the port has: ``mock``, ``mock_multi`` and
-``torch_encoder`` (``multi_vector: true`` gives the token-level encoder).
+The port's copy of the JAX package's ``injection.py``, with the kinds whose
+classes the port has: the embeddings ``mock``, ``mock_multi`` and
+``torch_encoder`` (``multi_vector: true`` gives the token-level encoder), and
+the LLMs ``mock``, ``scripted`` and ``torch_lm`` (the causal decoder; its
+``DecoderConfig`` fields come from the YAML, ``dtype: bfloat16 | float32``).
 A registry builds its on-device models on its ``device`` (``"cuda"`` unless
 the caller asks for another). The JAX package's other kinds are named in
 ``DEFERRED`` and refused with :class:`ModelLoadError`, whose message names
-the ROADMAP.md item that ports them.
+the ROADMAP.md item that ports them (``jax_encoder`` and ``jax_lm`` name the
+port's own kinds).
 """
 
 from __future__ import annotations
@@ -48,11 +51,11 @@ _ITEM_9 = "ROADMAP.md queue 1, item 9 (models)"
 DEFERRED: dict[str, dict[str, str]] = {
     "llm": {
         **dict.fromkeys(
-            ("mock", "scripted", "openai_compat", "openai", "vllm", "ollama", "together",
-             "xai", "huggingface", "azure_openai", "anthropic", "gemini", "bedrock"),
+            ("openai_compat", "openai", "vllm", "ollama", "together", "xai", "huggingface",
+             "azure_openai", "anthropic", "gemini", "bedrock"),
             _ITEM_7,
         ),
-        "jax_lm": _ITEM_9,
+        "jax_lm": "the port's LLM kind is 'torch_lm'",
     },
     "embedding": {
         **dict.fromkeys(
@@ -85,11 +88,37 @@ def register_model_type(
         _ON_DEVICE.add((kind, name))
 
 
+_DTYPES = ("float32", "bfloat16")
+
+
 def _builtin_factories() -> None:
     from autorag_research_tpu_torch.embeddings import MockEmbedding, MockMultiVectorEmbedding
+    from autorag_research_tpu_torch.llm import MockLLM, ScriptedLLM
 
+    register_model_type("llm", "mock", MockLLM)
+    register_model_type("llm", "scripted", ScriptedLLM)
     register_model_type("embedding", "mock", MockEmbedding)
     register_model_type("embedding", "mock_multi", MockMultiVectorEmbedding)
+
+    def _torch_lm(**kw):
+        import torch
+
+        from autorag_research_tpu_torch.llm.torch_lm import TorchLM
+        from autorag_research_tpu_torch.models.decoder import DecoderConfig
+
+        config_keys = set(DecoderConfig.__dataclass_fields__)
+        config_kw = {k: v for k, v in kw.items() if k in config_keys}
+        rest = {k: v for k, v in kw.items() if k not in config_keys}
+        if isinstance(config_kw.get("dtype"), str):
+            if config_kw["dtype"] not in _DTYPES:
+                raise ModelLoadError(
+                    f"torch_lm dtype {config_kw['dtype']!r}: one of {', '.join(_DTYPES)}"
+                )
+            config_kw["dtype"] = getattr(torch, config_kw["dtype"])
+        config = DecoderConfig(**config_kw) if config_kw else None
+        return TorchLM(config=config, **rest)
+
+    register_model_type("llm", "torch_lm", _torch_lm, on_device=True)
 
     def _torch_encoder(multi_vector: bool = False, **kw):
         from autorag_research_tpu_torch.embeddings.torch_encoder import (

@@ -1,0 +1,13 @@
+from autorag_research_tpu_torch.llm.base import BaseLLM, LLMResult, MockLLM, ScriptedLLM
+
+
+def __getattr__(name):
+    # lazy: TorchLM pulls in torch and the decoder; keep `import ...llm` light
+    if name == "TorchLM":
+        from autorag_research_tpu_torch.llm.torch_lm import TorchLM
+
+        return TorchLM
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["BaseLLM", "LLMResult", "MockLLM", "ScriptedLLM", "TorchLM"]

@@ -1,7 +1,16 @@
+from autorag_research_tpu_torch.models.decoder import (
+    CausalDecoder,
+    DecoderConfig,
+    decoder_params_from_jax,
+    decoder_params_to_jax,
+)
 from autorag_research_tpu_torch.models.encoder import (
     EncoderConfig,
     RetrievalEncoder,
     from_jax_params,
 )
 
-__all__ = ["EncoderConfig", "RetrievalEncoder", "from_jax_params"]
+__all__ = [
+    "CausalDecoder", "DecoderConfig", "decoder_params_from_jax", "decoder_params_to_jax",
+    "EncoderConfig", "RetrievalEncoder", "from_jax_params",
+]

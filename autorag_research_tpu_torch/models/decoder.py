@@ -1,0 +1,242 @@
+"""PyTorch causal decoder LM: the framework's local generation model.
+
+Counterpart of ``autorag_research_tpu/models/decoder.py``: a byte-level
+causal transformer with KV-cache greedy / temperature decoding.
+
+- prompts are LEFT-padded to a prompt bucket so that every row decodes at the
+  same cache slot; real positions come from ``cumsum(mask) - 1`` so position
+  embeddings stay right for short prompts;
+- the KV cache is allocated per call ([B, H, max_len, D] a layer), filled by
+  the batched prefill and written one slot a step, so concurrent calls from
+  the server's batch threads share nothing but the weights;
+- the decode loop has a static length, as the JAX ``lax.scan`` has: finished
+  rows emit PAD and their flag stays on the device, with no host sync inside
+  the loop;
+- weights are tied (logits = x @ embed.T).
+
+The numerics follow the JAX model: layer norm with eps 1e-6 over the biased
+variance (the encoder's ``_layer_norm``), a -1e30 attention mask under a
+plain softmax, tanh-approximated GELU, true f32 products (TF32 stays off).
+``dtype`` rounds only the embedding sum, as ``x.astype(cfg.dtype)`` does in
+the JAX model: the first layer norm runs on those values and its f32 scale
+promotes everything after it, so a bf16 setting still gives f32 logits and an
+f32 KV cache.
+
+The parameters keep the JAX layout (``[in, out]`` used as ``x @ W``) and
+their ``state_dict`` keys are the JAX package's flattened names (``embed``,
+``pos``, ``final_ln.scale``, ``blocks.0.qkv``, ...), the keys of the ``.npz``
+that ``JaxLM.save`` writes: :func:`decoder_params_from_jax` and
+:func:`decoder_params_to_jax` carry weights between the packages.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from autorag_research_tpu_torch.models.encoder import (
+    _Block,
+    _layer_norm,
+    _LayerNorm,
+    from_jax_params,
+    masked_attention,
+)
+from autorag_research_tpu_torch.ops.dense import _require_exact_f32
+
+PAD_ID = 0
+BOS_ID = 1
+EOS_ID = 2
+_BYTE_OFFSET = 3
+
+
+@dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int = 259  # 256 bytes + pad/bos/eos
+    hidden: int = 256
+    layers: int = 4
+    heads: int = 4
+    mlp_ratio: int = 4
+    max_len: int = 512  # prompt + generation budget
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.heads
+
+
+class CausalDecoder(nn.Module):
+    """Causal transformer; ``forward(token_ids, mask)`` with [B, T] inputs
+    returns logits [B, T, V]. Random init draws N(0, 0.02) from a
+    ``torch.Generator`` seeded with ``seed`` (JAX's ``PRNGKey`` stream
+    differs, so parity goes through :func:`decoder_params_from_jax`)."""
+
+    def __init__(self, config: DecoderConfig, device: str | torch.device = "cuda", seed: int = 0):
+        super().__init__()
+        if config.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"decoder dtype must be float32 or bfloat16, not {config.dtype}")
+        self.config = config
+        h, m = config.hidden, config.hidden * config.mlp_ratio
+        self.embed = nn.Parameter(torch.empty(config.vocab_size, h))
+        self.pos = nn.Parameter(torch.empty(config.max_len, h))
+        self.final_ln = _LayerNorm(h)
+        self.blocks = nn.ModuleList(_Block(h, m) for _ in range(config.layers))
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if not name.endswith(("scale", "bias")):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        self.requires_grad_(False)
+        self.to(torch.device(device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _heads(self, a: torch.Tensor, b: int, t: int) -> torch.Tensor:
+        cfg = self.config
+        return a.reshape(b, t, cfg.heads, cfg.head_dim).transpose(1, 2)
+
+    def _mlp(self, x: torch.Tensor, blk) -> torch.Tensor:
+        y = blk.ln2(x)
+        y = nn.functional.gelu(y @ blk.mlp_in + blk.mlp_bias, approximate="tanh")
+        return x + y @ blk.mlp_out
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = _layer_norm(x, self.final_ln.scale, self.final_ln.bias)
+        return x @ self.embed.T
+
+    # ---------------------------------------------------------------- prefill
+    def forward(self, token_ids: torch.Tensor, mask: torch.Tensor, return_cache: bool = False):
+        """Batched causal forward. token_ids / mask: [B, T] on the module's
+        device. Returns logits [B, T, V]; with ``return_cache=True`` also the
+        per-layer (k, v) cache, [B, H, max_len, D] each, its first T slots
+        filled, for decode extension."""
+        _require_exact_f32()
+        cfg = self.config
+        b, t = token_ids.shape
+        mask = mask.to(torch.bool)
+        # real positions for left-padded rows: pads get 0, tokens 0..len-1
+        pos_ids = torch.clamp(torch.cumsum(mask.to(torch.int32), dim=1) - 1, min=0)
+        x = (self.embed[token_ids] + self.pos[pos_ids]).to(cfg.dtype)
+        causal = torch.ones((t, t), dtype=torch.bool, device=token_ids.device).tril()
+        keep = (causal[None] & mask[:, None, :])[:, None]  # [B, 1, Tq, Tk]
+        cache = []
+        for blk in self.blocks:
+            y = blk.ln1(x)
+            q, k, v = (self._heads(a, b, t) for a in torch.split(y @ blk.qkv, cfg.hidden, dim=-1))
+            ctx = masked_attention(q, k, v, keep).transpose(1, 2).reshape(b, t, cfg.hidden)
+            x = x + ctx @ blk.attn_out
+            x = self._mlp(x, blk)
+            if return_cache:
+                ck = k.new_zeros((b, cfg.heads, cfg.max_len, cfg.head_dim))
+                cv = torch.zeros_like(ck)
+                ck[:, :, :t] = k
+                cv[:, :, :t] = v
+                cache.append((ck, cv))
+        logits = self._logits(x)
+        return (logits, cache) if return_cache else logits
+
+    # ------------------------------------------------------------ decode step
+    def _step(self, cache, token, pos_id, slot: int, kv_mask):
+        """One token a row against the cache: token / pos_id [B] on the
+        device, ``slot`` the cache index written (the same for every row),
+        kv_mask [B, max_len] the valid slots after this write. Writes the
+        cache in place and returns logits [B, V]."""
+        cfg = self.config
+        b = token.shape[0]
+        x = (self.embed[token] + self.pos[pos_id]).to(cfg.dtype)[:, None, :]  # [B, 1, H]
+        keep = kv_mask[:, None, None, :]
+        for blk, (ck, cv) in zip(self.blocks, cache):
+            y = blk.ln1(x)
+            q, k, v = (self._heads(a, b, 1) for a in torch.split(y @ blk.qkv, cfg.hidden, dim=-1))
+            ck[:, :, slot] = k[:, :, 0]
+            cv[:, :, slot] = v[:, :, 0]
+            ctx = masked_attention(q, ck, cv, keep).transpose(1, 2).reshape(b, 1, cfg.hidden)
+            x = x + ctx @ blk.attn_out
+            x = self._mlp(x, blk)
+        return self._logits(x[:, 0])
+
+    # --------------------------------------------------------------- generate
+    @torch.no_grad()
+    def generate(
+        self,
+        token_ids: torch.Tensor,
+        mask: torch.Tensor,
+        max_new_tokens: int,
+        temperature: float = 0.0,
+        generator: torch.Generator | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Greedy (or temperature-sampled) decode. token_ids / mask [B, Tp]
+        LEFT-padded, on the module's device. Returns (tokens [B,
+        max_new_tokens], n_generated [B]) on the device.
+
+        Sampling draws Gumbel noise from ``generator`` (a generator on the
+        module's device), so a seeded generator repeats a call; it cannot
+        repeat ``jax.random.categorical``'s draws."""
+        cfg = self.config
+        b, tp = token_ids.shape
+        if tp + max_new_tokens > cfg.max_len:
+            raise ValueError(
+                f"prompt {tp} + max_new_tokens {max_new_tokens} exceeds max_len {cfg.max_len}"
+            )
+        mask = mask.to(torch.bool)
+        logits, cache = self(token_ids, mask, return_cache=True)
+        last = logits[:, -1]  # left-padded: the last slot is the real tail
+        prompt_len = mask.sum(dim=1, dtype=torch.int64)
+        kv_mask = torch.zeros((b, cfg.max_len), dtype=torch.bool, device=token_ids.device)
+        kv_mask[:, :tp] = mask
+        done = torch.zeros(b, dtype=torch.bool, device=token_ids.device)
+        tokens = torch.empty((b, max_new_tokens), dtype=torch.int64, device=token_ids.device)
+        pad = torch.full_like(done, PAD_ID, dtype=torch.int64)
+        for i in range(max_new_tokens):
+            if temperature > 0.0:
+                u = torch.rand(last.shape, generator=generator, device=last.device)
+                token = torch.argmax(last / temperature - torch.log(-torch.log(u)), dim=-1)
+            else:
+                token = torch.argmax(last, dim=-1)
+            token = torch.where(done, pad, token)
+            done = done | (token == EOS_ID)
+            tokens[:, i] = token
+            kv_mask[:, tp + i] = True
+            last = self._step(cache, token, prompt_len + i, tp + i, kv_mask)
+        produced = (tokens != PAD_ID) & (tokens != EOS_ID)
+        return tokens, produced.sum(dim=1)
+
+
+# A ``CausalDecoder`` state dict from the JAX package's flattened parameters
+# (the keys of the ``.npz`` that ``JaxLM.save`` writes): the layouts and names
+# agree, so the encoder's mapping serves.
+decoder_params_from_jax = from_jax_params
+
+
+def decoder_params_to_jax(decoder: CausalDecoder) -> dict[str, np.ndarray]:
+    """The inverse of :func:`decoder_params_from_jax`: the flat numpy dict
+    that ``JaxLM.load`` reads."""
+    return {name: t.detach().cpu().numpy() for name, t in decoder.state_dict().items()}
+
+
+# ------------------------------------------------------------- tokenization
+def byte_tokenize(texts: list[str], max_len: int) -> tuple[np.ndarray, np.ndarray]:
+    """Reversible byte-level tokenizer: LEFT-padded [B, max_len] ids + mask.
+    BOS + utf-8 bytes (+3 offset), tail-truncated to keep the most recent
+    context (prompts carry the question at the end)."""
+    ids = np.full((len(texts), max_len), PAD_ID, dtype=np.int32)
+    mask = np.zeros((len(texts), max_len), dtype=np.bool_)
+    for i, text in enumerate(texts):
+        raw = [BOS_ID] + [b + _BYTE_OFFSET for b in text.encode("utf-8")]
+        raw = raw[-max_len:]
+        ids[i, max_len - len(raw):] = raw
+        mask[i, max_len - len(raw):] = True
+    return ids, mask
+
+
+def byte_detokenize(tokens) -> list[str]:
+    """Inverse of :func:`byte_tokenize` for generated token rows."""
+    out = []
+    for row in np.asarray(tokens):
+        data = bytes(int(t) - _BYTE_OFFSET for t in row if int(t) >= _BYTE_OFFSET)
+        out.append(data.decode("utf-8", errors="replace"))
+    return out

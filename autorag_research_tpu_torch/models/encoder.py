@@ -65,12 +65,17 @@ def _attention(x, qkv_w, out_w, mask, config: EncoderConfig):
     def heads(a):
         return a.reshape(b, t, config.heads, config.head_dim).transpose(1, 2)
 
-    q, k, v = heads(q), heads(k), heads(v)
-    scores = (q @ k.transpose(-1, -2)) / math.sqrt(config.head_dim)
-    scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    ctx = (probs @ v).transpose(1, 2).reshape(b, t, h)
-    return ctx @ out_w
+    ctx = masked_attention(heads(q), heads(k), heads(v), mask[:, None, None, :])
+    return ctx.transpose(1, 2).reshape(b, t, h) @ out_w
+
+
+def masked_attention(q, k, v, keep):
+    """Softmax attention of [B, H, Tq, D] queries over [B, H, Tk, D] keys,
+    ``keep`` broadcastable to [B, H, Tq, Tk]: masked scores are -1e30 under a
+    plain softmax, as in the JAX models (the encoder and the decoder)."""
+    scores = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    scores = scores.masked_fill(~keep, -1e30)
+    return torch.softmax(scores, dim=-1) @ v
 
 
 class _Block(nn.Module):

@@ -1,0 +1,13 @@
+from autorag_research_tpu_torch.pipelines.generation.base import (
+    BaseGenerationPipeline,
+    GenerationResult,
+)
+from autorag_research_tpu_torch.pipelines.generation.basic_rag import (
+    BasicRAGConfig,
+    BasicRAGPipeline,
+)
+
+__all__ = [
+    "BaseGenerationPipeline", "GenerationResult",
+    "BasicRAGConfig", "BasicRAGPipeline",
+]

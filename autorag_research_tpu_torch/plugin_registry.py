@@ -10,8 +10,7 @@ local config tree (never overwriting); ``plugin create`` scaffolds a full
 plugin project.
 
 The port's copy of the JAX package's ``plugin_registry.py``: its entry-point
-groups and scaffold name the port's package. Generation metrics are refused
-until the port has them (ROADMAP.md queue 1, item 7).
+groups and scaffold name the port's package.
 """
 
 from __future__ import annotations
@@ -48,16 +47,14 @@ def load_plugins() -> dict[str, list[str]]:
 
 def register_metric(name: str, metric_type: str, func) -> None:
     """Register a plugin metric into the builtin registries."""
-    if metric_type != "retrieval":
-        from autorag_research_tpu_torch.exceptions import MetricNotFoundError
+    if metric_type == "retrieval":
+        from autorag_research_tpu_torch.evaluation.metrics.retrieval import RETRIEVAL_METRICS
 
-        raise MetricNotFoundError(
-            f"{metric_type} metric '{name}': the port has retrieval metrics only until "
-            "ROADMAP.md queue 1, item 7"
-        )
-    from autorag_research_tpu_torch.evaluation.metrics.retrieval import RETRIEVAL_METRICS
+        RETRIEVAL_METRICS[name] = func
+    else:
+        from autorag_research_tpu_torch.evaluation.metrics.generation import GENERATION_METRICS
 
-    RETRIEVAL_METRICS[name] = func
+        GENERATION_METRICS[name] = func
 
 
 def sync_plugin_configs(config_dir: Path) -> list[Path]:

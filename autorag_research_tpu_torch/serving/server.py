@@ -26,10 +26,11 @@ on the ``device`` of :func:`serve_workspace` (``"cuda"`` unless the caller
 asks for another); a mesh waits for the multi-GPU slice (ROADMAP.md queue 1,
 item 6). Batches run in up to ``max_inflight`` threads on the default CUDA
 stream, so their device work runs one batch at a time while the host work of
-the others (tokenization, readback, result lists) overlaps it. No generation
-pipeline is ported yet (item 8): the config resolver refuses any that is
-named, while ``/generate`` and its batchers serve any pipeline object that
-has the generation interface.
+the others (tokenization, readback, result lists) overlaps it. ``/generate``
+serves ``basic_rag`` (one batched retrieval and one batched ``TorchLM``
+decode a micro-batch) and any other pipeline object with the generation
+interface; the config resolver refuses the generation pipelines still to
+port (item 8).
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@
 Drives the port's dense, MaxSim and BM25 (flat, packed, bucketed) retrieval
 paths (``autorag_research_tpu_torch``), the MaxSim pins, the int8 and approx
 serving modes, the hybrid and IVF pipelines through the ``Executor``, the CLI
-and HTTP serving layer, and the IVF indexes at 2,000,000 x 768 at full width
-and fails (non-zero exit) on any fault:
+and HTTP serving layer, the IVF indexes at 2,000,000 x 768 and the generation
+path (the causal decoder, ``basic_rag`` with ``torch_lm``) at full width and
+fails (non-zero exit) on any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source)
@@ -221,7 +222,36 @@ and fails (non-zero exit) on any fault:
     probes is below 0.9, a hit's score is more than 1e-6 relative off its
     document's float64 cosine, a document is missing from the members or
     the blocks, the host placement's ids differ from the card's, or a second
-    build with the seed (at 200,000 rows) is not bitwise equal.
+    build with the seed (at 200,000 rows) is not bitwise equal;
+20. the generation path (no kernel of its own; #1 through its retrieval):
+    (a) the causal decoder at ``scripts/bench_jaxlm.py:45-47``'s
+    configuration (hidden 512, 8 layers, 8 heads, ``max_len`` 512, seeded
+    weights; prompt bucket 128, 128 new tokens) in the bf16 setting (the
+    embedding sum rounded, logits and KV cache f32) and in f32: greedy
+    decode at B = 1, 8 and 32, each timed (CUDA events and host clock,
+    tokens/s); the KV-cache decode's logits against a teacher-forced
+    full forward over prompt plus generated tokens, every row and step
+    (``GEN_TOL``); at B = 8 the card's teacher-forced logits against the same
+    module on the CPU, and the batched tokens against single-prompt decodes
+    (a difference must start at a near-tie: top-2 margin within
+    ``GEN_TOL``); the device launches of a decode step and the device's busy
+    share of a 16-step call (``torch.profiler``). (b) Phase 18's workspace (kept for
+    this phase) with ``basic_rag`` over ``vector_search_verified`` at top_k
+    5 and ``torch_lm`` at its template's defaults (256 / 4 / 4, f32, prompt
+    384, 96 new), through ``Executor(catalog, ExecutorConfig(...))`` on the
+    card, every launch count at 0 just before: 256 queries, health check on
+    2, recall, ``exact_match``, ``token_f1``, ``bleu``, ``rouge``; every query
+    has a row, ``prompt_tokens`` = min(prompt bytes + 1, 384), the evidence
+    equals a direct verified search's top-5 (sub-ulp near-ties aside), #1
+    launched, no plain version; ``bert_score`` raises ``ModelLoadError`` (no
+    ``transformers`` or checkpoint). (c) ``serve_workspace(...,
+    generation=["basic_rag"])``, ``warmup`` through bucket 32, closed-loop
+    /generate clients at 1 and 32 (and 32 with the generation batcher one
+    batch at a time, not its 3), 64 requests a level: QPS, p50 / p95 / p99, the mean batch and device-batch
+    ms from ``/metrics``; 0 HTTP errors, #1 launched, no plain version, and
+    every answer's text and token usage equal to the pipeline's direct call
+    but where a recomputation shows a decode near-tie or the retrieval a
+    sub-ulp near-tie (counted).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -307,6 +337,22 @@ IVF_N, IVF_Q, IVF_CENTERS, IVF_NOISE = 2_000_000, 256, 2000, 0.3
 IVF_RECALL_MIN, IVF_LAT_Q, IVF_DET_N = 0.9, 32, 200_000
 # phase 17: a prefix of its corpus built natively and by the numpy builder
 PREFIX_N = 50_000
+# phase 20: the causal decoder at scripts/bench_jaxlm.py:45-47's configuration
+# (hidden 512, 8 layers, 8 heads, max_len 512, bf16 embedding sums; prompt
+# bucket 128, 128 new tokens at B = 1, 8, 32), also in f32; logits tolerances
+# (absolute; logits have a standard deviation of about 0.48): f32 for
+# reduction order, bf16 for the first layer norm's bf16 intermediates, which
+# [B, 1, H] and [B, T, H] shapes round differently (1.7e-3 measured on the CPU
+# at 4 rows x 32 steps). Then basic_rag with torch_lm at the llm/torch_lm.yaml
+# template's defaults (cli/templates.py; JAX cli/templates.py:183-188) over
+# phase 18's workspace: 256 queries through the Executor at top_k 5, and
+# /generate at 1 and 32 closed-loop clients, 64 requests a level (an answer
+# takes 0.3-0.4 s of host launches, so this part costs about 170 s)
+GEN_LM = dict(hidden=512, layers=8, heads=8, max_len=512)
+GEN_BATCHES, GEN_PROMPT, GEN_NEW, GEN_REPS, GEN_PROFILE_NEW = (1, 8, 32), 128, 128, 2, 16
+GEN_TOL = {"f32": 1e-4, "bf16": 1e-2}
+GEN_Q, GEN_TOP_K, GEN_CLIENTS, GEN_REQUESTS = 256, 5, (1, 32), 64
+GEN_METRICS = ("exact_match", "token_f1", "bleu", "rouge")
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
 # non-tensor FLOP/s, HBM bytes/s
@@ -2738,10 +2784,12 @@ def scrape(port: int) -> dict[str, float]:
     return series
 
 
-def batch_stats(before: dict, after: dict, pipeline: str) -> tuple[float, float, int, float]:
+def batch_stats(before: dict, after: dict, pipeline: str,
+                kind: str = "search") -> tuple[float, float, int, float]:
     """(mean batch size, mean device-batch wall ms, batches, mean server-side
-    /search latency ms) of one search batcher between two scrapes."""
-    lab = f'{{kind="search",pipeline="{pipeline}"}}'
+    latency ms of the endpoint) of one ``kind`` batcher (``search`` or
+    ``generate``) between two scrapes."""
+    lab = f'{{kind="{kind}",pipeline="{pipeline}"}}'
 
     def delta(name, label=lab):
         return after.get(name + label, 0.0) - before.get(name + label, 0.0)
@@ -2749,7 +2797,7 @@ def batch_stats(before: dict, after: dict, pipeline: str) -> tuple[float, float,
     n = delta("autorag_batch_size_count")
     if not n:
         return 0.0, 0.0, 0, 0.0
-    req = '{endpoint="/search"}'
+    req = f'{{endpoint="/{kind}"}}'
     server_ms = (delta("autorag_request_latency_seconds_sum", req) * 1e3
                  / max(delta("autorag_request_latency_seconds_count", req), 1))
     return (delta("autorag_batch_size_sum") / n,
@@ -2784,10 +2832,14 @@ class BatchClock:
 
 
 def cli_serving_phase(seed: int, dev, pool, n: int = SERVE_N, q_cnt: int = SERVE_Q,
-                      requests: int = SERVE_REQUESTS, encoder: dict = ENCODER) -> None:
+                      requests: int = SERVE_REQUESTS, encoder: dict = ENCODER,
+                      root: str | None = None) -> None:
     """Phase 18: the port's CLI (``init``, ``ingest``, ``run``, ``report``,
     ``show``) and ``serve_workspace`` on the card, driven as a user drives
-    them; ``pool`` is a one-process executor for the HTTP load clients."""
+    them; ``pool`` is a one-process executor for the HTTP load clients. The
+    config tree and workspace go to ``root/configs`` and ``root/ws`` (a
+    temporary directory of their own without ``root``), where phase 20 finds
+    them."""
     import threading
     import urllib.request
 
@@ -2816,7 +2868,7 @@ def cli_serving_phase(seed: int, dev, pool, n: int = SERVE_N, q_cnt: int = SERVE
     def grown(a: dict, b: dict) -> dict:
         return {k: b[k] - a[k] for k in b if b[k] != a[k]}
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(root) if root else tempfile.TemporaryDirectory() as tmp:
         cfg, ws = f"{tmp}/configs", f"{tmp}/ws"
 
         def run_cli(*argv: str) -> float:
@@ -3163,6 +3215,494 @@ def cli_serving_phase(seed: int, dev, pool, n: int = SERVE_N, q_cnt: int = SERVE
         if left:
             fail(f"threads still running after handle.stop(): {left}")
         handle.catalog.close()
+
+
+def top2_margin(logits) -> float:
+    """The gap between the two largest logits of one step."""
+    top = logits.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def first_diff(a, b) -> int | None:
+    """The first index where two token rows differ, else None."""
+    d = np.flatnonzero(np.asarray(a) != np.asarray(b))
+    return int(d[0]) if d.size else None
+
+
+def step_logits(dec, ids, mask, tokens):
+    """The logits each decode step of ``dec.generate`` picks from, [B, n, V]:
+    the prefill, then ``_step`` fed ``tokens`` [B, n] (the generate loop's
+    own tokens), on the tensors' device."""
+    import torch
+
+    b, tp = ids.shape
+    with torch.no_grad():
+        logits, cache = dec(ids, mask, return_cache=True)
+        out = [logits[:, -1]]
+        kv_mask = torch.zeros((b, dec.config.max_len), dtype=torch.bool, device=ids.device)
+        kv_mask[:, :tp] = mask
+        prompt_len = mask.sum(1)
+        for i in range(tokens.shape[1] - 1):
+            kv_mask[:, tp + i] = True
+            out.append(dec._step(cache, tokens[:, i], prompt_len + i, tp + i, kv_mask))
+    return torch.stack(out, dim=1)
+
+
+def event_and_host_ms(fn, reps: int, warm: bool = True) -> tuple[float, float]:
+    """(device ms by CUDA events, host-clock ms) a call of ``fn``, both over
+    the same ``reps`` calls (after one warm-up call with ``warm``)."""
+    import torch
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def decoder_phase(seed: int, dev) -> None:
+    """Phase 20 (a): the causal decoder at ``GEN_LM`` on the card, seeded
+    random weights, in the bf16 setting (the embedding sum rounded) and in
+    f32: greedy decode at each batch size, timed; the KV-cache decode's
+    logits against a teacher-forced full forward, every row and step; at
+    B = 8 the card's teacher-forced logits against the same module on the
+    CPU and the batched tokens against single-prompt decodes; the device
+    launches of a decode step and the device's busy share of a call."""
+    import torch
+
+    from autorag_research_tpu_torch.models.decoder import (
+        CausalDecoder,
+        DecoderConfig,
+        byte_detokenize,
+        byte_tokenize,
+    )
+
+    rng = np.random.default_rng(seed + 20)
+    words = [f"w{i}" for i in range(5000)]
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(8, 40))))
+             for _ in range(max(GEN_BATCHES))]
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    models = {name: CausalDecoder(DecoderConfig(**GEN_LM, dtype=dt), device=dev, seed=seed)
+              for name, dt in dtypes.items()}
+    n_params = sum(p.numel() for p in models["f32"].parameters())
+
+    def batch(b):
+        ids, mask = byte_tokenize(texts[:b], GEN_PROMPT)
+        return torch.from_numpy(ids).to(dev, torch.int64), torch.from_numpy(mask).to(dev)
+
+    def teacher_forced(dec, ids, mask, tokens):
+        """One full forward over prompt + tokens[:, :-1]: the logits at the
+        slots where the decode picked each token."""
+        full_ids = torch.cat([ids, tokens[:, :-1]], dim=1)
+        full_mask = torch.cat([mask, torch.ones_like(tokens[:, :-1], dtype=torch.bool)], dim=1)
+        with torch.no_grad():
+            return dec(full_ids, full_mask)[:, ids.shape[1] - 1:]
+
+    ids, mask = batch(max(GEN_BATCHES))
+    with torch.no_grad():
+        logits, cache = models["bf16"](ids, mask, return_cache=True)
+    log(f"decoder: {GEN_LM}, {n_params} parameters (seed {seed}); prompts of {GEN_PROMPT} byte "
+        f"tokens, {int(mask.sum(1).min())}-{int(mask.sum(1).max())} real; the bf16 setting gives "
+        f"{str(logits.dtype)[6:]} logits and a {str(cache[0][0].dtype)[6:]} KV cache")
+    if logits.dtype != torch.float32 or cache[0][0].dtype != torch.float32:
+        fail("the bf16 decoder does not promote to f32 after its first layer norm")
+    del logits, cache
+
+    for b in GEN_BATCHES:
+        ids, mask = batch(b)
+        for name, dec in models.items():
+            tok, n_new = dec.generate(ids, mask, GEN_NEW)
+            picked = step_logits(dec, ids, mask, tok)
+            err = (picked - teacher_forced(dec, ids, mask, tok)).abs().max().item()
+            # bf16 is the configuration bench_jaxlm.py times; f32 beside it
+            ms, host = event_and_host_ms(lambda: dec.generate(ids, mask, GEN_NEW), GEN_REPS,
+                                         warm=False)  # the checked call above warmed it
+            ops = 2.0 * n_params * b * (GEN_PROMPT + GEN_NEW)
+            timing = (f"{ms:.1f} ms a call by CUDA events, {host:.1f} ms host clock, "
+                      f"{b * GEN_NEW / host * 1e3:.0f} tokens/s; about {ops / 1e9:.1f} GFLOP "
+                      f"of products ({ops / 67e12 * 1e3:.2f} ms at 67 TFLOP/s f32); ")
+            log(f"decoder {name} B={b}, {GEN_NEW} new: {timing}{int(n_new.sum())} of "
+                f"{b * GEN_NEW} tokens generated (not PAD / EOS); KV-cache logits vs "
+                f"teacher-forced full forward: max |d| {err:.3e} over {b} x {GEN_NEW} steps "
+                f"(tol {GEN_TOL[name]:.0e})")
+            if not (bool(torch.isfinite(picked).all()) and err <= GEN_TOL[name]):
+                fail(f"decoder {name} B={b}: the KV-cache decode's logits differ from the full "
+                     f"forward by {err:.3e}")
+        del picked
+
+    # B = 8: the card against the same module on the CPU, batched against single
+    b = GEN_BATCHES[1]
+    ids, mask = batch(b)
+    for name, dt in dtypes.items():
+        dec = models[name]
+        tok = dec.generate(ids, mask, GEN_NEW)[0]
+        card = teacher_forced(dec, ids, mask, tok).cpu()
+        cpu_dec = CausalDecoder(DecoderConfig(**GEN_LM, dtype=dt), device="cpu", seed=seed)
+        if not all(torch.equal(a, c.cpu()) for a, c in zip(cpu_dec.parameters(), dec.parameters())):
+            fail("the seeded decoder's weights differ between the CPU and the card")
+        t0 = time.perf_counter()
+        cpu = teacher_forced(cpu_dec, ids.cpu(), mask.cpu(), tok.cpu())
+        cpu_s = time.perf_counter() - t0
+        err = (card - cpu).abs().max().item()
+        del cpu_dec
+        log(f"decoder {name} B={b}: teacher-forced logits on the card vs the same module on the "
+            f"CPU ({cpu_s:.1f} s there): max |d| {err:.3e} (tol {GEN_TOL[name]:.0e})")
+        if err > GEN_TOL[name]:
+            fail(f"decoder {name}: the card's logits differ from the CPU's by {err:.3e}")
+        if name != "bf16":
+            continue
+        singles, differ, near = [], 0, 0
+        tok = tok.cpu().numpy()
+        for i in range(b):
+            t1 = dec.generate(ids[i:i + 1], mask[i:i + 1], GEN_NEW)[0]
+            s = first_diff(t1[0].cpu().numpy(), tok[i])
+            singles.append(t1[0].cpu().numpy())
+            if s is None:
+                continue
+            differ += 1
+            m = top2_margin(step_logits(dec, ids[i:i + 1], mask[i:i + 1], t1)[0, s])
+            near += m <= GEN_TOL[name]
+            log(f"decoder {name} B={b}: row {i} alone first differs from its batched decode at "
+                f"step {s}, top-2 margin {m:.3e} there")
+        same_text = sum(a == c for a, c in zip(byte_detokenize(np.stack(singles)),
+                                               byte_detokenize(tok)))
+        log(f"decoder {name} B={b}: batched vs single-prompt decodes: {b - differ} of {b} rows "
+            f"equal ({same_text} texts), {near} of {differ} differences start at a near-tie "
+            f"(top-2 margin <= {GEN_TOL[name]:.0e})")
+        if near != differ:
+            fail(f"decoder {name}: batched tokens differ from single-prompt tokens beyond near-ties")
+
+    # the launches of a decode step, and the device's busy share of a call
+    ids, mask = batch(max(GEN_BATCHES))
+    dec = models["bf16"]
+    pre, _, _ = device_breakdown(f"decoder prefill B={ids.shape[0]}",
+                                 lambda: dec(ids, mask, return_cache=True), calls=1)
+    gen, _, _ = device_breakdown(f"decoder generate B={ids.shape[0]}, {GEN_PROFILE_NEW} new",
+                                 lambda: dec.generate(ids, mask, GEN_PROFILE_NEW), calls=1)
+    host = event_and_host_ms(lambda: dec.generate(ids, mask, GEN_PROFILE_NEW), 2)[1]
+    if pre and gen:
+        n_pre, n_gen = sum(r[1] for r in pre), sum(r[1] for r in gen)
+        busy = sum(ms * n for ms, n, _ in gen)
+        log(f"decoder: {(n_gen - n_pre) / GEN_PROFILE_NEW:.1f} device launches a decode step "
+            f"(torch.profiler: {n_gen} for a call of {GEN_PROFILE_NEW} steps, {n_pre} for the "
+            f"prefill alone); that call keeps the device busy {busy:.1f} ms, {busy / host:.1%} "
+            f"of its {host:.1f} ms host-clock call without the profiler")
+
+
+def generate_level(port: int, queries: list[str], clients: int, n: int) -> dict:
+    """Closed-loop /generate load (run in a process of its own): ``clients``
+    threads each send one request at a time, the i-th asking for
+    ``queries[i % len(queries)]``, until ``n`` are answered. Returns the wall
+    seconds and each request's latency, status, text, token usage and
+    evidence ids."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    lock = threading.Lock()
+    nxt = [0]
+    out = {key: [None] * n for key in ("text", "usage", "ctx")}
+    out.update(lat=[0.0] * n, code=[0] * n, errors=[])
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= n:
+                return
+            body = json.dumps({"query": queries[i % len(queries)], "top_k": GEN_TOP_K,
+                               "pipeline": "basic_rag"}).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body,
+                                         headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT) as resp:
+                    code, data = resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as exc:
+                code, data = exc.code, {}
+            except OSError as exc:
+                code, data = -1, {}
+                out["errors"].append(f"{type(exc).__name__}: {exc}")
+            out["lat"][i] = time.perf_counter() - t0
+            out["code"][i] = code
+            if code == 200:
+                out["text"][i], out["usage"][i] = data["text"], data["token_usage"]
+                out["ctx"][i] = data["metadata"]["context_chunk_ids"]
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def generation_phase(seed: int, dev, pool, root: str, q_cnt: int = GEN_Q,
+                     requests: int = GEN_REQUESTS) -> None:
+    """Phase 20 (b, c): ``basic_rag`` with ``torch_lm`` at the template's
+    defaults over phase 18's workspace and config tree under ``root``:
+    through ``Executor(catalog, ExecutorConfig(...))`` on the card, then
+    ``serve_workspace(..., generation=["basic_rag"])`` under closed-loop
+    /generate clients (``pool`` runs them)."""
+    import threading
+
+    import torch
+
+    from autorag_research_tpu_torch.cli.config_resolver import ConfigResolver
+    from autorag_research_tpu_torch.config import BaseMetricConfig, BuildContext, ExecutorConfig
+    from autorag_research_tpu_torch.exceptions import ModelLoadError
+    from autorag_research_tpu_torch.executor import Executor
+    from autorag_research_tpu_torch.injection import ModelRegistry
+    from autorag_research_tpu_torch.models.decoder import byte_detokenize, byte_tokenize
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.ops import sparse as ts
+    from autorag_research_tpu_torch.pipelines.loader import PipelineLoader
+    from autorag_research_tpu_torch.schema import MetricInput
+    from autorag_research_tpu_torch.serving.server import ServingHandle, serve_workspace
+    from autorag_research_tpu_torch.store.catalog import Catalog
+
+    def reset():
+        for mod in (td, ts, tm):
+            mod.reset_launch_counts()
+
+    def counts():
+        launched = {k: v for k, v in {**td.LAUNCHES, **ts.LAUNCHES, **tm.LAUNCHES}.items() if v}
+        return launched, {k: v for k, v in {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS}.items() if v}
+
+    cfg, ws = f"{root}/configs", f"{root}/ws"
+    with open(f"{cfg}/llm/torch_lm.yaml") as f:
+        lm_spec = [line for line in f.read().splitlines() if line and not line.startswith("#")]
+    with open(f"{cfg}/pipelines/generation/basic_rag.yaml", "w") as f:
+        f.write("type: basic_rag\nretrieval_pipeline_name: vector_search_verified\nllm: torch_lm\n"
+                f"top_k: {GEN_TOP_K}\nquery_limit: {q_cnt}\n")
+    resolver = ConfigResolver(cfg)
+    rag_cfg = resolver.resolve_pipeline("generation", "basic_rag")
+    ctx = BuildContext(device=dev.type, models=ModelRegistry(cfg, device=dev.type),
+                       pipeline_configs=resolver.resolve_transitive_dependencies([rag_cfg]))
+    metrics = [BaseMetricConfig(name="recall"),
+               *[BaseMetricConfig(name=m, metric_type="generation") for m in GEN_METRICS]]
+    cat = Catalog(f"{ws}/catalog.db")
+
+    # ---- (b) basic_rag through the Executor, launch counts from 0 -----------
+    reset()
+    t0 = time.perf_counter()
+    result = Executor(cat, ExecutorConfig(pipelines=[rag_cfg], metrics=metrics, health_check=True,
+                                          health_check_queries=2), ctx).run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launched, plain = counts()
+    pres = result.pipelines[0]
+    log(f"generate: `llm/torch_lm.yaml` {lm_spec}; basic_rag over vector_search_verified, top_k "
+        f"{GEN_TOP_K}, {q_cnt} queries of the {cat.count('query')} of phase 18's workspace "
+        f"({cat.count('chunk')} passages), health check on 2: Executor.run {run_s:.2f} s, "
+        f"launches {json.dumps(launched)}, plain calls {json.dumps(plain)}")
+    for line in result.report().splitlines():
+        log(f"generate: {line}")
+    log(f"generate: spans (ms) {json.dumps({k: round(v, 1) for k, v in result.spans.items()})}")
+    if not result.success or not all(m.success for m in pres.metrics):
+        fail(f"basic_rag through the Executor failed: {result.report()}")
+    if not launched.get("seg_stats_bf16") or plain:
+        fail("basic_rag's retrieval skipped #1 or took a plain route on the card")
+    if cat.get_pipeline("basic_rag_health_check") is not None:
+        fail("the health check left its pipeline behind")
+
+    loader = PipelineLoader(cat, ctx)
+    rag, leg = loader.load("basic_rag"), loader.load("vector_search_verified")
+    lm, pid = rag.llm, pres.stats["pipeline_id"]
+    qids = cat.get_all_query_ids()[:q_cnt]
+    direct = {}
+    for lo in range(0, len(qids), 128):
+        direct.update(leg._retrieve_batch_by_ids(qids[lo:lo + 128], GEN_TOP_K))
+    missing, bad_usage, bad_ctx, texts = [], [], [], []
+    got_i, got_s, ref_i, ref_s = [], [], [], []
+    for q in qids:
+        row = cat.get_executor_result(q, pid)
+        if row is None:
+            missing.append(q)
+            continue
+        meta, usage = json.loads(row["result_metadata"]), json.loads(row["token_usage"])
+        ids = meta["context_chunk_ids"]
+        contents = rag.get_chunk_contents(ids)
+        prompt = rag.prompt_template.format(
+            context="\n\n".join(contents) if contents else "(no context retrieved)",
+            query=cat.get_query_text(q))
+        want = min(len(prompt.encode()) + 1, lm.max_prompt_len)
+        if (usage["prompt_tokens"] != want or usage["completion_tokens"] > lm.max_new_tokens
+                or usage["total_tokens"] != usage["prompt_tokens"] + usage["completion_tokens"]):
+            bad_usage.append((q, usage, want))
+        hits = cat.get_retrieved(q, pid)
+        if [h["doc_id"] for h in hits] != ids:
+            bad_ctx.append(q)
+        got_i.append(ids)
+        got_s.append([h["rel_score"] for h in hits])
+        ref_i.append([h["doc_id"] for h in direct[q]])
+        ref_s.append([h["score"] for h in direct[q]])
+        texts.append(row["generation_result"])
+    n_mism, explained = ids_agree(np.array(got_i), np.array(got_s, np.float32),
+                                  np.array(ref_i), np.array(ref_s, np.float32))
+    log(f"generate: {len(qids) - len(missing)} of {len(qids)} queries have a result row; "
+        f"prompt_tokens = min(prompt bytes + 1, {lm.max_prompt_len}) and usage sums hold for "
+        f"{len(qids) - len(missing) - len(bad_usage)} ({sum(len(t) for t in texts) / max(len(texts), 1):.1f} "
+        f"characters of text a row on average); context_chunk_ids vs a direct verified search's "
+        f"top-{GEN_TOP_K}: {n_mism} id mismatches (all sub-ulp: {explained}), {len(bad_ctx)} rows "
+        f"whose persisted hits differ from their metadata")
+    if missing or bad_usage or bad_ctx or not explained:
+        fail(f"basic_rag rows: missing {missing[:5]}, usage {bad_usage[:3]}, evidence {bad_ctx[:5]}, "
+             f"ids explained {explained}")
+    # bert_score as the Executor builds it: on the context's device, where it
+    # must raise (no transformers or checkpoint on this machine)
+    bert = BaseMetricConfig(name="bert_score", metric_type="generation")
+    extras = ctx.metric_extras(bert)
+    try:
+        bert.metric_func(ctx)([MetricInput(generated_texts="a", generation_gt=["a"])])
+    except ModelLoadError as exc:
+        log(f"generate: bert_score (metric extras {extras}) raises ModelLoadError here, as it "
+            f"must: {str(exc)[:100]}")
+    else:
+        fail("bert_score ran without transformers or a local checkpoint")
+    if extras != {"device": dev.type}:
+        fail(f"bert_score was not given the context's device: {extras}")
+
+    # ---- (c) /generate under closed-loop clients ---------------------------
+    t0 = time.perf_counter()
+    handle = serve_workspace(ws, config_path=cfg, retrieval=["vector_search_verified"],
+                             generation=["basic_rag"], port=0, device=dev.type)
+    built_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    handle.warmup(max_bucket=32, top_k=GEN_TOP_K, gen_max_bucket=32, gen_top_k=GEN_TOP_K)
+    torch.cuda.synchronize()
+    log(f"generate: serve_workspace built vector_search_verified + basic_rag in {built_s:.2f} s; "
+        f"warmup through bucket 32 (search and decode) in {time.perf_counter() - t0:.2f} s")
+    rag_s = handle.generation_pipelines["basic_rag"]
+    lm_s, leg_s = rag_s.llm, rag_s.retrieval_pipeline
+    # each served decode's prompts and tokens, each served retrieval's hits
+    lock, decoded, retrieved = threading.Lock(), {}, {}
+    decode, retrieve = lm_s._decode, leg_s._retrieve_batch_by_texts
+
+    def recording_decode(prompts):
+        out = decode(prompts)
+        with lock:
+            for p, row in zip(prompts, out[0]):
+                decoded.setdefault(p, []).append(row)
+        return out
+
+    def recording_retrieve(queries, top_k):
+        hits = retrieve(queries, top_k)
+        with lock:
+            for q, h in zip(queries, hits):
+                retrieved.setdefault(q, []).append(h)
+        return hits
+
+    lm_s._decode, leg_s._retrieve_batch_by_texts = recording_decode, recording_retrieve
+    q_texts = [r["contents"] for r in cat.get_queries(limit=requests)]
+    served, errors = [], 0
+    reset()
+    for clients in GEN_CLIENTS:
+        before = scrape(handle.port)
+        res = pool.submit(generate_level, handle.port, q_texts, clients, requests).result()
+        after = scrape(handle.port)
+        bad = sum(c != 200 for c in res["code"])
+        errors += bad
+        lat = np.asarray(res["lat"]) * 1e3
+        bsize, bms, nb, server_ms = batch_stats(before, after, "basic_rag", kind="generate")
+        served.extend((q_texts[i % len(q_texts)], res["text"][i], res["usage"][i], res["ctx"][i])
+                      for i in range(requests) if res["code"][i] == 200)
+        log(f"generate: /generate x {clients} clients: {requests / res['wall']:.1f} QPS, latency "
+            f"p50 {np.percentile(lat, 50):.1f} / p95 {np.percentile(lat, 95):.1f} / p99 "
+            f"{np.percentile(lat, 99):.1f} ms (mean {lat.mean():.1f} at the client, "
+            f"{server_ms:.1f} in the server), {nb} batches of {bsize:.2f} on average, {bms:.1f} ms "
+            f"a device batch (retrieval + decode + readback), {bad} HTTP errors"
+            + (f" {res['errors'][:3]}" if res["errors"] else ""))
+    torch.cuda.synchronize()
+    launched, plain = counts()
+    log(f"generate: launches while serving {json.dumps(launched)}; plain calls {json.dumps(plain)}")
+    # the generation batcher one batch at a time against its 3 at 32 clients:
+    # whether batches decoding side by side in threads help or contend for the
+    # host. ServingHandle gives its max_inflight to the /search batchers
+    # alone (the generation batchers keep the default 3, as in the JAX
+    # package), so this measurement sets the batcher's slots itself, and marks
+    # it warm as the first handle's is (a cold batcher runs its first batch
+    # synchronously)
+    one = ServingHandle(handle.catalog, handle.retrieval_pipelines, handle.generation_pipelines)
+    gen_one = one._gen_batchers["basic_rag"]
+    gen_one._inflight = threading.Semaphore(1)
+    gen_one._warmed.set()
+    one.start(port=0)
+    try:
+        before = scrape(one.port)
+        res = pool.submit(generate_level, one.port, q_texts, 32, requests).result()
+        after = scrape(one.port)
+    finally:
+        one.stop()
+    errors += sum(c != 200 for c in res["code"])
+    served.extend((q_texts[i % len(q_texts)], res["text"][i], res["usage"][i], res["ctx"][i])
+                  for i in range(requests) if res["code"][i] == 200)
+    lat = np.asarray(res["lat"]) * 1e3
+    bsize, bms, nb, server_ms = batch_stats(before, after, "basic_rag", kind="generate")
+    log(f"generate: /generate x 32 clients, the generation batcher one batch at a time: "
+        f"{requests / res['wall']:.1f} QPS, latency p50 {np.percentile(lat, 50):.1f} / p99 "
+        f"{np.percentile(lat, 99):.1f} ms, {nb} batches of {bsize:.2f} on average, {bms:.1f} ms "
+        f"a device batch")
+    del lm_s._decode, leg_s._retrieve_batch_by_texts
+    if errors:
+        fail(f"{errors} HTTP errors on /generate")
+    if not launched.get("seg_stats_bf16") or plain:
+        fail("/generate skipped #1 or took a plain route on the card")
+
+    # every served answer against the pipeline's direct single-query call
+    t0 = time.perf_counter()
+    direct = {q: rag_s.generate_batch_by_texts([q], GEN_TOP_K)[0] for q in q_texts}
+    stats = {"answers": len(served), "equal": 0, "decode_near_ties": 0, "retrieval_near_ties": 0}
+    for q, text, usage, ctx_ids in served:
+        d = direct[q]
+        if ctx_ids != d.metadata["context_chunk_ids"]:
+            # the encoder's sums depend on the batch: a dense near-tie may
+            # swap documents, and the prompt then differs
+            d_s = np.array([h["score"] for h in d.retrieved], np.float64)
+            ok = False
+            for hits in retrieved.get(q, []):
+                s = np.array([h["score"] for h in hits], np.float64)
+                if [h["doc_id"] for h in hits] == ctx_ids and len(s) == len(d_s):
+                    ok = bool((np.abs(s - d_s) <= 1e-6 * np.maximum(1.0, np.abs(d_s))).all())
+            stats["retrieval_near_ties"] += ok
+            if not ok:
+                fail(f"/generate on {q[:60]!r} retrieved {ctx_ids} against {d.metadata['context_chunk_ids']}")
+            continue
+        if text == d.text and usage == d.token_usage:
+            stats["equal"] += 1
+            continue
+        contents = rag_s.get_chunk_contents(ctx_ids)
+        prompt = rag_s.prompt_template.format(
+            context="\n\n".join(contents) if contents else "(no context retrieved)", query=q)
+        rows = [r for r in decoded.get(prompt, []) if byte_detokenize(r[None])[0] == text]
+        ids, mask = byte_tokenize([prompt], lm_s.max_prompt_len)
+        ids = torch.from_numpy(ids).to(dev, torch.int64)
+        mask = torch.from_numpy(mask).to(dev)
+        tok = lm_s.decoder.generate(ids, mask, lm_s.max_new_tokens)[0]
+        s = first_diff(rows[0], tok[0].cpu().numpy()) if rows else None
+        ok = (s is not None and usage["prompt_tokens"] == d.token_usage["prompt_tokens"]
+              and top2_margin(step_logits(lm_s.decoder, ids, mask, tok)[0, s]) <= GEN_TOL["f32"])
+        stats["decode_near_ties"] += ok
+        if not ok:
+            fail(f"/generate on {q[:60]!r}: served {text[:40]!r} {usage} against direct "
+                 f"{d.text[:40]!r} {d.token_usage} (first differing step {s})")
+    log(f"generate: served answers vs the pipeline's direct generate_batch_by_texts([q], "
+        f"{GEN_TOP_K}) ({len(direct)} direct calls, {time.perf_counter() - t0:.2f} s): "
+        f"{json.dumps(stats)}")
+    handle.stop()
+    handle.catalog.close()
+    cat.close()
 
 
 def ptxas_start(cuda_build, tmp: str, name: str):
@@ -3700,17 +4240,27 @@ def main() -> int:
     t0 = time.perf_counter()
     import multiprocessing
 
-    with concurrent.futures.ProcessPoolExecutor(
+    with tempfile.TemporaryDirectory() as serve_root, concurrent.futures.ProcessPoolExecutor(
         max_workers=1, mp_context=multiprocessing.get_context("spawn")
     ) as pool:
-        cli_serving_phase(args.seed, dev, pool)
-    log(f"phase 18 (CLI and served workspace): {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
+        cli_serving_phase(args.seed, dev, pool, root=serve_root)
+        log(f"phase 18 (CLI and served workspace): {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
 
-    # ---- 19. the IVF indexes at 2,000,000 x 768 ------------------------------
-    t0 = time.perf_counter()
-    ivf_phase(args.seed, dev)
-    log(f"phase 19 (IVF at {IVF_N} x {DIM}): {time.perf_counter() - t0:.1f} s")
+        # ---- 19. the IVF indexes at 2,000,000 x 768 --------------------------
+        t0 = time.perf_counter()
+        ivf_phase(args.seed, dev)
+        log(f"phase 19 (IVF at {IVF_N} x {DIM}): {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        # ---- 20. the generation path -----------------------------------------
+        t0 = time.perf_counter()
+        decoder_phase(args.seed, dev)
+        log(f"phase 20 (a) (the decoder at {GEN_LM}): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        generation_phase(args.seed, dev, pool, serve_root)
+        log(f"phase 20 (b, c) (basic_rag through the Executor and /generate): "
+            f"{time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

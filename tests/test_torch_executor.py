@@ -7,7 +7,8 @@ case reads numbers, the JAX package's Executor or service runs the same case
 on its own catalog and the two must agree. Also: each package's config
 registry resolves its own classes in one process, ``Executor`` without a
 context builds for the card, the IVF index types build, and a generation
-metric is refused until the generation metrics are ported.
+metric resolves to the port's function (``tests/test_torch_generation.py``
+runs generation pipelines through both Executors).
 """
 
 from dataclasses import dataclass
@@ -340,8 +341,25 @@ def test_vector_search_config_refuses_ivf_until_ported(tcat):
 
 @pytest.mark.parametrize("name", ["faithfulness", "bleu"])
 def test_generation_metric_refused(name):
-    with pytest.raises(MetricNotFoundError, match="generation-side slice"):
-        BaseMetricConfig(name=name, metric_type="generation").metric_func(CPU)
+    """A generation metric resolves to the port's function where the JAX
+    package has the name (``bleu``), and is refused by both packages where
+    it has not (``faithfulness`` is no builtin of either)."""
+    from autorag_research_tpu.config import BaseMetricConfig as JaxMetricConfig
+    from autorag_research_tpu.config import BuildContext as JaxContext
+    from autorag_research_tpu.evaluation.metrics.generation import GENERATION_METRICS as JAX_GEN
+    from autorag_research_tpu.exceptions import MetricNotFoundError as JaxMetricNotFoundError
+    from autorag_research_tpu_torch.evaluation.metrics.generation import GENERATION_METRICS
+
+    config = BaseMetricConfig(name=name, metric_type="generation")
+    if name in JAX_GEN:
+        assert config.metric_func(CPU) is GENERATION_METRICS[name]
+        assert JaxMetricConfig(name=name, metric_type="generation").metric_func(
+            JaxContext()) is JAX_GEN[name]
+        return
+    with pytest.raises(MetricNotFoundError, match=f"generation metric '{name}'"):
+        config.metric_func(CPU)
+    with pytest.raises(JaxMetricNotFoundError):
+        JaxMetricConfig(name=name, metric_type="generation").metric_func(JaxContext())
 
 
 def test_metric_func_kwargs_and_unknown_metric():

@@ -13,14 +13,14 @@ seconds.
 
 Cases that wait, and why:
 
-- ``test_generate_known_and_adhoc``, ``test_generate_batched_endpoint``,
-  ``test_generate_batch_uses_batch_llm``,
-  ``test_adhoc_generate_with_dense_retriever`` and the LLM half of
-  ``test_generate_mixed_top_k_not_coalesced``: they need ``MockLLM`` and the
-  generation pipelines (``basic_rag``), ported with ROADMAP.md queue 1,
-  items 7 and 8;
 - ``test_serving_with_mesh_sharded_index``: a mesh-sharded index, ROADMAP.md
   queue 1, item 6 (``serve_workspace(mesh=True)`` raises until then).
+
+The generation cases (``test_generate_known_and_adhoc``,
+``test_generate_batched_endpoint``, ``test_generate_batch_uses_batch_llm``,
+``test_adhoc_generate_with_dense_retriever``, the LLM half of
+``test_generate_mixed_top_k_not_coalesced``) run against both packages'
+``basic_rag`` in ``tests/test_torch_generation.py``.
 """
 
 import importlib

@@ -144,6 +144,8 @@ ENTRY_MODULES = [
         "store.ingestion", "data.base", "data.registry", "data.synthetic", "data.local",
         "reporting.service", "reporting.html", "reporting.ui",
         "native", "index.ivf", "index.ivf_contiguous",
+        "models.decoder", "llm.torch_lm", "pipelines.generation.basic_rag",
+        "evaluation.metrics.generation", "evaluation.metrics.model_scorers",
     )
 ]
 
