@@ -9,10 +9,10 @@ experiment file lists pipeline/metric *names*; each name maps to
 defaults to the file stem.
 
 The port's copy of the JAX package's ``cli/config_resolver.py``. It resolves
-against the port's own config registry, which holds the ported retrieval
-pipelines and ``basic_rag``; a file naming another type (a generation or
-retrieval pipeline still to port) is refused with the ROADMAP.md item that
-ports it.
+against the port's own config registry, which holds every retrieval pipeline
+but ``heaven``, and ``basic_rag``; a file naming another type (``heaven`` or
+a generation pipeline still to port) is refused with the ROADMAP.md item
+that ports it.
 """
 
 from __future__ import annotations

@@ -6,9 +6,9 @@ The reference fetches its default ``configs/`` from GitHub
 
 The port's copy of the JAX package's ``cli/templates.py``: the same tree,
 but for the model files of the JAX package's own models. The encoder presets
-are ``embedding/torch_encoder*.yaml`` and the decoder's is ``llm/torch_lm.yaml``
-(the JAX template's defaults); the cross-encoder preset comes back with its
-model (ROADMAP.md queue 1, item 9). The tree also
+are ``embedding/torch_encoder*.yaml``, the decoder's is ``llm/torch_lm.yaml``
+and the cross-encoder's is ``reranker/torch_cross_encoder.yaml`` (each with
+the JAX template's defaults). The tree also
 names pipelines and model kinds the port does not have yet: the config
 resolver and the model registry refuse those when they are used, naming the
 ROADMAP.md item that ports them.
@@ -281,8 +281,11 @@ DEFAULT_CONFIGS: dict[str, str] = {
     ),
     "reranker/mock.yaml": "type: mock\n",
     "reranker/llm_listwise.yaml": "type: llm_listwise\nllm: mock\n",
+    "reranker/torch_cross_encoder.yaml": (
+        "type: torch_cross_encoder\n# params_path: /path/to/trained.npz\n"
+    ),
     # the reference's full reranker preset roster (configs/reranker/*.yaml);
-    # every type name is one of injection.DEFERRED's until item 7
+    # every type name resolves through injection._builtin_factories
     "reranker/cross_encoder.yaml": (
         "type: cross_encoder\ncheckpoint: cross-encoder/ms-marco-MiniLM-L-6-v2\n"
     ),

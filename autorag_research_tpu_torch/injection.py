@@ -13,14 +13,23 @@ strings; third-party types can be registered via
 
 The port's copy of the JAX package's ``injection.py``, with the kinds whose
 classes the port has: the embeddings ``mock``, ``mock_multi`` and
-``torch_encoder`` (``multi_vector: true`` gives the token-level encoder), and
-the LLMs ``mock``, ``scripted`` and ``torch_lm`` (the causal decoder; its
-``DecoderConfig`` fields come from the YAML, ``dtype: bfloat16 | float32``).
+``torch_encoder`` (``multi_vector: true`` gives the token-level encoder), the
+LLMs ``mock``, ``scripted`` and ``torch_lm`` (the causal decoder; its
+``DecoderConfig`` fields come from the YAML, ``dtype: bfloat16 | float32``),
+and every reranker kind of the JAX package: ``mock``, ``llm_listwise`` (its
+nested ``llm:`` resolved by name), ``embedding_similarity``, ``colbert``,
+the local HF checkpoints with their presets, the HTTP APIs, and
+``torch_cross_encoder`` (the cross-encoder; its ``EncoderConfig`` widths come
+from the YAML as the JAX package maps them for ``jax_cross_encoder``).
 A registry builds its on-device models on its ``device`` (``"cuda"`` unless
-the caller asks for another). The JAX package's other kinds are named in
+the caller asks for another): ``torch_encoder``, ``torch_lm``,
+``torch_cross_encoder``, the torch-backed HF rerankers, and ``colbert``,
+whose default token-level encoder (the JAX factory has none and fails
+without an ``embedding_model``) is ``torch_encoder`` with ``multi_vector:
+true`` at its default widths. The JAX package's other kinds are named in
 ``DEFERRED`` and refused with :class:`ModelLoadError`, whose message names
-the ROADMAP.md item that ports them (``jax_encoder`` and ``jax_lm`` name the
-port's own kinds).
+the ROADMAP.md item that ports them (``jax_encoder``, ``jax_lm`` and
+``jax_cross_encoder`` name the port's own kinds).
 """
 
 from __future__ import annotations
@@ -45,7 +54,6 @@ _FACTORIES: dict[str, dict[str, Callable[..., Any]]] = {
 _ON_DEVICE: set[tuple[str, str]] = set()
 
 _ITEM_7 = "ROADMAP.md queue 1, item 7 (host-side layers for the generation side)"
-_ITEM_9 = "ROADMAP.md queue 1, item 9 (models)"
 # the JAX package's builtin kinds that the port does not have yet -> the item
 # that ports them
 DEFERRED: dict[str, dict[str, str]] = {
@@ -66,14 +74,7 @@ DEFERRED: dict[str, dict[str, str]] = {
         "jax_encoder": "the port's encoder kind is 'torch_encoder'",
     },
     "reranker": {
-        **dict.fromkeys(
-            ("mock", "llm_listwise", "embedding_similarity", "colbert", "cross_encoder",
-             "monot5", "upr", "flag_embedding", "koreranker", "sentence_transformer",
-             "flag_embedding_llm", "tart", "flashrank", "openvino", "cohere", "jina",
-             "voyageai", "mixedbreadai"),
-            _ITEM_7,
-        ),
-        "jax_cross_encoder": _ITEM_9,
+        "jax_cross_encoder": "the port's reranker kind is 'torch_cross_encoder'",
     },
 }
 
@@ -137,6 +138,90 @@ def _builtin_factories() -> None:
         return TorchEncoderEmbedding(EncoderConfig(**config_kw), **rest)
 
     register_model_type("embedding", "torch_encoder", _torch_encoder, on_device=True)
+
+    from autorag_research_tpu_torch.rerankers import (
+        EmbeddingSimilarityReranker,
+        LLMListwiseReranker,
+        MockReranker,
+    )
+
+    register_model_type("reranker", "mock", MockReranker)
+    register_model_type("reranker", "llm_listwise", LLMListwiseReranker)
+    register_model_type("reranker", "embedding_similarity", EmbeddingSimilarityReranker)
+
+    def _colbert(embedding_model=None, device: str = "cuda", **kw):
+        from autorag_research_tpu_torch.rerankers.colbert import ColBERTReranker
+
+        if embedding_model is None:
+            from autorag_research_tpu_torch.embeddings.torch_encoder import (
+                TorchEncoderMultiVectorEmbedding,
+            )
+
+            embedding_model = TorchEncoderMultiVectorEmbedding(device=device)
+        return ColBERTReranker(embedding_model, **kw)
+
+    register_model_type("reranker", "colbert", _colbert, on_device=True)
+
+    def _torch_cross(**kw):
+        from autorag_research_tpu_torch.models.encoder import EncoderConfig
+        from autorag_research_tpu_torch.rerankers.torch_cross import TorchCrossEncoderReranker
+
+        cfg_kw = {
+            k: kw.pop(k)
+            for k in ("vocab_size", "hidden", "layers", "heads", "max_len", "out_dim")
+            if k in kw
+        }
+        config = EncoderConfig(**cfg_kw) if cfg_kw else None
+        return TorchCrossEncoderReranker(config=config, **kw)
+
+    register_model_type("reranker", "torch_cross_encoder", _torch_cross, on_device=True)
+
+    def _lazy(path: str):
+        def factory(**kw):
+            module, cls = path.rsplit(".", 1)
+            return getattr(importlib.import_module(module), cls)(**kw)
+
+        return factory
+
+    hf = "autorag_research_tpu_torch.rerankers.hf"
+    for name, cls in [
+        ("cross_encoder", "CrossEncoderReranker"),
+        ("monot5", "MonoT5Reranker"),
+        ("upr", "UPRReranker"),
+    ]:
+        register_model_type("reranker", name, _lazy(f"{hf}.{cls}"), on_device=True)
+
+    # Named presets for the reference's remaining local rerankers, each a
+    # class above with a default checkpoint; the torch-backed ones take the
+    # registry's device, the ONNX / OpenVINO ones run where their runtimes do
+    def _hf_preset(cls_name: str, default_checkpoint: str):
+        def factory(checkpoint: str | None = None, **kw):
+            return getattr(importlib.import_module(hf), cls_name)(
+                checkpoint or default_checkpoint, **kw
+            )
+
+        return factory
+
+    for name, cls, ckpt, on_device in [
+        ("flag_embedding", "CrossEncoderReranker", "BAAI/bge-reranker-v2-m3", True),
+        ("koreranker", "CrossEncoderReranker", "Dongjin-kr/ko-reranker", True),
+        ("sentence_transformer", "CrossEncoderReranker",
+         "cross-encoder/ms-marco-MiniLM-L-6-v2", True),
+        ("flag_embedding_llm", "FlagLLMReranker", "BAAI/bge-reranker-v2-gemma", True),
+        ("tart", "TARTReranker", "facebook/tart-full-flan-t5-xl", True),
+        ("flashrank", "FlashRankReranker", "cross-encoder/ms-marco-MiniLM-L-12-v2", False),
+        ("openvino", "OpenVINOReranker", "cross-encoder/ms-marco-MiniLM-L-6-v2", False),
+    ]:
+        register_model_type("reranker", name, _hf_preset(cls, ckpt), on_device=on_device)
+    for name, cls in [
+        ("cohere", "CohereReranker"),
+        ("jina", "JinaReranker"),
+        ("voyageai", "VoyageReranker"),
+        ("mixedbreadai", "MixedbreadReranker"),
+    ]:
+        register_model_type(
+            "reranker", name, _lazy(f"autorag_research_tpu_torch.rerankers.api.{cls}")
+        )
 
 
 _builtin_factories()

@@ -10,9 +10,27 @@ from autorag_research_tpu_torch.pipelines.retrieval.hybrid import (
     HybridRRFConfig,
     HybridRRFPipeline,
 )
+from autorag_research_tpu_torch.pipelines.retrieval.hyde import HyDEConfig, HyDEPipeline
 from autorag_research_tpu_torch.pipelines.retrieval.image_vector_search import (
     ImageVectorSearchConfig,
     ImageVectorSearchPipeline,
+)
+from autorag_research_tpu_torch.pipelines.retrieval.power_of_noise import (
+    PowerOfNoiseConfig,
+    PowerOfNoisePipeline,
+)
+from autorag_research_tpu_torch.pipelines.retrieval.query_rewrite import (
+    QueryRewriteConfig,
+    QueryRewritePipeline,
+)
+from autorag_research_tpu_torch.pipelines.retrieval.question_decomposition import (
+    QuestionDecompositionConfig,
+    QuestionDecompositionPipeline,
+)
+from autorag_research_tpu_torch.pipelines.retrieval.rerank import RerankConfig, RerankPipeline
+from autorag_research_tpu_torch.pipelines.retrieval.retro_star import (
+    RetroStarConfig,
+    RetroStarPipeline,
 )
 from autorag_research_tpu_torch.pipelines.retrieval.vector_search import (
     VectorSearchConfig,
@@ -25,6 +43,12 @@ __all__ = [
     "GQRHybridConfig", "GQRHybridPipeline",
     "HybridCCConfig", "HybridCCPipeline",
     "HybridRRFConfig", "HybridRRFPipeline",
+    "HyDEConfig", "HyDEPipeline",
     "ImageVectorSearchConfig", "ImageVectorSearchPipeline",
+    "PowerOfNoiseConfig", "PowerOfNoisePipeline",
+    "QueryRewriteConfig", "QueryRewritePipeline",
+    "QuestionDecompositionConfig", "QuestionDecompositionPipeline",
+    "RerankConfig", "RerankPipeline",
+    "RetroStarConfig", "RetroStarPipeline",
     "VectorSearchConfig", "VectorSearchPipeline",
 ]

@@ -7,8 +7,9 @@ Drives the port's dense, MaxSim and BM25 (flat, packed, bucketed) retrieval
 paths (``autorag_research_tpu_torch``), the MaxSim pins, the int8 and approx
 serving modes, the hybrid and IVF pipelines through the ``Executor``, the CLI
 and HTTP serving layer, the IVF indexes at 2,000,000 x 768 and the generation
-path (the causal decoder, ``basic_rag`` with ``torch_lm``) at full width and
-fails (non-zero exit) on any fault:
+path (the causal decoder, ``basic_rag`` with ``torch_lm``) at full width,
+reranking and the LLM-driven retrieval wrappers, and fails (non-zero exit) on
+any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source)
@@ -239,7 +240,8 @@ fails (non-zero exit) on any fault:
     this phase) with ``basic_rag`` over ``vector_search_verified`` at top_k
     5 and ``torch_lm`` at its template's defaults (256 / 4 / 4, f32, prompt
     384, 96 new), through ``Executor(catalog, ExecutorConfig(...))`` on the
-    card, every launch count at 0 just before: 256 queries, health check on
+    card, every launch count at 0 just before: 128 queries (256 before
+    phase 21 joined the run), health check on
     2, recall, ``exact_match``, ``token_f1``, ``bleu``, ``rouge``; every query
     has a row, ``prompt_tokens`` = min(prompt bytes + 1, 384), the evidence
     equals a direct verified search's top-5 (sub-ulp near-ties aside), #1
@@ -247,11 +249,42 @@ fails (non-zero exit) on any fault:
     ``transformers`` or checkpoint). (c) ``serve_workspace(...,
     generation=["basic_rag"])``, ``warmup`` through bucket 32, closed-loop
     /generate clients at 1 and 32 (and 32 with the generation batcher one
-    batch at a time, not its 3), 64 requests a level: QPS, p50 / p95 / p99, the mean batch and device-batch
+    batch at a time, not its 3), 32 requests a level (64 before phase 21):
+    QPS, p50 / p95 / p99, the mean batch and device-batch
     ms from ``/metrics``; 0 HTTP errors, #1 launched, no plain version, and
     every answer's text and token usage equal to the pipeline's direct call
     but where a recomputation shows a decode near-tie or the retrieval a
-    sub-ulp near-tie (counted).
+    sub-ulp near-tie (counted);
+21. reranking and the retrieval wrappers (no kernel of their own: the JAX
+    cross-encoder, rerankers and wrappers reach no ``pl.pallas_call``; #1
+    and #5 / #6 through their legs) in phase 18's workspace through
+    ``Executor(catalog, ExecutorConfig(...))`` on the card, every launch
+    count at 0 just before each part: (a) ``rerank`` with
+    ``torch_cross_encoder`` at ``EncoderConfig``'s defaults (vocabulary
+    32,768, 256 / 4 / 4, ``max_len`` 128, seeded; batch 64) over
+    ``vector_search_verified``, ``fetch_k_multiplier`` 3, top_k 10, all 1,000
+    queries, recall / ndcg beside ``vector_search_verified``'s (printed, not
+    gated: random weights); every query 10 rows from the inner top-30 of a
+    direct verified search (boundary near-ties aside), the first 32 queries'
+    30 pair scores on the card within ``RR_CE_TOL`` of the same module and
+    weights on the CPU and their order equal but at near-ties of the CPU
+    scores, #1 launched, no plain version; the run's seconds and spans, a
+    forward's device ms (CUDA events) and host ms, pairs/s. (b) on
+    ``torch_lm`` at its template's widths (256 / 4 / 4, f32, prompt 384),
+    32 new tokens (HyDE 64): ``hyde`` (verified dense index,
+    ``torch_encoder``), ``query_rewrite`` and ``question_decomposition``
+    (three sub-questions) over ``bm25`` on 32 queries, ``retro_star`` on 8
+    at 10 candidates, ``rerank`` with ``llm_listwise`` (window 20) on 16;
+    each one's LLM calls and ms a call; on 4 queries each the rows against a
+    recomputation from the run's own LLM replies (HyDE's search by the
+    passage's embedding, the rewrite's search, the max-score merge of the
+    sub-searches, the sort by parsed rubric scores); every listwise window's
+    permutation holds each index once; #1 and #5 / #6 launched, no plain
+    version. (c) ``power_of_noise`` at its template (2 noise ids,
+    ``retrieved_first``) over ``bm25`` on all 1,000 queries: every row is
+    BM25's top 8 plus ``random.Random(f"{seed}:{qid}").sample`` of the other
+    ids (so no noise id among the retrieved), and a second run gives
+    identical rows.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -345,14 +378,27 @@ PREFIX_N = 50_000
 # [B, 1, H] and [B, T, H] shapes round differently (1.7e-3 measured on the CPU
 # at 4 rows x 32 steps). Then basic_rag with torch_lm at the llm/torch_lm.yaml
 # template's defaults (cli/templates.py; JAX cli/templates.py:183-188) over
-# phase 18's workspace: 256 queries through the Executor at top_k 5, and
-# /generate at 1 and 32 closed-loop clients, 64 requests a level (an answer
-# takes 0.3-0.4 s of host launches, so this part costs about 170 s)
+# phase 18's workspace: 128 queries through the Executor at top_k 5, and
+# /generate at 1 and 32 closed-loop clients, 32 requests a level (an answer
+# takes 0.3-0.4 s of host launches: 170 s at 256 queries and 64 requests,
+# halved to leave phase 21 its time within the run's limit)
 GEN_LM = dict(hidden=512, layers=8, heads=8, max_len=512)
 GEN_BATCHES, GEN_PROMPT, GEN_NEW, GEN_REPS, GEN_PROFILE_NEW = (1, 8, 32), 128, 128, 2, 16
 GEN_TOL = {"f32": 1e-4, "bf16": 1e-2}
-GEN_Q, GEN_TOP_K, GEN_CLIENTS, GEN_REQUESTS = 256, 5, (1, 32), 64
+GEN_Q, GEN_TOP_K, GEN_CLIENTS, GEN_REQUESTS = 128, 5, (1, 32), 32
 GEN_METRICS = ("exact_match", "token_f1", "bleu", "rouge")
+# phase 21: rerank with torch_cross_encoder at EncoderConfig's defaults (the
+# reranker/torch_cross_encoder.yaml template; JAX cli/templates.py:277) over
+# vector_search_verified (fetch_k_multiplier 3, the rerank template's) on
+# phase 18's 1,000 queries, its first 32 checked against the CPU within 1e-5
+# (scores span about 0.4; card against CPU f32 logits of the decoder differ
+# by 2.6e-6); the LLM wrappers on torch_lm at its template's widths, 32 new
+# tokens (64 for HyDE's passage), on 32 queries (retro_star 8 at 10
+# candidates, the listwise rerank 16 at window 20), each checked by a
+# recomputation on 4; power_of_noise at its template on all 1,000
+RR_FETCH, RR_BATCH, RR_CPU_Q, RR_CE_TOL = 3, 64, 32, 1e-5
+RR_LLM_NEW, RR_HYDE_NEW, RR_LLM_Q, RR_CHECK_Q = 32, 64, 32, 4
+RR_STAR_Q, RR_STAR_CAND, RR_LIST_Q, RR_WINDOW = 8, 10, 16, 20
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
 # non-tensor FLOP/s, HBM bytes/s
@@ -3705,6 +3751,390 @@ def generation_phase(seed: int, dev, pool, root: str, q_cnt: int = GEN_Q,
     cat.close()
 
 
+def recording_llm(lm, replies: dict, stats: dict) -> None:
+    """Wrap ``lm.agenerate`` (on the instance): each reply is kept by its
+    prompt in ``replies``, each call's host seconds summed in ``stats`` and
+    the most calls in flight at once (from threads) kept as its "peak"."""
+    import threading
+
+    orig, lock = lm.agenerate, threading.Lock()
+
+    async def agenerate(prompt, **kw):
+        with lock:
+            stats["inflight"] += 1
+            stats["peak"] = max(stats["peak"], stats["inflight"])
+        t0 = time.perf_counter()
+        try:
+            res = await orig(prompt, **kw)
+        finally:
+            with lock:
+                stats["inflight"] -= 1
+                stats["calls"] += 1
+                stats["s"] += time.perf_counter() - t0
+        replies[prompt] = res.text
+        return res
+
+    lm.agenerate = agenerate
+
+
+def hits_equal(label: str, got: list, ref: list, rtol: float = 1e-6) -> None:
+    """Persisted rows ``got`` [(doc_id, score)] against a recomputation
+    ``ref`` [{"doc_id", "score"}]: equal ids in equal order, scores within
+    ``rtol`` of max(1, |s|)."""
+    ids, ref_ids = [d for d, _ in got], [h["doc_id"] for h in ref]
+    s, ref_s = np.array([x for _, x in got]), np.array([h["score"] for h in ref])
+    if ids != ref_ids or not (np.abs(s - ref_s) <= rtol * np.maximum(1.0, np.abs(ref_s))).all():
+        fail(f"{label}: rows {got[:4]} against the recomputation {ref[:4]}")
+
+
+def rerank_wrappers_phase(seed: int, dev, root: str) -> None:
+    """Phase 21: reranking and the LLM-driven retrieval wrappers through
+    ``Executor(catalog, ExecutorConfig(...))`` on the card, over phase 18's
+    workspace and config tree under ``root``: (a) ``rerank`` with
+    ``torch_cross_encoder`` over ``vector_search_verified``, (b) ``hyde``,
+    ``query_rewrite``, ``question_decomposition``, ``retro_star`` and
+    ``rerank`` with ``llm_listwise``, all on ``torch_lm``, (c)
+    ``power_of_noise`` over ``bm25``. Every launch count is set to 0 just
+    before each part."""
+    import random
+
+    import torch
+
+    from autorag_research_tpu_torch.cli.config_resolver import ConfigResolver
+    from autorag_research_tpu_torch.config import BaseMetricConfig, BuildContext, ExecutorConfig
+    from autorag_research_tpu_torch.executor import Executor
+    from autorag_research_tpu_torch.injection import ModelRegistry
+    from autorag_research_tpu_torch.llm import MockLLM
+    from autorag_research_tpu_torch.models.cross_encoder import pair_tokenize
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.ops import sparse as ts
+    from autorag_research_tpu_torch.pipelines.loader import PipelineLoader
+    from autorag_research_tpu_torch.pipelines.retrieval.retro_star import _parse_score
+    from autorag_research_tpu_torch.rerankers.torch_cross import TorchCrossEncoderReranker
+    from autorag_research_tpu_torch.store.catalog import Catalog
+    from autorag_research_tpu_torch.utils.concurrency import run_async
+
+    def reset():
+        for mod in (td, ts, tm):
+            mod.reset_launch_counts()
+
+    def counts():
+        launched = {k: v for k, v in {**td.LAUNCHES, **ts.LAUNCHES, **tm.LAUNCHES}.items() if v}
+        return launched, {k: v for k, v in {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS}.items() if v}
+
+    cfg, ws = f"{root}/configs", f"{root}/ws"
+    with open(f"{cfg}/llm/torch_lm.yaml") as f:
+        lm_template = f.read()
+    for new in (RR_LLM_NEW, RR_HYDE_NEW):
+        with open(f"{cfg}/llm/torch_lm_{new}.yaml", "w") as f:
+            f.write(lm_template.replace("max_new_tokens: 96", f"max_new_tokens: {new}")
+                    + f"seed: {seed}\n")
+    files = {
+        "reranker/torch_cross_encoder_seeded.yaml":
+            f"type: torch_cross_encoder\nseed: {seed}\nbatch_size: {RR_BATCH}\n",
+        "reranker/llm_listwise_lm.yaml":
+            f"type: llm_listwise\nllm: torch_lm_{RR_LLM_NEW}\nwindow: {RR_WINDOW}\n",
+        "pipelines/retrieval/rerank_cross.yaml":
+            "type: rerank\ninner_retrieval_pipeline_name: vector_search_verified\n"
+            f"reranker: torch_cross_encoder_seeded\nfetch_k_multiplier: {RR_FETCH}\ntop_k: {K}\n",
+        "pipelines/retrieval/hyde_lm.yaml":
+            f"type: hyde\nllm: torch_lm_{RR_HYDE_NEW}\nembedding_model: torch_encoder_768\n"
+            f"index_options:\n  mode: verified\ntop_k: {K}\nquery_limit: {RR_LLM_Q}\n",
+        "pipelines/retrieval/query_rewrite_lm.yaml":
+            f"type: query_rewrite\ninner_retrieval_pipeline_name: bm25\nllm: torch_lm_{RR_LLM_NEW}\n"
+            f"top_k: {K}\nquery_limit: {RR_LLM_Q}\n",
+        "pipelines/retrieval/question_decomposition_lm.yaml":
+            "type: question_decomposition\ninner_retrieval_pipeline_name: bm25\n"
+            f"llm: torch_lm_{RR_LLM_NEW}\nmax_subquestions: 3\ntop_k: {K}\nquery_limit: {RR_LLM_Q}\n",
+        "pipelines/retrieval/retro_star_lm.yaml":
+            f"type: retro_star\nretrieval_pipeline_name: bm25\nllm: torch_lm_{RR_LLM_NEW}\n"
+            f"candidate_top_k: {RR_STAR_CAND}\ntop_k: {K}\nquery_limit: {RR_STAR_Q}\n",
+        # one query at a time: the rerank wrapper reranks in threads, and 16
+        # decodes side by side in threads took 5.6 s a call against 0.12 s
+        # alone (W15's contention)
+        "pipelines/retrieval/rerank_listwise.yaml":
+            "type: rerank\ninner_retrieval_pipeline_name: bm25\nreranker: llm_listwise_lm\n"
+            f"fetch_k_multiplier: {RR_FETCH}\ntop_k: {K}\nquery_limit: {RR_LIST_Q}\n"
+            "max_concurrency: 1\n",
+    }
+    for rel, text in files.items():
+        with open(f"{cfg}/{rel}", "w") as f:
+            f.write(text)
+    resolver = ConfigResolver(cfg)
+    names = ["rerank_cross", "hyde_lm", "query_rewrite_lm", "question_decomposition_lm",
+             "retro_star_lm", "rerank_listwise", "power_of_noise"]
+    configs = {n: resolver.resolve_pipeline("retrieval", n) for n in names}
+    models = ModelRegistry(cfg, device=dev.type)
+    ctx = BuildContext(device=dev.type, models=models,
+                       pipeline_configs={**resolver.resolve_transitive_dependencies(list(configs.values())),
+                                         **configs})
+    metrics = [BaseMetricConfig(name="recall"), BaseMetricConfig(name="ndcg")]
+    cat = Catalog(f"{ws}/catalog.db")
+    qids = cat.get_all_query_ids()
+    loader = PipelineLoader(cat, ctx)
+    leg, bm25 = loader.load("vector_search_verified"), loader.load("bm25")
+
+    def executor_run(name):
+        t0 = time.perf_counter()
+        result = Executor(cat, ExecutorConfig(pipelines=[configs[name]], metrics=metrics,
+                                              health_check=True, health_check_queries=2), ctx).run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        pres = result.pipelines[0]
+        if not result.success or not all(m.success for m in pres.metrics):
+            fail(f"{name} through the Executor failed: {result.report()}")
+        if cat.get_pipeline(f"{name}_health_check") is not None:
+            fail(f"{name}'s health check left its pipeline behind")
+        pid = pres.stats["pipeline_id"]
+        limit = configs[name].query_limit
+        rows = {q: [(r["doc_id"], r["rel_score"]) for r in cat.get_retrieved(q, pid)]
+                for q in qids[:limit]}
+        avg = {m.metric_name: m.average for m in pres.metrics}
+        return result, rows, avg, secs
+
+    # ---- (a) rerank with the cross-encoder over vector_search_verified ------
+    base = Executor(cat, ExecutorConfig(pipelines=[ctx.pipeline_configs["vector_search_verified"]],
+                                        metrics=metrics, health_check=False), ctx).run()
+    base_avg = {m.metric_name: m.average for m in base.pipelines[0].metrics}
+    reset()
+    result, rows, avg, run_s = executor_run("rerank_cross")
+    launched, plain = counts()
+    ce = models.load_reranker("torch_cross_encoder_seeded")  # the run's cached instance
+    log(f"rerank: `reranker/torch_cross_encoder_seeded.yaml` (EncoderConfig {ce.config.vocab_size} / "
+        f"{ce.config.hidden} / {ce.config.layers} / {ce.config.heads}, max_len {ce.config.max_len}, "
+        f"seed {seed}, batch {ce.batch_size}) over vector_search_verified, fetch_k_multiplier "
+        f"{RR_FETCH}, top_k {K}, {len(qids)} queries, health check on 2: Executor.run {run_s:.2f} s, "
+        f"launches {json.dumps(launched)}, plain calls {json.dumps(plain)}")
+    log(f"rerank: spans (ms) {json.dumps({k: round(v, 1) for k, v in result.spans.items()})}")
+    log(f"rerank: recall@{K} {avg['recall']:.4f}, ndcg@{K} {avg['ndcg']:.4f} against "
+        f"vector_search_verified's {base_avg['recall']:.4f} / {base_avg['ndcg']:.4f} (random "
+        "cross-encoder weights: printed, not gated)")
+    if not launched.get("seg_stats_bf16") or plain:
+        fail("rerank's inner verified search skipped #1 or took a plain route on the card")
+    short = [q for q in qids if len(rows[q]) != K]
+    if short:
+        fail(f"rerank: {len(short)} queries without {K} rows, e.g. {short[:5]}")
+    # every id comes from the inner top-30 of a direct verified search (at
+    # its boundary a near-tie within the f32 resolution may swap a rank-31 id in)
+    fetch = K * RR_FETCH
+    direct, outside = {}, 0
+    for lo in range(0, len(qids), 128):
+        direct.update(leg._retrieve_batch_by_ids(qids[lo:lo + 128], fetch + 2))
+    for q in qids:
+        top = {h["doc_id"]: h["score"] for h in direct[q][:fetch]}
+        s_last = direct[q][fetch - 1]["score"]
+        for d, _ in rows[q]:
+            if d in top:
+                continue
+            extra = {h["doc_id"]: h["score"] for h in direct[q][fetch:]}
+            if d not in extra or abs(extra[d] - s_last) > 4e-7 * (1 + abs(s_last)):
+                fail(f"rerank: query {q} lists {d}, outside the inner top-{fetch}")
+            outside += 1
+    # the card's scores of the first queries' pairs against the same module
+    # and weights on the CPU; the order equal but at near-ties of the CPU scores
+    cpu = TorchCrossEncoderReranker(ce.config, batch_size=ce.batch_size, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in ce.model.state_dict().items()})
+    max_err, ties, t0 = 0.0, 0, time.perf_counter()
+    for q in qids[:RR_CPU_Q]:
+        hits = run_async(leg._retrieve_by_id(q, fetch))
+        lookup = cat.get_chunk_contents([h["doc_id"] for h in hits])
+        texts = [lookup[h["doc_id"]] for h in hits]
+        text = cat.get_query_text(q)
+        card_s = ce.score_pairs(text, texts).cpu().numpy()
+        cpu_s = cpu.score_pairs(text, texts).numpy()
+        max_err = max(max_err, float(np.abs(card_s - cpu_s).max()))
+        if not (np.abs(card_s - cpu_s) <= RR_CE_TOL).all():
+            fail(f"rerank: query {q}: the card's cross-encoder scores differ from the CPU's by "
+                 f"{np.abs(card_s - cpu_s).max():.3e} (tolerance {RR_CE_TOL})")
+        ref = cpu.rerank(text, texts, top_k=K)
+        got_ids = [d for d, _ in rows[q]]
+        for i, (g, r) in enumerate(zip(got_ids, ref)):
+            if g != hits[r.index]["doc_id"]:
+                pos = next((j for j, h in enumerate(hits) if h["doc_id"] == g), None)
+                if pos is None or abs(cpu_s[pos] - r.score) > RR_CE_TOL:
+                    fail(f"rerank: query {q} rank {i}: {g} against the CPU's "
+                         f"{hits[r.index]['doc_id']} (scores {card_s[pos] if pos is not None else None}, "
+                         f"{r.score})")
+                ties += 1
+        if not np.allclose([s for _, s in rows[q]], [r.score for r in ref], rtol=0, atol=RR_CE_TOL):
+            fail(f"rerank: query {q}'s persisted scores differ from the CPU's beyond {RR_CE_TOL}")
+    cpu_s_total = time.perf_counter() - t0
+    # the cross-encoder alone: one forward of a query's 30 pairs and of a full
+    # batch of 64, by CUDA events and the host clock, and a whole rerank call
+    text = cat.get_query_text(qids[0])
+    hits = direct[qids[0]][:fetch]
+    lookup = cat.get_chunk_contents([h["doc_id"] for h in hits])
+    texts = [lookup[h["doc_id"]] for h in hits]
+    inputs = {}
+    for n in (fetch, RR_BATCH):
+        ids, mask = pair_tokenize([text] * n, (texts * 3)[:n], ce.config.vocab_size,
+                                  ce.config.max_len)
+        inputs[n] = (torch.from_numpy(ids).to(dev, torch.int64), torch.from_numpy(mask).to(dev))
+
+    def forward(n):
+        with torch.inference_mode():
+            return ce.model(*inputs[n])
+
+    fwd = {n: event_and_host_ms(lambda n=n: forward(n), 20) for n in inputs}
+    call_dev, call_host = event_and_host_ms(lambda: ce.rerank(text, texts, top_k=K), 20)
+    # the device's busy time apart from the host's launches (torch.profiler)
+    prof_rows, _, prof_wall = device_breakdown(f"cross-encoder forward of {fetch} pairs",
+                                               lambda: forward(fetch), calls=5)
+    busy = sum(ms * c for ms, c, _ in prof_rows) / 5
+    h, t_len, layers = ce.config.hidden, ce.config.max_len, ce.config.layers
+    flop = 2 * fetch * t_len * layers * (12 * h * h + 2 * t_len * h)
+    log(f"rerank: {len(qids)} queries x {K} rows; every id from the inner top-{fetch} of a direct "
+        f"verified search ({outside} boundary near-ties); first {RR_CPU_Q} queries: card against "
+        f"CPU max |d score| {max_err:.3e} (tolerance {RR_CE_TOL}), orders equal but {ties} "
+        f"near-tie swaps ({cpu_s_total:.2f} s)")
+    busy_note = (f"the device busy {busy:.3f} ms a {fetch}-pair forward "
+                 f"({sum(c for _, c, _ in prof_rows) / 5:.0f} launches traced a forward, "
+                 f"{flop / busy / 1e9:.1f} TFLOP/s while busy)" if busy else
+                 "the device's busy time not measured (the trace holds no device time)")
+    log(f"rerank: cross-encoder forward of {fetch} pairs x {t_len} tokens ({flop / 1e9:.2f} "
+        f"GFLOP): {fwd[fetch][0]:.3f} ms between CUDA events, {fwd[fetch][1]:.3f} ms host; of "
+        f"{RR_BATCH} pairs {fwd[RR_BATCH][0]:.3f} / {fwd[RR_BATCH][1]:.3f} ms; {busy_note}, "
+        f"{prof_wall:.3f} ms wall under the profiler; a rerank call (tokenize + forward + "
+        f"readback) {call_dev:.3f} ms between events / {call_host:.3f} ms host = "
+        f"{fetch / call_host * 1e3:.0f} pairs/s")
+
+    # ---- (b) the LLM wrappers on torch_lm ---------------------------------
+    replies: dict[str, str] = {}
+    lm_stats = {new: {"calls": 0, "s": 0.0, "inflight": 0, "peak": 0}
+                for new in (RR_LLM_NEW, RR_HYDE_NEW)}
+    for new in lm_stats:
+        recording_llm(models.load_llm(f"torch_lm_{new}"), replies, lm_stats[new])
+    listwise = models.load_reranker("llm_listwise_lm")
+    windows = []
+    rank_window = listwise._rank_window
+
+    def recording_window(query, texts_):
+        perm = rank_window(query, texts_)
+        windows.append((len(texts_), perm))
+        return perm
+
+    listwise._rank_window = recording_window
+    embedder = models.load_embedding("torch_encoder_768")
+    reset()
+    part_b = {}
+    for name, new in (("hyde_lm", RR_HYDE_NEW), ("query_rewrite_lm", RR_LLM_NEW),
+                      ("question_decomposition_lm", RR_LLM_NEW), ("retro_star_lm", RR_LLM_NEW),
+                      ("rerank_listwise", RR_LLM_NEW)):
+        before = dict(lm_stats[new])
+        lm_stats[new]["peak"] = 0
+        result, rows, avg, secs = executor_run(name)
+        calls = lm_stats[new]["calls"] - before["calls"]
+        ms = (lm_stats[new]["s"] - before["s"]) * 1e3 / max(calls, 1)
+        part_b[name] = rows
+        n_q = len(rows)
+        log(f"wrappers: {name} ({n_q} queries, health check on 2, torch_lm {new} new tokens): "
+            f"Executor.run {secs:.2f} s, {calls} LLM calls at {ms:.1f} ms a call (at most "
+            f"{lm_stats[new]['peak']} in flight), recall@{K} "
+            f"{avg['recall']:.4f}, ndcg@{K} {avg['ndcg']:.4f}, {sum(map(len, rows.values()))} rows")
+        if any(len(r) > K for r in rows.values()):
+            fail(f"{name}: a query has more than {K} rows")
+    launched, plain = counts()
+    log(f"wrappers: launches {json.dumps(launched)}, plain calls {json.dumps(plain)}")
+    if not launched.get("seg_stats_bf16") or plain or not (
+            launched.get("bm25_topk_v2_skip") or launched.get("bm25_topk_probe")):
+        fail("the wrappers skipped #1 or #5 / #6, or took a plain route on the card")
+    # each against a direct recomputation on its first queries
+    check = qids[:RR_CHECK_Q]
+    hyde = loader.load("hyde_lm")
+    for q in check:
+        text = cat.get_query_text(q)
+        doc = replies[hyde.prompt_template.format(query=text)].strip() or text
+        hits_equal(f"hyde query {q}", part_b["hyde_lm"][q],
+                   hyde._dense.search_by_embedding(embedder.embed_query(doc), K))
+    qr = loader.load("query_rewrite_lm")
+    for q in check:
+        text = cat.get_query_text(q)
+        rewritten = replies[qr.prompt_template.format(query=text)].strip().strip('"') or text
+        hits_equal(f"query_rewrite query {q}", part_b["query_rewrite_lm"][q],
+                   run_async(bm25._retrieve_by_text(rewritten, K)))
+    qd = loader.load("question_decomposition_lm")
+    qd.llm = MockLLM(responder=lambda prompt: replies[prompt])  # replays the run's replies
+    n_subs = []
+    for q in check:
+        text = cat.get_query_text(q)
+        subs = run_async(qd._decompose(text))
+        n_subs.append(len(subs))
+        merged = {}
+        for sq in [text, *subs]:
+            for h in run_async(bm25._retrieve_by_text(sq, K * qd.fetch_k_multiplier)):
+                merged[h["doc_id"]] = max(merged.get(h["doc_id"], -math.inf), float(h["score"]))
+        want = sorted(merged.items(), key=lambda kv: (-kv[1], kv[0]))[:K]
+        hits_equal(f"question_decomposition query {q}", part_b["question_decomposition_lm"][q],
+                   [{"doc_id": d, "score": s} for d, s in want])
+    rs = loader.load("retro_star_lm")
+    rubrics = []
+    for q in check[: min(RR_CHECK_Q, RR_STAR_Q)]:
+        text = cat.get_query_text(q)
+        cands = run_async(bm25._retrieve_by_id(q, rs.candidate_top_k))
+        lookup = cat.get_chunk_contents([h["doc_id"] for h in cands])
+        scored = []
+        for h in cands:
+            prompt = rs.prompt_template.format(
+                relevance_definition=rs.relevance_definition, query_type=rs.query_type,
+                document_type=rs.document_type, query=text,
+                doc=lookup.get(h["doc_id"], "")[: rs.max_document_chars])
+            scored.append((h, _parse_score(replies[prompt])))
+        rubrics.extend(s for _, s in scored)
+        want = sorted(scored, key=lambda t: (-t[1], -t[0]["score"], t[0]["doc_id"]))[:K]
+        # the catalog reads rows back by (-score, doc_id): equal rubrics by id
+        want.sort(key=lambda t: (-t[1], t[0]["doc_id"]))
+        hits_equal(f"retro_star query {q}", part_b["retro_star_lm"][q],
+                   [{"doc_id": h["doc_id"], "score": s} for h, s in want])
+    bad = [(n, p) for n, p in windows if sorted(p) != list(range(n))]
+    if bad or not windows:
+        fail(f"listwise: {len(bad)} windows whose permutation is not one of its indices")
+    dup = [q for q, r in part_b["rerank_listwise"].items() if len({d for d, _ in r}) != len(r)]
+    if dup:
+        fail(f"listwise: queries with a repeated id: {dup[:5]}")
+    log(f"wrappers: recomputed on {len(check)} queries each: hyde's hits = search_by_embedding of "
+        f"the passage's embedding, query_rewrite's = bm25 of the rewrite, question_decomposition's "
+        f"= the max-score merge of {n_subs} sub-questions' searches, retro_star's = the sort by "
+        f"parsed rubric scores ({sorted(set(rubrics))[:8]} seen); listwise: {len(windows)} windows "
+        f"of {sorted({n for n, _ in windows})} passages, every permutation holds each index once")
+
+    # ---- (c) power_of_noise over bm25 --------------------------------------
+    pon = configs["power_of_noise"]
+    reset()
+    _, rows, avg, secs = executor_run("power_of_noise")
+    launched, plain = counts()
+    pid = cat.get_pipeline("power_of_noise")["id"]
+    cat.delete_retrieved_by_pipeline(pid)
+    _, rows2, _, secs2 = executor_run("power_of_noise")
+    pipe = loader.load("power_of_noise")
+    n_noise = pipe._n_noise(pon.top_k)
+    base_k = pon.top_k - n_noise
+    direct = {}
+    for lo in range(0, len(qids), 128):
+        direct.update(bm25._retrieve_batch_by_ids(qids[lo:lo + 128], base_k))
+    ordered = [r["id"] for r in cat.connect().execute("SELECT id FROM chunk ORDER BY id").fetchall()]
+    position = {d: i for i, d in enumerate(ordered)}
+    for q in qids:
+        retrieved = [h["doc_id"] for h in direct[q]]
+        pool = list(ordered)
+        for i in sorted((position[d] for d in set(retrieved)), reverse=True):
+            del pool[i]
+        noise = random.Random(f"{pon.seed}:{q}").sample(pool, min(n_noise, len(pool)))
+        got = [d for d, _ in rows[q]]
+        if set(noise) & set(retrieved) or got != retrieved + noise:
+            fail(f"power_of_noise query {q}: {got} against retrieved {retrieved} + noise {noise}")
+    if rows2 != rows:
+        fail("power_of_noise: a second run gave other rows")
+    log(f"noise: power_of_noise (noise_count {pon.noise_count}, {pon.noise_order}, seed {pon.seed}) "
+        f"over bm25, {len(qids)} queries: Executor.run {secs:.2f} s (again {secs2:.2f} s), launches "
+        f"{json.dumps(launched)}, plain calls {json.dumps(plain)}, recall@{K} {avg['recall']:.4f}; "
+        f"every row = bm25's top-{base_k} + random.Random(f'{{seed}}:{{qid}}').sample of the other "
+        f"ids; no noise id among the retrieved; the second run's rows identical")
+    if not (launched.get("bm25_topk_v2_skip") or launched.get("bm25_topk_probe")) or plain:
+        fail("power_of_noise's bm25 skipped #5 / #6 or took a plain route on the card")
+    cat.close()
+
+
 def ptxas_start(cuda_build, tmp: str, name: str):
     """Start one more nvcc of csrc/<name>.cu with ``-Xptxas -v`` (registers,
     shared memory and spills of each instantiation)."""
@@ -4261,6 +4691,11 @@ def main() -> int:
         generation_phase(args.seed, dev, pool, serve_root)
         log(f"phase 20 (b, c) (basic_rag through the Executor and /generate): "
             f"{time.perf_counter() - t0:.1f} s")
+
+        # ---- 21. reranking and the LLM-driven wrappers ---------------------
+        t0 = time.perf_counter()
+        rerank_wrappers_phase(args.seed, dev, serve_root)
+        log(f"phase 21 (rerank, the LLM wrappers, power_of_noise): {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,9 @@ Each workspace case runs both CLIs (the port's with ``--device cpu``) in
 directories of their own from the same inputs. ``init`` writes the same
 tree but for the model files of the JAX package's own models
 (``embedding/jax_encoder*.yaml`` become ``embedding/torch_encoder*.yaml``,
-``llm/jax_lm.yaml`` becomes ``llm/torch_lm.yaml`` with the same defaults;
-``reranker/jax_cross_encoder.yaml`` waits for ROADMAP.md queue 1, item 9).
+``llm/jax_lm.yaml`` becomes ``llm/torch_lm.yaml`` and
+``reranker/jax_cross_encoder.yaml`` becomes ``reranker/torch_cross_encoder.yaml``,
+each with the same defaults).
 ``ingest`` then ``run`` give equal result rows
 (ids equal; the dense legs' scores within 1e-5 relative, BM25's within
 1e-6; the fused scores within 1e-5 absolute plus 1e-6 relative, ids equal up
@@ -33,7 +34,7 @@ MAINS = {JAX: jax_main, TORCH: lambda argv: torch_main(["--device", "cpu", *argv
 JAX_MODEL_FILES = {"llm/jax_lm.yaml", "reranker/jax_cross_encoder.yaml",
                    "embedding/jax_encoder.yaml", "embedding/jax_encoder_multi.yaml"}
 TORCH_MODEL_FILES = {"embedding/torch_encoder.yaml", "embedding/torch_encoder_multi.yaml",
-                     "llm/torch_lm.yaml"}
+                     "llm/torch_lm.yaml", "reranker/torch_cross_encoder.yaml"}
 EXACT = ("vector_search", "vector_search_verified", "bm25", "hybrid_rrf")
 FUSED = ("hybrid_cc",)
 EXPERIMENT = {
@@ -151,6 +152,8 @@ def test_init_idempotent_and_same_tree(tmp_path, monkeypatch):
     tspec = yaml.safe_load(trees[TORCH]["llm/torch_lm.yaml"])
     assert tspec.pop("type") == "torch_lm" and jspec.pop("type") == "jax_lm"
     assert tspec == jspec
+    assert trees[TORCH]["reranker/torch_cross_encoder.yaml"] == \
+        trees[JAX]["reranker/jax_cross_encoder.yaml"].replace("jax_cross_encoder", "torch_cross_encoder")
 
 
 def test_full_run_and_report(workspaces, capsys, monkeypatch):
@@ -326,12 +329,19 @@ class TestInjection:
         assert emb.embed_texts(["a b"]).tobytes() == jemb.embed_texts(["a b"]).tobytes()
 
     def test_nested_model_resolution_refused(self, tmp_path):
+        """Nested model names resolve through the registry (refused until the
+        rerankers were ported): ``llm_listwise``'s ``llm: mock`` is the
+        registry's own cached ``mock`` LLM, as in the JAX registry."""
         (tmp_path / "reranker").mkdir()
         (tmp_path / "reranker" / "lw.yaml").write_text(
             yaml.dump({"type": "llm_listwise", "llm": "mock"}))
         reg = _mod(TORCH, "injection").ModelRegistry(tmp_path, device="cpu")
-        with pytest.raises(_mod(TORCH, "exceptions").ModelLoadError, match="item 7"):
-            reg.load_reranker("lw")
+        rr = reg.load_reranker("lw")
+        assert type(rr).__module__ == f"{TORCH}.rerankers.llm"
+        assert rr.llm is reg.load_llm("mock")
+        jrr = _mod(JAX, "injection").ModelRegistry(tmp_path).load_reranker("lw")
+        assert [(r.index, r.score) for r in rr.rerank("q", ["a", "b", "c"])] == \
+            [(r.index, r.score) for r in jrr.rerank("q", ["a", "b", "c"])]
 
     def test_unknown_raises(self):
         with pytest.raises(_mod(TORCH, "exceptions").ModelLoadError, match="unknown llm"):
@@ -341,8 +351,8 @@ class TestInjection:
         ("llm", "mock", "builds"), ("llm", "openai", "item 7"), ("llm", "jax_lm", "'torch_lm'"),
         ("embedding", "openai", "item 7"), ("embedding", "colpali", "item 7"),
         ("embedding", "infinity", "item 7"), ("embedding", "jax_encoder", "torch_encoder"),
-        ("reranker", "mock", "item 7"), ("reranker", "colbert", "item 7"),
-        ("reranker", "jax_cross_encoder", "item 9"),
+        ("reranker", "mock", "builds"), ("reranker", "colbert", "builds"),
+        ("reranker", "jax_cross_encoder", "'torch_cross_encoder'"),
     ])
     def test_deferred_kinds_name_their_item(self, kind, name, item):
         reg = _mod(TORCH, "injection").ModelRegistry(device="cpu")
@@ -491,13 +501,13 @@ class TestConfigResolver:
 def test_every_template_pipeline_config_resolves_or_names_its_item(tmp_path, monkeypatch):
     """Every shipped pipeline YAML resolves to the port's typed config, or
     (a pipeline still to port) is refused naming ROADMAP.md item 8; the
-    same files resolve in the JAX package. Of the generation pipelines only
-    ``basic_rag`` is ported."""
+    same files resolve in the JAX package. Every retrieval pipeline but
+    ``heaven`` is ported, and of the generation pipelines only ``basic_rag``."""
     monkeypatch.chdir(tmp_path)
     torch_main(["init"])
     resolver = _mod(TORCH, "cli.config_resolver").ConfigResolver(tmp_path / "configs")
     jresolver = _mod(JAX, "cli.config_resolver").ConfigResolver(tmp_path / "configs")
-    resolved = 0
+    resolved, refused = 0, set()
     for kind in ("retrieval", "generation"):
         names = resolver.all_pipeline_names(kind)
         assert names, kind
@@ -507,11 +517,15 @@ def test_every_template_pipeline_config_resolves_or_names_its_item(tmp_path, mon
                 config = resolver.resolve_pipeline(kind, name)
             except _mod(TORCH, "exceptions").PipelineConfigError as exc:
                 assert "item 8" in str(exc), name
+                refused.add(name)
                 continue
             assert config.name == name and config.kind == kind
             assert kind == "retrieval" or name == "basic_rag", name
             resolved += 1
-    assert resolved >= 11  # the dense, MaxSim, BM25 and hybrid presets, basic_rag
+        if kind == "retrieval":
+            assert refused == {"heaven"}, refused
+    # the dense, MaxSim, BM25 and hybrid presets, the six wrappers, basic_rag
+    assert resolved >= 17
 
 
 def test_every_model_preset_type_is_registered_or_deferred():

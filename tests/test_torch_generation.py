@@ -406,6 +406,18 @@ def rag_handles(cats, llm_for, window=10, name="basic_rag", retriever="bm25"):
     return out
 
 
+def warm(hs, name, queries, top_k):
+    """One request's micro-batch, padded to its power-of-two bucket as the
+    batcher pads it, through each handle's generation pipeline ``name``
+    directly, before the HTTP calls: a fresh JAX pipeline compiles on its
+    first search and decode of each shape (seconds on an idle host, past
+    TIMEOUT on a loaded one), which no timed request should wait for."""
+    bucket = 1 << (len(queries) - 1).bit_length()
+    batch = list(queries) + [queries[-1]] * (bucket - len(queries))
+    for h in hs.values():
+        h.generation_pipelines[name].generate_batch_by_texts(batch, top_k)
+
+
 def _answering(pkg):
     return _mod(pkg, "llm").MockLLM(responder=lambda p: "Paris" if "France" in p else "unknown")
 
@@ -413,6 +425,8 @@ def _answering(pkg):
 @pytest.fixture
 def handles(tmp_path):
     hs = rag_handles(copies(tmp_path, _docs), _answering)
+    for h in hs.values():  # the JAX pipeline's first compiles, as in warm()
+        h.warmup(max_bucket=2, top_k=5, gen_max_bucket=2, gen_top_k=5)
     yield hs
     for h in hs.values():
         h.stop()
@@ -531,6 +545,8 @@ def test_generate_with_real_decoders(tmp_path, lm_checkpoint):
     hs = rag_handles(cats, lambda pkg: make_lm(pkg, lm_checkpoint), name="rag")
     try:
         queries = ["capital of France", "capital of Germany", "what ranks by rarity?"]
+        for batch in (queries, *([q] for q in queries)):
+            warm(hs, "rag", batch, 2)
         code, data = both(hs, "/generate", {"queries": queries, "top_k": 2})
         assert code == 200
         for q in queries:
@@ -577,6 +593,7 @@ def test_serve_workspace_generation_from_config_tree(tmp_path, monkeypatch, lm_c
         cat = _mod(TORCH, "store.catalog").Catalog(tmp_path / f"serve_{TORCH}" / "ws" / "catalog.db")
         queries = [r["contents"] for r in cat.get_queries(limit=4)]
         cat.close()
+        warm(hs, "basic_rag", queries, 3)
         code, data = both(hs, "/generate", {"queries": queries, "top_k": 3})
         assert code == 200 and len(data["results"]) == 4
         assert all(len(r["metadata"]["context_chunk_ids"]) <= 3 for r in data["results"])

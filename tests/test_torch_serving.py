@@ -150,6 +150,18 @@ def get(handle, path):
         return r.headers["Content-Type"], r.read().decode()
 
 
+def warm(hs, name, queries, top_k):
+    """One request's micro-batch, padded to its power-of-two bucket as the
+    batcher pads it, through each handle's pipeline ``name`` directly, before
+    the HTTP calls: a fresh JAX pipeline compiles on its first search of each
+    shape (batch, query terms, k; 1-8 s on an idle host, past TIMEOUT on a
+    loaded one), which no timed request should wait for."""
+    bucket = 1 << (len(queries) - 1).bit_length()
+    batch = list(queries) + [queries[-1]] * (bucket - len(queries))
+    for h in hs.values():
+        h.retrieval_pipelines[name]._retrieve_batch_by_texts(batch, top_k)
+
+
 def assert_hits_equal(got, ref, rtol):
     """Two /search ``results`` lists: ids, contents and order equal, scores
     within ``rtol``."""
@@ -363,6 +375,8 @@ def test_hybrid_pipeline_served_equal(tmp_path):
         hs[pkg] = serve(pkg, cat, {"rrf": rrf, "dense": dense, "bm25": bm25}, batch_window_ms=5)
     try:
         queries = ["document 3", "document 17 document", "nothing shared"]
+        for name in ("rrf", "dense", "bm25"):
+            warm(hs, name, queries, 5)
         for name in ("rrf", "dense", "bm25"):
             code, data = both(hs, "/search", {"queries": queries, "top_k": 5, "pipeline": name},
                               rtol=1e-5)
@@ -633,6 +647,7 @@ def test_serve_workspace_from_config_tree(tmp_path, monkeypatch):
         cat = _mod(TORCH, "store.catalog").Catalog(tmp_path / TORCH / "ws" / "catalog.db")
         queries = [r["contents"] for r in cat.get_queries(limit=8)]
         cat.close()
+        warm(hs, "bm25", queries, 10)
         code, data = both(hs, "/search", {"queries": queries, "top_k": 10})
         assert code == 200 and all(data["results"])
         assert json.loads(get(hs[TORCH], "/health")[1])["corpus"] == 300

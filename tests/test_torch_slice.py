@@ -146,6 +146,8 @@ ENTRY_MODULES = [
         "native", "index.ivf", "index.ivf_contiguous",
         "models.decoder", "llm.torch_lm", "pipelines.generation.basic_rag",
         "evaluation.metrics.generation", "evaluation.metrics.model_scorers",
+        "utils.text", "models.cross_encoder", "rerankers.torch_cross", "rerankers.llm",
+        "rerankers.hf", "rerankers.api", "pipelines.retrieval.rerank",
     )
 ]
 
