@@ -9,10 +9,10 @@ experiment file lists pipeline/metric *names*; each name maps to
 defaults to the file stem.
 
 The port's copy of the JAX package's ``cli/config_resolver.py``. It resolves
-against the port's own config registry, which holds every retrieval pipeline
-but ``heaven``, and ``basic_rag``; a file naming another type (``heaven`` or
-a generation pipeline still to port) is refused with the ROADMAP.md item
-that ports it.
+against the port's own config registry, which holds every retrieval
+pipeline, ``basic_rag`` and ``visrag_gen``; a file naming another type (a
+generation pipeline still to port) is refused with the ROADMAP.md item that
+ports it.
 """
 
 from __future__ import annotations
@@ -32,9 +32,7 @@ from autorag_research_tpu_torch.exceptions import (
 import autorag_research_tpu_torch.pipelines.generation  # noqa: F401
 import autorag_research_tpu_torch.pipelines.retrieval  # noqa: F401
 
-UNPORTED_PIPELINES = (
-    "ROADMAP.md queue 1, item 8 (the remaining retrieval pipelines and the generation pipelines)"
-)
+UNPORTED_PIPELINES = "ROADMAP.md queue 1, item 8 (the remaining generation pipelines)"
 
 
 class ConfigResolver:

@@ -9,9 +9,9 @@ but for the model files of the JAX package's own models. The encoder presets
 are ``embedding/torch_encoder*.yaml``, the decoder's is ``llm/torch_lm.yaml``
 and the cross-encoder's is ``reranker/torch_cross_encoder.yaml`` (each with
 the JAX template's defaults). The tree also
-names pipelines and model kinds the port does not have yet: the config
-resolver and the model registry refuse those when they are used, naming the
-ROADMAP.md item that ports them.
+names generation pipelines the port does not have yet: the config resolver
+refuses those when they are used, naming the ROADMAP.md item that ports
+them.
 """
 
 from __future__ import annotations

@@ -5,10 +5,10 @@ an ingestion service, loads a benchmark dataset, writes queries/chunks/GT into
 the catalog, and drives embedding (single-vector ``embed_all`` or
 late-interaction ``embed_all_late_interaction``).
 
-The port's copy of the JAX package's ``data/base.py``, for the offline text
-ingestors (``local``, ``synthetic``); the network-bound ones, the
-multimodal base and the download cache arrive with ROADMAP.md queue 1,
-item 7.
+The port's copy of the JAX package's ``data/base.py``: the text base and the
+multimodal base (page images as ``image_chunk`` rows). The download cache
+``DATA_DIR`` waits with the network-bound text ingestors and the hub dumps
+(ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from abc import ABC, abstractmethod
 from typing import Literal
 
 from autorag_research_tpu_torch.store.ingestion import IngestionService
+
+RANDOM_SEED = 42  # gold-preserving subsampling seed, as in the reference
 
 
 class DataIngestor(ABC):
@@ -57,4 +59,26 @@ class TextDataIngestor(DataIngestor):
     def embed_all_late_interaction(self, batch_size: int = 64):
         return self._require_service().embed_all_late_interaction(
             self.embedding_model, batch_size
+        )
+
+
+class MultiModalDataIngestor(DataIngestor):
+    """Page images -> image chunks; image embedding (single or multi-vector)."""
+
+    def __init__(self, embedding_model=None):
+        self.embedding_model = embedding_model
+
+    def embed_all(self, batch_size: int = 64):
+        service = self._require_service()
+        out = {
+            "image_chunk": service.embed_table(
+                self.embedding_model, "image_chunk", batch_size, image=True
+            ),
+            "query": service.embed_table(self.embedding_model, "query", batch_size),
+        }
+        return out
+
+    def embed_all_late_interaction(self, batch_size: int = 16):
+        return self._require_service().embed_all_late_interaction(
+            self.embedding_model, batch_size, image=True
         )

@@ -7,10 +7,12 @@ ingestors are discovered from the ``autorag_research_tpu_torch.ingestors``
 entry-points group.
 
 The port's copy of the JAX package's ``data/registry.py``, with the offline
-ingestors only (``local``, ``synthetic``). The network-bound ones (BEIR,
-MTEB, ViDoRe and the other hub datasets) are ported with ROADMAP.md queue 1,
-item 7; until then :func:`get_ingestor` refuses them with its not-found
-error.
+ingestors (``local``, ``synthetic``) and the visual-document ones
+(``vidore``, ``vidorev2``, ``vidorev3``, ``visrag``, ``sds_kopub_vdr``,
+``kovidorev2``; they read a local ``datasets.save_to_disk`` snapshot or
+injected ``data=``). The network-bound text ingestors (BEIR, MTEB and the
+other hub text datasets) are ported with ROADMAP.md queue 1, item 7; until
+then :func:`get_ingestor` refuses them with its not-found error.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ _REGISTRY: dict[str, "IngestorInfo"] = {}
 _DATA_MODULES = (
     "autorag_research_tpu_torch.data.local",
     "autorag_research_tpu_torch.data.synthetic",
+    "autorag_research_tpu_torch.data.vidore",
+    "autorag_research_tpu_torch.data.visrag",
 )
 
 
@@ -124,7 +128,7 @@ def get_ingestor(name: str) -> IngestorInfo:
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown ingestor '{name}'; available: {sorted(set(i.name for i in _REGISTRY.values()))} "
-            "(the network-bound ingestors are ported with ROADMAP.md queue 1, item 7)"
+            "(the network-bound text ingestors are ported with ROADMAP.md queue 1, item 7)"
         )
     return _REGISTRY[name]
 

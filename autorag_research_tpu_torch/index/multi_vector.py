@@ -372,7 +372,10 @@ class MultiVectorIndex:
     def save(self, path: str | Path) -> None:
         path = Path(path)
         path.mkdir(parents=True, exist_ok=True)
-        np.savez_compressed(path / "mv.npz", docs=self._docs, lens=self._lens)
+        # uncompressed, as the IVF artifacts: float tokens do not compress (a
+        # page-scale corpus of 5 GB would take minutes through zlib), and
+        # np.load reads either form, so both packages load what the other saved
+        np.savez(path / "mv.npz", docs=self._docs, lens=self._lens)
         (path / "meta.json").write_text(
             json.dumps(
                 {

@@ -12,10 +12,15 @@ strings; third-party types can be registered via
 ``register_model_type(kind, name, factory)`` or ``type: module.path:Class``.
 
 The port's copy of the JAX package's ``injection.py``, with the kinds whose
-classes the port has: the embeddings ``mock``, ``mock_multi`` and
+classes the port has: the embeddings ``mock``, ``mock_multi``,
 ``torch_encoder`` (``multi_vector: true`` gives the token-level encoder), the
-LLMs ``mock``, ``scripted`` and ``torch_lm`` (the causal decoder; its
-``DecoderConfig`` fields come from the YAML, ``dtype: bfloat16 | float32``),
+local page embedders ``colpali``, ``colqwen`` and ``bipali``, and the remote
+ones (``openai``, ``openai_compat``, ``together``, ``jina``, ``ollama``,
+``vllm``, ``infinity``, ``infinity_multi``); the LLMs ``mock``, ``scripted``,
+``torch_lm`` (the causal decoder; its ``DecoderConfig`` fields come from the
+YAML, ``dtype: bfloat16 | float32``) and the remote ones (``openai_compat``,
+``openai``, ``vllm``, ``ollama``, the presets ``together``, ``xai``,
+``huggingface``, ``azure_openai``, ``anthropic``, ``gemini``, ``bedrock``);
 and every reranker kind of the JAX package: ``mock``, ``llm_listwise`` (its
 nested ``llm:`` resolved by name), ``embedding_similarity``, ``colbert``,
 the local HF checkpoints with their presets, the HTTP APIs, and
@@ -23,13 +28,13 @@ the local HF checkpoints with their presets, the HTTP APIs, and
 from the YAML as the JAX package maps them for ``jax_cross_encoder``).
 A registry builds its on-device models on its ``device`` (``"cuda"`` unless
 the caller asks for another): ``torch_encoder``, ``torch_lm``,
-``torch_cross_encoder``, the torch-backed HF rerankers, and ``colbert``,
+``torch_cross_encoder``, ``colpali`` / ``colqwen`` / ``bipali``, the
+torch-backed HF rerankers, and ``colbert``,
 whose default token-level encoder (the JAX factory has none and fails
 without an ``embedding_model``) is ``torch_encoder`` with ``multi_vector:
-true`` at its default widths. The JAX package's other kinds are named in
+true`` at its default widths. The JAX package's on-device kinds are named in
 ``DEFERRED`` and refused with :class:`ModelLoadError`, whose message names
-the ROADMAP.md item that ports them (``jax_encoder``, ``jax_lm`` and
-``jax_cross_encoder`` name the port's own kinds).
+the port's own kind (``jax_encoder``, ``jax_lm``, ``jax_cross_encoder``).
 """
 
 from __future__ import annotations
@@ -53,24 +58,12 @@ _FACTORIES: dict[str, dict[str, Callable[..., Any]]] = {
 # (kind, type) pairs whose factory takes the registry's device
 _ON_DEVICE: set[tuple[str, str]] = set()
 
-_ITEM_7 = "ROADMAP.md queue 1, item 7 (host-side layers for the generation side)"
-# the JAX package's builtin kinds that the port does not have yet -> the item
-# that ports them
+# the JAX package's builtin kinds that the port names otherwise -> its own kind
 DEFERRED: dict[str, dict[str, str]] = {
     "llm": {
-        **dict.fromkeys(
-            ("openai_compat", "openai", "vllm", "ollama", "together", "xai", "huggingface",
-             "azure_openai", "anthropic", "gemini", "bedrock"),
-            _ITEM_7,
-        ),
         "jax_lm": "the port's LLM kind is 'torch_lm'",
     },
     "embedding": {
-        **dict.fromkeys(
-            ("openai", "openai_compat", "together", "jina", "ollama", "vllm", "colpali",
-             "colqwen", "bipali", "infinity", "infinity_multi"),
-            _ITEM_7,
-        ),
         "jax_encoder": "the port's encoder kind is 'torch_encoder'",
     },
     "reranker": {
@@ -121,6 +114,41 @@ def _builtin_factories() -> None:
 
     register_model_type("llm", "torch_lm", _torch_lm, on_device=True)
 
+    # a class imported on first use, with preset keyword defaults
+    def _lazy(path: str, **preset):
+        def factory(**kw):
+            module, cls = path.rsplit(".", 1)
+            return getattr(importlib.import_module(module), cls)(**{**preset, **kw})
+
+        return factory
+
+    llm = "autorag_research_tpu_torch.llm"
+    for name in ("openai_compat", "openai", "vllm", "ollama"):
+        register_model_type("llm", name, _lazy(f"{llm}.openai_compat.OpenAICompatLLM"))
+
+    # named OpenAI-compatible providers with pinned endpoint + key env
+    # (reference preset roles: together.yaml, xai-grok-*.yaml, huggingface.yaml)
+    def _openai_compat_preset(default_base_url: str, key_env: str):
+        def factory(base_url: str | None = None, **kw):
+            from autorag_research_tpu_torch.llm.openai_compat import OpenAICompatLLM
+
+            kw.setdefault("api_key_env", key_env)
+            return OpenAICompatLLM(base_url=base_url or default_base_url, **kw)
+
+        return factory
+
+    for name, url, env in [
+        ("together", "https://api.together.xyz/v1", "TOGETHER_API_KEY"),
+        ("xai", "https://api.x.ai/v1", "XAI_API_KEY"),
+        ("huggingface", "http://localhost:8080/v1", "HF_TOKEN"),
+    ]:
+        register_model_type("llm", name, _openai_compat_preset(url, env))
+
+    register_model_type("llm", "azure_openai", _lazy(f"{llm}.openai_compat.AzureOpenAILLM"))
+    for name, cls in [("anthropic", "AnthropicLLM"), ("gemini", "GeminiLLM"),
+                      ("bedrock", "BedrockLLM")]:
+        register_model_type("llm", name, _lazy(f"{llm}.providers.{cls}"))
+
     def _torch_encoder(multi_vector: bool = False, **kw):
         from autorag_research_tpu_torch.embeddings.torch_encoder import (
             TorchEncoderEmbedding,
@@ -138,6 +166,48 @@ def _builtin_factories() -> None:
         return TorchEncoderEmbedding(EncoderConfig(**config_kw), **rest)
 
     register_model_type("embedding", "torch_encoder", _torch_encoder, on_device=True)
+
+    # remote OpenAI-compatible /embeddings endpoints (reference roles:
+    # openai-{small,large}.yaml, openai-like.yaml, together/ollama/vllm/jina)
+    def _openai_embedding_preset(default_base_url: str, key_env: str, model: str):
+        def factory(base_url: str | None = None, **kw):
+            from autorag_research_tpu_torch.embeddings.openai_compat import (
+                OpenAICompatEmbedding,
+            )
+
+            kw.setdefault("api_key_env", key_env)
+            kw.setdefault("model", model)
+            return OpenAICompatEmbedding(base_url=base_url or default_base_url, **kw)
+
+        return factory
+
+    for name, url, env, model in [
+        ("openai", "https://api.openai.com/v1", "OPENAI_API_KEY", "text-embedding-3-small"),
+        ("openai_compat", "https://api.openai.com/v1", "OPENAI_API_KEY", "text-embedding-3-small"),
+        ("together", "https://api.together.xyz/v1", "TOGETHER_API_KEY", "BAAI/bge-large-en-v1.5"),
+        ("jina", "https://api.jina.ai/v1", "JINA_API_KEY", "jina-embeddings-v3"),
+        ("ollama", "http://localhost:11434/v1", "OLLAMA_API_KEY", "nomic-embed-text"),
+        ("vllm", "http://localhost:8000/v1", "VLLM_API_KEY", ""),
+    ]:
+        register_model_type("embedding", name, _openai_embedding_preset(url, env, model))
+
+    # local torch page embedders (reference colpali/colqwen2/bipali presets),
+    # built on the registry's device, and the Infinity server client
+    colpali = "autorag_research_tpu_torch.embeddings.colpali"
+    infinity = "autorag_research_tpu_torch.embeddings.infinity"
+    register_model_type(
+        "embedding", "colpali", _lazy(f"{colpali}.ColPaliEmbedding"), on_device=True
+    )
+    register_model_type(
+        "embedding", "colqwen",
+        _lazy(f"{colpali}.ColPaliEmbedding", checkpoint="vidore/colqwen2-v1.0"),
+        on_device=True,
+    )
+    register_model_type("embedding", "bipali", _lazy(f"{colpali}.BiPaliEmbedding"), on_device=True)
+    register_model_type("embedding", "infinity", _lazy(f"{infinity}.InfinityEmbedding"))
+    register_model_type(
+        "embedding", "infinity_multi", _lazy(f"{infinity}.InfinityMultiVectorEmbedding")
+    )
 
     from autorag_research_tpu_torch.rerankers import (
         EmbeddingSimilarityReranker,
@@ -175,13 +245,6 @@ def _builtin_factories() -> None:
         return TorchCrossEncoderReranker(config=config, **kw)
 
     register_model_type("reranker", "torch_cross_encoder", _torch_cross, on_device=True)
-
-    def _lazy(path: str):
-        def factory(**kw):
-            module, cls = path.rsplit(".", 1)
-            return getattr(importlib.import_module(module), cls)(**kw)
-
-        return factory
 
     hf = "autorag_research_tpu_torch.rerankers.hf"
     for name, cls in [

@@ -11,8 +11,8 @@ LLMResult(text, token_usage, logprobs)`` — implemented by:
 - ``TorchLM`` (``llm/torch_lm.py``): local decoding on the GPU over the
   causal decoder in ``models/decoder.py``.
 
-The port's copy of the JAX package's ``llm/base.py``. The remote adapters
-(``openai_compat``, the providers) wait for ROADMAP.md queue 1, item 7.
+The port's copy of the JAX package's ``llm/base.py``; the remote adapters
+are ``llm/openai_compat.py`` and ``llm/providers.py``.
 """
 
 from __future__ import annotations

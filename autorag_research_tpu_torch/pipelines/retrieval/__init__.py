@@ -4,6 +4,7 @@ from autorag_research_tpu_torch.pipelines.retrieval.gqr_hybrid import (
     GQRHybridConfig,
     GQRHybridPipeline,
 )
+from autorag_research_tpu_torch.pipelines.retrieval.heaven import HEAVENConfig, HEAVENPipeline
 from autorag_research_tpu_torch.pipelines.retrieval.hybrid import (
     HybridCCConfig,
     HybridCCPipeline,
@@ -41,6 +42,7 @@ __all__ = [
     "BaseRetrievalPipeline",
     "BM25Config", "BM25Pipeline",
     "GQRHybridConfig", "GQRHybridPipeline",
+    "HEAVENConfig", "HEAVENPipeline",
     "HybridCCConfig", "HybridCCPipeline",
     "HybridRRFConfig", "HybridRRFPipeline",
     "HyDEConfig", "HyDEPipeline",

@@ -6,10 +6,11 @@
 Drives the port's dense, MaxSim and BM25 (flat, packed, bucketed) retrieval
 paths (``autorag_research_tpu_torch``), the MaxSim pins, the int8 and approx
 serving modes, the hybrid and IVF pipelines through the ``Executor``, the CLI
-and HTTP serving layer, the IVF indexes at 2,000,000 x 768 and the generation
+and HTTP serving layer, the IVF indexes at 1,000,000 x 768 and the generation
 path (the causal decoder, ``basic_rag`` with ``torch_lm``) at full width,
-reranking and the LLM-driven retrieval wrappers, and fails (non-zero exit) on
-any fault:
+reranking and the LLM-driven retrieval wrappers, and config #5 (ViDoRe pages:
+image MaxSim, ``heaven``, ``visrag_gen``) through the ``Executor`` and the
+CLI, and fails (non-zero exit) on any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source)
@@ -157,7 +158,7 @@ any fault:
     of 499,993 rows (stored padded to 500,000, masked) with the full one's
     hits, timed beside the op on the unaligned rows;
 17. config #3 (HotpotQA hybrid) through the port's ``Executor`` with every
-    launch count at 0 just before its run: a catalog of 500,000 passages of
+    launch count at 0 just before its run: a catalog of 250,000 passages of
     20-72 Zipf(1.1) words with seeded unit-norm 768-d embeddings and 1,024
     queries of 12-23 words on two gold passages each (ingest time and every
     index build printed: the BM25 one split into the native build and the
@@ -185,8 +186,9 @@ any fault:
     route are printed;
 18. the port's user entry points on the card, in a temporary directory:
     the CLI (``main(argv)``, ``--device cuda``) runs ``init``, then ``ingest
-    --name synthetic`` at 100,000 passages and 1,000 queries (the
-    ingestor's other defaults; ``scripts/bench_serving.py``'s corpus size)
+    --name synthetic`` at 50,000 passages and 1,000 queries (the
+    ingestor's other defaults; ``scripts/bench_serving.py``'s corpus size of
+    100,000 halved for the run's limit)
     embedded by ``torch_encoder`` at the encoder widths above with seeded
     weights (ingest s split into generation, row writes, fetches,
     tokenization, encoder launches, readback and embedding writes), ``run``
@@ -198,7 +200,8 @@ any fault:
     its artifact, and its pruned search's host structures timed. Then
     ``serve_workspace`` of the three pipelines, ``warmup()`` through bucket
     256, and closed-loop HTTP clients (a process of their own) at 1, 32 and
-    128 clients, 384 ``/search`` requests a level and pipeline: QPS,
+    128 clients, 128 ``/search`` requests a level and pipeline (384 before
+    phase 22 joined the run): QPS,
     p50 / p95 / p99 latency, mean batch size and device-batch ms from
     ``/metrics``, the batch thread's CPU time; ``max_inflight`` 1 against
     3 and a 0.5 ms switch interval on ``vector_search_verified`` at 32
@@ -208,8 +211,8 @@ any fault:
     list equal to the pipeline's direct ``_retrieve_batch_by_texts([q],
     10)`` (scores within 1e-6 of max(1, |s|); near-ties of the encoder's
     batch-dependent sums aside), ``stop()`` leaving no thread behind;
-19. the IVF indexes at ``scripts/bench_ann_scale.py``'s scale: 2,000,000 x
-    768 f32 rows around 2,000 centres (noise 0.3, unit norm) and 256
+19. the IVF indexes at half ``scripts/bench_ann_scale.py``'s scale: 1,000,000
+    x 768 f32 rows around 2,000 centres (noise 0.3, unit norm) and 256
     queries, drawn on the card from the seed and read back; the exact rows
     (k = 10) of a verified ``DenseIndex`` (#1, its launches printed), timed;
     ``IVFIndex`` and ``IVFContiguousIndex`` (256-row blocks) with their
@@ -240,8 +243,8 @@ any fault:
     this phase) with ``basic_rag`` over ``vector_search_verified`` at top_k
     5 and ``torch_lm`` at its template's defaults (256 / 4 / 4, f32, prompt
     384, 96 new), through ``Executor(catalog, ExecutorConfig(...))`` on the
-    card, every launch count at 0 just before: 128 queries (256 before
-    phase 21 joined the run), health check on
+    card, every launch count at 0 just before: 32 queries (256 before
+    phase 21 joined the run, 128 before phase 22), health check on
     2, recall, ``exact_match``, ``token_f1``, ``bleu``, ``rouge``; every query
     has a row, ``prompt_tokens`` = min(prompt bytes + 1, 384), the evidence
     equals a direct verified search's top-5 (sub-ulp near-ties aside), #1
@@ -273,8 +276,9 @@ any fault:
     ``torch_lm`` at its template's widths (256 / 4 / 4, f32, prompt 384),
     32 new tokens (HyDE 64): ``hyde`` (verified dense index,
     ``torch_encoder``), ``query_rewrite`` and ``question_decomposition``
-    (three sub-questions) over ``bm25`` on 32 queries, ``retro_star`` on 8
-    at 10 candidates, ``rerank`` with ``llm_listwise`` (window 20) on 16;
+    (three sub-questions) over ``bm25`` on 8 queries, ``retro_star`` on 4
+    at 10 candidates, ``rerank`` with ``llm_listwise`` (window 20) on 8
+    (32, 8 and 16 before phase 22 joined the run);
     each one's LLM calls and ms a call; on 4 queries each the rows against a
     recomputation from the run's own LLM replies (HyDE's search by the
     passage's embedding, the rewrite's search, the max-score merge of the
@@ -284,7 +288,46 @@ any fault:
     ``retrieved_first``) over ``bm25`` on all 1,000 queries: every row is
     BM25's top 8 plus ``random.Random(f"{seed}:{qid}").sample`` of the other
     ids (so no noise id among the retrieved), and a second run gives
-    identical rows.
+    identical rows;
+22. config #5 (ViDoRe pages; no kernel of its own: the JAX ``heaven``,
+    ``visrag_gen``, ColPali adapter and ingestors reach no
+    ``pl.pallas_call``; #9 and #10 through the MaxSim searches) in a
+    workspace of its own: ColPali refused by the model registry with
+    ``ModelLoadError`` (no checkpoint, no ``transformers``); an
+    ``image_chunk`` catalog of 5,000 pages of 512-1,024 seeded unit-norm
+    128-d f32 patches (phase 6's page widths; its 10,000 pages cut for the
+    run's limit), each page's single vector the
+    mean of its patches, a short seeded byte string as its image, and 256
+    queries of 6-16 words and 32 tokens drawn from one gold page's patches
+    plus noise (GT ``or_all`` of ``image``), written through
+    ``IngestionService`` and the catalog's embedding writes in batches (rows,
+    blobs and single vectors timed apart); the exact and verified page
+    indexes built under the pipelines' registry keys (catalog read,
+    normalize and pad, artifact save, upload timed apart); then, every launch
+    count at 0 just before each, through ``Executor(catalog,
+    ExecutorConfig(...))`` with health checks on 2: ``image_vector_search``
+    in multi mode (the recipe's config, top_k 10: #9 in f32),
+    ``image_vector_search`` single (the template), ``vector_search`` over
+    ``image_chunk`` in multi mode with ``index_options: {mode: verified}``
+    (#10), ``heaven`` at its template (200 / 0.25 / 0.3) on the first 32
+    queries (its stage-1 search, row-by-row blob reads and host MaxSim timed
+    apart) and ``visrag_gen`` with ``torch_lm`` at its template's widths, 32
+    new tokens and 3 images over the multi search on the first 32, scored
+    by recall / ndcg at 10 (and ``exact_match``, ``token_f1``, ``bleu``,
+    ``rouge``); each pipeline's seconds, QPS and launches. Checks: #9 and
+    #10 launched and no plain version or scan; every query's rows in the
+    image result table; exact MaxSim finds at least 90% of the planted pages;
+    the first 16 queries' exact rows equal the plain MaxSim on the card (ids
+    but at ties within the rounding term ``mv_tol``); the verified rows equal
+    the exact rows the same way; ``heaven``'s rows of the first 8 queries
+    equal a recomputation from the same stage-1 candidates (scores within
+    1e-6); ``visrag_gen``'s images are the retriever's top 3. Then #9 (f32)
+    and #10 (bf16, k'+1 = 65) at the Executor's page of 128 queries against
+    their plain versions, timed with their plain versions', a chunked-matmul
+    yardstick's and their bounds; then the CLI's ``run`` of the five
+    pipelines under names of their own on the same workspace (the indexes
+    loaded from its artifacts; ``heaven`` and ``visrag_gen`` on the first 8
+    queries), #9 and #10 launched, every row equal to the Executor's.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -300,6 +343,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -347,26 +391,29 @@ QUORA_N, QUORA_WORDS, QUORA_QWORDS = 522_931, (4, 19), (6, 13)
 BUCKET_N, BUCKET_SHORT, BUCKET_LONG = 500_000, (10, 16), (100, 128)
 # config #3 through the Executor at HotpotQA's shape (BEIR, Table 1: 5,233,329
 # passages of 46.30 words on average, 7,405 test queries of 17.61 words, 2.0
-# relevant passages a query), cut to 500,000 passages and 1,024 queries;
-# GQR's refinement is host numpy, so it runs the first 128 queries
-HOTPOT_N, HOTPOT_Q, HOTPOT_GQR_Q = 500_000, 1024, 128
+# relevant passages a query), cut to 250,000 passages (500,000 before phase
+# 22 joined the run) and 1,024 queries; GQR's refinement is host numpy, so it
+# runs the first 128 queries
+HOTPOT_N, HOTPOT_Q, HOTPOT_GQR_Q = 250_000, 1024, 128
 HOTPOT_WORDS, HOTPOT_QWORDS, HOTPOT_FETCH_K = (20, 72), (12, 23), 20
 HOTPOT_NOISE = 0.12  # per-dimension noise on a query's summed gold embeddings
-# phase 18: the CLI and a served workspace at scripts/bench_serving.py's
-# default corpus size (100,000 passages; the synthetic ingestor's 20-120 words
-# and its other defaults), embedded at the 768-d width of the other phases;
-# closed-loop HTTP clients send 384 /search requests a level (1,024 before
-# phase 19 joined the run: fewer keep the whole run near 15 minutes on a
-# slower host)
-SERVE_N, SERVE_Q = 100_000, 1000
+# phase 18: the CLI and a served workspace at half scripts/bench_serving.py's
+# default corpus size (50,000 passages, 100,000 before phase 22 joined the
+# run; the synthetic ingestor's 20-120 words and its other defaults),
+# embedded at the 768-d width of the other phases;
+# closed-loop HTTP clients send 128 /search requests a level (1,024 before
+# phase 19 joined the run, 384 before phase 22: fewer keep the whole run
+# within its limit on a slower host)
+SERVE_N, SERVE_Q = 50_000, 1000
 SERVE_PIPELINES = ("vector_search_verified", "bm25", "hybrid_rrf")
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BUCKET = (1, 32, 128), 384, 256
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BUCKET = (1, 32, 128), 128, 256
 SERVE_TIMEOUT = 120  # seconds for one HTTP request
-# phase 19: the IVF indexes at scripts/bench_ann_scale.py's scale (2,000,000 x
-# 768, 2,000 centres, noise 0.3, unit norm; 256 queries at k = 10), the JAX
+# phase 19: the IVF indexes at half scripts/bench_ann_scale.py's scale
+# (2,000,000 x 768 cut to 1,000,000 for the run's limit when phase 22 joined
+# it; 2,000 centres, noise 0.3, unit norm; 256 queries at k = 10), the JAX
 # test's recall floor (tests/test_ivf.py:38), 32 single-query searches for
 # the latency percentiles, and the determinism check's rebuild size
-IVF_N, IVF_Q, IVF_CENTERS, IVF_NOISE = 2_000_000, 256, 2000, 0.3
+IVF_N, IVF_Q, IVF_CENTERS, IVF_NOISE = 1_000_000, 256, 2000, 0.3
 IVF_RECALL_MIN, IVF_LAT_Q, IVF_DET_N = 0.9, 32, 200_000
 # phase 17: a prefix of its corpus built natively and by the numpy builder
 PREFIX_N = 50_000
@@ -378,14 +425,15 @@ PREFIX_N = 50_000
 # [B, 1, H] and [B, T, H] shapes round differently (1.7e-3 measured on the CPU
 # at 4 rows x 32 steps). Then basic_rag with torch_lm at the llm/torch_lm.yaml
 # template's defaults (cli/templates.py; JAX cli/templates.py:183-188) over
-# phase 18's workspace: 128 queries through the Executor at top_k 5, and
+# phase 18's workspace: 32 queries through the Executor at top_k 5, and
 # /generate at 1 and 32 closed-loop clients, 32 requests a level (an answer
 # takes 0.3-0.4 s of host launches: 170 s at 256 queries and 64 requests,
-# halved to leave phase 21 its time within the run's limit)
+# halved to leave phase 21 its time within the run's limit, and the queries
+# quartered again for phase 22)
 GEN_LM = dict(hidden=512, layers=8, heads=8, max_len=512)
 GEN_BATCHES, GEN_PROMPT, GEN_NEW, GEN_REPS, GEN_PROFILE_NEW = (1, 8, 32), 128, 128, 2, 16
 GEN_TOL = {"f32": 1e-4, "bf16": 1e-2}
-GEN_Q, GEN_TOP_K, GEN_CLIENTS, GEN_REQUESTS = 128, 5, (1, 32), 32
+GEN_Q, GEN_TOP_K, GEN_CLIENTS, GEN_REQUESTS = 32, 5, (1, 32), 32
 GEN_METRICS = ("exact_match", "token_f1", "bleu", "rouge")
 # phase 21: rerank with torch_cross_encoder at EncoderConfig's defaults (the
 # reranker/torch_cross_encoder.yaml template; JAX cli/templates.py:277) over
@@ -393,12 +441,32 @@ GEN_METRICS = ("exact_match", "token_f1", "bleu", "rouge")
 # phase 18's 1,000 queries, its first 32 checked against the CPU within 1e-5
 # (scores span about 0.4; card against CPU f32 logits of the decoder differ
 # by 2.6e-6); the LLM wrappers on torch_lm at its template's widths, 32 new
-# tokens (64 for HyDE's passage), on 32 queries (retro_star 8 at 10
-# candidates, the listwise rerank 16 at window 20), each checked by a
-# recomputation on 4; power_of_noise at its template on all 1,000
+# tokens (64 for HyDE's passage), on 8 queries (retro_star 4 at 10
+# candidates, the listwise rerank 8 at window 20; 32, 8 and 16 before phase
+# 22), each checked by a recomputation on 4; power_of_noise at its template
+# on all 1,000
 RR_FETCH, RR_BATCH, RR_CPU_Q, RR_CE_TOL = 3, 64, 32, 1e-5
-RR_LLM_NEW, RR_HYDE_NEW, RR_LLM_Q, RR_CHECK_Q = 32, 64, 32, 4
-RR_STAR_Q, RR_STAR_CAND, RR_LIST_Q, RR_WINDOW = 8, 10, 16, 20
+RR_LLM_NEW, RR_HYDE_NEW, RR_LLM_Q, RR_CHECK_Q = 32, 64, 8, 4
+RR_STAR_Q, RR_STAR_CAND, RR_LIST_Q, RR_WINDOW = 4, 10, 8, 20
+# phase 22: config #5 (BASELINE.md: ViDoRe v2 pages, late interaction) on one
+# card at phase 6's page widths (PAGE_TD above: 512-1,024 ColPali patches, d =
+# 128; scripts/bench_maxsim_page.py), 5,000 pages: phase 6's 10,000 took 200
+# s in this phase on an H100 host (its catalog wrote the blobs at 58 MB/s, and
+# the CLI's run loads each index artifact anew), 1,166 s with the rest; each
+# page's single vector the mean of its patches (BiPali's pooling), 256 queries
+# of 6-16 words and 32 tokens drawn from one gold page's patches plus noise
+# (0.05 a dimension: a token's cosine to its patch about 0.9), written in
+# batches of 500 pages; the exact MaxSim search must find 90% of the planted
+# pages. heaven at its template (200 / 0.25 / 0.3) on the first 32 queries (a
+# candidate's blob is read row by row, 200 a query: 0.24 s a query), its rows
+# recomputed on 8, and on 8 in the CLI's run (visrag_gen too);
+# visrag_gen with torch_lm at its template's widths, 32 new tokens, 3 images,
+# on the first 32 queries; the exact rows of the first 16 held against the
+# plain MaxSim
+PAGE_Q, PAGE_TQ, PAGE_NOISE, PAGE_CHECK_Q, PAGE_WRITE_BATCH = 256, 32, 0.05, 16, 500
+PAGES_N, PAGE_CLI_Q = 5_000, 8
+PAGE_RECALL_MIN, HEAVEN_Q, HEAVEN_CHECK_Q = 0.9, 32, 8
+VISRAG_Q, VISRAG_NEW, VISRAG_IMAGES = 32, 32, 3
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
 # non-tensor FLOP/s, HBM bytes/s
@@ -2632,8 +2700,8 @@ def ivf_search_report(label: str, idx, q_np, q_dev, gt_rows, probes: dict, host_
 
 
 def ivf_phase(seed: int, dev, n: int = IVF_N, q_cnt: int = IVF_Q, det_n: int = IVF_DET_N) -> None:
-    """Phase 19: the IVF indexes at ``scripts/bench_ann_scale.py``'s scale
-    (2,000,000 x 768, clustered) on the card, against the exact rows of a
+    """Phase 19: the IVF indexes at half ``scripts/bench_ann_scale.py``'s
+    scale (1,000,000 x 768, clustered) on the card, against the exact rows of a
     verified ``DenseIndex`` (#1)."""
     import copy
 
@@ -4135,6 +4203,422 @@ def rerank_wrappers_phase(seed: int, dev, root: str) -> None:
     cat.close()
 
 
+def page_phase(seed: int, dev, peak: dict, kernels: list, n: int = PAGES_N,
+               td_max: int = PAGE_TD, q_cnt: int = PAGE_Q) -> None:
+    """Phase 22: config #5 (ViDoRe pages, late interaction) on one card in a
+    workspace of its own: an ``image_chunk`` catalog written through
+    ``IngestionService`` and the catalog's embedding writes, the exact and
+    verified ``MultiVectorIndex`` built apart (catalog read, pad, artifact
+    save, upload), then ``image_vector_search`` (multi and single),
+    ``vector_search`` over ``image_chunk`` (multi, verified), ``heaven`` and
+    ``visrag_gen`` through ``Executor(catalog, ExecutorConfig(...))``, every
+    launch count at 0 just before each, and once more through the CLI's
+    ``run`` on the same workspace."""
+    import torch
+
+    from autorag_research_tpu_torch.cli.app import main as cli
+    from autorag_research_tpu_torch.cli.config_resolver import ConfigResolver
+    from autorag_research_tpu_torch.config import BaseMetricConfig, BuildContext, ExecutorConfig
+    from autorag_research_tpu_torch.exceptions import ModelLoadError
+    from autorag_research_tpu_torch.executor import Executor
+    from autorag_research_tpu_torch.index import registry
+    from autorag_research_tpu_torch.index.dense import DenseIndex
+    from autorag_research_tpu_torch.index.multi_vector import MultiVectorIndex, pad_ragged
+    from autorag_research_tpu_torch.injection import ModelRegistry
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.ops import sparse as ts
+    from autorag_research_tpu_torch.pipelines.loader import PipelineLoader
+    from autorag_research_tpu_torch.pipelines.retrieval import heaven as hv
+    from autorag_research_tpu_torch.store.catalog import Catalog
+    from autorag_research_tpu_torch.store.gt import image as image_gt
+    from autorag_research_tpu_torch.store.gt import or_all
+    from autorag_research_tpu_torch.store.ingestion import IngestionService
+
+    def reset():
+        for mod in (td, ts, tm):
+            mod.reset_launch_counts()
+
+    def counts():
+        launched = {k: v for k, v in {**td.LAUNCHES, **ts.LAUNCHES, **tm.LAUNCHES}.items() if v}
+        return launched, {k: v for k, v in {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS}.items() if v}
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg, ws = f"{root}/configs", f"{root}/ws"
+
+        def run_cli(*argv: str) -> float:
+            t0 = time.perf_counter()
+            rc = cli(["--config-path", cfg, "--device", dev.type, *argv])
+            if rc != 0:
+                fail(f"the port's CLI `{' '.join(argv)}` exited {rc}")
+            return time.perf_counter() - t0
+
+        run_cli("init")
+        # ColPali needs a local checkpoint and transformers / colpali_engine:
+        # without them the registry refuses it (no fallback)
+        try:
+            ModelRegistry(cfg, device=dev.type).load_embedding("colpali")
+            fail("colpali loaded without a checkpoint")
+        except ModelLoadError as exc:
+            if "cannot load ColPali checkpoint" not in str(exc):
+                fail(f"colpali refused with another error: {exc}")
+            log(f"pages: colpali refused as expected: {str(exc)[:160]}...")
+
+        # ---- data: pages and queries drawn from the seed ---------------------
+        t0 = time.perf_counter()
+        mats, lens = mv_corpus(n, td_max, seed + 22, dev)
+        pids = [f"p{i:05d}" for i in range(n)]
+        singles = [m.mean(axis=0) for m in mats]  # BiPali's pooling
+        rng = np.random.default_rng(seed + 23)
+        images = [b"\x89PNG\r\n\x1a\n" + rng.bytes(24) for _ in range(n)]
+        gold = rng.choice(n, size=q_cnt, replace=False)
+        q_texts = make_texts(rng, [f"tok{i}" for i in range(20000)], q_cnt, 6, 17)
+        q_mats = []
+        for g in gold:
+            q = mats[g][rng.integers(0, lens[g], size=PAGE_TQ)]
+            q = q + PAGE_NOISE * rng.standard_normal(q.shape, dtype=np.float32)
+            q_mats.append((q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32))
+        qids = [f"q{j:04d}" for j in range(q_cnt)]
+        gen_s = time.perf_counter() - t0
+
+        # ---- catalog writes ----------------------------------------------------
+        os.makedirs(ws)
+        cat = Catalog(f"{ws}/catalog.db", embedding_dim=MV_DIM)
+        svc = IngestionService(cat)
+        t0 = time.perf_counter()
+        for lo in range(0, n, PAGE_WRITE_BATCH):
+            svc.add_image_chunks([{"id": pids[i], "image": images[i], "mimetype": "image/png"}
+                                  for i in range(lo, min(n, lo + PAGE_WRITE_BATCH))])
+        svc.add_queries([{"id": qid, "contents": t, "generation_gt": [f"page {pids[g]}"]}
+                         for qid, t, g in zip(qids, q_texts, gold)])
+        for qid, g in zip(qids, gold):
+            svc.add_retrieval_gt(qid, or_all([pids[g]], wrapper_fn=image_gt), chunk_type="image")
+        rows_s = time.perf_counter() - t0
+        # the single vectors first: an UPDATE rewrites the whole row, and
+        # after the multi-vectors a page's row carries a 0.4 MB blob
+        t0 = time.perf_counter()
+        cat.set_embeddings("image_chunk", zip(pids, singles))
+        cat.set_embeddings("query", ((qid, m.mean(axis=0)) for qid, m in zip(qids, q_mats)))
+        single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for lo in range(0, n, PAGE_WRITE_BATCH):
+            cat.set_multi_embeddings("image_chunk", ((pids[i], mats[i])
+                                                     for i in range(lo, min(n, lo + PAGE_WRITE_BATCH))))
+        cat.set_multi_embeddings("query", zip(qids, q_mats))
+        multi_s = time.perf_counter() - t0
+        blob_gb = float(lens.sum()) * MV_DIM * 4 / 1e9
+        db_gb = os.path.getsize(f"{ws}/catalog.db") / 1e9
+        del mats, singles
+        log(f"pages: {n} pages x {td_max // 2}-{td_max} patches x {MV_DIM} f32 "
+            f"({blob_gb:.2f} GB of blobs), {q_cnt} queries x {PAGE_TQ} tokens (noise "
+            f"{PAGE_NOISE} a dimension) drawn in {gen_s:.2f} s; catalog writes: rows and GT "
+            f"{rows_s:.2f} s, single vectors {single_s:.2f} s, multi-vectors {multi_s:.2f} s "
+            f"({blob_gb / multi_s:.3f} GB/s); catalog.db {db_gb:.2f} GB")
+
+        # ---- the two MaxSim indexes, built apart, under the pipelines' keys -----
+        t0 = time.perf_counter()
+        ids_c, mats_c = cat.get_embeddings_matrix("image_chunk", multi=True)
+        read_s = time.perf_counter() - t0
+        build = {}
+        indexes = {}
+        for mode in ("exact", "verified"):
+            key = {} if mode == "exact" else {"mode": mode}
+            t0 = time.perf_counter()
+            idx = MultiVectorIndex(ids_c, mats_c, mode=mode, device=dev)
+            pad_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if registry.get_or_build(cat, "multi_vector", "image_chunk", builder=lambda: idx,
+                                     device=dev, **key) is not idx:
+                fail(f"the registry did not take the {mode} page index")
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            idx.to_device()
+            torch.cuda.synchronize()
+            build[mode] = (pad_s, save_s, time.perf_counter() - t0, idx.device_bytes() / 1e9)
+            indexes[mode] = idx
+        del ids_c, mats_c
+        log(f"pages: catalog read of the multi-vectors {read_s:.2f} s; " + "; ".join(
+            f"{m} index: normalize + pad {b[0]:.2f} s, artifact save {b[1]:.2f} s, upload "
+            f"{b[2]:.2f} s, {b[3]:.2f} GB on the card" for m, b in build.items()))
+
+        # ---- pipelines from the config tree ------------------------------------
+        with open(f"{cfg}/llm/torch_lm.yaml") as f:
+            lm_template = f.read()
+        with open(f"{cfg}/llm/torch_lm_{VISRAG_NEW}.yaml", "w") as f:
+            f.write(lm_template.replace("max_new_tokens: 96", f"max_new_tokens: {VISRAG_NEW}")
+                    + f"seed: {seed}\n")
+        with open(f"{cfg}/pipelines/retrieval/heaven.yaml") as f:
+            heaven_yaml = f.read() + f"query_limit: {HEAVEN_Q}\n"
+        with open(f"{cfg}/pipelines/generation/visrag_gen.yaml") as f:
+            visrag_yaml = (f.read().replace("llm: mock", f"llm: torch_lm_{VISRAG_NEW}")
+                           .replace("max_images: 3", f"max_images: {VISRAG_IMAGES}")
+                           + f"query_limit: {VISRAG_Q}\n")
+        files = {
+            # the recipe's config (tests/test_parity_recipes.py), top_k 10
+            "retrieval/image_vector_search_multi": "type: image_vector_search\nsearch_mode: multi\n"
+                                                   f"top_k: {K}\n",
+            "retrieval/image_vector_search": None,  # the template: single mode, top_k 10
+            "retrieval/vector_search_image_verified":
+                "type: vector_search\ntable: image_chunk\nsearch_mode: multi\nindex_options:\n"
+                f"  mode: verified\ntop_k: {K}\n",
+            "retrieval/heaven": heaven_yaml,
+            "generation/visrag_gen": visrag_yaml.replace(
+                "retrieval_pipeline_name: image_vector_search",
+                "retrieval_pipeline_name: image_vector_search_multi"),
+        }
+        names = [rel.split("/")[1] for rel in files]
+        for rel, text in files.items():
+            path = f"{cfg}/pipelines/{rel}.yaml"
+            if text is None:
+                with open(path) as f:
+                    text = f.read()
+            with open(path, "w") as f:
+                f.write(text)
+            # the CLI's run repeats each pipeline under a name of its own
+            # (heaven and visrag_gen on fewer queries)
+            cli_text = text.replace("retrieval_pipeline_name: image_vector_search_multi",
+                                    "retrieval_pipeline_name: image_vector_search_multi_cli")
+            cli_text = re.sub(r"query_limit: \d+", f"query_limit: {PAGE_CLI_Q}", cli_text)
+            with open(f"{cfg}/pipelines/{rel}_cli.yaml", "w") as f:
+                f.write(cli_text)
+        resolver = ConfigResolver(cfg)
+        configs = {nm: resolver.resolve_pipeline(rel.split("/")[0], nm)
+                   for rel, nm in zip(files, names)}
+        models = ModelRegistry(cfg, device=dev.type)
+        ctx = BuildContext(device=dev.type, models=models, pipeline_configs=dict(configs))
+        ret_metrics = [BaseMetricConfig(name="recall"), BaseMetricConfig(name="ndcg")]
+        gen_metrics = [*ret_metrics, *[BaseMetricConfig(name=m, metric_type="generation")
+                                       for m in GEN_METRICS]]
+
+        def persisted(name):
+            pid = cat.get_pipeline(name)["id"]
+            return {q: [(r["doc_id"], r["rel_score"]) for r in
+                        cat.get_retrieved(q, pid, "image_chunk")] for q in qids}
+
+        # heaven's stage split: wrap its stage-1 search, its row-by-row blob
+        # fetches and its host MaxSim for the run
+        split = {"stage1": 0.0, "fetch": 0.0, "maxsim": 0.0}
+        wrapped = [(DenseIndex, "search", "stage1"), (hv.HEAVENPipeline, "_candidate_multi", "fetch"),
+                   (hv, "maxsim_subset", "maxsim")]
+        saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in wrapped]
+
+        def timing(fn, key):
+            def inner(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    split[key] += time.perf_counter() - t
+            return inner
+
+        lm_stats = {"calls": 0, "s": 0.0, "inflight": 0, "peak": 0}
+        replies: dict[str, str] = {}
+        recording_llm(models.load_llm(f"torch_lm_{VISRAG_NEW}"), replies, lm_stats)
+        runs = {}
+        for name in names:
+            gen = configs[name].kind == "generation"
+            if name == "heaven":
+                for (owner, attr, key), (_, _, fn) in zip(wrapped, saved):
+                    setattr(owner, attr, timing(fn, key))
+            reset()
+            t0 = time.perf_counter()
+            try:
+                result = Executor(cat, ExecutorConfig(
+                    pipelines=[configs[name]], metrics=gen_metrics if gen else ret_metrics,
+                    health_check=True, health_check_queries=2), ctx).run()
+                torch.cuda.synchronize()
+            finally:
+                for owner, attr, fn in saved:
+                    setattr(owner, attr, fn)
+            secs = time.perf_counter() - t0
+            launched, plain = counts()
+            pres = result.pipelines[0]
+            if not result.success or not all(m.success for m in pres.metrics):
+                fail(f"{name} through the Executor failed: {result.report()}")
+            avg = {m.metric_name: m.average for m in pres.metrics}
+            limit = configs[name].query_limit or q_cnt
+            rows = persisted(name)
+            runs[name] = (rows, avg, launched, secs)
+            log(f"pages: {name} ({limit} queries, health check on 2): Executor.run {secs:.2f} s, "
+                f"{limit / secs:.1f} QPS; launches {json.dumps(launched)}, plain calls "
+                f"{json.dumps(plain)}; " + ", ".join(
+                    f"{m}@{K} {v:.4f}" if m in ("recall", "ndcg") else f"{m} {v:.4f}"
+                    for m, v in avg.items() if v is not None))
+            if plain:
+                fail(f"{name} took a plain route on the card")
+            short = [q for q in qids[:limit] if len(rows[q]) != configs[name].top_k]
+            if short:
+                fail(f"{name}: {len(short)} queries without their rows in the image result "
+                     f"table, e.g. {short[:3]}")
+            if avg.get("recall") is None:
+                fail(f"{name}: no retrieval metric")
+        l_exact = runs["image_vector_search_multi"][2].get("maxsim_topk_v2", 0)
+        l_ver = runs["vector_search_image_verified"][2].get("maxsim_scores_v2", 0)
+        if not l_exact or not l_ver or not runs["visrag_gen"][2].get("maxsim_topk_v2"):
+            fail("config #5's MaxSim pipelines skipped #9 or #10 on the card")
+        n_fail, covered = indexes["verified"].last_stats
+        recall = {name: r[1]["recall"] for name, r in runs.items()}
+        log(f"pages: recall@{K} " + ", ".join(f"{k} {v:.4f}" for k, v in recall.items())
+            + f"; the verified index's last search n_fail {n_fail}, covered {covered}")
+        if recall["image_vector_search_multi"] < PAGE_RECALL_MIN:
+            fail(f"exact MaxSim found {recall['image_vector_search_multi']:.4f} of the planted "
+                 f"pages (at least {PAGE_RECALL_MIN})")
+        stage2 = split["fetch"] + split["maxsim"]
+        log(f"pages: heaven ({HEAVEN_Q} queries, 200 / 0.25 / 0.3): stage 1 (the dense index on "
+            f"the card) {split['stage1']:.2f} s, stage 2 {stage2:.2f} s = candidate blobs read "
+            f"row by row {split['fetch']:.2f} s + host MaxSim {split['maxsim']:.2f} s, the rest "
+            f"{runs['heaven'][3] - split['stage1'] - stage2:.2f} s")
+        log(f"pages: visrag_gen: {lm_stats['calls']} torch_lm calls at "
+            f"{lm_stats['s'] * 1e3 / max(lm_stats['calls'], 1):.1f} ms a call "
+            f"({VISRAG_NEW} new tokens, {VISRAG_IMAGES} images a call, ignored by the decoder)")
+
+        # ---- checks ------------------------------------------------------------
+        pos = {d: i for i, d in enumerate(indexes["exact"].ids)}
+        docs, dlens = indexes["exact"]._device
+        qn, qln = pad_ragged(q_mats)
+        q_all = torch.from_numpy(qn).to(dev)
+        ql_all = torch.from_numpy(qln).to(dev)
+        tol_all = mv_tol(q_all, ql_all, 1.0) / PAGE_TQ  # normalized scores
+
+        def as_arrays(rows, qs):
+            return (np.array([[s for _, s in rows[q]] for q in qs], np.float32),
+                    np.array([[pos[d] for d, _ in rows[q]] for q in qs]))
+
+        ex_s, ex_i = as_arrays(runs["image_vector_search_multi"][0], qids)
+        c = PAGE_CHECK_Q
+        rs, ri = tm.maxsim_topk_v2_plain(q_all[:c], ql_all[:c], docs, dlens, K)
+        n_mism, ok, err = mv_agree(ex_s[:c], ex_i[:c], rs / PAGE_TQ, ri, tol_all[:c])
+        log(f"pages: exact multi rows of the first {c} queries against the plain MaxSim on the "
+            f"card: {n_mism} id mismatches (all within the rounding term: {ok}), max |d score| "
+            f"{err:.3e}")
+        if not ok:
+            fail("config #5's exact MaxSim rows disagree with the plain version")
+        ver_s, ver_i = as_arrays(runs["vector_search_image_verified"][0], qids)
+        n_mism, ok, err = mv_agree(ver_s, ver_i, ex_s, ex_i, tol_all)
+        log(f"pages: verified rows against the exact rows, {q_cnt} queries: {n_mism} id "
+            f"mismatches (all within the rounding term: {ok}), max |d score| {err:.3e}")
+        if not ok:
+            fail("config #5's verified rows diverge from the exact rows")
+        # heaven recomputed from the same stage-1 candidates
+        loader = PipelineLoader(cat, ctx)
+        heaven = loader.load("heaven")
+        dense = heaven._stage1_index()
+        for q in qids[:HEAVEN_CHECK_Q]:
+            text = cat.get_query_text(q)
+            qm = cat.get_embedding("query", q, multi=True)
+            hits = dense.search(cat.get_embedding("query", q)[None], heaven.stage1_candidate_count)[0]
+            s1 = {h.doc_id: h.score for h in hits}
+            cand = [h.doc_id for h in hits]
+            words = {w for w in text.lower().split() if len(w) > 2}
+            n_key = max(1, min(len(qm), len(words) if words else
+                               math.ceil(len(qm) * heaven.default_key_token_ratio)))
+            mats_q = {d: cat.get_embedding("image_chunk", d, multi=True) for d in cand}
+            key = {d: float((qm[:n_key] @ m.T).max(axis=1).sum() / n_key) for d, m in mats_q.items()}
+            refined = sorted(cand, key=lambda d: -key[d])[
+                :min(len(cand), max(K, math.ceil(len(cand) * heaven.stage2_refine_ratio)))]
+            rest = qm[n_key:]
+            non = {d: float((rest @ mats_q[d].T).max(axis=1).sum() / len(rest)) if len(rest) else 0.0
+                   for d in refined}
+            w = heaven.stage1_weight
+            final = [(d, w * s1[d] + (1 - w) * (key[d] + non.get(d, 0.0))) for d in cand]
+            final.sort(key=lambda t: (-t[1], t[0]))
+            hits_equal(f"heaven query {q}", runs["heaven"][0][q],
+                       [{"doc_id": d, "score": s} for d, s in final[:K]])
+        log(f"pages: heaven's rows of the first {HEAVEN_CHECK_Q} queries equal a recomputation "
+            f"from the same stage-1 candidates (scores within 1e-6)")
+        vis_pid = cat.get_pipeline("visrag_gen")["id"]
+        for q in qids[:VISRAG_Q]:
+            res = cat.get_executor_result(q, vis_pid)
+            meta = json.loads(res["result_metadata"])
+            want = [d for d, _ in runs["image_vector_search_multi"][0][q]][:VISRAG_IMAGES]
+            if meta["image_chunk_ids"] != want or not res["generation_result"]:
+                fail(f"visrag_gen query {q}: images {meta['image_chunk_ids']} against the "
+                     f"retriever's top {want}, text {res['generation_result']!r}")
+
+        # ---- #9 (f32, page scale) and #10 at the Executor's page of 128 ----------
+        b = min(128, q_cnt)
+        qb, qlb = q_all[:b].contiguous(), ql_all[:b]
+        qlb_h = torch.from_numpy(qln[:b])
+        tol_b = mv_tol(qb, qlb, 1.0)
+        label = f"config #5 B={b} x {n} pages x {td_max} x {MV_DIM}"
+        s, i = tm.maxsim_topk_v2(qb, qlb_h, docs, dlens, K)
+        rs, ri = tm.maxsim_topk_v2_plain(qb, qlb, docs, dlens, K)
+        n_mism, ok, err9 = mv_agree(s, i, rs, ri, tol_b)
+        if not ok:
+            fail(f"maxsim_topk_v2 f32 disagrees with its plain version ({label})")
+        log(f"  plan, f32 {label}, k={K}: "
+            f"{tm.v2_plan_on_card(qln[:b], docs.shape[0], docs.shape[1], MV_DIM, K, torch.float32, dev, doc_lens=dlens.cpu().numpy()).note()}")
+        ms9 = cuda_ms(lambda: tm.maxsim_topk_v2(qb, qlb_h, docs, dlens, K), 3)
+        plain9 = cuda_ms(lambda: tm.maxsim_topk_v2_plain(qb, qlb, docs, dlens, K), 1)
+        lib9 = cuda_ms(lambda: mv_library(qb, qlb, docs, dlens, K), 1)
+        b9, by9 = mv_bound(qlb, dlens, MV_DIM, 4, b * K * 8, peak["f32"], peak["hbm"])
+        docs_lo = indexes["verified"]._sidecar["docs_lo"]
+        vlens = indexes["verified"]._device[1]
+        q16 = qb.to(torch.bfloat16)
+        got = tm.maxsim_scores_v2(q16, qlb_h, docs_lo, vlens)
+        ref = tm.maxsim_scores_v2_plain(q16, qlb, docs_lo, vlens)
+        err_t = (got - ref).abs()
+        err10 = float(err_t.max())
+        if not bool((err_t <= mv_tol(q16, qlb, 1.0)[:, None]).all()):
+            fail(f"maxsim_scores_v2 disagrees with its plain version ({label})")
+        ms10 = cuda_ms(lambda: tm.maxsim_scores_v2(q16, qlb_h, docs_lo, vlens), 3)
+        plain10 = cuda_ms(lambda: tm.maxsim_scores_v2_plain(q16, qlb, docs_lo, vlens), 1)
+        lib10 = cuda_ms(lambda: mv_library(q16, qlb, docs_lo, vlens, None), 1)
+        b10, by10 = mv_bound(qlb, vlens, MV_DIM, 2, b * docs_lo.shape[0] * 4, peak["bf16"],
+                             peak["hbm"])
+        log(f"pages: #9 maxsim_topk_v2 f32 {label}, k={K}: {ms9:.3f} ms ({l_exact} launches in "
+            f"the exact run), plain {plain9:.3f} ms, chunked matmul + amax + topk {lib9:.3f} ms, "
+            f"bound {b9:.3f} ms ({by9}), {n_mism} id mismatches, max |d score| {err9:.3e}; #10 "
+            f"maxsim_scores_v2 bf16 {label}: {ms10:.3f} ms ({l_ver} launches in the verified "
+            f"run), plain {plain10:.3f} ms, chunked matmul + amax {lib10:.3f} ms, bound "
+            f"{b10:.3f} ms ({by10}), max |d score| {err10:.3e}")
+        kernels.append({
+            "name": "maxsim_topk_v2", "case": f"f32 {label}, k={K}", "route": "cuda",
+            "source": "autorag_research_tpu_torch/csrc/maxsim_v2.cu",
+            "replaces": "autorag_research_tpu/ops/maxsim.py:311", "launches": l_exact,
+            "max_abs_err": err9, "ms": ms9, "plain_ms": plain9, "bound_ms": b9,
+            "bound_by": by9, "library_ms": lib9,
+        })
+        kernels.append({
+            "name": "maxsim_scores_v2", "case": f"bf16 {label}, k'+1={K_PRESCREEN}",
+            "route": "cuda", "source": "autorag_research_tpu_torch/csrc/maxsim_v2.cu",
+            "replaces": "autorag_research_tpu/ops/maxsim.py:442", "launches": l_ver,
+            "max_abs_err": err10, "ms": ms10, "plain_ms": plain10, "bound_ms": b10,
+            "bound_by": by10, "library_ms": lib10,
+        })
+        del got, ref, err_t, q16
+
+        # ---- the CLI's run on the same workspace ---------------------------------
+        with open(f"{cfg}/experiment_cli.yaml", "w") as f:
+            f.write("pipelines:\n  retrieval:\n" + "".join(
+                f"    - {nm}_cli\n" for nm in names if configs[nm].kind == "retrieval")
+                + "  generation:\n    - visrag_gen_cli\nmetrics:\n  retrieval:\n    - recall\n"
+                "    - ndcg\n  generation:\n" + "".join(f"    - {m}\n" for m in GEN_METRICS)
+                + "executor:\n  health_check: true\n  health_check_queries: 2\n")
+        reset()
+        cli_s = run_cli("run", "--db", ws, "--experiment", f"{cfg}/experiment_cli.yaml")
+        torch.cuda.synchronize()
+        launched, plain = counts()
+        log(f"pages: `run` of the five pipelines (the indexes loaded from the workspace's "
+            f"artifacts): {cli_s:.2f} s; launches {json.dumps(launched)}, plain calls "
+            f"{json.dumps(plain)}")
+        if not launched.get("maxsim_topk_v2") or not launched.get("maxsim_scores_v2") or plain:
+            fail("`run` of config #5 skipped #9 or #10 or took a plain route on the card")
+        for name in names:
+            cli_rows = persisted(f"{name}_cli")
+            limit = PAGE_CLI_Q if configs[name].query_limit else q_cnt
+            if any(cli_rows[q] for q in qids[limit:]):
+                fail(f"`run`'s {name} has rows past its first {limit} queries")
+            for q in qids[:limit]:
+                hits_equal(f"`run`'s {name} query {q}", cli_rows[q],
+                           [{"doc_id": d, "score": s} for d, s in runs[name][0][q]])
+        log("pages: every row of `run` equals the Executor's")
+        cat.close()
+    registry.invalidate()
+    del indexes, docs, dlens, docs_lo, vlens, q_all
+    torch.cuda.empty_cache()
+
+
 def ptxas_start(cuda_build, tmp: str, name: str):
     """Start one more nvcc of csrc/<name>.cu with ``-Xptxas -v`` (registers,
     shared memory and spills of each instantiation)."""
@@ -4677,7 +5161,7 @@ def main() -> int:
         log(f"phase 18 (CLI and served workspace): {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
-        # ---- 19. the IVF indexes at 2,000,000 x 768 --------------------------
+        # ---- 19. the IVF indexes at 1,000,000 x 768 --------------------------
         t0 = time.perf_counter()
         ivf_phase(args.seed, dev)
         log(f"phase 19 (IVF at {IVF_N} x {DIM}): {time.perf_counter() - t0:.1f} s")
@@ -4696,6 +5180,11 @@ def main() -> int:
         t0 = time.perf_counter()
         rerank_wrappers_phase(args.seed, dev, serve_root)
         log(f"phase 21 (rerank, the LLM wrappers, power_of_noise): {time.perf_counter() - t0:.1f} s")
+
+    # ---- 22. config #5 (ViDoRe pages) through the Executor and `run` ---------
+    t0 = time.perf_counter()
+    page_phase(args.seed, dev, peak, kernels)
+    log(f"phase 22 (config #5 through the Executor and `run`): {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))

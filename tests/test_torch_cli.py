@@ -348,9 +348,10 @@ class TestInjection:
             _mod(TORCH, "injection").ModelRegistry().load_llm("nope")
 
     @pytest.mark.parametrize("kind,name,item", [
-        ("llm", "mock", "builds"), ("llm", "openai", "item 7"), ("llm", "jax_lm", "'torch_lm'"),
-        ("embedding", "openai", "item 7"), ("embedding", "colpali", "item 7"),
-        ("embedding", "infinity", "item 7"), ("embedding", "jax_encoder", "torch_encoder"),
+        ("llm", "mock", "builds"), ("llm", "openai", "builds remote"),
+        ("llm", "jax_lm", "'torch_lm'"),
+        ("embedding", "openai", "builds remote"), ("embedding", "colpali", "builds remote"),
+        ("embedding", "infinity", "builds remote"), ("embedding", "jax_encoder", "torch_encoder"),
         ("reranker", "mock", "builds"), ("reranker", "colbert", "builds"),
         ("reranker", "jax_cross_encoder", "'torch_cross_encoder'"),
     ])
@@ -359,6 +360,13 @@ class TestInjection:
         if item == "builds":  # ported since: it loads as the JAX package's does
             model = getattr(reg, f"load_{kind}")(name)
             assert type(model).__module__.startswith(TORCH)
+            return
+        if item == "builds remote":  # ported since; its health check would call a
+            # remote endpoint or need a checkpoint, so it is built without one
+            reg = _mod(TORCH, "injection").ModelRegistry(device="cpu", health_check=False)
+            model = getattr(reg, f"load_{kind}")(name)
+            assert type(model).__module__.startswith(TORCH)
+            assert name not in _mod(TORCH, "injection").DEFERRED[kind]
             return
         with pytest.raises(_mod(TORCH, "exceptions").ModelLoadError, match=item):
             getattr(reg, f"load_{kind}")(name)
@@ -501,8 +509,8 @@ class TestConfigResolver:
 def test_every_template_pipeline_config_resolves_or_names_its_item(tmp_path, monkeypatch):
     """Every shipped pipeline YAML resolves to the port's typed config, or
     (a pipeline still to port) is refused naming ROADMAP.md item 8; the
-    same files resolve in the JAX package. Every retrieval pipeline but
-    ``heaven`` is ported, and of the generation pipelines only ``basic_rag``."""
+    same files resolve in the JAX package. Every retrieval pipeline is
+    ported, and of the generation pipelines ``basic_rag`` and ``visrag_gen``."""
     monkeypatch.chdir(tmp_path)
     torch_main(["init"])
     resolver = _mod(TORCH, "cli.config_resolver").ConfigResolver(tmp_path / "configs")
@@ -520,12 +528,13 @@ def test_every_template_pipeline_config_resolves_or_names_its_item(tmp_path, mon
                 refused.add(name)
                 continue
             assert config.name == name and config.kind == kind
-            assert kind == "retrieval" or name == "basic_rag", name
+            assert kind == "retrieval" or name in ("basic_rag", "visrag_gen"), name
             resolved += 1
         if kind == "retrieval":
-            assert refused == {"heaven"}, refused
-    # the dense, MaxSim, BM25 and hybrid presets, the six wrappers, basic_rag
-    assert resolved >= 17
+            assert refused == set(), refused
+    # the dense, MaxSim, BM25 and hybrid presets, the six wrappers, heaven,
+    # basic_rag and visrag_gen
+    assert resolved >= 19
 
 
 def test_every_model_preset_type_is_registered_or_deferred():

@@ -110,6 +110,10 @@ import importlib, pkgutil, sys
 
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
+# nor on what the card's machine lacks: the page images' and datasets'
+# libraries are imported where they are used
+sys.modules["PIL"] = None
+sys.modules["datasets"] = None
 
 
 class _RefuseJaxPackage:
@@ -148,6 +152,9 @@ ENTRY_MODULES = [
         "evaluation.metrics.generation", "evaluation.metrics.model_scorers",
         "utils.text", "models.cross_encoder", "rerankers.torch_cross", "rerankers.llm",
         "rerankers.hf", "rerankers.api", "pipelines.retrieval.rerank",
+        "utils.images", "data.hf_util", "data.vidore", "data.visrag", "embeddings.colpali",
+        "embeddings.openai_compat", "embeddings.infinity", "llm.openai_compat", "llm.providers",
+        "pipelines.retrieval.heaven", "pipelines.generation.visrag_gen",
     )
 ]
 
