@@ -8,10 +8,8 @@ The port's copy of the JAX package's ``cli/templates.py``: the same tree,
 but for the model files of the JAX package's own models. The encoder presets
 are ``embedding/torch_encoder*.yaml``, the decoder's is ``llm/torch_lm.yaml``
 and the cross-encoder's is ``reranker/torch_cross_encoder.yaml`` (each with
-the JAX template's defaults). The tree also
-names generation pipelines the port does not have yet: the config resolver
-refuses those when they are used, naming the ROADMAP.md item that ports
-them.
+the JAX template's defaults). Every pipeline the tree names, retrieval and
+generation, resolves to the port's own config.
 """
 
 from __future__ import annotations

@@ -28,9 +28,8 @@ item 6). Batches run in up to ``max_inflight`` threads on the default CUDA
 stream, so their device work runs one batch at a time while the host work of
 the others (tokenization, readback, result lists) overlaps it. ``/generate``
 serves ``basic_rag`` (one batched retrieval and one batched ``TorchLM``
-decode a micro-batch) and any other pipeline object with the generation
-interface; the config resolver refuses the generation pipelines still to
-port (item 8).
+decode a micro-batch) and every other generation pipeline, one query at a
+time.
 """
 
 from __future__ import annotations

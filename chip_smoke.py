@@ -8,9 +8,10 @@ paths (``autorag_research_tpu_torch``), the MaxSim pins, the int8 and approx
 serving modes, the hybrid and IVF pipelines through the ``Executor``, the CLI
 and HTTP serving layer, the IVF indexes at 1,000,000 x 768 and the generation
 path (the causal decoder, ``basic_rag`` with ``torch_lm``) at full width,
-reranking and the LLM-driven retrieval wrappers, and config #5 (ViDoRe pages:
+reranking and the LLM-driven retrieval wrappers, config #5 (ViDoRe pages:
 image MaxSim, ``heaven``, ``visrag_gen``) through the ``Executor`` and the
-CLI, and fails (non-zero exit) on any fault:
+CLI, and the 15 agentic generation pipelines, and fails (non-zero exit) on
+any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source)
@@ -243,8 +244,9 @@ CLI, and fails (non-zero exit) on any fault:
     this phase) with ``basic_rag`` over ``vector_search_verified`` at top_k
     5 and ``torch_lm`` at its template's defaults (256 / 4 / 4, f32, prompt
     384, 96 new), through ``Executor(catalog, ExecutorConfig(...))`` on the
-    card, every launch count at 0 just before: 32 queries (256 before
-    phase 21 joined the run, 128 before phase 22), health check on
+    card, every launch count at 0 just before: 8 queries (256 before
+    phase 21 joined the run, 128 before phase 22, 32 before phase 23),
+    health check on
     2, recall, ``exact_match``, ``token_f1``, ``bleu``, ``rouge``; every query
     has a row, ``prompt_tokens`` = min(prompt bytes + 1, 384), the evidence
     equals a direct verified search's top-5 (sub-ulp near-ties aside), #1
@@ -252,7 +254,8 @@ CLI, and fails (non-zero exit) on any fault:
     ``transformers`` or checkpoint). (c) ``serve_workspace(...,
     generation=["basic_rag"])``, ``warmup`` through bucket 32, closed-loop
     /generate clients at 1 and 32 (and 32 with the generation batcher one
-    batch at a time, not its 3), 32 requests a level (64 before phase 21):
+    batch at a time, not its 3), 8 requests a level (64 before phase 21,
+    32 before phase 23):
     QPS, p50 / p95 / p99, the mean batch and device-batch
     ms from ``/metrics``; 0 HTTP errors, #1 launched, no plain version, and
     every answer's text and token usage equal to the pipeline's direct call
@@ -265,9 +268,10 @@ CLI, and fails (non-zero exit) on any fault:
     count at 0 just before each part: (a) ``rerank`` with
     ``torch_cross_encoder`` at ``EncoderConfig``'s defaults (vocabulary
     32,768, 256 / 4 / 4, ``max_len`` 128, seeded; batch 64) over
-    ``vector_search_verified``, ``fetch_k_multiplier`` 3, top_k 10, all 1,000
-    queries, recall / ndcg beside ``vector_search_verified``'s (printed, not
-    gated: random weights); every query 10 rows from the inner top-30 of a
+    ``vector_search_verified``, ``fetch_k_multiplier`` 3, top_k 10, the first
+    500 queries (all 1,000 before phase 23), recall / ndcg beside
+    ``vector_search_verified``'s (printed, not gated: random weights); every
+    query 10 rows from the inner top-30 of a
     direct verified search (boundary near-ties aside), the first 32 queries'
     30 pair scores on the card within ``RR_CE_TOL`` of the same module and
     weights on the CPU and their order equal but at near-ties of the CPU
@@ -276,9 +280,10 @@ CLI, and fails (non-zero exit) on any fault:
     ``torch_lm`` at its template's widths (256 / 4 / 4, f32, prompt 384),
     32 new tokens (HyDE 64): ``hyde`` (verified dense index,
     ``torch_encoder``), ``query_rewrite`` and ``question_decomposition``
-    (three sub-questions) over ``bm25`` on 8 queries, ``retro_star`` on 4
-    at 10 candidates, ``rerank`` with ``llm_listwise`` (window 20) on 8
-    (32, 8 and 16 before phase 22 joined the run);
+    (three sub-questions) over ``bm25`` on 4 queries, ``retro_star`` on 4
+    at 10 candidates, ``rerank`` with ``llm_listwise`` (window 20) on 4
+    (32, 8 and 16 before phase 22 joined the run, 8, 4 and 8 before phase
+    23);
     each one's LLM calls and ms a call; on 4 queries each the rows against a
     recomputation from the run's own LLM replies (HyDE's search by the
     passage's embedding, the rewrite's search, the max-score merge of the
@@ -327,7 +332,39 @@ CLI, and fails (non-zero exit) on any fault:
     yardstick's and their bounds; then the CLI's ``run`` of the five
     pipelines under names of their own on the same workspace (the indexes
     loaded from its artifacts; ``heaven`` and ``visrag_gen`` on the first 8
-    queries), #9 and #10 launched, every row equal to the Executor's.
+    queries), #9 and #10 launched, every row equal to the Executor's;
+23. the 15 agentic generation pipelines (no kernel of their own: the JAX
+    modules reach no ``pl.pallas_call``; #1 and #5 / #6 through their legs),
+    run right after phase 21 in phase 18's workspace and config tree: all
+    17 generation templates of ``init``'s tree resolve; ``ircot``,
+    ``search_r1``, ``self_rag``, ``adaptive_rag``,
+    ``question_decomposition_gen``, ``dynamic_rag``, ``deep_rag``,
+    ``hybrid_deep_searcher``, ``et2rag``, ``spd_rag``, ``main_rag``, ``ras``,
+    ``autothinkrag``, ``interact_rag`` and ``rag_critic`` at their templates
+    with ``torch_lm`` at its template's widths (256 / 4 / 4, f32, prompt
+    384), 32 new tokens, seeded, ``max_concurrency`` 1, ``interact_rag``'s
+    dense leg ``vector_search_verified``, ``et2rag``'s vote on the
+    workspace's ``torch_encoder``, ``rag_critic``'s critic the same
+    ``torch_lm``: (a) each through ``Executor(catalog, ExecutorConfig(...))``
+    on the first 4 queries (recall, ``exact_match``, ``token_f1``), and
+    ``interact_rag`` once more under a command script (dense, fusion,
+    sparse, answer: a decoder with random weights names no command, so only
+    a script drives its legs); each one's seconds, LLM calls a query and ms
+    a call, retrieval calls a query and launches, and the device's busy
+    share over one ``dynamic_rag`` query (``torch.profiler``); every query a row
+    with token usage, ``prompt_tokens`` = min(prompt bytes + 1, 384) on
+    every call, #1 and #5 / #6 launched and no plain version; (b) the CLI's
+    ``run`` of ``ircot``, ``interact_rag`` and ``et2rag`` on the first 2
+    queries, rows equal to (a)'s (a decode near-tie aside, counted); (c)
+    ``serve_workspace(..., generation=["ircot"])`` with one closed-loop
+    /generate client, 8 requests: no HTTP error, every answer equal to the
+    pipeline's direct call and to (a)'s row; then each pipeline replayed on
+    the CPU on its first 2 queries, its LLM a ``ScriptedLLM`` of the card's
+    replies in their order, over CPU copies of its legs: the same prompts,
+    answer, metadata and retrieved ids, but where a leg's hits on the CPU
+    part from the card's at a near-tie (each rank's scores within
+    ``AGENT_TIE``; counted); ``et2rag``'s vote recomputed on the CPU from
+    the card's answers (cosines within ``AGENT_TIE``).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -425,29 +462,31 @@ PREFIX_N = 50_000
 # [B, 1, H] and [B, T, H] shapes round differently (1.7e-3 measured on the CPU
 # at 4 rows x 32 steps). Then basic_rag with torch_lm at the llm/torch_lm.yaml
 # template's defaults (cli/templates.py; JAX cli/templates.py:183-188) over
-# phase 18's workspace: 32 queries through the Executor at top_k 5, and
-# /generate at 1 and 32 closed-loop clients, 32 requests a level (an answer
-# takes 0.3-0.4 s of host launches: 170 s at 256 queries and 64 requests,
-# halved to leave phase 21 its time within the run's limit, and the queries
-# quartered again for phase 22)
+# phase 18's workspace: 8 queries through the Executor at top_k 5, and
+# /generate at 1 and 32 closed-loop clients, 32 requests a level, so that at
+# 32 clients all 32 are in flight at once (an answer takes 0.3-0.4 s of
+# host launches: 170 s at 256 queries and 64 requests, halved to leave phase
+# 21 its time within the run's limit, the queries quartered again for phase
+# 22, and again for phase 23)
 GEN_LM = dict(hidden=512, layers=8, heads=8, max_len=512)
 GEN_BATCHES, GEN_PROMPT, GEN_NEW, GEN_REPS, GEN_PROFILE_NEW = (1, 8, 32), 128, 128, 2, 16
 GEN_TOL = {"f32": 1e-4, "bf16": 1e-2}
-GEN_Q, GEN_TOP_K, GEN_CLIENTS, GEN_REQUESTS = 32, 5, (1, 32), 32
+GEN_Q, GEN_TOP_K, GEN_CLIENTS, GEN_REQUESTS = 8, 5, (1, 32), 32
 GEN_METRICS = ("exact_match", "token_f1", "bleu", "rouge")
 # phase 21: rerank with torch_cross_encoder at EncoderConfig's defaults (the
 # reranker/torch_cross_encoder.yaml template; JAX cli/templates.py:277) over
 # vector_search_verified (fetch_k_multiplier 3, the rerank template's) on
-# phase 18's 1,000 queries, its first 32 checked against the CPU within 1e-5
+# the first 500 of phase 18's 1,000 queries (all 1,000 before phase 23), its
+# first 32 checked against the CPU within 1e-5
 # (scores span about 0.4; card against CPU f32 logits of the decoder differ
 # by 2.6e-6); the LLM wrappers on torch_lm at its template's widths, 32 new
-# tokens (64 for HyDE's passage), on 8 queries (retro_star 4 at 10
-# candidates, the listwise rerank 8 at window 20; 32, 8 and 16 before phase
-# 22), each checked by a recomputation on 4; power_of_noise at its template
-# on all 1,000
-RR_FETCH, RR_BATCH, RR_CPU_Q, RR_CE_TOL = 3, 64, 32, 1e-5
-RR_LLM_NEW, RR_HYDE_NEW, RR_LLM_Q, RR_CHECK_Q = 32, 64, 8, 4
-RR_STAR_Q, RR_STAR_CAND, RR_LIST_Q, RR_WINDOW = 4, 10, 8, 20
+# tokens (64 for HyDE's passage), on 4 queries (retro_star 4 at 10
+# candidates, the listwise rerank 4 at window 20; 32, 8 and 16 before phase
+# 22, 8, 4 and 8 before phase 23), each checked by a recomputation on 4;
+# power_of_noise at its template on all 1,000
+RR_FETCH, RR_BATCH, RR_CPU_Q, RR_CE_TOL, RR_Q = 3, 64, 32, 1e-5, 500
+RR_LLM_NEW, RR_HYDE_NEW, RR_LLM_Q, RR_CHECK_Q = 32, 64, 4, 4
+RR_STAR_Q, RR_STAR_CAND, RR_LIST_Q, RR_WINDOW = 4, 10, 4, 20
 # phase 22: config #5 (BASELINE.md: ViDoRe v2 pages, late interaction) on one
 # card at phase 6's page widths (PAGE_TD above: 512-1,024 ColPali patches, d =
 # 128; scripts/bench_maxsim_page.py), 5,000 pages: phase 6's 10,000 took 200
@@ -467,6 +506,26 @@ PAGE_Q, PAGE_TQ, PAGE_NOISE, PAGE_CHECK_Q, PAGE_WRITE_BATCH = 256, 32, 0.05, 16,
 PAGES_N, PAGE_CLI_Q = 5_000, 8
 PAGE_RECALL_MIN, HEAVEN_Q, HEAVEN_CHECK_Q = 0.9, 32, 8
 VISRAG_Q, VISRAG_NEW, VISRAG_IMAGES = 32, 32, 3
+# phase 23: the 15 agentic generation pipelines at their templates
+# (cli/templates.py) over phase 18's workspace, with torch_lm at
+# llm/torch_lm.yaml's widths (256 / 4 / 4, f32, prompt 384) and 32 new tokens
+# a call (phase 21's), seeded; max_concurrency 1 (decodes from several
+# threads at once contend: W15); interact_rag's dense leg
+# vector_search_verified, et2rag's vote on the workspace's torch_encoder,
+# rag_critic's critic the same torch_lm. (a) The Executor on the first 4
+# queries; interact_rag once more under a command script (a decoder with
+# random weights never names a command, so only a script drives its legs);
+# (b) the CLI's run of ircot, interact_rag and et2rag on the first 2; (c)
+# /generate of ircot, one closed-loop client, 8 requests. Every pipeline
+# replayed on the CPU on its first 2 queries; a leg's scores on the card and
+# the CPU agree within AGENT_TIE of max(1, |s|)
+AGENTS = ("ircot", "search_r1", "self_rag", "adaptive_rag", "question_decomposition_gen",
+          "dynamic_rag", "deep_rag", "hybrid_deep_searcher", "et2rag", "spd_rag", "main_rag",
+          "ras", "autothinkrag", "interact_rag", "rag_critic")
+AGENT_CLI = ("ircot", "interact_rag", "et2rag")
+AGENT_Q, AGENT_REPLAY_Q, AGENT_CLI_Q, AGENT_REQUESTS, AGENT_NEW = 4, 2, 2, 8, 32
+AGENT_TIE = 1e-5
+
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
 # non-tensor FLOP/s, HBM bytes/s
@@ -3343,6 +3402,21 @@ def first_diff(a, b) -> int | None:
     return int(d[0]) if d.size else None
 
 
+def near_tie(dec, ids, mask, a, b) -> tuple[int | None, float]:
+    """The first step where ``a`` and ``b``, the token rows of two greedy
+    decodes by ``dec`` of one prompt (``ids``, ``mask``: [1, T] on the
+    card), part, and the top-2 logit margin of that step, teacher-forced on
+    ``a`` (the rows' prefix up to there is one); (None, inf) if they do not
+    part."""
+    import torch
+
+    s = first_diff(a, b)
+    if s is None:
+        return None, float("inf")
+    row = torch.as_tensor(np.asarray(a)[None], dtype=torch.int64, device=ids.device)
+    return s, top2_margin(step_logits(dec, ids, mask, row)[0, s])
+
+
 def step_logits(dec, ids, mask, tokens):
     """The logits each decode step of ``dec.generate`` picks from, [B, n, V]:
     the prefill, then ``_step`` fed ``tokens`` [B, n] (the generate loop's
@@ -3475,13 +3549,12 @@ def decoder_phase(seed: int, dev) -> None:
         singles, differ, near = [], 0, 0
         tok = tok.cpu().numpy()
         for i in range(b):
-            t1 = dec.generate(ids[i:i + 1], mask[i:i + 1], GEN_NEW)[0]
-            s = first_diff(t1[0].cpu().numpy(), tok[i])
-            singles.append(t1[0].cpu().numpy())
+            t1 = dec.generate(ids[i:i + 1], mask[i:i + 1], GEN_NEW)[0][0].cpu().numpy()
+            s, m = near_tie(dec, ids[i:i + 1], mask[i:i + 1], t1, tok[i])
+            singles.append(t1)
             if s is None:
                 continue
             differ += 1
-            m = top2_margin(step_logits(dec, ids[i:i + 1], mask[i:i + 1], t1)[0, s])
             near += m <= GEN_TOL[name]
             log(f"decoder {name} B={b}: row {i} alone first differs from its batched decode at "
                 f"step {s}, top-2 margin {m:.3e} there")
@@ -3510,12 +3583,13 @@ def decoder_phase(seed: int, dev) -> None:
             f"of its {host:.1f} ms host-clock call without the profiler")
 
 
-def generate_level(port: int, queries: list[str], clients: int, n: int) -> dict:
+def generate_level(port: int, queries: list[str], clients: int, n: int,
+                   pipeline: str = "basic_rag", top_k: int = GEN_TOP_K) -> dict:
     """Closed-loop /generate load (run in a process of its own): ``clients``
     threads each send one request at a time, the i-th asking for
-    ``queries[i % len(queries)]``, until ``n`` are answered. Returns the wall
-    seconds and each request's latency, status, text, token usage and
-    evidence ids."""
+    ``queries[i % len(queries)]`` of ``pipeline`` at ``top_k``, until ``n``
+    are answered. Returns the wall seconds and each request's latency,
+    status, text, token usage and evidence ids."""
     import threading
     import urllib.error
     import urllib.request
@@ -3532,8 +3606,8 @@ def generate_level(port: int, queries: list[str], clients: int, n: int) -> dict:
                 nxt[0] += 1
             if i >= n:
                 return
-            body = json.dumps({"query": queries[i % len(queries)], "top_k": GEN_TOP_K,
-                               "pipeline": "basic_rag"}).encode()
+            body = json.dumps({"query": queries[i % len(queries)], "top_k": top_k,
+                               "pipeline": pipeline}).encode()
             req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body,
                                          headers={"Content-Type": "application/json"})
             t0 = time.perf_counter()
@@ -3803,10 +3877,10 @@ def generation_phase(seed: int, dev, pool, root: str, q_cnt: int = GEN_Q,
         ids, mask = byte_tokenize([prompt], lm_s.max_prompt_len)
         ids = torch.from_numpy(ids).to(dev, torch.int64)
         mask = torch.from_numpy(mask).to(dev)
-        tok = lm_s.decoder.generate(ids, mask, lm_s.max_new_tokens)[0]
-        s = first_diff(rows[0], tok[0].cpu().numpy()) if rows else None
+        tok = lm_s.decoder.generate(ids, mask, lm_s.max_new_tokens)[0][0].cpu().numpy()
+        s, m = near_tie(lm_s.decoder, ids, mask, tok, rows[0]) if rows else (None, 0.0)
         ok = (s is not None and usage["prompt_tokens"] == d.token_usage["prompt_tokens"]
-              and top2_margin(step_logits(lm_s.decoder, ids, mask, tok)[0, s]) <= GEN_TOL["f32"])
+              and m <= GEN_TOL["f32"])
         stats["decode_near_ties"] += ok
         if not ok:
             fail(f"/generate on {q[:60]!r}: served {text[:40]!r} {usage} against direct "
@@ -3905,7 +3979,8 @@ def rerank_wrappers_phase(seed: int, dev, root: str) -> None:
             f"type: llm_listwise\nllm: torch_lm_{RR_LLM_NEW}\nwindow: {RR_WINDOW}\n",
         "pipelines/retrieval/rerank_cross.yaml":
             "type: rerank\ninner_retrieval_pipeline_name: vector_search_verified\n"
-            f"reranker: torch_cross_encoder_seeded\nfetch_k_multiplier: {RR_FETCH}\ntop_k: {K}\n",
+            f"reranker: torch_cross_encoder_seeded\nfetch_k_multiplier: {RR_FETCH}\ntop_k: {K}\n"
+            f"query_limit: {RR_Q}\n",
         "pipelines/retrieval/hyde_lm.yaml":
             f"type: hyde\nllm: torch_lm_{RR_HYDE_NEW}\nembedding_model: torch_encoder_768\n"
             f"index_options:\n  mode: verified\ntop_k: {K}\nquery_limit: {RR_LLM_Q}\n",
@@ -3968,28 +4043,30 @@ def rerank_wrappers_phase(seed: int, dev, root: str) -> None:
     reset()
     result, rows, avg, run_s = executor_run("rerank_cross")
     launched, plain = counts()
+    rq = qids[:RR_Q]
     ce = models.load_reranker("torch_cross_encoder_seeded")  # the run's cached instance
     log(f"rerank: `reranker/torch_cross_encoder_seeded.yaml` (EncoderConfig {ce.config.vocab_size} / "
         f"{ce.config.hidden} / {ce.config.layers} / {ce.config.heads}, max_len {ce.config.max_len}, "
         f"seed {seed}, batch {ce.batch_size}) over vector_search_verified, fetch_k_multiplier "
-        f"{RR_FETCH}, top_k {K}, {len(qids)} queries, health check on 2: Executor.run {run_s:.2f} s, "
+        f"{RR_FETCH}, top_k {K}, {len(rq)} queries, health check on 2: Executor.run {run_s:.2f} s, "
         f"launches {json.dumps(launched)}, plain calls {json.dumps(plain)}")
     log(f"rerank: spans (ms) {json.dumps({k: round(v, 1) for k, v in result.spans.items()})}")
     log(f"rerank: recall@{K} {avg['recall']:.4f}, ndcg@{K} {avg['ndcg']:.4f} against "
-        f"vector_search_verified's {base_avg['recall']:.4f} / {base_avg['ndcg']:.4f} (random "
+        f"vector_search_verified's {base_avg['recall']:.4f} / {base_avg['ndcg']:.4f} over all "
+        f"{len(qids)} (random "
         "cross-encoder weights: printed, not gated)")
     if not launched.get("seg_stats_bf16") or plain:
         fail("rerank's inner verified search skipped #1 or took a plain route on the card")
-    short = [q for q in qids if len(rows[q]) != K]
+    short = [q for q in rq if len(rows[q]) != K]
     if short:
         fail(f"rerank: {len(short)} queries without {K} rows, e.g. {short[:5]}")
     # every id comes from the inner top-30 of a direct verified search (at
     # its boundary a near-tie within the f32 resolution may swap a rank-31 id in)
     fetch = K * RR_FETCH
     direct, outside = {}, 0
-    for lo in range(0, len(qids), 128):
-        direct.update(leg._retrieve_batch_by_ids(qids[lo:lo + 128], fetch + 2))
-    for q in qids:
+    for lo in range(0, len(rq), 128):
+        direct.update(leg._retrieve_batch_by_ids(rq[lo:lo + 128], fetch + 2))
+    for q in rq:
         top = {h["doc_id"]: h["score"] for h in direct[q][:fetch]}
         s_last = direct[q][fetch - 1]["score"]
         for d, _ in rows[q]:
@@ -4052,7 +4129,7 @@ def rerank_wrappers_phase(seed: int, dev, root: str) -> None:
     busy = sum(ms * c for ms, c, _ in prof_rows) / 5
     h, t_len, layers = ce.config.hidden, ce.config.max_len, ce.config.layers
     flop = 2 * fetch * t_len * layers * (12 * h * h + 2 * t_len * h)
-    log(f"rerank: {len(qids)} queries x {K} rows; every id from the inner top-{fetch} of a direct "
+    log(f"rerank: {len(rq)} queries x {K} rows; every id from the inner top-{fetch} of a direct "
         f"verified search ({outside} boundary near-ties); first {RR_CPU_Q} queries: card against "
         f"CPU max |d score| {max_err:.3e} (tolerance {RR_CE_TOL}), orders equal but {ties} "
         f"near-tie swaps ({cpu_s_total:.2f} s)")
@@ -4201,6 +4278,509 @@ def rerank_wrappers_phase(seed: int, dev, root: str) -> None:
     if not (launched.get("bm25_topk_v2_skip") or launched.get("bm25_topk_probe")) or plain:
         fail("power_of_noise's bm25 skipped #5 / #6 or took a plain route on the card")
     cat.close()
+
+
+def close(a, b, tol: float = AGENT_TIE) -> bool:
+    """Equal structures (lists and tuples alike); floats within ``tol`` of
+    max(1, |b|)."""
+    if isinstance(a, float) or isinstance(b, float):
+        return (isinstance(a, (int, float)) and isinstance(b, (int, float))
+                and abs(a - b) <= tol * max(1.0, abs(b)))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(close(a[k], b[k], tol) for k in b)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(close(x, y, tol) for x, y in zip(a, b))
+    return a == b
+
+
+class AgentTrace:
+    """Records, while installed, each generation row's decoder calls (prompt,
+    text, usage, host s, ``TorchLM``'s token row or None), its legs' calls (leg, input, k, hits, with
+    interact_rag's ``cc_fuse`` as a leg) and its result, under the
+    (pipeline, query) whose ``_generate`` made them, by wrapping
+    ``_generate``, ``TorchLM`` / ``MockLLM.agenerate`` and the legs at class
+    level. ``sink`` is the dict the records go to."""
+
+    def __init__(self):
+        import contextvars
+
+        from autorag_research_tpu_torch.llm import MockLLM, TorchLM
+        from autorag_research_tpu_torch.pipelines import generation
+        from autorag_research_tpu_torch.pipelines.generation import interact_rag
+        from autorag_research_tpu_torch.pipelines.retrieval.bm25 import BM25Pipeline
+        from autorag_research_tpu_torch.pipelines.retrieval.vector_search import (
+            VectorSearchPipeline,
+        )
+
+        self.row = contextvars.ContextVar("agent_row", default=None)
+        self.rows = contextvars.ContextVar("agent_tokens", default=None)
+        self.sink = self.fresh()
+        self.saved = []
+        for name in generation.__all__:
+            cls = getattr(generation, name)
+            if name.endswith("Pipeline") and "_generate" in vars(cls):
+                self._patch(cls, "_generate", self._gen)
+        for cls in (TorchLM, MockLLM):
+            self._patch(cls, "agenerate", self._llm)
+        self._patch(TorchLM, "_decode", self._decode)
+        for cls, leg in ((BM25Pipeline, "bm25"), (VectorSearchPipeline, "dense")):
+            self._patch(cls, "_retrieve_by_text", lambda f, leg=leg: self._leg(f, leg, "text"))
+            self._patch(cls, "_retrieve_by_id", lambda f, leg=leg: self._leg(f, leg, "id"))
+        self._patch(interact_rag, "cc_fuse", self._fuse)
+
+    @staticmethod
+    def fresh() -> dict:
+        return {"llm": {}, "legs": {}, "results": {}}
+
+    def _patch(self, owner, attr, wrap):
+        orig = getattr(owner, attr)
+        self.saved.append((owner, attr, orig))
+        setattr(owner, attr, wrap(orig))
+
+    def restore(self):
+        for owner, attr, orig in reversed(self.saved):
+            setattr(owner, attr, orig)
+
+    def _gen(self, orig):
+        trace = self
+
+        async def _generate(self, query_id, top_k):
+            token = trace.row.set((self.name, query_id))
+            try:
+                res = await orig(self, query_id, top_k)
+            finally:
+                trace.row.reset(token)
+            trace.sink["results"][(self.name, query_id)] = res
+            return res
+
+        return _generate
+
+    def _llm(self, orig):
+        trace = self
+
+        async def agenerate(self, prompt, **kw):
+            t0 = time.perf_counter()
+            rows = []
+            token = trace.rows.set(rows)
+            try:
+                res = await orig(self, prompt, **kw)
+            finally:
+                trace.rows.reset(token)
+            key = trace.row.get()
+            if key is not None:
+                trace.sink["llm"].setdefault(key, []).append(
+                    (prompt, res.text, res.token_usage, time.perf_counter() - t0,
+                     rows[0] if rows else None))
+            return res
+
+        return agenerate
+
+    def _decode(self, orig):
+        trace = self
+
+        def _decode(self, prompts):
+            out = orig(self, prompts)
+            rows = trace.rows.get()
+            if rows is not None:
+                rows.extend(out[0])
+            return out
+
+        return _decode
+
+    def _record(self, leg, how, arg, k, hits):
+        key = self.row.get()
+        if key is not None:
+            self.sink["legs"].setdefault(key, []).append(
+                (leg, how, arg, k, [(h["doc_id"], float(h["score"])) for h in hits]))
+
+    def _leg(self, orig, leg, how):
+        trace = self
+
+        async def retrieve(self, arg, top_k):
+            hits = await orig(self, arg, top_k)
+            trace._record(leg, how, arg, top_k, hits)
+            return hits
+
+        return retrieve
+
+    def _fuse(self, orig):
+        def cc_fuse(d_hits, s_hits, **kw):
+            hits = orig(d_hits, s_hits, **kw)
+            self._record("fusion", "cc", None, kw.get("top_k"), hits)
+            return hits
+
+        return cc_fuse
+
+
+def leg_divergence(card: list, cpu: list) -> tuple[int, str] | None:
+    """The first leg call where the CPU's hits differ from the card's, and
+    whether it is a near-tie ("tie": the same number of hits, each rank's
+    scores within ``AGENT_TIE``), else "differs"; None if none does."""
+    for i, (c, r) in enumerate(zip(card, cpu)):
+        if c[:4] != r[:4]:
+            return i, "differs"
+        c_ids, r_ids = [d for d, _ in c[4]], [d for d, _ in r[4]]
+        c_s, r_s = [s for _, s in c[4]], [s for _, s in r[4]]
+        if c_ids == r_ids and close(c_s, r_s):
+            continue
+        return i, "tie" if len(c_s) == len(r_s) and close(c_s, r_s) else "differs"
+    if len(card) != len(cpu):
+        return min(len(card), len(cpu)), "differs"
+    return None
+
+
+def same_result(got, ref) -> bool:
+    """A replayed ``GenerationResult`` against the card's: the answer, the
+    metadata (as the catalog stores it) and the retrieved ids in order
+    equal, scores within ``AGENT_TIE``."""
+    def as_stored(meta):
+        return json.loads(json.dumps(meta))
+
+    if got.text != ref.text or not close(as_stored(got.metadata), as_stored(ref.metadata)):
+        return False
+    g, r = got.retrieved or [], ref.retrieved or []
+    return ([h["doc_id"] for h in g] == [h["doc_id"] for h in r]
+            and close([float(h["score"]) for h in g], [float(h["score"]) for h in r]))
+
+
+def command_script(prompt: str) -> str:
+    """interact_rag's commands for the scripted run: dense, then fusion,
+    then sparse over the question, then an answer."""
+    query = re.search(r"Question: (.*)\nInteraction log:\n", prompt, re.S).group(1)
+    log = prompt.split("Interaction log:\n", 1)[1].rsplit("\n\nNext command:", 1)[0]
+    turn = 0 if log == "(none)" else len(log.splitlines())
+    return (f"dense({query})", f"fusion({query}, semantic=0.7, exact=0.3)", f"sparse({query})",
+            "answer(scripted)")[min(turn, 3)]
+
+
+def agents_phase(seed: int, dev, pool, root: str, q_cnt: int = AGENT_Q) -> None:
+    """Phase 23: the 15 agentic generation pipelines through
+    ``Executor(catalog, ExecutorConfig(...))`` on the card over phase 18's
+    workspace and config tree under ``root``, then the CLI's ``run`` of three
+    of them and ``/generate`` of ``ircot`` (``pool`` runs the client); each
+    pipeline replayed on the CPU from the card's recorded replies."""
+    import dataclasses
+
+    import torch
+
+    from autorag_research_tpu_torch.cli.app import main as cli
+    from autorag_research_tpu_torch.cli.config_resolver import ConfigResolver
+    from autorag_research_tpu_torch.cli.templates import DEFAULT_CONFIGS
+    from autorag_research_tpu_torch.config import BaseMetricConfig, BuildContext, ExecutorConfig
+    from autorag_research_tpu_torch.executor import Executor
+    from autorag_research_tpu_torch.injection import ModelRegistry
+    from autorag_research_tpu_torch.llm import MockLLM, ScriptedLLM
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.ops import sparse as ts
+    from autorag_research_tpu_torch.pipelines.loader import PipelineLoader
+    from autorag_research_tpu_torch.serving.server import serve_workspace
+    from autorag_research_tpu_torch.store.catalog import Catalog
+    from autorag_research_tpu_torch.utils.concurrency import run_async
+
+    def reset():
+        for mod in (td, ts, tm):
+            mod.reset_launch_counts()
+
+    def counts():
+        launched = {k: v for k, v in {**td.LAUNCHES, **ts.LAUNCHES, **tm.LAUNCHES}.items() if v}
+        return launched, {k: v for k, v in {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS}.items() if v}
+
+    def add(total: dict, part: dict) -> None:
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+
+    t_phase = time.perf_counter()
+    cfg, ws = f"{root}/configs", f"{root}/ws"
+    with open(f"{cfg}/llm/torch_lm.yaml") as f:
+        lm_template = f.read()
+    with open(f"{cfg}/llm/torch_lm_agents.yaml", "w") as f:
+        f.write(lm_template.replace("max_new_tokens: 96", f"max_new_tokens: {AGENT_NEW}")
+                + f"seed: {seed}\n")
+
+    def agent_yaml(name: str, limit: int) -> str:
+        text = DEFAULT_CONFIGS[f"pipelines/generation/{name}.yaml"]
+        if "llm: mock\n" not in text:
+            fail(f"the {name} template names no `llm: mock`: {text!r}")
+        text = text.replace("llm: mock\n", "llm: torch_lm_agents\n")
+        if name == "interact_rag":
+            text = text.replace("retrieval_pipeline_name: vector_search\n",
+                                "retrieval_pipeline_name: vector_search_verified\n")
+        if name == "et2rag":
+            text += "embedding_model: torch_encoder_768\n"
+        if name == "rag_critic":
+            text += "critic_llm: torch_lm_agents\n"
+        return text + f"max_concurrency: 1\nquery_limit: {limit}\n"
+
+    for name in AGENTS:
+        with open(f"{cfg}/pipelines/generation/{name}_lm.yaml", "w") as f:
+            f.write(agent_yaml(name, q_cnt))
+    resolver = ConfigResolver(cfg)
+    # every generation template of the tree resolves, then the phase's own
+    templates = [n for n in resolver.all_pipeline_names("generation")
+                 if f"pipelines/generation/{n}.yaml" in DEFAULT_CONFIGS]
+    for name in templates:
+        resolver.resolve_pipeline("generation", name)
+    if len(templates) != 17:
+        fail(f"the tree holds {len(templates)} generation templates, not 17: {templates}")
+    configs = {n: resolver.resolve_pipeline("generation", f"{n}_lm") for n in AGENTS}
+    configs["interact_rag_cmd"] = dataclasses.replace(
+        configs["interact_rag"], name="interact_rag_cmd", llm=MockLLM(responder=command_script))
+    deps = resolver.resolve_transitive_dependencies(list(configs.values()))
+    models = ModelRegistry(cfg, device=dev.type)
+    ctx = BuildContext(device=dev.type, models=models, pipeline_configs={**deps})
+    metrics = [BaseMetricConfig(name="recall"),
+               *[BaseMetricConfig(name=m, metric_type="generation")
+                 for m in ("exact_match", "token_f1")]]
+    cat = Catalog(f"{ws}/catalog.db")
+    qids = cat.get_all_query_ids()
+    lm = models.load_llm("torch_lm_agents")
+    log(f"agents: {len(templates)} generation templates of `init`'s tree resolve; "
+        f"`llm/torch_lm_agents.yaml` (the torch_lm template, {AGENT_NEW} new tokens, seed {seed}; "
+        f"decoder {lm.config.hidden} / {lm.config.layers} / {lm.config.heads}, prompt "
+        f"{lm.max_prompt_len}) over phase 18's workspace ({cat.count('chunk')} passages, "
+        f"{len(qids)} queries); legs {sorted(deps)}")
+
+    trace = AgentTrace()
+    try:
+        # ---- (a) each pipeline through the Executor on the card --------------
+        card = trace.sink
+        launched_all, plain_all = {}, {}
+        for name, config in configs.items():
+            reset()
+            t0 = time.perf_counter()
+            result = Executor(cat, ExecutorConfig(pipelines=[config], metrics=metrics,
+                                                  health_check=False), ctx).run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched, plain = counts()
+            add(launched_all, launched)
+            add(plain_all, plain)
+            pres = result.pipelines[0]
+            if not result.success or not all(m.success for m in pres.metrics):
+                fail(f"{name} through the Executor failed: {result.report()}")
+            pid = pres.stats["pipeline_id"]
+            rows = [(config.name, q) for q in qids[:q_cnt]]
+            calls = [c for r in rows for c in card["llm"].get(r, [])]
+            legs = [c for r in rows for c in card["legs"].get(r, []) if c[0] != "fusion"]
+            avg = {m.metric_name: m.average for m in pres.metrics}
+            ms = sum(c[3] for c in calls) * 1e3 / max(len(calls), 1)
+            log(f"agents: {config.name} ({q_cnt} queries, top_k {config.top_k}): Executor.run "
+                f"{secs:.2f} s, {len(calls) / q_cnt:.2f} LLM calls a query at {ms:.1f} ms a call, "
+                f"{len(legs) / q_cnt:.2f} retrieval calls a query, "
+                f"launches {json.dumps(launched)}, plain calls {json.dumps(plain)}; recall "
+                f"{avg['recall']:.4f}, exact_match {avg['exact_match']:.4f}, token_f1 "
+                f"{avg['token_f1']:.4f} (random weights: printed, not gated)")
+            if cat.get_queries_with_executor_results(pid) != set(qids[:q_cnt]):
+                fail(f"{name}: the generation rows are not those of the first {q_cnt} queries")
+            for r in rows:
+                row = cat.get_executor_result(r[1], pid)
+                res = card["results"].get(r)
+                if row is None or res is None:
+                    fail(f"{name}: query {r[1]} has no generation row")
+                usage = json.loads(row["token_usage"])
+                if row["generation_result"] != res.text or not usage or not usage.get("total_tokens"):
+                    fail(f"{name}: query {r[1]}'s row {row['generation_result'][:40]!r} / usage "
+                         f"{usage} against the run's {res.text[:40]!r}")
+                if not card["llm"].get(r):
+                    fail(f"{name}: query {r[1]} made no LLM call")
+        bad = [(k, c[2], len(c[0].encode())) for k, cs in card["llm"].items() for c in cs
+               if k[0] != "interact_rag_cmd"
+               and (c[2]["prompt_tokens"] != min(len(c[0].encode()) + 1, lm.max_prompt_len)
+               or c[2]["completion_tokens"] > AGENT_NEW
+               or c[2]["total_tokens"] != c[2]["prompt_tokens"] + c[2]["completion_tokens"])]
+        n_calls = sum(len(cs) for k, cs in card["llm"].items() if k[0] != "interact_rag_cmd")
+        longest = max(len(c[0].encode()) for k, cs in card["llm"].items() for c in cs
+                      if k[0] != "interact_rag_cmd")
+        log(f"agents: (a) launches {json.dumps(launched_all)}, plain calls {json.dumps(plain_all)}; "
+            f"{n_calls} decoder calls, prompt_tokens = min(prompt bytes + 1, {lm.max_prompt_len}) "
+            f"and usage sums hold for {n_calls - len(bad)} (the longest prompt {longest} bytes)")
+        if bad:
+            fail(f"agents: token usage off for {len(bad)} calls, e.g. {bad[:3]}")
+        if not launched_all.get("seg_stats_bf16") or plain_all or not (
+                launched_all.get("bm25_topk_v2_skip") or launched_all.get("bm25_topk_probe")):
+            fail("the agents skipped #1 or #5 / #6, or took a plain route on the card")
+
+        # the device's busy share over one pipeline's query (torch.profiler):
+        # dynamic_rag's two decodes and one search (ircot's nine decodes took
+        # 36 s to trace and summarize); the warm-up run is recorded too
+        probe = PipelineLoader(cat, ctx).load_config(configs["dynamic_rag"])
+        sink = trace.sink = AgentTrace.fresh()
+        key = ("dynamic_rag_lm", qids[0])
+        prof_rows, _, prof_wall = device_breakdown(
+            "dynamic_rag_lm on one query",
+            lambda: run_async(probe._generate(qids[0], configs["dynamic_rag"].top_k)), calls=1)
+        busy = sum(ms * c for ms, c, _ in prof_rows)
+        if sink["results"][key].text != card["results"][key].text:
+            fail("dynamic_rag_lm under the profiler answered otherwise than in the Executor's run")
+        log(f"agents: dynamic_rag_lm on one query under the profiler ({len(sink['llm'][key]) // 2} "
+            f"decodes and {len(sink['legs'][key]) // 2} search a run): {prof_wall:.1f} ms wall, "
+            + (f"the device busy {busy:.1f} ms ({100 * busy / prof_wall:.1f}%)" if busy else
+               "the device's busy time not measured (the trace holds no device time)"))
+        trace.sink = card
+
+        # ---- (b) the CLI's run of three of them on the same workspace -------
+        for name in AGENT_CLI:
+            with open(f"{cfg}/pipelines/generation/{name}.yaml", "w") as f:
+                f.write(agent_yaml(name, AGENT_CLI_Q))
+        with open(f"{cfg}/experiment_agents.yaml", "w") as f:
+            f.write("pipelines:\n  retrieval: []\n  generation:\n"
+                    + "".join(f"    - {n}\n" for n in AGENT_CLI)
+                    + "metrics:\n  retrieval:\n    - recall\n  generation:\n    - exact_match\n"
+                    "    - token_f1\nexecutor:\n  health_check: false\n")
+        reset()
+        t0 = time.perf_counter()
+        rc = cli(["--config-path", cfg, "--device", dev.type, "run", "--db", ws,
+                  "--experiment", f"{cfg}/experiment_agents.yaml"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launched, plain = counts()
+        if rc != 0:
+            fail(f"the port's CLI `run` of {AGENT_CLI} exited {rc}")
+        near = 0
+        for name in AGENT_CLI:
+            pid = cat.get_pipeline(name)["id"]
+            if cat.get_queries_with_executor_results(pid) != set(qids[:AGENT_CLI_Q]):
+                fail(f"`run`'s {name}: the rows are not those of the first {AGENT_CLI_Q} queries")
+            for q in qids[:AGENT_CLI_Q]:
+                got, ref = card["results"].get((name, q)), card["results"][(f"{name}_lm", q)]
+                row = cat.get_executor_result(q, pid)
+                if got is None or row is None or row["generation_result"] != got.text:
+                    fail(f"`run`'s {name}: query {q} has no row or another text than its run")
+                if got.token_usage == ref.token_usage and same_result(got, ref):
+                    continue
+                # a decode near-tie: the first reply that differs, on one prompt
+                c_calls, a_calls = card["llm"][(name, q)], card["llm"][(f"{name}_lm", q)]
+                i = next((j for j, (x, y) in enumerate(zip(c_calls, a_calls)) if x[1] != y[1]), None)
+                if i is None or c_calls[i][0] != a_calls[i][0] or not decode_near_tie(
+                        lm, c_calls[i][0], c_calls[i][4], a_calls[i][4], dev):
+                    fail(f"`run`'s {name} query {q}: {got.text[:40]!r} against the Executor's "
+                         f"{ref.text[:40]!r} (first differing call {i})")
+                near += 1
+        log(f"agents: (b) `run` of {', '.join(AGENT_CLI)} on {AGENT_CLI_Q} queries: {cli_s:.2f} s, "
+            f"launches {json.dumps(launched)}, plain calls {json.dumps(plain)}; rows equal to the "
+            f"Executor's but {near} decode near-ties")
+        if plain or not (launched.get("bm25_topk_v2_skip") or launched.get("bm25_topk_probe")):
+            fail("`run` of the agents skipped #5 / #6 or took a plain route on the card")
+
+        # ---- (c) /generate of ircot --------------------------------------------
+        t0 = time.perf_counter()
+        handle = serve_workspace(ws, config_path=cfg, retrieval=["bm25"], generation=["ircot"],
+                                 port=0, device=dev.type)
+        built_s = time.perf_counter() - t0
+        top_k = configs["ircot"].top_k
+        q_texts = [cat.get_query_text(q) for q in qids[:q_cnt]]
+        reset()
+        res = pool.submit(generate_level, handle.port, q_texts, 1, AGENT_REQUESTS, "ircot",
+                          top_k).result()
+        torch.cuda.synchronize()
+        launched, plain = counts()
+        lat = np.asarray(res["lat"]) * 1e3
+        errors = [c for c in res["code"] if c != 200]
+        log(f"agents: (c) serve_workspace(generation=['ircot']) built in {built_s:.2f} s; /generate "
+            f"x 1 client, {AGENT_REQUESTS} requests over {len(q_texts)} queries: "
+            f"{AGENT_REQUESTS / res['wall']:.2f} QPS, latency p50 {np.percentile(lat, 50):.1f} / max "
+            f"{lat.max():.1f} ms, {len(errors)} HTTP errors, launches {json.dumps(launched)}, plain "
+            f"calls {json.dumps(plain)}" + (f" {res['errors'][:3]}" if res["errors"] else ""))
+        if errors:
+            fail(f"{len(errors)} HTTP errors on /generate of ircot: {errors[:5]}")
+        if plain or not (launched.get("bm25_topk_v2_skip") or launched.get("bm25_topk_probe")):
+            fail("/generate of ircot skipped #5 / #6 or took a plain route on the card")
+        served = handle.generation_pipelines["ircot"]
+        t0 = time.perf_counter()
+        direct = {q: run_async(served._generate(q, top_k)) for q in qids[:q_cnt]}
+        for i in range(AGENT_REQUESTS):
+            q = qids[i % len(q_texts)]
+            d, a = direct[q], card["results"][("ircot_lm", q)]
+            if (res["text"][i], res["usage"][i], res["ctx"][i]) != (
+                    d.text, d.token_usage, d.metadata["context_chunk_ids"]):
+                fail(f"/generate {i} ({q}): {res['text'][i][:40]!r} {res['usage'][i]} against the "
+                     f"direct call's {d.text[:40]!r} {d.token_usage}")
+            if d.text != a.text or d.metadata != a.metadata:
+                fail(f"ircot's direct call on {q} differs from the Executor's row")
+        log(f"agents: every served answer (text, usage, evidence) equals the pipeline's direct "
+            f"call ({len(direct)} calls, {time.perf_counter() - t0:.2f} s) and the Executor's row")
+        handle.stop()
+        handle.catalog.close()
+
+        # ---- the replay on the CPU ----------------------------------------------
+        t0 = time.perf_counter()
+        cpu_models = ModelRegistry(cfg, device="cpu", health_check=False)
+        cpu_loader = PipelineLoader(cat, BuildContext(device="cpu", models=cpu_models,
+                                                      pipeline_configs={**deps}))
+        trace.sink = replay = AgentTrace.fresh()
+        stats = {"rows": 0, "equal": 0, "leg_near_ties": {}}
+        for name, config in configs.items():
+            pipe = cpu_loader.load_config(config)
+            for q in qids[:AGENT_REPLAY_Q]:
+                key = (config.name, q)
+                ref = card["results"][key]
+                if name == "interact_rag_cmd":
+                    replies = [command_script(c[0]) for c in card["llm"].get(key, [])]
+                else:
+                    replies = [c[1] for c in card["llm"].get(key, [])]
+                scripted = ScriptedLLM(responses=replies)
+                pipe.llm = scripted
+                if hasattr(pipe, "critic_llm"):  # the registry's one torch_lm_agents
+                    pipe.critic_llm = scripted
+                got = run_async(pipe._generate(q, config.top_k))
+                stats["rows"] += 1
+                prompts = [c[0] for c in card["llm"].get(key, [])]
+                if scripted.calls == prompts and not scripted.responses and same_result(got, ref):
+                    stats["equal"] += 1
+                    continue
+                div = leg_divergence(card["legs"].get(key, []), replay["legs"].get(key, []))
+                if div is None or div[1] != "tie":
+                    fail(f"the replay of {config.name} on query {q} on the CPU: {got.text[:40]!r} "
+                         f"{got.metadata} against the card's {ref.text[:40]!r} {ref.metadata}; "
+                         f"prompts equal {scripted.calls == prompts}, leg divergence {div}")
+                leg = card["legs"][key][div[0]][0]
+                stats["leg_near_ties"][leg] = stats["leg_near_ties"].get(leg, 0) + 1
+        # et2rag's vote: the winner recomputed on the CPU from the card's answers
+        from autorag_research_tpu_torch.pipelines.generation.et2rag import similarity_vote
+
+        card_emb, cpu_emb = (m.load_embedding("torch_encoder_768") for m in (models, cpu_models))
+        max_d, votes = 0.0, 0
+        for q in qids[:q_cnt]:
+            meta = card["results"][("et2rag_lm", q)].metadata
+            answers = meta.get("candidate_answers", [])
+            if len(answers) < 2:
+                continue
+            cos = []
+            for emb in (card_emb, cpu_emb):
+                v = np.asarray(emb.embed_texts(answers), np.float64)
+                v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-30)
+                cos.append(v @ v.T)
+            max_d = max(max_d, float(np.abs(cos[0] - cos[1]).max()))
+            if similarity_vote(answers, cpu_emb) != meta["selected_subset_index"]:
+                fail(f"et2rag query {q}: the CPU's vote picks {similarity_vote(answers, cpu_emb)}, "
+                     f"the card's {meta['selected_subset_index']}")
+            votes += 1
+        if max_d > AGENT_TIE:
+            fail(f"et2rag: the answers' cosines on the card and the CPU differ by {max_d:.3e}")
+        log(f"agents: et2rag's vote recomputed on the CPU for {votes} queries: the same winner, "
+            f"cosines of the card's answers within {max_d:.3e} (tolerance {AGENT_TIE})")
+        log(f"agents: replay of the first {AGENT_REPLAY_Q} queries of each pipeline on the CPU "
+            f"(ScriptedLLM of the card's replies in order, CPU copies of the legs and of "
+            f"torch_encoder_768): {json.dumps(stats)} ({time.perf_counter() - t0:.2f} s)")
+    finally:
+        trace.restore()
+    cat.close()
+    log(f"agents: phase 23 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def decode_near_tie(lm, prompt: str, a, b, dev) -> bool:
+    """Whether two greedy decodes of ``prompt`` by ``lm``, with the token rows
+    ``a`` and ``b`` (as ``AgentTrace`` records them), part at a step whose
+    top-2 logit margin is within ``GEN_TOL["f32"]``."""
+    import torch
+
+    from autorag_research_tpu_torch.models.decoder import byte_tokenize
+
+    ids, mask = byte_tokenize([prompt], lm.max_prompt_len)
+    ids = torch.from_numpy(ids).to(dev, torch.int64)
+    s, m = near_tie(lm.decoder, ids, torch.from_numpy(mask).to(dev), a, b)
+    return s is not None and m <= GEN_TOL["f32"]
 
 
 def page_phase(seed: int, dev, peak: dict, kernels: list, n: int = PAGES_N,
@@ -5180,6 +5760,12 @@ def main() -> int:
         t0 = time.perf_counter()
         rerank_wrappers_phase(args.seed, dev, serve_root)
         log(f"phase 21 (rerank, the LLM wrappers, power_of_noise): {time.perf_counter() - t0:.1f} s")
+
+        # ---- 23. the agentic generation pipelines -----------------------------
+        t0 = time.perf_counter()
+        agents_phase(args.seed, dev, pool, serve_root)
+        log(f"phase 23 (the 15 agentic generation pipelines): {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
 
     # ---- 22. config #5 (ViDoRe pages) through the Executor and `run` ---------
     t0 = time.perf_counter()

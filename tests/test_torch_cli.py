@@ -507,34 +507,75 @@ class TestConfigResolver:
 
 
 def test_every_template_pipeline_config_resolves_or_names_its_item(tmp_path, monkeypatch):
-    """Every shipped pipeline YAML resolves to the port's typed config, or
-    (a pipeline still to port) is refused naming ROADMAP.md item 8; the
-    same files resolve in the JAX package. Every retrieval pipeline is
-    ported, and of the generation pipelines ``basic_rag`` and ``visrag_gen``."""
+    """Every shipped pipeline YAML resolves to the port's typed config, of
+    the same class name and fields as the JAX package's from the same
+    file: every retrieval pipeline and all 17 generation pipelines (the
+    refusal naming a ROADMAP.md item went with the last of them)."""
     monkeypatch.chdir(tmp_path)
     torch_main(["init"])
     resolver = _mod(TORCH, "cli.config_resolver").ConfigResolver(tmp_path / "configs")
     jresolver = _mod(JAX, "cli.config_resolver").ConfigResolver(tmp_path / "configs")
-    resolved, refused = 0, set()
+    assert not hasattr(_mod(TORCH, "cli.config_resolver"), "UNPORTED_PIPELINES")
+    resolved = 0
     for kind in ("retrieval", "generation"):
         names = resolver.all_pipeline_names(kind)
         assert names, kind
         for name in names:
-            assert jresolver.resolve_pipeline(kind, name).name == name
-            try:
-                config = resolver.resolve_pipeline(kind, name)
-            except _mod(TORCH, "exceptions").PipelineConfigError as exc:
-                assert "item 8" in str(exc), name
-                refused.add(name)
-                continue
-            assert config.name == name and config.kind == kind
-            assert kind == "retrieval" or name in ("basic_rag", "visrag_gen"), name
+            ref = jresolver.resolve_pipeline(kind, name)
+            config = resolver.resolve_pipeline(kind, name)
+            assert config.name == ref.name == name and config.kind == ref.kind == kind
+            assert type(config).__name__ == type(ref).__name__, name
+            assert config.config_type == ref.config_type, name
             resolved += 1
-        if kind == "retrieval":
-            assert refused == set(), refused
-    # the dense, MaxSim, BM25 and hybrid presets, the six wrappers, heaven,
-    # basic_rag and visrag_gen
-    assert resolved >= 19
+    # the dense, MaxSim, BM25 and hybrid presets, the six wrappers, heaven
+    # and the 17 generation pipelines
+    assert resolved >= 35
+
+
+GENERATION_TEMPLATES = (
+    "basic_rag", "ircot", "search_r1", "self_rag", "adaptive_rag", "deep_rag", "dynamic_rag",
+    "et2rag", "spd_rag", "main_rag", "rag_critic", "interact_rag", "hybrid_deep_searcher", "ras",
+    "autothinkrag", "question_decomposition_gen", "visrag_gen",
+)
+
+
+@pytest.mark.parametrize("name", GENERATION_TEMPLATES)
+def test_init_tree_resolves_every_generation_name(tmp_path, monkeypatch, name):
+    """``init``'s tree names 17 generation pipelines; each resolves in the
+    port to a config equal field by field to the JAX package's, and builds
+    through an experiment that names it (its legs resolved with it)."""
+    monkeypatch.chdir(tmp_path)
+    torch_main(["init"])
+    configs = tmp_path / "configs"
+    assert sorted(_mod(TORCH, "cli.config_resolver").ConfigResolver(configs).all_pipeline_names(
+        "generation")) == sorted(GENERATION_TEMPLATES)
+    out = {}
+    for pkg in (JAX, TORCH):
+        resolver = _mod(pkg, "cli.config_resolver").ConfigResolver(configs)
+        config = resolver.resolve_pipeline("generation", name)
+        deps = resolver.resolve_transitive_dependencies([config])
+        fields = {k: v for k, v in vars(config).items() if isinstance(v, (str, int, float, type(None)))}
+        out[pkg] = (type(config).__name__, config.config_type, fields, sorted(deps))
+    assert out[TORCH] == out[JAX]
+    assert out[TORCH][3], name  # every generation template names its leg
+
+
+@pytest.mark.parametrize("pkg", [JAX, TORCH])
+def test_unknown_pipeline_type_refused_as_from_dict(tmp_path, pkg):
+    """An unknown ``type`` is refused by ``BasePipelineConfig.from_dict`` in
+    both packages, with its message (known types listed)."""
+    path = tmp_path / "pipelines" / "generation" / "nope.yaml"
+    path.parent.mkdir(parents=True)
+    path.write_text("type: not_a_pipeline\nllm: mock\n")
+    resolver = _mod(pkg, "cli.config_resolver").ConfigResolver(tmp_path)
+    with pytest.raises(KeyError) as got:
+        resolver.resolve_pipeline("generation", "nope")
+    with pytest.raises(KeyError) as ref:
+        _mod(pkg, "config").BasePipelineConfig.from_dict({"type": "not_a_pipeline", "llm": "mock",
+                                                          "name": "nope"})
+    assert str(got.value) == str(ref.value)
+    assert "unknown pipeline type 'not_a_pipeline'" in str(got.value)
+    assert "ircot" in str(got.value) and "rag_critic" in str(got.value)
 
 
 def test_every_model_preset_type_is_registered_or_deferred():

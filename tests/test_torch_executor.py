@@ -312,9 +312,14 @@ def test_each_package_resolves_its_own_config_types():
         data = {"type": type_name, "name": "p", **extra}
         assert type(BasePipelineConfig.from_dict(data)) is getattr(tr, cls)
         assert type(JBase.from_dict(data)) is getattr(jr, cls)
-    # a generation pipeline still to port
-    importlib.import_module("autorag_research_tpu.pipelines.generation")
-    assert "self_rag" in JBase.registry and "self_rag" not in BasePipelineConfig.registry
+    # the generation pipelines, each to its own package's class
+    jg = importlib.import_module("autorag_research_tpu.pipelines.generation")
+    tg = importlib.import_module("autorag_research_tpu_torch.pipelines.generation")
+    for type_name, cls in [("self_rag", "SelfRAGConfig"), ("ircot", "IRCoTConfig"),
+                           ("rag_critic", "RAGCriticConfig")]:
+        data = {"type": type_name, "name": "p", "retrieval_pipeline_name": "bm25"}
+        assert type(BasePipelineConfig.from_dict(data)) is getattr(tg, cls)
+        assert type(JBase.from_dict(data)) is getattr(jg, cls)
 
 
 def test_from_dict_refusals():

@@ -155,6 +155,10 @@ ENTRY_MODULES = [
         "utils.images", "data.hf_util", "data.vidore", "data.visrag", "embeddings.colpali",
         "embeddings.openai_compat", "embeddings.infinity", "llm.openai_compat", "llm.providers",
         "pipelines.retrieval.heaven", "pipelines.generation.visrag_gen",
+        *(f"pipelines.generation.{g}" for g in (
+            "ircot", "search_r1", "self_rag", "adaptive_rag", "question_decomposition",
+            "dynamic_rag", "deep_rag", "hybrid_deep_searcher", "et2rag", "spd_rag", "main_rag",
+            "ras", "autothinkrag", "interact_rag", "rag_critic")),
     )
 ]
 
