@@ -10,12 +10,12 @@ index artifacts — the role Postgres databases play in the reference.
 analogue, ``orm/connection.py:298-486``).
 
 The port's copy of the JAX package's ``cli/app.py``. The global ``--device``
-(``cuda`` by default, or ``cpu``) is where ``ingest``, ``run``, ``serve``
-and ``health-check`` build their models, indexes and pipelines; asked for
-``cuda`` on a machine with no GPU, they fail rather than run on the CPU.
-Refused until the port has what they need, each naming its ROADMAP.md item:
-``--mesh`` (item 6), ``train`` (item 9), ``show dumps`` and the hub ``data``
-actions ``upload`` / ``download`` (item 7).
+(``cuda`` by default, or ``cpu``) is where ``ingest``, ``run``, ``train``,
+``serve`` and ``health-check`` build their models, indexes and pipelines;
+asked for ``cuda`` on a machine with no GPU, they fail rather than run on the
+CPU. Refused until the port has what they need, each naming its ROADMAP.md
+item: ``--mesh`` (item 6), ``show dumps`` and the hub ``data`` actions
+``upload`` / ``download`` (item 7).
 
 Entry point: ``python -m autorag_research_tpu_torch.cli ...``
 """
@@ -32,7 +32,6 @@ from pathlib import Path
 logger = logging.getLogger("AutoRAG-Research-TPU")
 
 ITEM_MESH = "ROADMAP.md queue 1, item 6 (multi-GPU)"
-ITEM_TRAIN = "ROADMAP.md queue 1, item 9 (models and training)"
 ITEM_HUB = "ROADMAP.md queue 1, item 7 (the hub dumps with data/hf_storage.py)"
 
 
@@ -336,7 +335,66 @@ def cmd_report(args) -> int:
 
 
 def cmd_train(args) -> int:
-    return _refuse("train", ITEM_TRAIN)
+    """Fine-tune the native bi-encoder, cross-encoder or LM on a workspace's
+    ground truth, on ``--device``, and save its weights as the flat ``.npz``
+    that ``torch_encoder`` (``params_path``), ``torch_cross_encoder``
+    (``params_path``) and ``torch_lm`` (``checkpoint``) load."""
+    from autorag_research_tpu_torch.models.encoder import EncoderConfig
+
+    if args.mesh:
+        return _refuse("train --mesh", ITEM_MESH)
+    catalog = _open_catalog(args.db)
+    cfg_kwargs = {}
+    if args.hidden:
+        cfg_kwargs.update(hidden=args.hidden, out_dim=args.hidden // 2)
+    if args.layers:
+        cfg_kwargs["layers"] = args.layers
+    config = EncoderConfig(**cfg_kwargs) if cfg_kwargs else None
+
+    if args.model == "lm":
+        from autorag_research_tpu_torch.models.decoder import DecoderConfig
+        from autorag_research_tpu_torch.models.lm_trainer import LMTrainer
+
+        lm_kwargs = {}
+        if args.hidden:
+            lm_kwargs["hidden"] = args.hidden
+        if args.layers:
+            lm_kwargs["layers"] = args.layers
+        if args.seq_len * 2 > DecoderConfig.max_len:
+            lm_kwargs["max_len"] = args.seq_len * 2  # room to decode after a prompt
+        lm_config = DecoderConfig(**lm_kwargs) if lm_kwargs else None
+        trainer = LMTrainer(
+            lm_config, lr=args.lr, batch_size=args.batch_size, seq_len=args.seq_len,
+            device=args.device,
+        )
+        report = trainer.train(
+            catalog, epochs=args.epochs, max_steps=args.max_steps, log_every=10
+        )
+    elif args.model == "cross":
+        from autorag_research_tpu_torch.models.cross_encoder import CrossEncoderTrainer
+
+        trainer = CrossEncoderTrainer(
+            config, lr=args.lr, batch_size=args.batch_size, device=args.device
+        )
+        report = trainer.train(catalog, epochs=args.epochs, max_steps=args.max_steps)
+    else:
+        from autorag_research_tpu_torch.models.trainer import BiEncoderTrainer
+
+        trainer = BiEncoderTrainer(
+            config, lr=args.lr, batch_size=args.batch_size,
+            optimizer=args.optimizer, device=args.device,
+        )
+        report = trainer.train(
+            catalog, epochs=args.epochs, max_steps=args.max_steps,
+            checkpoint_dir=args.checkpoint_dir,
+        )
+    print(
+        f"trained {report.steps} steps in {report.seconds:.1f}s "
+        f"(loss {report.losses[0]:.4f} -> {report.final_loss:.4f})"
+    )
+    trainer.save(args.out)
+    print(f"saved params to {args.out}")
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -385,8 +443,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", action="store_true", help=f"refused until {ITEM_MESH}")
     p.set_defaults(func=cmd_run, on_device=True)
 
-    p = sub.add_parser("train", help=f"refused until {ITEM_TRAIN}")
-    p.set_defaults(func=cmd_train)
+    p = sub.add_parser(
+        "train", help="fine-tune the native encoder / cross-encoder / LM on workspace GT"
+    )
+    p.add_argument("--db", required=True)
+    p.add_argument("--model", choices=["bi", "cross", "lm"], default="bi")
+    p.add_argument(
+        "--seq-len", type=int, default=256,
+        help="(lm) training sequence budget: prompt + answer bytes",
+    )
+    p.add_argument("--out", required=True, help="output params .npz path")
+    p.add_argument("--epochs", type=int, default=5)
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--optimizer", choices=["sgd", "adamw"], default="adamw")
+    p.add_argument("--hidden", type=int, default=None)
+    p.add_argument("--layers", type=int, default=None)
+    p.add_argument("--mesh", action="store_true", help=f"refused until {ITEM_MESH}")
+    p.add_argument("--checkpoint-dir", default=None, help="(bi) save / auto-resume dir")
+    p.set_defaults(func=cmd_train, on_device=True)
 
     p = sub.add_parser("ingest", help="ingest a benchmark dataset")
     p.add_argument("--name", required=True)

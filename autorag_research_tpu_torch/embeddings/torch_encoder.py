@@ -5,7 +5,8 @@ Counterpart of ``autorag_research_tpu/embeddings/jax_encoder.py``: bridges
 batches run batched inference on the device. Works offline with hash-bucket
 tokenization and seeded random init; ``params_path`` loads an ``.npz`` of
 flattened parameters as the JAX package's ``save_params`` writes it, giving
-identical weights.
+identical weights, and :func:`save_params` writes one that both packages'
+``load_params`` read.
 """
 
 from __future__ import annotations
@@ -20,9 +21,17 @@ from autorag_research_tpu_torch.embeddings.base import BaseEmbedding, MultiVecto
 from autorag_research_tpu_torch.models.encoder import (
     EncoderConfig,
     RetrievalEncoder,
+    encoder_params_to_jax,
     from_jax_params,
     hash_tokenize,
 )
+
+
+def save_params(encoder: torch.nn.Module, path: str | Path) -> None:
+    """The flattened-parameter ``.npz`` of the JAX ``save_params`` (the same
+    names and arrays; uncompressed, which ``np.load`` reads as it reads the
+    compressed form)."""
+    np.savez(path, **encoder_params_to_jax(encoder))
 
 
 def load_params(path: str | Path) -> dict[str, torch.Tensor]:

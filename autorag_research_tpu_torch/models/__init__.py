@@ -7,10 +7,11 @@ from autorag_research_tpu_torch.models.decoder import (
 from autorag_research_tpu_torch.models.encoder import (
     EncoderConfig,
     RetrievalEncoder,
+    contrastive_train_step,
     from_jax_params,
 )
 
 __all__ = [
     "CausalDecoder", "DecoderConfig", "decoder_params_from_jax", "decoder_params_to_jax",
-    "EncoderConfig", "RetrievalEncoder", "from_jax_params",
+    "EncoderConfig", "RetrievalEncoder", "contrastive_train_step", "from_jax_params",
 ]

@@ -13,11 +13,21 @@ pool's divisor. The parameters keep the JAX layout and their ``state_dict``
 keys are the flattened names that the JAX ``save_params`` writes (``embed``,
 ``pos``, ``blocks.<i>.*``, ``final_ln.*``, ``score.w`` [h, 1], ``score.b``
 [1]), so :func:`cross_params_from_jax` and :func:`cross_params_to_jax` carry
-weights between the packages. Pairwise training (``pairwise_train_step``,
-``CrossEncoderTrainer``) is not ported yet.
+weights between the packages.
+
+Training: ``pairwise_train_step`` is the pairwise logistic loss
+``mean(softplus(score_neg - score_pos))`` with one plain SGD step by autograd
+(the JAX step is ``jax.value_and_grad`` over plain XLA), and
+``CrossEncoderTrainer`` pairs each (query, gold chunk) of a catalog with a
+seeded in-corpus negative, drawing from numpy's generator in the JAX
+trainer's order, so both packages train on the same batches.
 """
 
 from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -28,8 +38,10 @@ from autorag_research_tpu_torch.models.encoder import (
     _attention,
     _Block,
     _LayerNorm,
+    encoder_params_to_jax,
     from_jax_params,
     hash_tokenize,
+    sgd_step,
 )
 from autorag_research_tpu_torch.ops.dense import _require_exact_f32
 
@@ -90,15 +102,10 @@ class CrossEncoder(nn.Module):
 
 
 # A ``CrossEncoder`` state dict from the JAX package's flattened parameters
-# (the keys of the ``.npz`` that ``CrossEncoderTrainer.save`` writes): the
-# layouts and names agree, so the encoder's mapping serves.
+# (the keys of the ``.npz`` that ``CrossEncoderTrainer.save`` writes), and
+# back: the layouts and names agree, so the encoder's mappings serve.
 cross_params_from_jax = from_jax_params
-
-
-def cross_params_to_jax(model: CrossEncoder) -> dict[str, np.ndarray]:
-    """The inverse of :func:`cross_params_from_jax`: the flat numpy dict that
-    the JAX ``load_params`` reads."""
-    return {name: t.detach().cpu().numpy() for name, t in model.state_dict().items()}
+cross_params_to_jax = encoder_params_to_jax
 
 
 def pair_tokenize(
@@ -119,3 +126,123 @@ def pair_tokenize(
         ids[i, ql + 1 : ql + 1 + dl] = d_ids[i, :dl]
         mask[i, : ql + 1 + dl] = True
     return ids, mask
+
+
+def pairwise_loss(model: CrossEncoder, batch: dict) -> torch.Tensor:
+    """``mean(softplus(neg - pos))`` of one batch of pos_ids / pos_mask /
+    neg_ids / neg_mask [B, T] tensors on the module's device."""
+    pos = model(batch["pos_ids"], batch["pos_mask"])
+    neg = model(batch["neg_ids"], batch["neg_mask"])
+    return nn.functional.softplus(neg - pos).mean()
+
+
+def pairwise_train_step(model: CrossEncoder, batch: dict, lr: float = 1e-3) -> torch.Tensor:
+    """One SGD step of the pairwise logistic loss on ``model``'s parameters,
+    in place; returns the loss (a 0-d tensor on the device). The JAX step
+    returns ``(new_params, loss)``; here the module holds the parameters."""
+    return sgd_step(model, lambda: pairwise_loss(model, batch), lr)
+
+
+@dataclass
+class CrossTrainReport:
+    steps: int = 0
+    losses: list[float] = field(default_factory=list)
+    seconds: float = 0.0
+
+    @property
+    def final_loss(self) -> float | None:
+        return self.losses[-1] if self.losses else None
+
+
+class CrossEncoderTrainer:
+    """Pairwise training on catalog GT: (query, gold chunk) positives with
+    seeded random in-corpus negatives. The module trains on ``device``
+    (``"cuda"`` unless the caller asks for another); ``model`` holds the
+    weights (``cross_params_from_jax`` loads another package's)."""
+
+    def __init__(
+        self,
+        config: EncoderConfig | None = None,
+        lr: float = 1e-3,
+        batch_size: int = 16,
+        seed: int = 0,
+        negative_strategy: str = "random",
+        device: str | torch.device = "cuda",
+    ):
+        if negative_strategy not in ("random", "cycle"):
+            raise ValueError("negative_strategy must be 'random' or 'cycle'")
+        self.config = config or EncoderConfig()
+        self.model = CrossEncoder(self.config, device=device, seed=seed)
+        self.lr = lr
+        self.batch_size = batch_size
+        self.seed = seed
+        self.negative_strategy = negative_strategy
+
+    def _tensors(self, ids: np.ndarray, mask: np.ndarray):
+        dev = self.model.device
+        return torch.from_numpy(ids).to(dev, torch.int64), torch.from_numpy(mask).to(dev)
+
+    def train(self, catalog, epochs: int = 1, max_steps: int | None = None) -> CrossTrainReport:
+        from autorag_research_tpu_torch.models.trainer import build_pairs
+
+        pairs = build_pairs(catalog)  # (query text, gold chunk text)
+        if len(pairs) < 2:
+            raise ValueError("need at least 2 (query, gold chunk) pairs to train")
+        all_docs = [d for _, d in pairs]
+        rng = np.random.default_rng(self.seed)
+        report = CrossTrainReport()
+        start = time.perf_counter()
+        bsz = min(self.batch_size, len(pairs))
+        cfg = self.config
+        for _ in range(epochs):
+            order = rng.permutation(len(pairs))
+            for lo in range(0, len(pairs) - bsz + 1, bsz):
+                chosen = [pairs[i] for i in order[lo : lo + bsz]]
+                queries = [q for q, _ in chosen]
+                pos_docs = [d for _, d in chosen]
+                # negative: a different doc from the corpus pool. "cycle"
+                # pairs each positive with a FIXED offset negative — a
+                # stationary signal that converges much faster on tiny
+                # corpora than per-step random draws.
+                neg_docs = []
+                for j, (_, pos) in enumerate(chosen):
+                    if self.negative_strategy == "cycle":
+                        cand = all_docs[(order[lo + j] + 1) % len(all_docs)]
+                        if cand == pos and len(all_docs) > 1:
+                            cand = all_docs[(order[lo + j] + 2) % len(all_docs)]
+                    else:
+                        while True:
+                            cand = all_docs[rng.integers(len(all_docs))]
+                            if cand != pos or len(set(all_docs)) == 1:
+                                break
+                    neg_docs.append(cand)
+                pos_ids, pos_mask = self._tensors(
+                    *pair_tokenize(queries, pos_docs, cfg.vocab_size, cfg.max_len))
+                neg_ids, neg_mask = self._tensors(
+                    *pair_tokenize(queries, neg_docs, cfg.vocab_size, cfg.max_len))
+                batch = {"pos_ids": pos_ids, "pos_mask": pos_mask,
+                         "neg_ids": neg_ids, "neg_mask": neg_mask}
+                loss = pairwise_train_step(self.model, batch, lr=self.lr)
+                report.losses.append(float(loss))
+                report.steps += 1
+                if max_steps is not None and report.steps >= max_steps:
+                    break
+            if max_steps is not None and report.steps >= max_steps:
+                break
+        report.seconds = time.perf_counter() - start
+        return report
+
+    def save(self, path: str | Path) -> None:
+        """The flat ``.npz`` that the JAX ``CrossEncoderTrainer.save`` writes
+        (uncompressed; ``np.load`` reads both forms)."""
+        np.savez(path, **cross_params_to_jax(self.model))
+
+    def as_reranker(self, batch_size: int = 64):
+        """Wrap the trained weights as a ``TorchCrossEncoderReranker`` on the
+        trainer's device (a copy: further training does not move it)."""
+        from autorag_research_tpu_torch.rerankers.torch_cross import TorchCrossEncoderReranker
+
+        r = TorchCrossEncoderReranker(self.config, batch_size=batch_size, seed=self.seed,
+                                      device=self.model.device)
+        r.model.load_state_dict(self.model.state_dict())
+        return r

@@ -12,7 +12,9 @@ causal transformer with KV-cache greedy / temperature decoding.
 - the decode loop has a static length, as the JAX ``lax.scan`` has: finished
   rows emit PAD and their flag stays on the device, with no host sync inside
   the loop;
-- weights are tied (logits = x @ embed.T).
+- weights are tied (logits = x @ embed.T);
+- ``lm_train_step`` is one next-token cross-entropy SGD step by autograd (the
+  JAX step is ``jax.value_and_grad`` over plain XLA).
 
 The numerics follow the JAX model: layer norm with eps 1e-6 over the biased
 variance (the encoder's ``_layer_norm``), a -1e30 attention mask under a
@@ -41,8 +43,10 @@ from autorag_research_tpu_torch.models.encoder import (
     _Block,
     _layer_norm,
     _LayerNorm,
+    encoder_params_to_jax,
     from_jax_params,
     masked_attention,
+    sgd_step,
 )
 from autorag_research_tpu_torch.ops.dense import _require_exact_f32
 
@@ -206,16 +210,38 @@ class CausalDecoder(nn.Module):
         return tokens, produced.sum(dim=1)
 
 
+def next_token_nll(logits: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy of [B, T, V] logits over the positions
+    where ``valid`` [B, T] holds; position p predicts ``ids[:, p + 1]``
+    (``roll(ids, -1)``, as the JAX losses take it)."""
+    targets = torch.roll(ids.long(), -1, dims=1)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1)
+
+
+def lm_loss(decoder: CausalDecoder, batch: dict) -> torch.Tensor:
+    """Next-token loss over every real position but the last column: valid =
+    mask & roll(mask, -1), last column off, as the JAX ``lm_train_step``."""
+    mask = batch["mask"].to(torch.bool)
+    valid = mask & torch.roll(mask, -1, dims=1)
+    valid[:, -1] = False
+    return next_token_nll(decoder(batch["ids"], mask), batch["ids"], valid)
+
+
+def lm_train_step(decoder: CausalDecoder, batch: dict, lr: float = 1e-3) -> torch.Tensor:
+    """One next-token cross-entropy SGD step on ``decoder``'s parameters, in
+    place. batch: ids / mask [B, T] on the module's device. Returns the loss
+    (a 0-d tensor on the device); the JAX step returns ``(new_params,
+    loss)``."""
+    return sgd_step(decoder, lambda: lm_loss(decoder, batch), lr)
+
+
 # A ``CausalDecoder`` state dict from the JAX package's flattened parameters
-# (the keys of the ``.npz`` that ``JaxLM.save`` writes): the layouts and names
-# agree, so the encoder's mapping serves.
+# (the keys of the ``.npz`` that ``JaxLM.save`` writes), and back: the layouts
+# and names agree, so the encoder's mappings serve.
 decoder_params_from_jax = from_jax_params
-
-
-def decoder_params_to_jax(decoder: CausalDecoder) -> dict[str, np.ndarray]:
-    """The inverse of :func:`decoder_params_from_jax`: the flat numpy dict
-    that ``JaxLM.load`` reads."""
-    return {name: t.detach().cpu().numpy() for name, t in decoder.state_dict().items()}
+decoder_params_to_jax = encoder_params_to_jax
 
 
 # ------------------------------------------------------------- tokenization

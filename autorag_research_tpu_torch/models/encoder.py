@@ -4,7 +4,11 @@ Counterpart of ``autorag_research_tpu/models/encoder.py``: a BERT-style
 transformer bi-encoder.
 
 - single-vector mode: masked mean pool -> projection -> L2 norm (dense index);
-- multi-vector mode: per-token projection -> L2 norm (late interaction).
+- multi-vector mode: per-token projection -> L2 norm (late interaction);
+- ``contrastive_train_step``: InfoNCE with in-batch negatives (MaxSim as the
+  similarity in multi-vector mode), one plain SGD step ``p - lr * g`` over
+  every parameter, by autograd (the JAX step is ``jax.value_and_grad`` over
+  plain XLA: no Pallas kernel has a backward).
 
 Weights keep the JAX package's layout, ``[in, out]`` used as ``x @ W``, and
 the module's ``state_dict`` keys are the JAX package's flattened parameter
@@ -133,6 +137,77 @@ class RetrievalEncoder(nn.Module):
         pooled = (tokens * maskf).sum(1) / torch.clamp(maskf.sum(1), min=1.0)
         norms = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
         return pooled / torch.where(norms == 0, 1.0, norms)
+
+
+def info_nce_loss(q_emb: torch.Tensor, d_emb: torch.Tensor, temperature: float = 0.05):
+    """In-batch-negative contrastive loss; positives on the diagonal."""
+    logits = q_emb @ d_emb.T / temperature
+    return -torch.log_softmax(logits, dim=-1).diagonal().mean()
+
+
+def maxsim_info_nce_loss(q, d, q_mask, d_mask, temperature: float = 0.05):
+    """InfoNCE over MaxSim scores of [B, Tq, D] queries against [B, Td, D]
+    documents. Document pads take a -1e9 bias (a pad is a zero vector, so an
+    unbiased max would floor every token's score at 0 and erase the gradient
+    of anti-correlated negatives), query pads are masked out of the sum, and
+    the sum is divided by the query's length, as in the JAX step."""
+    sim = torch.einsum("qtd,nsd->qnts", q, d)
+    d_bias = torch.where(d_mask[None, :, None, :] > 0, 0.0, -1e9)
+    per_tok = (sim + d_bias).amax(-1) * q_mask[:, None, :]  # [Q, N, Tq]
+    scores = per_tok.sum(-1) / torch.clamp(q_mask.sum(-1)[:, None], min=1)
+    return -torch.log_softmax(scores / temperature, dim=-1).diagonal().mean()
+
+
+def contrastive_loss(encoder: "RetrievalEncoder", batch: dict, temperature: float = 0.05):
+    """The bi-encoder's training loss on one batch of ``q_ids`` / ``q_mask``
+    / ``d_ids`` / ``d_mask`` [B, T] tensors on the module's device."""
+    q = encoder(batch["q_ids"], batch["q_mask"])
+    d = encoder(batch["d_ids"], batch["d_mask"])
+    if encoder.config.multi_vector:
+        return maxsim_info_nce_loss(q, d, batch["q_mask"], batch["d_mask"], temperature)
+    return info_nce_loss(q, d, temperature)
+
+
+def sgd_step(module: nn.Module, loss_fn, lr: float) -> torch.Tensor:
+    """``loss_fn()`` and its gradient over every parameter of ``module``,
+    then ``p - lr * g`` in place; returns the detached loss (no host sync).
+    Gradients are on only inside the call, so a serving module stays as it
+    was built. TF32 stays off: the parity with the JAX step and the CPU is
+    held in true f32."""
+    from autorag_research_tpu_torch.ops.dense import _require_exact_f32
+
+    _require_exact_f32()
+    params = list(module.parameters())
+    flags = [p.requires_grad for p in params]
+    try:
+        with torch.enable_grad():
+            for p in params:
+                p.requires_grad_(True)
+            loss = loss_fn()
+            grads = torch.autograd.grad(loss, params)
+    finally:
+        for p, flag in zip(params, flags):
+            p.requires_grad_(flag)
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            p.sub_(lr * g)
+    return loss.detach()
+
+
+def contrastive_train_step(
+    encoder: "RetrievalEncoder", batch: dict, lr: float = 1e-3, temperature: float = 0.05
+) -> torch.Tensor:
+    """One SGD step of bi-encoder training on ``encoder``'s parameters, in
+    place. batch: q_ids / q_mask / d_ids / d_mask [B, T] on the module's
+    device. Returns the loss (a 0-d tensor on the device). The JAX step
+    returns ``(new_params, loss)``; here the module holds the parameters."""
+    return sgd_step(encoder, lambda: contrastive_loss(encoder, batch, temperature), lr)
+
+
+def encoder_params_to_jax(model: nn.Module) -> dict[str, np.ndarray]:
+    """The inverse of :func:`from_jax_params`: the flat numpy dict that the
+    JAX ``embeddings/jax_encoder.load_params`` reads."""
+    return {name: t.detach().cpu().numpy() for name, t in model.state_dict().items()}
 
 
 def from_jax_params(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:

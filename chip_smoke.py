@@ -10,8 +10,9 @@ and HTTP serving layer, the IVF indexes at 1,000,000 x 768 and the generation
 path (the causal decoder, ``basic_rag`` with ``torch_lm``) at full width,
 reranking and the LLM-driven retrieval wrappers, config #5 (ViDoRe pages:
 image MaxSim, ``heaven``, ``visrag_gen``) through the ``Executor`` and the
-CLI, and the 15 agentic generation pipelines, and fails (non-zero exit) on
-any fault:
+CLI, the 15 agentic generation pipelines, and training (the train steps,
+the CLI's ``train`` of the bi-encoder, cross-encoder and LM, then serving
+the trained weights), and fails (non-zero exit) on any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source)
@@ -269,7 +270,7 @@ any fault:
     ``torch_cross_encoder`` at ``EncoderConfig``'s defaults (vocabulary
     32,768, 256 / 4 / 4, ``max_len`` 128, seeded; batch 64) over
     ``vector_search_verified``, ``fetch_k_multiplier`` 3, top_k 10, the first
-    500 queries (all 1,000 before phase 23), recall / ndcg beside
+    250 queries (all 1,000 before phase 23), recall / ndcg beside
     ``vector_search_verified``'s (printed, not gated: random weights); every
     query 10 rows from the inner top-30 of a
     direct verified search (boundary near-ties aside), the first 32 queries'
@@ -299,7 +300,7 @@ any fault:
     ``pl.pallas_call``; #9 and #10 through the MaxSim searches) in a
     workspace of its own: ColPali refused by the model registry with
     ``ModelLoadError`` (no checkpoint, no ``transformers``); an
-    ``image_chunk`` catalog of 5,000 pages of 512-1,024 seeded unit-norm
+    ``image_chunk`` catalog of 1,500 pages of 512-1,024 seeded unit-norm
     128-d f32 patches (phase 6's page widths; its 10,000 pages cut for the
     run's limit), each page's single vector the
     mean of its patches, a short seeded byte string as its image, and 256
@@ -346,7 +347,8 @@ any fault:
     dense leg ``vector_search_verified``, ``et2rag``'s vote on the
     workspace's ``torch_encoder``, ``rag_critic``'s critic the same
     ``torch_lm``: (a) each through ``Executor(catalog, ExecutorConfig(...))``
-    on the first 4 queries (recall, ``exact_match``, ``token_f1``), and
+    on the first 2 queries (recall, ``exact_match``, ``token_f1``; 4 before
+    phase 24 joined the run), and
     ``interact_rag`` once more under a command script (dense, fusion,
     sparse, answer: a decoder with random weights names no command, so only
     a script drives its legs); each one's seconds, LLM calls a query and ms
@@ -364,7 +366,31 @@ any fault:
     answer, metadata and retrieved ids, but where a leg's hits on the CPU
     part from the card's at a near-tie (each rank's scores within
     ``AGENT_TIE``; counted); ``et2rag``'s vote recomputed on the CPU from
-    the card's answers (cosines within ``AGENT_TIE``).
+    the card's answers (cosines within ``AGENT_TIE``);
+24. training (no kernel of its own: the JAX train steps are
+    ``jax.value_and_grad`` over plain XLA; #1 and a BM25 kernel through the
+    trained models' searches), run right after phase 23, every launch count
+    at 0 just before each part: (a) one step of each train step on the card
+    against the same step on the CPU from the same seeded weights and batch
+    (``contrastive_train_step`` at phase 3's and phase 5's encoder widths,
+    ``pairwise_train_step`` at ``EncoderConfig``'s defaults, B = 32; an
+    ``LMTrainer`` AdamW step at phase 20's decoder, B = 16, seq 256): the
+    loss, the largest difference of the weights after the update, the step's
+    device ms (CUDA events), its launches (``torch.profiler``) and tokens/s;
+    (b) ``scripts/exp_jaxlm_e2e.py``'s loop at its defaults in a workspace
+    of its own (64 facts + 448 distractors): the CLI's ``train --model lm``
+    (256 / 4 / 4, seq 288, batch 32, lr 2e-3, 400 epochs), then its ``run``
+    of ``basic_rag`` over ``bm25`` (top_k 1) with ``torch_lm`` on the
+    checkpoint: the loss must fall tenfold, exact_match must beat the
+    no-retrieval ablation (the same LM, context withheld), a BM25 kernel must
+    launch and no plain version run; (c) in phase 18's workspace, ``train
+    --model bi`` (the CLI's defaults, 150 steps, checkpointed) resumed to 200
+    steps, its ``.npz`` in ``TorchEncoderEmbedding(params_path=)``
+    re-embedding every passage and query, a verified ``DenseIndex`` search at
+    k = 10 (#1) equal to exact mode's but at sub-ulp near-ties, recall@10
+    beside the seeded untrained encoder's; ``train --model cross`` for 64
+    steps, its ``.npz`` in ``TorchCrossEncoderReranker(params_path=)`` on 32
+    queries' verified top-30, the card within ``RR_CE_TOL`` of the CPU.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -429,8 +455,10 @@ BUCKET_N, BUCKET_SHORT, BUCKET_LONG = 500_000, (10, 16), (100, 128)
 # config #3 through the Executor at HotpotQA's shape (BEIR, Table 1: 5,233,329
 # passages of 46.30 words on average, 7,405 test queries of 17.61 words, 2.0
 # relevant passages a query), cut to 250,000 passages (500,000 before phase
-# 22 joined the run) and 1,024 queries; GQR's refinement is host numpy, so it
-# runs the first 128 queries
+# 22 joined the run; at 125,000 no passage has more than 64 unique terms, so
+# the BM25 index packs and the flat pruned route this phase covers would not
+# run) and 1,024 queries; GQR's refinement is host numpy, so it runs the first
+# 128 queries
 HOTPOT_N, HOTPOT_Q, HOTPOT_GQR_Q = 250_000, 1024, 128
 HOTPOT_WORDS, HOTPOT_QWORDS, HOTPOT_FETCH_K = (20, 72), (12, 23), 20
 HOTPOT_NOISE = 0.12  # per-dimension noise on a query's summed gold embeddings
@@ -476,7 +504,8 @@ GEN_METRICS = ("exact_match", "token_f1", "bleu", "rouge")
 # phase 21: rerank with torch_cross_encoder at EncoderConfig's defaults (the
 # reranker/torch_cross_encoder.yaml template; JAX cli/templates.py:277) over
 # vector_search_verified (fetch_k_multiplier 3, the rerank template's) on
-# the first 500 of phase 18's 1,000 queries (all 1,000 before phase 23), its
+# the first 250 of phase 18's 1,000 queries (all 1,000 before phase 23, 500
+# before phase 24), its
 # first 32 checked against the CPU within 1e-5
 # (scores span about 0.4; card against CPU f32 logits of the decoder differ
 # by 2.6e-6); the LLM wrappers on torch_lm at its template's widths, 32 new
@@ -484,14 +513,15 @@ GEN_METRICS = ("exact_match", "token_f1", "bleu", "rouge")
 # candidates, the listwise rerank 4 at window 20; 32, 8 and 16 before phase
 # 22, 8, 4 and 8 before phase 23), each checked by a recomputation on 4;
 # power_of_noise at its template on all 1,000
-RR_FETCH, RR_BATCH, RR_CPU_Q, RR_CE_TOL, RR_Q = 3, 64, 32, 1e-5, 500
+RR_FETCH, RR_BATCH, RR_CPU_Q, RR_CE_TOL, RR_Q = 3, 64, 32, 1e-5, 250
 RR_LLM_NEW, RR_HYDE_NEW, RR_LLM_Q, RR_CHECK_Q = 32, 64, 4, 4
 RR_STAR_Q, RR_STAR_CAND, RR_LIST_Q, RR_WINDOW = 4, 10, 4, 20
 # phase 22: config #5 (BASELINE.md: ViDoRe v2 pages, late interaction) on one
 # card at phase 6's page widths (PAGE_TD above: 512-1,024 ColPali patches, d =
-# 128; scripts/bench_maxsim_page.py), 5,000 pages: phase 6's 10,000 took 200
+# 128; scripts/bench_maxsim_page.py), 1,500 pages: phase 6's 10,000 took 200
 # s in this phase on an H100 host (its catalog wrote the blobs at 58 MB/s, and
-# the CLI's run loads each index artifact anew), 1,166 s with the rest; each
+# the CLI's run loads each index artifact anew), 1,166 s with the rest, and
+# 5,000 about 100 s (1,500 since phase 24 joined the run); each
 # page's single vector the mean of its patches (BiPali's pooling), 256 queries
 # of 6-16 words and 32 tokens drawn from one gold page's patches plus noise
 # (0.05 a dimension: a token's cosine to its patch about 0.9), written in
@@ -503,7 +533,7 @@ RR_STAR_Q, RR_STAR_CAND, RR_LIST_Q, RR_WINDOW = 4, 10, 4, 20
 # on the first 32 queries; the exact rows of the first 16 held against the
 # plain MaxSim
 PAGE_Q, PAGE_TQ, PAGE_NOISE, PAGE_CHECK_Q, PAGE_WRITE_BATCH = 256, 32, 0.05, 16, 500
-PAGES_N, PAGE_CLI_Q = 5_000, 8
+PAGES_N, PAGE_CLI_Q = 1_500, 8
 PAGE_RECALL_MIN, HEAVEN_Q, HEAVEN_CHECK_Q = 0.9, 32, 8
 VISRAG_Q, VISRAG_NEW, VISRAG_IMAGES = 32, 32, 3
 # phase 23: the 15 agentic generation pipelines at their templates
@@ -512,8 +542,8 @@ VISRAG_Q, VISRAG_NEW, VISRAG_IMAGES = 32, 32, 3
 # a call (phase 21's), seeded; max_concurrency 1 (decodes from several
 # threads at once contend: W15); interact_rag's dense leg
 # vector_search_verified, et2rag's vote on the workspace's torch_encoder,
-# rag_critic's critic the same torch_lm. (a) The Executor on the first 4
-# queries; interact_rag once more under a command script (a decoder with
+# rag_critic's critic the same torch_lm. (a) The Executor on the first 2
+# queries (4 before phase 24 joined the run); interact_rag once more under a command script (a decoder with
 # random weights never names a command, so only a script drives its legs);
 # (b) the CLI's run of ircot, interact_rag and et2rag on the first 2; (c)
 # /generate of ircot, one closed-loop client, 8 requests. Every pipeline
@@ -523,8 +553,36 @@ AGENTS = ("ircot", "search_r1", "self_rag", "adaptive_rag", "question_decomposit
           "dynamic_rag", "deep_rag", "hybrid_deep_searcher", "et2rag", "spd_rag", "main_rag",
           "ras", "autothinkrag", "interact_rag", "rag_critic")
 AGENT_CLI = ("ircot", "interact_rag", "et2rag")
-AGENT_Q, AGENT_REPLAY_Q, AGENT_CLI_Q, AGENT_REQUESTS, AGENT_NEW = 4, 2, 2, 8, 32
+AGENT_Q, AGENT_REPLAY_Q, AGENT_CLI_Q, AGENT_REQUESTS, AGENT_NEW = 2, 2, 2, 8, 32
 AGENT_TIE = 1e-5
+# phase 24: training on the card. (a) One step of each train step on the card
+# against the same step on the CPU, from the same seeded weights and batch:
+# contrastive_train_step at ENCODER and MV_ENCODER and pairwise_train_step at
+# EncoderConfig's defaults (the torch_cross_encoder template), B = 32 random
+# texts, SGD at lr 1e-3; an LMTrainer AdamW step at GEN_LM, B = 16, seq 256, at
+# its default lr 3e-3. Tolerances: losses 1e-5 relative; weights after an SGD
+# step 1e-6 absolute (an ulp or two of the largest weights, the layer norms'
+# 1.0, plus lr times the gradients' f32 reduction order). AdamW's first update
+# is lr * g / (|g| + 1e-8): where a gradient is within its f32 reduction noise
+# of 0, the card and the CPU move a weight up to lr apart (0.52 lr on an H100
+# 80GB HBM3 at 700 W). So the AdamW step's gradients are held within 1e-4 of
+# each tensor's largest gradient, and its update on the card's gradients to
+# the CPU's within 1e-6.
+# (b) scripts/exp_jaxlm_e2e.py at its defaults: 64 facts + 448 distractors,
+# the decoder at 256 / 4 / 4, seq 288 (so the CLI's max_len is 576), batch 32,
+# lr 2e-3, 400 epochs; basic_rag over bm25 at top_k 1 with prompts of 448
+# bytes (the script's max_len 512 - 64) and 32 new tokens (the script's 48
+# less 16: the longest answer is 22 bytes and an EOS, and the decode runs
+# every step of its budget). (c) On phase 18's
+# workspace: its 1,000 queries give about 27,000 (query, gold chunk) pairs,
+# about 850 steps an epoch at batch 32, so `train --model bi` stops at 150
+# steps (--max-steps) and is resumed to 200; `--model cross` 64 steps; the
+# trained reranker on 32 queries' verified top-30, within RR_CE_TOL of the CPU
+TRAIN_B, TRAIN_LM_B, TRAIN_LM_SEQ, TRAIN_LR, TRAIN_REPS = 32, 16, 256, 1e-3, 3
+TRAIN_LOSS_TOL, TRAIN_SGD_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-6, 1e-4
+E2E_FACTS, E2E_DISTRACTORS, E2E_SEQ, E2E_B, E2E_LR, E2E_EPOCHS = 64, 448, 288, 32, 2e-3, 400
+E2E_PROMPT, E2E_NEW = 448, 32
+BI_EPOCHS, BI_STEPS, BI_RESUMED, CROSS_STEPS, RR_TRAIN_Q, RR_TRAIN_K = 3, 150, 200, 64, 32, 30
 
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
@@ -5326,6 +5384,435 @@ class SmiSampler:
                 f"(mean {sum(w) / len(w):.1f})")
 
 
+def e2e_workspace(db_path: str, n_facts: int, n_distractors: int):
+    """``scripts/exp_jaxlm_e2e.py``'s workspace (its ``build_workspace``):
+    ``n_facts`` named facts, each the gold chunk of one question with its
+    name as generation GT, and ``n_distractors`` distractor passages."""
+    from autorag_research_tpu_torch.store.catalog import Catalog
+
+    subjects = ["river", "mountain", "library", "museum", "bridge", "harbor", "tower",
+                "garden", "market", "stadium", "temple", "castle", "canal", "forest"]
+    places = ["aldoria", "brimhaven", "cardell", "durnmoor", "eastvale", "farrowick",
+              "glenport", "harkness", "ironside", "jutemere", "kelvane", "lormont"]
+    names = ["veridian", "solmara", "querenth", "tallowbrook", "umbrafane", "wrexley",
+             "yarrowgate", "zephyrine", "ostwelle", "pellmere", "nim", "marrowell"]
+    cat = Catalog(db_path)
+    chunks, queries = [], []
+    for i in range(n_facts):
+        subj = subjects[i % len(subjects)]
+        place = places[(i // len(subjects)) % len(places)]
+        answer = f"{names[i % len(names)]} {names[(i * 7 + 3) % len(names)]}"
+        chunks.append({"id": i, "contents": f"the great {subj} of {place} is named {answer}."})
+        queries.append({"id": i, "contents": f"what is the name of the great {subj} of {place}?",
+                        "generation_gt": [answer]})
+    for j in range(n_distractors):
+        chunks.append({"id": n_facts + j, "contents": (
+            f"distractor passage {j}: the weather in region {j % 31} was "
+            f"mild and the {subjects[j % len(subjects)]} committee met twice.")})
+    cat.add_chunks(chunks)
+    cat.add_queries(queries)
+    for i in range(n_facts):
+        cat.add_retrieval_gt(i, i)
+    return cat
+
+
+def cli_trained(cli, argv: list[str]) -> tuple[dict, list[str]]:
+    """Run the port's CLI ``train`` (``argv`` after the global options),
+    its output captured: (steps, seconds, first and last loss from its
+    summary line, the wall s of the call), the output's lines."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    if rc != 0:
+        fail(f"the port's CLI `{' '.join(argv)}` exited {rc}: {lines[-3:]}")
+    summary = [line for line in lines if line.startswith("trained ")]
+    m = re.match(r"trained (\d+) steps in ([\d.]+)s \(loss ([\d.naif]+) -> ([\d.naif]+)\)",
+                 summary[-1] if summary else "")
+    if not m:
+        fail(f"`train` printed no summary line: {lines[-3:]}")
+    return {"steps": int(m.group(1)), "seconds": float(m.group(2)), "first": float(m.group(3)),
+            "last": float(m.group(4)), "wall": wall}, lines
+
+
+def training_phase(seed: int, dev, root: str) -> None:
+    """Phase 24: training on the card. (a) One step of each train step on the
+    card against the same step on the CPU, from the same seeded weights and
+    batch; (b) ``scripts/exp_jaxlm_e2e.py``'s loop through the CLI: ``train
+    --model lm``, then ``run`` of ``basic_rag`` over ``bm25`` with the trained
+    checkpoint, against the no-retrieval ablation; (c) ``train --model bi``
+    (resumed once) and ``--model cross`` on phase 18's workspace under
+    ``root``, the trained encoder's verified search (#1) and the trained
+    reranker on the card against the CPU. Launch counts are set to 0 just
+    before each part."""
+    import torch
+
+    from autorag_research_tpu_torch.cli.app import main as cli
+    from autorag_research_tpu_torch.embeddings.torch_encoder import TorchEncoderEmbedding
+    from autorag_research_tpu_torch.evaluation.metrics.generation import exact_match, token_f1
+    from autorag_research_tpu_torch.evaluation.metrics.retrieval import retrieval_recall
+    from autorag_research_tpu_torch.index.dense import DenseIndex
+    from autorag_research_tpu_torch.injection import ModelRegistry
+    from autorag_research_tpu_torch.models.cross_encoder import (
+        CrossEncoder,
+        pair_tokenize,
+        pairwise_train_step,
+    )
+    from autorag_research_tpu_torch.models.decoder import DecoderConfig
+    from autorag_research_tpu_torch.models.encoder import (
+        EncoderConfig,
+        RetrievalEncoder,
+        contrastive_train_step,
+        hash_tokenize,
+    )
+    from autorag_research_tpu_torch.models.lm_trainer import (
+        DEFAULT_LM_PROMPT,
+        LMTrainer,
+        _sft_loss,
+        build_lm_examples,
+        encode_sft,
+    )
+    from autorag_research_tpu_torch.models.trainer import BiEncoderTrainer
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.ops import sparse as ts
+    from autorag_research_tpu_torch.reporting.service import ReportingService
+    from autorag_research_tpu_torch.rerankers.torch_cross import TorchCrossEncoderReranker
+    from autorag_research_tpu_torch.schema import MetricInput
+    from autorag_research_tpu_torch.store.catalog import Catalog
+    from autorag_research_tpu_torch.store.gt import build_retrieval_gt_from_relations
+
+    def reset():
+        for mod in (td, ts, tm):
+            mod.reset_launch_counts()
+
+    def counts():
+        launched = {k: v for k, v in {**td.LAUNCHES, **ts.LAUNCHES, **tm.LAUNCHES}.items() if v}
+        return launched, {k: v for k, v in {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS}.items() if v}
+
+    t_phase = time.perf_counter()
+    reset()
+    rng = np.random.default_rng(seed + 24)
+    words = [f"w{i}" for i in range(20000)]
+
+    # ---- (a) one step on the card against the same step on the CPU --------
+    def tensors(arrays: dict, device) -> dict:
+        return {k: torch.from_numpy(v).to(device).long() if v.dtype == np.int32
+                else torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+    def sft_grads(trainer, batch):
+        """The LM step's loss and gradients, without the update."""
+        trainer._opt.zero_grad(set_to_none=True)
+        loss = _sft_loss(trainer.decoder, batch)
+        loss.backward()
+        return loss.detach()
+
+    def check_step(name: str, make, step, arrays: dict, adam: bool = False) -> None:
+        """``make(device)`` builds the module (or trainer) from the seed;
+        ``step(obj, batch)`` runs one step in place and returns the loss.
+        Tokens/s counts the real tokens, the sum of the batch's masks.
+        With ``adam`` the gradients are held to each other and the update to
+        a CPU step on the card's gradients: AdamW's first update is lr * g /
+        (|g| + 1e-8), so where a gradient is within its f32 reduction noise
+        of 0 the two devices may move a weight up to lr apart."""
+        masks = [v for k, v in arrays.items() if k.endswith("mask") and k != "loss_mask"]
+        tokens, positions = int(sum(m.sum() for m in masks)), sum(m.size for m in masks)
+        card, cpu = make(dev), make("cpu")
+        card_m, cpu_m = (getattr(x, "decoder", x) for x in (card, cpu))
+        if not all(torch.equal(a.detach().cpu(), b.detach())
+                   for a, b in zip(card_m.parameters(), cpu_m.parameters())):
+            fail(f"train {name}: the seeded weights differ between the card and the CPU")
+        batch = tensors(arrays, dev)
+        before = [p.detach().clone() for p in cpu_m.parameters()]
+        t0 = time.perf_counter()
+        if adam:
+            loss_card, loss_cpu = float(sft_grads(card, batch)), float(sft_grads(cpu, tensors(
+                arrays, "cpu")))
+            g_err = max((a.grad.cpu() - b.grad).abs().max().item()
+                        / max(b.grad.abs().max().item(), 1e-30)
+                        for a, b in zip(card_m.parameters(), cpu_m.parameters()))
+            twin = make("cpu")
+            for t, a in zip(twin.decoder.parameters(), card_m.parameters()):
+                t.grad = a.grad.detach().cpu()
+            for x in (card, cpu, twin):
+                x._opt.step()
+            same = max((a.detach().cpu() - b.detach()).abs().max().item()
+                       for a, b in zip(card_m.parameters(), twin.decoder.parameters()))
+            del twin
+        else:
+            loss_card = float(step(card, batch))
+            loss_cpu = float(step(cpu, tensors(arrays, "cpu")))
+        cpu_s = time.perf_counter() - t0
+        err, where = 0.0, ""
+        for (pname, a), b in zip(card_m.named_parameters(), cpu_m.parameters()):
+            d = (a.detach().cpu() - b.detach()).abs()
+            if d.max().item() > err:
+                err, i = d.max().item(), int(d.argmax())
+                where = pname + (f" (gradients {a.grad.flatten()[i].item():.3e} / "
+                                 f"{b.grad.flatten()[i].item():.3e} there)" if adam else "")
+        moved = max((a.detach() - b).abs().max().item()
+                    for a, b in zip(cpu_m.parameters(), before))
+        del before
+        ms, host = event_and_host_ms(lambda: step(card, batch), TRAIN_REPS)
+        rows, _, _ = device_breakdown(f"train {name}, one step", lambda: step(card, batch),
+                                      calls=1)
+        n_launch = sum(r[1] for r in rows) if rows else "not measured"
+        busy = sum(r[0] * r[1] for r in rows) if rows else float("nan")
+        checks = (f"gradients: max |card - CPU| {g_err:.3e} of each tensor's largest (tol "
+                  f"{TRAIN_GRAD_TOL:.0e}); weights after the update on the card's gradients: "
+                  f"max |card - CPU| {same:.3e} (tol {TRAIN_SGD_TOL:.0e}), each on its own: "
+                  if adam else "parameters after the step: ")
+        log(f"train {name}: loss {loss_card:.6f} on the card, {loss_cpu:.6f} on the CPU "
+            f"({cpu_s:.1f} s for both); {checks}max |card - CPU| {err:.3e} at {where}"
+            f"{'' if adam else f' (tol {TRAIN_SGD_TOL:.0e})'}; the step moved them by up to "
+            f"{moved:.3e}; a step {ms:.3f} ms by CUDA events, {host:.3f} ms host clock, "
+            f"{n_launch} device launches (torch.profiler; {busy:.3f} ms busy), "
+            f"{tokens / host * 1e3:.0f} tokens/s ({tokens} real tokens, the masks' sum, of "
+            f"{positions} padded positions)")
+        if not (math.isfinite(loss_card) and abs(loss_card - loss_cpu) <= TRAIN_LOSS_TOL
+                * max(1.0, abs(loss_cpu))):
+            fail(f"train {name}: the card's loss {loss_card} is not the CPU's {loss_cpu}")
+        if not (g_err <= TRAIN_GRAD_TOL and same <= TRAIN_SGD_TOL if adam
+                else err <= TRAIN_SGD_TOL):
+            fail(f"train {name}: the card's step differs from the CPU's")
+
+    texts = make_texts(rng, words, 2 * TRAIN_B, 8, 121)
+    for label, widths in (("contrastive single-vector", ENCODER), ("contrastive multi-vector",
+                                                                    MV_ENCODER)):
+        cfg = EncoderConfig(**widths)
+        q_ids, q_mask = hash_tokenize(texts[:TRAIN_B], cfg.vocab_size, cfg.max_len)
+        d_ids, d_mask = hash_tokenize(texts[TRAIN_B:], cfg.vocab_size, cfg.max_len)
+        check_step(f"{label} {widths} B={TRAIN_B}",
+                   lambda d, cfg=cfg: RetrievalEncoder(cfg, device=d, seed=seed),
+                   lambda m, b: contrastive_train_step(m, b, lr=TRAIN_LR),
+                   {"q_ids": q_ids, "q_mask": q_mask, "d_ids": d_ids, "d_mask": d_mask})
+    cfg = EncoderConfig()
+    arrays = {}
+    for side, docs in (("pos", texts[TRAIN_B:]), ("neg", texts[TRAIN_B:][::-1])):
+        arrays[f"{side}_ids"], arrays[f"{side}_mask"] = pair_tokenize(
+            texts[:TRAIN_B], docs, cfg.vocab_size, cfg.max_len)
+    check_step(f"pairwise (EncoderConfig defaults) B={TRAIN_B}",
+               lambda d: CrossEncoder(cfg, device=d, seed=seed),
+               lambda m, b: pairwise_train_step(m, b, lr=TRAIN_LR),
+               arrays)
+    lm_cfg = DecoderConfig(**GEN_LM)
+    examples = [(" ".join(rng.choice(words, size=int(rng.integers(20, 60)))),
+                 " ".join(rng.choice(words, size=int(rng.integers(1, 6)))))
+                for _ in range(TRAIN_LM_B)]
+    check_step(f"LMTrainer AdamW {GEN_LM} B={TRAIN_LM_B} seq {TRAIN_LM_SEQ}",
+               lambda d: LMTrainer(lm_cfg, batch_size=TRAIN_LM_B, seq_len=TRAIN_LM_SEQ,
+                                   seed=seed, device=d),
+               lambda t, b: t.step(b), encode_sft(examples, TRAIN_LM_SEQ), adam=True)
+    torch.cuda.empty_cache()
+    log(f"train: (a) {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (b) the LM loop of scripts/exp_jaxlm_e2e.py through the CLI ----------
+    t0 = time.perf_counter()
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_dir, ws = f"{tmp}/configs", f"{tmp}/ws"
+        os.makedirs(ws)
+        e2e_workspace(f"{ws}/catalog.db", E2E_FACTS, E2E_DISTRACTORS).close()
+        base = ["--config-path", cfg_dir, "--device", dev.type]
+        with contextlib.redirect_stdout(sys.stderr):
+            cli([*base, "init"])
+        ckpt = f"{tmp}/lm.npz"
+        report, lines = cli_trained(cli, [
+            *base, "train", "--db", ws, "--model", "lm", "--out", ckpt, "--hidden", "256",
+            "--layers", "4", "--seq-len", str(E2E_SEQ), "--batch-size", str(E2E_B),
+            "--lr", str(E2E_LR), "--epochs", str(E2E_EPOCHS)])
+        max_len = max(DecoderConfig.max_len, 2 * E2E_SEQ)  # the CLI's room to decode
+        # the real tokens of the batches the CLI's trainer ran (its schedule
+        # at the CLI's seed, padded chunk included), beside the padded positions
+        catalog = Catalog(f"{ws}/catalog.db")
+        fill = encode_sft(build_lm_examples(catalog), E2E_SEQ)["mask"]
+        catalog.close()
+        sched, _ = LMTrainer(DecoderConfig(hidden=256, layers=4, max_len=max_len),
+                             batch_size=E2E_B, seq_len=E2E_SEQ, device="cpu").schedule(
+            fill.shape[0], E2E_EPOCHS)
+        real = int(fill[sched].sum())
+        positions = report["steps"] * E2E_B * E2E_SEQ
+        if sched.shape[0] != report["steps"]:
+            fail(f"the CLI's LM ran {report['steps']} steps, its schedule {sched.shape[0]}")
+        log(f"train: (b) `train --model lm` on {E2E_FACTS} facts + {E2E_DISTRACTORS} "
+            f"distractors (256 / 4 / 4, max_len {max_len}, seq {E2E_SEQ}, batch {E2E_B}, lr "
+            f"{E2E_LR}, {E2E_EPOCHS} epochs): {report['steps']} steps in {report['seconds']:.2f} "
+            f"s ({report['wall']:.2f} s for the command), {real / report['seconds']:.0f} "
+            f"tokens/s ({real} real tokens, the masks' sum, of {positions} padded positions: "
+            f"{positions / report['seconds']:.0f} positions/s), loss "
+            f"{report['first']:.4f} -> {report['last']:.4f}; its log: {lines[0]} ... "
+            f"{lines[-3]}")
+        if not report["last"] < report["first"] / 10:
+            fail(f"the LM's loss fell from {report['first']} only to {report['last']}")
+        lm_yaml = (f"type: torch_lm\nhidden: 256\nlayers: 4\nheads: 4\nmax_len: {max_len}\n"
+                   f"max_prompt_len: {E2E_PROMPT}\nmax_new_tokens: {E2E_NEW}\n"
+                   f"checkpoint: {ckpt}\n")
+        with open(f"{cfg_dir}/llm/torch_lm_trained.yaml", "w") as f:
+            f.write(lm_yaml)
+        with open(f"{cfg_dir}/pipelines/generation/rag_trained.yaml", "w") as f:
+            f.write("type: basic_rag\nretrieval_pipeline_name: bm25\nllm: torch_lm_trained\n"
+                    "top_k: 1\n")
+        bm25_yaml = f"{cfg_dir}/pipelines/retrieval/bm25.yaml"
+        with open(bm25_yaml) as f:
+            text = f.read()
+        with open(bm25_yaml, "w") as f:
+            f.write(text.replace("tokenizer: english", "tokenizer: simple"))
+        with open(f"{cfg_dir}/experiment_lm.yaml", "w") as f:
+            f.write("pipelines:\n  retrieval: []\n  generation:\n    - rag_trained\n"
+                    "metrics:\n  retrieval:\n    - recall\n  generation:\n    - exact_match\n"
+                    "    - token_f1\nexecutor:\n  health_check: false\n")
+        reset()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = cli([*base, "run", "--db", ws, "--experiment", f"{cfg_dir}/experiment_lm.yaml"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        launched, plain = counts()
+        if rc != 0:
+            fail(f"`run` of basic_rag with the trained torch_lm exited {rc}")
+        res = ReportingService([ws]).results()
+        metrics = {r.metric: float(r.average) for r in res.itertuples()
+                   if r.pipeline == "rag_trained"}
+        cat = Catalog(f"{ws}/catalog.db")
+        qids = cat.get_all_query_ids()
+        prompts = [DEFAULT_LM_PROMPT.format(context="(no context retrieved)",
+                                            query=cat.get_query_text(q)) for q in qids]
+        gts = [json.loads(cat.get_query(q)["generation_gt"]) for q in qids]
+        cat.close()
+        lm = ModelRegistry(cfg_dir, device=dev.type).load_llm("torch_lm_trained")
+        outs = lm.generate_batch(prompts)
+        inputs = [MetricInput(generated_texts=o, generation_gt=g) for o, g in zip(outs, gts)]
+        em_abl, f1_abl = float(np.mean(exact_match(inputs))), float(np.mean(token_f1(inputs)))
+        log(f"train: (b) `run` of basic_rag over bm25 (top_k 1) with the trained torch_lm "
+            f"({E2E_NEW} new tokens) on {len(qids)} queries: {run_s:.2f} s, exact_match "
+            f"{metrics.get('exact_match')}, token_f1 {metrics.get('token_f1')}, recall "
+            f"{metrics.get('recall')}; launches {json.dumps(launched)}, plain calls "
+            f"{json.dumps(plain)}; no-retrieval ablation (the same LM, context withheld): "
+            f"exact_match {em_abl}, token_f1 {f1_abl}")
+        if set(metrics) != {"exact_match", "token_f1", "recall"}:
+            fail(f"the run's metrics are {metrics}")
+        if not metrics["exact_match"] > em_abl:
+            fail(f"exact_match {metrics['exact_match']} is not above the ablation's {em_abl}")
+        if not any(k.startswith("bm25") for k in launched) or plain:
+            fail(f"basic_rag's bm25 leg launched {launched}, plain calls {plain}")
+    log(f"train: (b) {time.perf_counter() - t0:.1f} s")
+
+    # ---- (c) the bi- and cross-encoder through the CLI on phase 18's workspace
+    t0 = time.perf_counter()
+    reset()
+    cfg_dir, ws = f"{root}/configs", f"{root}/ws"
+    base = ["--config-path", cfg_dir, "--device", dev.type]
+    bi_npz, ck_dir = f"{root}/bi_trained.npz", f"{root}/bi_ckpt"
+    first, _ = cli_trained(cli, [*base, "train", "--db", ws, "--model", "bi", "--out", bi_npz,
+                                 "--epochs", str(BI_EPOCHS), "--max-steps", str(BI_STEPS),
+                                 "--checkpoint-dir", ck_dir])
+    resumed, _ = cli_trained(cli, [*base, "train", "--db", ws, "--model", "bi", "--out", bi_npz,
+                                   "--epochs", str(BI_EPOCHS), "--max-steps", str(BI_RESUMED),
+                                   "--checkpoint-dir", ck_dir])
+    latest = BiEncoderTrainer.latest_checkpoint(ck_dir).name
+    bi_cfg = EncoderConfig()
+    log(f"train: (c) `train --model bi` (adamw, batch 32, {bi_cfg}) on phase 18's workspace: "
+        f"{first['steps']} steps in {first['seconds']:.2f} s ({first['wall']:.2f} s for the "
+        f"command), loss {first['first']:.4f} -> {first['last']:.4f}, "
+        f"{first['steps'] * 32 * 2 * bi_cfg.max_len / first['seconds']:.0f} padded positions/s "
+        f"(B x 2 x max_len a step, pads included); resumed "
+        f"with --max-steps {BI_RESUMED}: {resumed['steps']} more steps, loss "
+        f"{resumed['first']:.4f} -> {resumed['last']:.4f}; checkpoints "
+        f"{sorted(os.listdir(ck_dir))}, the latest {latest}")
+    if not first["last"] < first["first"] or first["steps"] != BI_STEPS:
+        fail(f"`train --model bi` ran {first['steps']} steps, loss {first['first']} -> "
+             f"{first['last']}")
+    if resumed["steps"] != BI_RESUMED - BI_STEPS or latest != f"step_{BI_RESUMED}":
+        fail(f"the resumed run did not continue the step count: {resumed['steps']} steps, "
+             f"latest checkpoint {latest}")
+
+    cat = Catalog(f"{ws}/catalog.db")
+    rows = cat.connect().execute("SELECT id, contents FROM chunk ORDER BY id").fetchall()
+    chunk_ids = [r[0] for r in rows]
+    qids = cat.get_all_query_ids()
+    q_texts = [cat.get_query_text(q) for q in qids]
+    gts = [build_retrieval_gt_from_relations([dict(r) for r in cat.get_relations_by_query(q)])[0]
+           for q in qids]
+    t1 = time.perf_counter()
+    c_tok = hash_tokenize([r[1] for r in rows], bi_cfg.vocab_size, bi_cfg.max_len)
+    q_tok = hash_tokenize(q_texts, bi_cfg.vocab_size, bi_cfg.max_len)
+    tok_s = time.perf_counter() - t1
+
+    def embed(emb, tok) -> "torch.Tensor":
+        ids, mask = tok
+        out = []
+        with torch.inference_mode():
+            for lo in range(0, len(ids), 2048):
+                out.append(emb.encoder(torch.from_numpy(ids[lo:lo + 2048]).to(dev, torch.int64),
+                                       torch.from_numpy(mask[lo:lo + 2048]).to(dev)))
+        return torch.cat(out).float().cpu().numpy()
+
+    def recall_at(ids_rows) -> float:
+        inputs = [MetricInput(retrieval_gt=g, retrieved_ids=[f"chunk_{chunk_ids[i]}" for i in row])
+                  for g, row in zip(gts, ids_rows)]
+        return float(np.mean(retrieval_recall(inputs)))
+
+    trained = TorchEncoderEmbedding(bi_cfg, params_path=bi_npz, device=dev)
+    untrained = TorchEncoderEmbedding(bi_cfg, seed=0, device=dev)
+    reset()
+    t1 = time.perf_counter()
+    c_emb, q_emb = embed(trained, c_tok), embed(trained, q_tok)
+    embed_s = time.perf_counter() - t1
+    index_v = DenseIndex(list(range(len(chunk_ids))), c_emb, mode="verified", device=dev)
+    sv, rv = index_v.topk_rows(q_emb, K)
+    launched, plain = counts()
+    se, re_ = DenseIndex(list(range(len(chunk_ids))), c_emb, mode="exact",
+                         device=dev).topk_rows(q_emb, K)
+    n_mism, explained = ids_agree(rv, sv, re_, se)
+    ru = DenseIndex(list(range(len(chunk_ids))), embed(untrained, c_tok), mode="verified",
+                    device=dev).topk_rows(embed(untrained, q_tok), K)[1]
+    log(f"train: (c) the trained encoder (`TorchEncoderEmbedding(params_path=)`) re-embeds "
+        f"{len(chunk_ids)} passages + {len(qids)} queries ({tok_s:.2f} s tokenizing, "
+        f"{embed_s:.2f} s embedding); verified search k={K}: launches {json.dumps(launched)}, "
+        f"plain calls {json.dumps(plain)}; vs exact mode {n_mism} id mismatches (all sub-ulp: "
+        f"{explained}); recall@{K} {recall_at(rv):.4f} trained, {recall_at(ru):.4f} for the "
+        f"seeded untrained encoder at the same widths")
+    if not explained or not launched.get("seg_stats_bf16") or plain:
+        fail("the trained encoder's verified search diverged from exact mode or skipped #1")
+
+    cross_npz = f"{root}/cross_trained.npz"
+    cross, _ = cli_trained(cli, [*base, "train", "--db", ws, "--model", "cross", "--out",
+                                 cross_npz, "--max-steps", str(CROSS_STEPS)])
+    reranker = TorchCrossEncoderReranker(bi_cfg, params_path=cross_npz, device=dev)
+    on_cpu = TorchCrossEncoderReranker(bi_cfg, params_path=cross_npz, device="cpu")
+    reset()
+    cands = index_v.topk_rows(q_emb[:RR_TRAIN_Q], RR_TRAIN_K)[1]
+    launched, plain = counts()
+    contents = cat.get_chunk_contents([chunk_ids[i] for i in np.unique(cands)])
+    cat.close()
+    err, t_card, t_cpu = 0.0, 0.0, 0.0
+    for q, row in zip(q_texts[:RR_TRAIN_Q], cands):
+        docs = [contents[chunk_ids[i]] for i in row]
+        t1 = time.perf_counter()
+        card_s = reranker.score_pairs(q, docs).cpu().numpy()
+        t_card += time.perf_counter() - t1
+        t1 = time.perf_counter()
+        cpu_s = on_cpu.score_pairs(q, docs).numpy()
+        t_cpu += time.perf_counter() - t1
+        err = max(err, float(np.abs(card_s - cpu_s).max()))
+    log(f"train: (c) `train --model cross --max-steps {CROSS_STEPS}` (batch 32, {bi_cfg}): "
+        f"{cross['steps']} steps in {cross['seconds']:.2f} s, loss {cross['first']:.4f} -> "
+        f"{cross['last']:.4f}; `TorchCrossEncoderReranker(params_path=)` on {RR_TRAIN_Q} "
+        f"queries' verified top-{RR_TRAIN_K} (launches {json.dumps(launched)}, plain "
+        f"{json.dumps(plain)}): card {t_card * 1e3 / RR_TRAIN_Q:.1f} ms a query, CPU "
+        f"{t_cpu * 1e3 / RR_TRAIN_Q:.1f}; max |card - CPU| {err:.3e} (tol {RR_CE_TOL})")
+    if cross["steps"] != CROSS_STEPS or not math.isfinite(cross["last"]):
+        fail(f"`train --model cross` ran {cross['steps']} steps, last loss {cross['last']}")
+    if not err <= RR_CE_TOL or not launched.get("seg_stats_bf16") or plain:
+        fail(f"the trained reranker's card scores differ from the CPU's by {err:.3e}")
+    log(f"train: (c) {time.perf_counter() - t0:.1f} s; phase 24 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5765,6 +6252,12 @@ def main() -> int:
         t0 = time.perf_counter()
         agents_phase(args.seed, dev, pool, serve_root)
         log(f"phase 23 (the 15 agentic generation pipelines): {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        # ---- 24. training on the card ------------------------------------------
+        t0 = time.perf_counter()
+        training_phase(args.seed, dev, serve_root)
+        log(f"phase 24 (training): {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
     # ---- 22. config #5 (ViDoRe pages) through the Executor and `run` ---------

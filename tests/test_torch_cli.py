@@ -12,9 +12,9 @@ each with the same defaults).
 (ids equal; the dense legs' scores within 1e-5 relative, BM25's within
 1e-6; the fused scores within 1e-5 absolute plus 1e-6 relative, ids equal up
 to near-ties within that) and equal metric averages; ``report`` prints the
-same leaderboard. ``health-check`` runs on the CPU; ``--device cuda``
-without a GPU, ``--mesh``, ``train`` and the hub actions are refused with
-their ROADMAP.md items.
+same leaderboard. ``health-check`` runs on the CPU; ``train`` writes weights
+that the JAX package's loaders read; ``--device cuda`` without a GPU is
+refused, and ``--mesh`` and the hub actions with their ROADMAP.md items.
 """
 
 import importlib
@@ -23,6 +23,7 @@ import sqlite3
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from autorag_research_tpu.cli.app import main as jax_main
@@ -267,7 +268,8 @@ def test_health_check(workspaces, capsys, monkeypatch):
     ["ingest", "--name", "local", "--db", "ws", "--extra", "data_dir=data"],
     ["serve", "--db", "ws"],
     ["health-check"],
-], ids=["run", "ingest", "serve", "health-check"])
+    ["train", "--db", "ws", "--out", "p.npz"],
+], ids=["run", "ingest", "serve", "health-check", "train"])
 def test_cuda_without_gpu_fails(workspaces, capsys, monkeypatch, argv):
     """The default ``--device cuda`` on a machine with no GPU fails before
     the command does anything; it does not carry on on the CPU."""
@@ -285,7 +287,7 @@ def test_cuda_without_gpu_fails(workspaces, capsys, monkeypatch, argv):
 @pytest.mark.parametrize("argv,item", [
     (["run", "--db", "ws", "--mesh"], "item 6"),
     (["serve", "--db", "ws", "--mesh"], "item 6"),
-    (["train"], "item 9"),
+    (["train", "--db", "ws", "--out", "p.npz", "--mesh"], "item 6"),
     (["data", "upload", "--db", "ws", "--ingestor", "local"], "item 7"),
     (["data", "download", "--db", "ws3", "--ingestor", "local"], "item 7"),
     (["show", "dumps", "--ingestor", "local"], "item 7"),
@@ -297,6 +299,79 @@ def test_refused_commands_name_their_item(workspaces, capsys, monkeypatch, argv,
     err = capsys.readouterr().err
     assert item in err and "ROADMAP.md" in err
     assert not (workspaces[TORCH] / "ws3").exists()
+
+
+@pytest.mark.parametrize("model", ["bi", "cross", "lm"])
+def test_cli_train_command(tmp_path, capsys, model):
+    """``tests/test_cli.py::test_cli_train_command`` on the port, plus
+    ``--model lm``: the same arguments, printed lines and output file, and
+    the ``.npz`` gives the JAX package's loaders (``load_params``,
+    ``JaxCrossEncoderReranker(params_path=)``, ``JaxLM(checkpoint=)``) the
+    outputs that the port's wrappers give on it (within 1e-5)."""
+    from autorag_research_tpu_torch.store.catalog import Catalog
+    from autorag_research_tpu_torch.store.gt import or_all
+
+    ws = tmp_path / "trainws"
+    ws.mkdir()
+    cat = Catalog(ws / "catalog.db")
+    docs = [f"topic {chr(97 + i)} text" for i in range(6)]
+    cat.add_chunks([{"id": i, "contents": d} for i, d in enumerate(docs)])
+    cat.add_queries([{"id": i, "contents": f"find {chr(97 + i)}", "generation_gt": [docs[i]]}
+                     for i in range(6)])
+    for i in range(6):
+        cat.add_retrieval_gt(i, or_all([i]))
+    cat.close()
+
+    out = tmp_path / f"{model}.npz"
+    extra = ["--seq-len", "64"] if model == "lm" else []
+    rc = MAINS[TORCH]([
+        "train", "--db", str(ws), "--model", model, "--out", str(out), "--epochs", "3",
+        "--batch-size", "6", "--hidden", "32", "--layers", "1", *extra,
+    ])
+    assert rc == 0 and out.exists()
+    captured = capsys.readouterr().out
+    assert "trained" in captured and "saved params" in captured
+
+    texts = ["find a", "topic b text", ""]
+    if model == "bi":
+        from autorag_research_tpu.embeddings.jax_encoder import JaxEncoderEmbedding, load_params
+        from autorag_research_tpu.models.encoder import EncoderConfig as JaxEncoderConfig
+        from autorag_research_tpu_torch.embeddings.torch_encoder import TorchEncoderEmbedding
+        from autorag_research_tpu_torch.models.encoder import EncoderConfig
+
+        jemb = JaxEncoderEmbedding(JaxEncoderConfig(hidden=32, out_dim=16, layers=1))
+        jemb.params = load_params(jemb.params, out)
+        temb = TorchEncoderEmbedding(EncoderConfig(hidden=32, out_dim=16, layers=1),
+                                     params_path=out, device="cpu")
+        np.testing.assert_allclose(temb.embed_texts(texts), jemb.embed_texts(texts), atol=1e-5)
+    elif model == "cross":
+        from autorag_research_tpu.models.encoder import EncoderConfig as JaxEncoderConfig
+        from autorag_research_tpu.rerankers.jax_cross import JaxCrossEncoderReranker
+        from autorag_research_tpu_torch.models.encoder import EncoderConfig
+        from autorag_research_tpu_torch.rerankers.torch_cross import TorchCrossEncoderReranker
+
+        jr = JaxCrossEncoderReranker(JaxEncoderConfig(hidden=32, out_dim=16, layers=1),
+                                     params_path=out)
+        tr = TorchCrossEncoderReranker(EncoderConfig(hidden=32, out_dim=16, layers=1),
+                                       params_path=out, device="cpu")
+        ref = [(r.index, r.score) for r in jr.rerank("find a", texts)]
+        got = [(r.index, r.score) for r in tr.rerank("find a", texts)]
+        assert [i for i, _ in got] == [i for i, _ in ref]
+        np.testing.assert_allclose([s for _, s in got], [s for _, s in ref], atol=1e-5)
+    else:
+        from autorag_research_tpu.llm.jax_lm import JaxLM
+        from autorag_research_tpu.models.decoder import DecoderConfig as JaxDecoderConfig
+        from autorag_research_tpu_torch.llm.torch_lm import TorchLM
+        from autorag_research_tpu_torch.models.decoder import DecoderConfig
+
+        kw = dict(max_prompt_len=48, max_new_tokens=8, checkpoint=str(out))
+        jlm = JaxLM(JaxDecoderConfig(hidden=32, layers=1), **kw)
+        tlm = TorchLM(DecoderConfig(hidden=32, layers=1), device="cpu", **kw)
+        ids, mask = _mod(JAX, "models.decoder").byte_tokenize(texts, 48)
+        ref = np.asarray(jlm.decoder(jlm.params, ids, mask))
+        with torch.no_grad():
+            got = tlm.decoder(torch.from_numpy(ids).long(), torch.from_numpy(mask)).numpy()
+        np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
 def test_serve_workspace_mesh_raises(workspaces):

@@ -110,6 +110,9 @@ import importlib, pkgutil, sys
 
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
+# nor on the JAX trainers' optimizer and checkpoint libraries
+sys.modules["optax"] = None
+sys.modules["orbax"] = None
 # nor on what the card's machine lacks: the page images' and datasets'
 # libraries are imported where they are used
 sys.modules["PIL"] = None
@@ -155,6 +158,7 @@ ENTRY_MODULES = [
         "utils.images", "data.hf_util", "data.vidore", "data.visrag", "embeddings.colpali",
         "embeddings.openai_compat", "embeddings.infinity", "llm.openai_compat", "llm.providers",
         "pipelines.retrieval.heaven", "pipelines.generation.visrag_gen",
+        "models.trainer", "models.lm_trainer", "embeddings.torch_encoder",
         *(f"pipelines.generation.{g}" for g in (
             "ircot", "search_r1", "self_rag", "adaptive_rag", "question_decomposition",
             "dynamic_rag", "deep_rag", "hybrid_deep_searcher", "et2rag", "spd_rag", "main_rag",
