@@ -13,9 +13,11 @@ The port's copy of the JAX package's ``cli/app.py``. The global ``--device``
 (``cuda`` by default, or ``cpu``) is where ``ingest``, ``run``, ``train``,
 ``serve`` and ``health-check`` build their models, indexes and pipelines;
 asked for ``cuda`` on a machine with no GPU, they fail rather than run on the
-CPU. Refused until the port has what they need, each naming its ROADMAP.md
-item: ``--mesh`` (item 6), ``show dumps`` and the hub ``data`` actions
-``upload`` / ``download`` (item 7).
+CPU. ``run --mesh`` and ``serve --mesh`` shard the indexes over every visible
+card (``parallel/mesh.py::device_corpus_mesh``; one card, or ``--device
+cpu``, runs unsharded). Refused until the port has what they need, each
+naming its ROADMAP.md item: ``train --mesh`` (item 6b), ``show dumps`` and
+the hub ``data`` actions ``upload`` / ``download`` (item 7).
 
 Entry point: ``python -m autorag_research_tpu_torch.cli ...``
 """
@@ -31,7 +33,7 @@ from pathlib import Path
 
 logger = logging.getLogger("AutoRAG-Research-TPU")
 
-ITEM_MESH = "ROADMAP.md queue 1, item 6 (multi-GPU)"
+ITEM_TRAIN_MESH = "ROADMAP.md queue 1, item 6b (training over a (dp, tp) mesh)"
 ITEM_HUB = "ROADMAP.md queue 1, item 7 (the hub dumps with data/hf_storage.py)"
 
 
@@ -73,8 +75,11 @@ def cmd_run(args) -> int:
     from autorag_research_tpu_torch.executor import Executor
     from autorag_research_tpu_torch.injection import ModelRegistry
 
+    mesh = None
     if args.mesh:
-        return _refuse("run --mesh", ITEM_MESH)
+        from autorag_research_tpu_torch.parallel.mesh import device_corpus_mesh
+
+        mesh = device_corpus_mesh(args.device)
     resolver = ConfigResolver(args.config_path)
     config = resolver.load_experiment(args.experiment)
     catalog = _open_catalog(args.db)
@@ -82,6 +87,7 @@ def cmd_run(args) -> int:
         device=args.device,
         models=ModelRegistry(args.config_path, device=args.device),
         pipeline_configs=dict(getattr(config, "extra_pipeline_configs", {})),
+        mesh=mesh,
     )
     result = Executor(catalog, config, context).run()
     print(result.report())
@@ -342,7 +348,7 @@ def cmd_train(args) -> int:
     from autorag_research_tpu_torch.models.encoder import EncoderConfig
 
     if args.mesh:
-        return _refuse("train --mesh", ITEM_MESH)
+        return _refuse("train --mesh", ITEM_TRAIN_MESH)
     catalog = _open_catalog(args.db)
     cfg_kwargs = {}
     if args.hidden:
@@ -400,8 +406,6 @@ def cmd_train(args) -> int:
 def cmd_serve(args) -> int:
     from autorag_research_tpu_torch.serving.server import serve_workspace
 
-    if args.mesh:
-        return _refuse("serve --mesh", ITEM_MESH)
     handle = serve_workspace(
         args.db,
         config_path=args.config_path,
@@ -409,6 +413,7 @@ def cmd_serve(args) -> int:
         generation=args.generation,
         host=args.host,
         port=args.port,
+        mesh=args.mesh,
         device=args.device,
     )
     print(f"serving {args.db} on http://{args.host}:{handle.port} (ctrl-c to stop)")
@@ -440,7 +445,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("run", help="run the configured experiment")
     p.add_argument("--db", required=True, help="workspace dir or catalog file")
     p.add_argument("--experiment", default=None, help="experiment yaml (default configs/experiment.yaml)")
-    p.add_argument("--mesh", action="store_true", help=f"refused until {ITEM_MESH}")
+    p.add_argument("--mesh", action="store_true", help="shard indexes over all visible cards")
     p.set_defaults(func=cmd_run, on_device=True)
 
     p = sub.add_parser(
@@ -460,7 +465,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", choices=["sgd", "adamw"], default="adamw")
     p.add_argument("--hidden", type=int, default=None)
     p.add_argument("--layers", type=int, default=None)
-    p.add_argument("--mesh", action="store_true", help=f"refused until {ITEM_MESH}")
+    p.add_argument("--mesh", action="store_true", help=f"refused until {ITEM_TRAIN_MESH}")
     p.add_argument("--checkpoint-dir", default=None, help="(bi) save / auto-resume dir")
     p.set_defaults(func=cmd_train, on_device=True)
 
@@ -531,7 +536,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--retrieval", action="append", default=None, help="pipeline names")
     p.add_argument("--generation", action="append", default=None)
-    p.add_argument("--mesh", action="store_true", help=f"refused until {ITEM_MESH}")
+    p.add_argument("--mesh", action="store_true", help="shard indexes over all visible cards")
     p.set_defaults(func=cmd_serve, on_device=True)
 
     return parser

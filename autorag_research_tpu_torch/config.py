@@ -111,10 +111,13 @@ class BaseMetricConfig:
 
 
 class BuildContext:
-    """Shared build-time services: model loading, device, named pipeline lookup."""
+    """Shared build-time services: model loading, device, mesh, named pipeline
+    lookup. With a ``mesh`` (``parallel/mesh.py``) the retrieval pipelines
+    shard their indexes over its corpus axis."""
 
-    def __init__(self, device="cuda", models=None, pipeline_configs=None):
+    def __init__(self, device="cuda", models=None, pipeline_configs=None, mesh=None):
         self.device = device
+        self.mesh = mesh
         self.models = models  # a model registry (load_embedding / load_llm / load_reranker) | None
         self.pipeline_configs: dict[str, BasePipelineConfig] = pipeline_configs or {}
         self.loader = None  # set by PipelineLoader; used by wrapper configs

@@ -199,6 +199,7 @@ class Executor:
     def _hc_context(self, hc_config) -> BuildContext:
         ctx = BuildContext(
             device=self.context.device,
+            mesh=self.context.mesh,
             models=self.context.models,
             pipeline_configs=dict(self.context.pipeline_configs),
         )

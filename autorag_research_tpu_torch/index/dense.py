@@ -1,8 +1,10 @@
 """Dense single-vector index: corpus embeddings resident in GPU memory.
 
-Counterpart of ``autorag_research_tpu/index/dense.py`` on one device.
-Vectors are L2-normalized at build and query time, so the kernels' raw dot
-product is the cosine similarity (the reference's ``1 - cosine_distance``);
+Counterpart of ``autorag_research_tpu/index/dense.py``: on one device, or
+row-sharded over a mesh's corpus axis (``to_device(mesh)``, the engines of
+``parallel/sharded.py``; a mesh of one device is one device). Vectors are
+L2-normalized at build and query time, so the kernels' raw dot product is
+the cosine similarity (the reference's ``1 - cosine_distance``);
 with ``metric="ip"`` the raw inner product is returned instead. Artifacts
 (``embeddings.npy`` + ``meta.json``) have the JAX package's format, so either
 package loads what the other saved. On the card the corpus is stored with d
@@ -32,6 +34,15 @@ from autorag_research_tpu_torch.ops.dense import (
     int8_rows,
     pad_width,
     quantize_int8,
+)
+from autorag_research_tpu_torch.parallel.mesh import check_mesh
+from autorag_research_tpu_torch.parallel.sharded import (
+    shard_corpus,
+    shard_corpus_int8,
+    shard_corpus_verified,
+    sharded_dense_topk,
+    sharded_dense_topk_int8,
+    sharded_dense_topk_verified,
 )
 from autorag_research_tpu_torch.utils.concurrency import map_row_chunks
 
@@ -112,6 +123,9 @@ class DenseIndex:
         self.device = torch.device(device)
         self._sidecar: dict | None = None
         self._device_scale: torch.Tensor | None = None
+        # the mesh of the last to_device(mesh); shards when it holds > 1 device
+        self._mesh = None
+        self._sharded = False
         # (n_fail, covered) of the last verified search: the proof's outcome
         self.last_stats: tuple[int, bool] | None = None
         mat = np.asarray(embeddings, dtype=np.float32)
@@ -151,16 +165,29 @@ class DenseIndex:
         return n * d * 4 + n_pad * d * 2
 
     def device_bytes(self) -> int:
-        """Bytes of the corpus tensors on the device: the corpus, the int8
-        mode's per-row scales, the verified mode's bf16 sidecar."""
+        """Bytes of the corpus tensors on the device (on this process's
+        devices when sharded): the corpus, the int8 mode's per-row scales,
+        the verified mode's bf16 sidecar."""
         tensors = [self._device, self._device_scale]
         if self._sidecar is not None:
             tensors.append(self._sidecar["corpus_lo"])
-        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+        return sum(
+            t.nbytes() if self._sharded else t.numel() * t.element_size()
+            for t in tensors if t is not None
+        )
 
-    def to_device(self) -> "DenseIndex":
+    def to_device(self, mesh=None) -> "DenseIndex":
         """Materialize the corpus (and the verified sidecar, or the int8
-        scales) on the device."""
+        scales) on the device, or row-sharded over ``mesh``'s corpus axis
+        when it holds more than one device (one device: the corpus goes
+        there whole)."""
+        if mesh is not None:
+            # queries are prepared, and the shards' lists merge, here
+            self.device = check_mesh(mesh).merge_device()
+        self._mesh = mesh
+        self._sharded = mesh is not None and mesh.size > 1
+        if self._sharded:
+            return self._to_device_sharded(mesh)
         if self.mode == "verified":
             need = self.verified_device_bytes()
             limit = _device_memory_bytes(self.device)
@@ -168,7 +195,7 @@ class DenseIndex:
                 raise IndexNotBuiltError(
                     f"verified mode needs ~{need / 2**30:.1f} GB (f32 corpus + "
                     f"bf16 sidecar) but the device has {limit / 2**30:.1f} GB. "
-                    "Use mode='exact', or a corpus split over several devices."
+                    "Use mode='exact', or shard over a mesh: to_device(mesh)."
                 )
         width = device_width(self.dim, self.device)
         if self.mode == "int8":
@@ -191,6 +218,46 @@ class DenseIndex:
                 "nd_max": side["nd_max"],
                 "r_max": side["r_max"],
             }
+        return self
+
+    def _to_device_sharded(self, mesh) -> "DenseIndex":
+        """Row-shard the corpus over the mesh's corpus axis (the
+        ``parallel/sharded.py`` placements), d stored at the devices' width.
+        Verified mode checks its bytes by physical device: a device holding
+        s shards needs s shards' corpus and sidecar."""
+        devices = mesh.corpus_devices()
+        width = device_width(self.dim, devices[0])
+        n_shards = len(devices)
+        if self.mode == "verified":
+            shard_rows = -(-max(self._n, 1) // (n_shards * _SIDECAR_PAD_ROWS)) * _SIDECAR_PAD_ROWS
+            per_device = mesh.shards_per_device()
+            need = shard_rows * width * 6 * per_device
+            limit = min(_device_memory_bytes(d) for d, mine in zip(devices, mesh.local_shards()) if mine)
+            if need > 0.85 * limit:
+                raise IndexNotBuiltError(
+                    f"verified mode needs ~{need / 2**30:.1f} GB a device (f32 corpus + bf16 "
+                    f"sidecar, {per_device} of {n_shards} shard(s) on one device) but the device "
+                    f"has {limit / 2**30:.1f} GB. Shard over more devices, or use mode='int8'."
+                )
+        if self.mode == "int8":
+            cq, cs = quantize_int8(self._host)
+            self._device, self._device_scale = shard_corpus_int8(
+                pad_width(torch.from_numpy(cq), width), torch.from_numpy(cs), mesh,
+                row_multiple=int8_rows(1, devices[0]),
+            )
+            return self
+        host = pad_width(torch.from_numpy(self._host), width)
+        if self.mode == "verified":
+            side = build_verified_sidecar(self._host, rep="bf16")
+            side["corpus_lo"] = pad_width(side["corpus_lo"], width)
+            self._device, lo = shard_corpus_verified(host, side, mesh, block=_SIDECAR_PAD_ROWS)
+            self._sidecar = {
+                "corpus_lo": lo, "corpus_scale": None,
+                "nd_max": side["nd_max"], "r_max": side["r_max"],
+            }
+            return self
+        dt = torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+        self._device = shard_corpus(host.to(dt), mesh)
         return self
 
     def _ensure_device(self) -> torch.Tensor:
@@ -223,18 +290,31 @@ class DenseIndex:
             q = torch.from_numpy(q).to(self.device)
         q = pad_width(q, corpus.shape[1])
         if self.mode == "int8":
-            scores, rows = dense_topk_int8(
-                q.float().contiguous(), corpus, self._device_scale, k, n_valid=self._n
-            )
+            q = q.float().contiguous()
+            if self._sharded:
+                scores, rows = sharded_dense_topk_int8(
+                    q, corpus, self._device_scale, k, self._n, self._mesh
+                )
+            else:
+                scores, rows = dense_topk_int8(q, corpus, self._device_scale, k, n_valid=self._n)
             return scores.cpu().numpy(), rows.cpu().numpy()
         q = q.to(corpus.dtype).contiguous()
-        if self.mode == "verified":
+        method = "approx" if self.mode == "approx" else "auto"
+        if self._sharded and self.mode == "verified":
+            side = self._sidecar
+            scores, rows, n_fail, covered = sharded_dense_topk_verified(
+                q, corpus, side["corpus_lo"], side["nd_max"], side["r_max"], k, self._n,
+                self._mesh, return_stats=True,
+            )
+            self.last_stats = (n_fail, covered)
+        elif self._sharded:
+            scores, rows = sharded_dense_topk(q, corpus, k, self._n, self._mesh, method=method)
+        elif self.mode == "verified":
             scores, rows, n_fail, covered = dense_topk_verified(
                 q, corpus, self._sidecar, k, return_stats=True
             )
             self.last_stats = (n_fail, covered)
         else:
-            method = "approx" if self.mode == "approx" else "auto"
             scores, rows = dense_topk(q, corpus, k, method=method)
         return scores.float().cpu().numpy(), rows.cpu().numpy()
 

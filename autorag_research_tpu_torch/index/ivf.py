@@ -27,7 +27,11 @@ candidates of as many queries at a time as fit :data:`GATHER_BUDGET_BYTES`
 The corpus stays on ``device`` (the card by default) from the build on.
 Artifacts (``ivf.npz`` + ``meta.json``) have the JAX package's names and keys,
 so either package loads what the other saved; the port stores the arrays
-uncompressed. A mesh raises ``NotImplementedError``.
+uncompressed. ``to_device(mesh)`` shards the index over a mesh's corpus axis
+as P independent sub-indexes (JAX ``_to_device_sharded``): rows split by
+range, each shard's own k-means (seed = its shard number) and member table
+on its device, ``nprobe`` cells probed a shard, the lists merged by
+``parallel/sharded.py::sharded_ivf_topk``.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ from autorag_research_tpu_torch.exceptions import EmbeddingMissingError, IndexNo
 from autorag_research_tpu_torch.index.base import SearchHit
 from autorag_research_tpu_torch.index.dense import _l2_normalize_device, l2_normalize
 from autorag_research_tpu_torch.ops.topk import INT_MAX, NEG_INF, sort_topk, topk_ordered
+from autorag_research_tpu_torch.parallel.mesh import CORPUS_AXIS, check_mesh
+from autorag_research_tpu_torch.parallel.sharded import place_rows, sharded_ivf_topk
 
 # bytes of gathered candidate vectors a search step may hold
 GATHER_BUDGET_BYTES = 1 << 30
@@ -188,6 +194,7 @@ class IVFIndex:
         self._n = n
         self._host = mat
         self._device: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None
+        self._mesh = None  # set by to_device(mesh): _device holds ShardedRows then
         self._lazy = threading.Lock()  # a first search from several threads uploads once
         self.build_seconds = {"normalize": time.perf_counter() - t0}
         self._build(seed, kmeans_iterations)
@@ -247,7 +254,7 @@ class IVFIndex:
 
     def to_device(self, mesh=None) -> "IVFIndex":
         if mesh is not None:
-            raise NotImplementedError("a mesh-sharded IVFIndex is ported with the multi-GPU slice")
+            return self._to_device_sharded(check_mesh(mesh))
         with self._lazy:
             if self._device is None:
                 self._device = (
@@ -257,8 +264,48 @@ class IVFIndex:
                 )
         return self
 
+    def _to_device_sharded(self, mesh) -> "IVFIndex":
+        """P independent sub-indexes over the mesh's corpus axis: rows split
+        by range (ceil(n / P) a shard), each shard's ``IVFIndex`` built on
+        its device with ``n_cells // P`` cells, this index's ``nprobe``,
+        ``pad_factor`` and iterations and seed p (an empty tail shard stays
+        all padding). Stacked to ``[P, Ns + 1, d]`` corpus, ``[P, C, d]``
+        centroids and ``[P, C, cell_pad]`` members (pads point at the zero
+        row Ns), a block of each on its shard's device."""
+        n_shards = mesh.shape[CORPUS_AXIS]
+        d = self._host.shape[1]
+        ns = max(1, -(-self._n // n_shards))
+        subs = []
+        for p, dev in enumerate(mesh.corpus_devices()):
+            lo, hi = p * ns, min(self._n, (p + 1) * ns)
+            subs.append(None if lo >= hi else IVFIndex(
+                list(range(lo, hi)), self._host[lo:hi], n_cells=max(1, self.n_cells // n_shards),
+                nprobe=self.nprobe, pad_factor=self.pad_factor,
+                kmeans_iterations=self.kmeans_iterations, seed=p, device=dev,
+            ))
+        c_max = max((sub.n_cells for sub in subs if sub is not None), default=1)
+        pad_max = max((sub.cell_pad for sub in subs if sub is not None), default=8)
+        corpus_sh = np.zeros((n_shards, ns + 1, d), np.float32)
+        centroids_sh = np.zeros((n_shards, c_max, d), np.float32)
+        members_sh = np.full((n_shards, c_max, pad_max), ns, np.int32)
+        for p, sub in enumerate(subs):
+            if sub is None:
+                continue
+            corpus_sh[p, : sub._n] = sub._host
+            centroids_sh[p, : sub.n_cells] = sub.centroids
+            members_sh[p, : sub.n_cells, : sub.cell_pad] = np.where(sub.members == sub._n, ns, sub.members)
+        self.device = mesh.merge_device()
+        self._device = tuple(place_rows(a, mesh) for a in (corpus_sh, centroids_sh, members_sh))
+        self._mesh = mesh
+        self._shard_rows = ns
+        self._shard_cells = c_max
+        return self
+
     def device_bytes(self) -> int:
-        """Bytes of the index's tensors on its device."""
+        """Bytes of the index's tensors on its device (this process's shards
+        when sharded)."""
+        if self._mesh is not None:
+            return sum(t.nbytes() for t in self._device)
         return sum(t.numel() * t.element_size() for t in self._device or ())
 
     # ----------------------------------------------------------------- search
@@ -267,6 +314,13 @@ class IVFIndex:
         ``n`` or more is no hit."""
         if self._n == 0:
             raise IndexNotBuiltError("index has no documents")
+        if self._mesh is not None:
+            scores, rows = sharded_ivf_topk(
+                queries_on(query_embeddings, self.device), *self._device, min(k, self._n),
+                min(nprobe or self.nprobe, self._shard_cells), self._shard_rows, self._n,
+                self._mesh,
+            )
+            return scores.cpu().numpy(), rows.cpu().numpy()
         corpus, centroids, members = self.to_device()._device  # type: ignore[misc]
         scores, rows = _ivf_search(
             queries_on(query_embeddings, self.device), corpus, centroids, members,
@@ -320,6 +374,7 @@ class IVFIndex:
         idx.cell_counts = arrays["cell_counts"]
         idx._n = len(idx.ids)
         idx._device = None
+        idx._mesh = None
         idx._lazy = threading.Lock()
         idx.build_seconds = {}
         return idx

@@ -17,6 +17,10 @@ host, 1 byte per dim on the device plus a scale per token; approximate).
 ``search`` returns MaxSim / n_query_vectors (the reference's ``-distance /
 n_query_vectors``). On the card the tokens are stored with d zero-padded to
 a multiple of 8, the kernels' unit, and queries are padded to that width.
+With a mesh (``to_device(mesh)``) the flat layout, never bucketed, is
+row-sharded over the corpus axis (pad documents of length 0) and searched by
+the engines of ``parallel/sharded.py`` in every mode; ``prefilter`` is then
+ignored with a warning, as in the JAX package.
 Artifacts (``mv.npz`` + ``meta.json``) have the JAX package's format, so
 either package loads what the other saved.
 """
@@ -24,6 +28,7 @@ either package loads what the other saved.
 from __future__ import annotations
 
 import json
+import logging
 import threading
 from pathlib import Path
 from typing import Any, Sequence
@@ -50,6 +55,17 @@ from autorag_research_tpu_torch.ops.maxsim import (
     maxsim_topk_verified,
     quantize_int8_tokens,
 )
+from autorag_research_tpu_torch.parallel.mesh import check_mesh
+from autorag_research_tpu_torch.parallel.sharded import (
+    ShardedRows,
+    mesh_max,
+    place_rows,
+    sharded_maxsim_topk,
+    sharded_maxsim_topk_int8,
+    sharded_maxsim_topk_verified,
+)
+
+logger = logging.getLogger(__name__)
 
 
 def pad_ragged(mats: Sequence[np.ndarray], max_tokens: int | None = None) -> tuple[np.ndarray, np.ndarray]:
@@ -122,6 +138,9 @@ class MultiVectorIndex:
         self._sidecar: dict | None = None
         self._proxies_device: torch.Tensor | None = None
         self._device_buckets: list[dict] | None = None
+        # the mesh the tokens are row-sharded over (ShardedRows in _device,
+        # _scales_device and the sidecar's docs_lo), or None
+        self._mesh = None
         # (n_fail, covered) of the last verified search: the proof's outcome
         self.last_stats: tuple[int, bool] | None = None
         # a first search from several threads uploads once
@@ -151,6 +170,11 @@ class MultiVectorIndex:
         cost the bucketed layout exists to shrink), the bf16 sidecar and the
         int8 mode's per-token scales included."""
         tensors: list[torch.Tensor] = []
+        if self._mesh is not None:
+            arrays = [self._device[0], self._scales_device]
+            if self._sidecar is not None:
+                arrays.append(self._sidecar["docs_lo"])
+            return sum(a.nbytes() for a in arrays if a is not None)
         if self._device_buckets is not None:
             for b in self._device_buckets:
                 tensors += [b[key] for key in ("docs", "lo", "scales") if key in b]
@@ -206,9 +230,11 @@ class MultiVectorIndex:
         return buckets
 
     def to_device(self, mesh=None) -> "MultiVectorIndex":
-        """Materialize the tokens (and the verified sidecar) on the device."""
+        """Materialize the tokens (and the verified sidecar) on the device,
+        or row-sharded over ``mesh``'s corpus axis."""
         if mesh is not None:
-            raise NotImplementedError("a mesh-sharded MultiVectorIndex is ported with the multi-GPU slice")
+            return self._to_device_sharded(check_mesh(mesh))
+        self._mesh = None
         if self.bucketize > 1 and self._n:
             self._device_buckets = self._build_device_buckets()
             self._device = None
@@ -220,6 +246,42 @@ class MultiVectorIndex:
             self._sidecar = build_maxsim_sidecar(up["docs"], lens)
         self._device = (up["docs"], lens)
         self._scales_device = up.get("scales")
+        return self
+
+    def _to_device_sharded(self, mesh) -> "MultiVectorIndex":
+        """The flat layout row-sharded over the corpus axis: each shard's
+        tokens (int8 with their scales in int8 mode) and lengths on its
+        device, d padded as on one device; verified mode builds each shard's
+        bf16 sidecar on its device and keeps the whole corpus's bounds (the
+        largest of the shards')."""
+        self.device = mesh.merge_device()
+        self._mesh = mesh
+        self._device_buckets = None
+        width = device_width(self.dim, self.device)
+        lens = place_rows(self._lens, mesh)
+        rows = lens.shard_rows
+        scales = None
+        if self.mode == "int8":
+            docs_q, sc = quantize_int8_tokens(self._docs)
+            pad = int8_rows(docs_q.shape[1], self.device) - docs_q.shape[1]
+            docs_t = torch.nn.functional.pad(pad_width(torch.from_numpy(docs_q), width), (0, 0, 0, pad))
+            docs = place_rows(docs_t, mesh, shard_rows=rows)
+            scales = place_rows(torch.nn.functional.pad(torch.from_numpy(sc), (0, pad)), mesh,
+                                shard_rows=rows)
+        else:
+            docs = place_rows(pad_width(torch.from_numpy(self._docs), width), mesh, shard_rows=rows)
+        self._sidecar = None
+        if self.mode == "verified" and self._n:
+            sides = [None if t is None else build_maxsim_sidecar(t) for t in docs.shards]
+            local = [side for side in sides if side is not None]
+            self._sidecar = {
+                "docs_lo": ShardedRows([None if side is None else side["docs_lo"] for side in sides],
+                                       rows, docs.shape),
+                "nd_max": mesh_max(max(side["nd_max"] for side in local), mesh),
+                "r_max": mesh_max(max(side["r_max"] for side in local), mesh),
+            }
+        self._device = (docs, lens)
+        self._scales_device = scales
         return self
 
     # ----------------------------------------------------------------- search
@@ -306,7 +368,7 @@ class MultiVectorIndex:
         with self._lazy:
             if self._device is None and self._device_buckets is None:
                 self.to_device()
-            if prefilter is not None and self._proxies_device is None:
+            if prefilter is not None and self._mesh is None and self._proxies_device is None:
                 self._proxies_device = torch.from_numpy(self._proxies).to(self.device)
         q_np, q_lens_np = self._queries(query_matrices)
         q = pad_width(torch.from_numpy(q_np), device_width(self.dim, self.device)).to(self.device)
@@ -316,7 +378,26 @@ class MultiVectorIndex:
             scores, rows = self._search_bucketed(q, q_lens, k, method, kprime)
             return scores, rows, q_lens_np
         docs, lens = self._device  # type: ignore[misc]
-        if prefilter is not None:
+        if self._mesh is not None:
+            if prefilter is not None:
+                logger.warning(
+                    "prefilter=%s is ignored on a mesh-sharded MultiVectorIndex "
+                    "(the exact full scan runs instead)", prefilter,
+                )
+            if self.mode == "verified":
+                s, r, n_fail, covered = sharded_maxsim_topk_verified(
+                    q, q_lens, docs, lens, self._sidecar["docs_lo"], self._sidecar["nd_max"],
+                    self._sidecar["r_max"], k, self._n, self._mesh,
+                    kprime=kprime if kprime is not None else 64, return_stats=True,
+                )
+                self.last_stats = (n_fail, covered)
+            elif self.mode == "int8":
+                s, r = sharded_maxsim_topk_int8(
+                    q, q_lens, docs, self._scales_device, lens, k, self._n, self._mesh
+                )
+            else:
+                s, r = sharded_maxsim_topk(q, q_lens, docs, lens, k, self._n, self._mesh, method=method)
+        elif prefilter is not None:
             # stage 1: candidates from the mean-token proxies
             q_proxy = l2_normalize(q_np.sum(axis=1) / np.maximum(q_lens_np[:, None], 1))
             n_cand = min(self._n, max(k, k * prefilter))

@@ -124,6 +124,16 @@ def get_or_build(
         return idx
 
 
+def shard(idx, mesh):
+    """``idx`` placed over ``mesh`` (``to_device(mesh)``) once: a cached
+    index already placed over a mesh is returned as it is. Under the build
+    lock, so that threads sharing the index place it once."""
+    with _BUILD_LOCK:
+        if getattr(idx, "_mesh", None) is None:
+            idx.to_device(mesh)
+    return idx
+
+
 def invalidate(catalog=None) -> None:
     """Drop cached indexes (all, or those of one catalog)."""
     with _BUILD_LOCK:

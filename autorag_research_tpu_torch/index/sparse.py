@@ -38,10 +38,12 @@ full packed kernel; the pins ``xla`` / ``pallas_v2`` / ``pallas`` run from a
 flat upload made on first use. Bucketed layout: the packed kernel on each
 packed bucket, the whole-corpus route of the method on each flat one. The
 pruned pins fall back to ``auto`` on a packed or bucketed layout. All legs
-are exact: the hits are the same. A
-mesh raises ``NotImplementedError``. Artifacts (``sparse.npz`` +
-``meta.json``) have the JAX package's format, so either package loads what
-the other saved.
+are exact: the hits are the same. With a mesh (``to_device(mesh)``) the flat
+layout, never packed or bucketed, is row-sharded over the corpus axis and
+searched by ``parallel/sharded.py::sharded_bm25_topk`` (the whole-corpus
+route of the method a shard; the pruned pins fall back to ``auto``).
+Artifacts (``sparse.npz`` + ``meta.json``) have the JAX package's format, so
+either package loads what the other saved.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from autorag_research_tpu_torch.index.tokenize import get_tokenizer
 from autorag_research_tpu_torch.ops.sparse import (
     BLOCK_Q,
     DOC_PAD,
+    PRUNED_PINS,
     QUERY_PAD,
     SKIP_BLOCK_N,
     bm25_route,
@@ -84,6 +87,8 @@ from autorag_research_tpu_torch.ops.sparse import (
     pruned_leg,
 )
 from autorag_research_tpu_torch.ops.topk import INT_MAX, NEG_INF
+from autorag_research_tpu_torch.parallel.mesh import check_mesh
+from autorag_research_tpu_torch.parallel.sharded import place_rows, sharded_bm25_topk
 
 # widest document (unique terms) of a packed layout: two or more per row
 PACK_MAX_WIDTH = 64
@@ -168,6 +173,9 @@ class SparseIndex:
         # flat upload behind the xla / pallas_v2 / pallas pins of a packed index
         self._device_flat: tuple[torch.Tensor, torch.Tensor] | None = None
         self._device_buckets: list[dict] | None = None
+        # the mesh and its row-sharded flat (ids, weights), or None
+        self._mesh = None
+        self._sharded = None
 
     # ----------------------------------------------------------------- build
     @classmethod
@@ -318,12 +326,17 @@ class SparseIndex:
         ``to_device`` chooses: bucketed with ``bucketize > 1``, else packed
         when every document has at most ``PACK_MAX_WIDTH`` unique terms (on
         the card, or off it up to ``PACK_OFF_CARD_MAX_DOCS`` documents), else
-        flat."""
-        if mesh is not None:
-            raise NotImplementedError("a mesh-sharded SparseIndex is ported with the multi-GPU slice")
+        flat. With ``mesh``: the flat layout row-sharded over its corpus axis
+        (pad rows of ``DOC_PAD``), queries prepared on its first device."""
         if self._slot_ids is None:
             raise IndexNotBuiltError("sparse index not built")
         self._reset_device()
+        if mesh is not None:
+            self.device = check_mesh(mesh).merge_device()
+            ids, w = _pad_slots(self._slot_ids, self._slot_weights)
+            self._mesh = mesh
+            self._sharded = (place_rows(ids, mesh, pad_value=DOC_PAD), place_rows(w, mesh))
+            return self
         if self.bucketize > 1:
             self._device_buckets = self._build_device_buckets()
             return self
@@ -381,6 +394,8 @@ class SparseIndex:
         """Slot-array bytes on the device under the current layout (packed or
         bucketed layouts as such; a pin's flat upload is not counted, as in
         the JAX package)."""
+        if self._sharded is not None:
+            return sum(t.nbytes() for t in self._sharded)
         if self._device_buckets is not None:
             arrays = [t for bucket in self._device_buckets for t in bucket["arrays"]]
         else:
@@ -507,9 +522,15 @@ class SparseIndex:
         if self._slot_ids is None:
             raise IndexNotBuiltError("sparse index not built")
         with self._lazy:
-            if self._device is None and self._device_buckets is None:
+            if self._device is None and self._device_buckets is None and self._sharded is None:
                 self.to_device()
         q_ids, q_w = self.encode_queries(queries)
+        if self._sharded is not None:
+            scores, rows = sharded_bm25_topk(
+                *self._queries_on_device(q_ids, q_w), *self._sharded, k, self.n_docs, self._mesh,
+                method="auto" if method in PRUNED_PINS else method,
+            )
+            return scores.cpu().numpy(), rows.cpu().numpy()
         route = bm25_route(method, self.n_docs, k, self.device.type, self.tile_skip, self._layout(),
                            self._device_pack, self.probe_block_n)
         if route.startswith("bucketed_"):

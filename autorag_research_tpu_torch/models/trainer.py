@@ -18,8 +18,8 @@ the optimizer's state dict (``None`` under SGD). A restore gives back both
 bitwise. The JAX trainer writes orbax checkpoints instead; the two formats
 do not read each other.
 
-Sharding over a mesh is not ported: ``mesh=`` raises (ROADMAP.md queue 1,
-item 6). The data order is the JAX trainer's (numpy ``default_rng((seed,
+Training over a ``(dp, tp)`` mesh is not ported: ``mesh=`` raises (ROADMAP.md
+queue 1, item 6b, the training half of item 6). The data order is the JAX trainer's (numpy ``default_rng((seed,
 start_step))``), so both packages see the same batches.
 """
 
@@ -97,8 +97,8 @@ class BiEncoderTrainer:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "bi-encoder training over a mesh is ported with the multi-GPU slice "
-                "(ROADMAP.md queue 1, item 6)"
+                "bi-encoder training over a (dp, tp) mesh is not in the port yet "
+                "(ROADMAP.md queue 1, item 6b)"
             )
         if optimizer not in ("sgd", "adamw"):
             raise ValueError(f"unknown optimizer '{optimizer}' (sgd | adamw)")

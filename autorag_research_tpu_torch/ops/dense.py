@@ -419,6 +419,10 @@ def dense_topk(
 
 
 # ------------------------------------------------------------- int8 serving
+# rows quantized at a time on the host, chunks in threads
+_QUANTIZE_CHUNK_ROWS = 65536
+
+
 def quantize_int8(x):
     """Per-row symmetric int8 quantization: ``x ~= q * scale[:, None]``.
 
@@ -430,11 +434,18 @@ def quantize_int8(x):
     constant into that product, which differs in the last bit for ~4% of
     rows). Both round half to even, as ``np.rint`` / ``jnp.round`` do."""
     if isinstance(x, np.ndarray):
-        absmax = np.max(np.abs(x), axis=1)
-        scale = absmax / 127.0
-        safe = np.where(scale == 0, 1.0, scale)
-        q = np.clip(np.rint(x / safe[:, None]), -127, 127).astype(np.int8)
-        return q, scale.astype(np.float32)
+        q = np.empty(x.shape, np.int8)
+        scale = np.empty(x.shape[0], np.float32)
+
+        def part(rows: slice) -> None:  # rows are independent: chunks in threads
+            absmax = np.max(np.abs(x[rows]), axis=1)
+            s = absmax / 127.0
+            safe = np.where(s == 0, 1.0, s)
+            q[rows] = np.clip(np.rint(x[rows] / safe[:, None]), -127, 127)
+            scale[rows] = s
+
+        map_row_chunks(part, x.shape[0], _QUANTIZE_CHUNK_ROWS)
+        return q, scale
     absmax = torch.amax(torch.abs(x), dim=1)
     scale = absmax * torch.tensor(1.0 / 127.0, dtype=torch.float32)
     safe = torch.where(scale == 0, torch.ones_like(scale), scale)

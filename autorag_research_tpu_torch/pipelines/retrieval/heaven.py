@@ -20,8 +20,8 @@ Stage 1 is the exact ``DenseIndex`` over ``image_chunk`` on the pipeline's
 device (``"cuda"`` unless the caller asks for another), from the index
 registry under the key an ``image_vector_search`` in single mode uses, so
 the two share one index. The candidate MaxSim stays host numpy, as in the
-JAX package. A mesh is refused until the multi-GPU slice (ROADMAP.md queue
-1, item 6).
+JAX package. With a ``mesh`` the stage-1 index is row-sharded over it
+(``index/registry.py::shard``).
 """
 
 from __future__ import annotations
@@ -80,10 +80,6 @@ class HEAVENPipeline(BaseRetrievalPipeline):
         mesh=None,
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "HEAVEN over a mesh is ported with the multi-GPU slice (ROADMAP.md queue 1, item 6)"
-            )
         if stage1_candidate_count <= 0:
             raise ValueError("stage1_candidate_count must be positive")
         if not 0 < stage2_refine_ratio <= 1:
@@ -97,6 +93,7 @@ class HEAVENPipeline(BaseRetrievalPipeline):
         self.single_model = single_vector_embedding_model
         self.multi_model = multi_vector_embedding_model
         self.device = torch.device(device)
+        self.mesh = mesh
         super().__init__(catalog, name)
 
     def _get_pipeline_config(self) -> dict[str, Any]:
@@ -109,13 +106,14 @@ class HEAVENPipeline(BaseRetrievalPipeline):
         }
 
     def _stage1_index(self) -> DenseIndex:
-        return registry.get_or_build(
+        idx = registry.get_or_build(
             self.catalog,
             "dense",
             "image_chunk",
             builder=lambda: DenseIndex.from_catalog(self.catalog, "image_chunk", device=self.device),
             device=self.device,
         )
+        return idx if self.mesh is None else registry.shard(idx, self.mesh)
 
     def _candidate_multi(self, ids: list) -> dict:
         out = {}
@@ -217,5 +215,6 @@ class HEAVENConfig(BasePipelineConfig):
             default_key_token_ratio=self.default_key_token_ratio,
             single_vector_embedding_model=context.load_embedding(self.single_vector_embedding_model),
             multi_vector_embedding_model=context.load_embedding(self.multi_vector_embedding_model),
+            mesh=context.mesh,
             device=context.device,
         )

@@ -11,8 +11,7 @@ dense search is a ``VectorSearchPipeline`` on the build context's device;
 ``index_options`` (the port's addition, ``None`` by default: the JAX
 package's exact index) names that index's mode, so ``{"mode": "verified"}``
 shares the verified index of a ``vector_search_verified`` pipeline over the
-same catalog. A mesh is refused until the multi-GPU slice (ROADMAP.md queue
-1, item 6).
+same catalog. A ``mesh`` goes to that search, which shards its index.
 """
 
 from __future__ import annotations
@@ -47,17 +46,13 @@ class HyDEPipeline(BaseRetrievalPipeline):
     ):
         if "{query}" not in prompt_template:
             raise ValueError("prompt_template must contain '{query}'")
-        if mesh is not None:
-            raise NotImplementedError(
-                "HyDE over a mesh is ported with the multi-GPU slice (ROADMAP.md queue 1, item 6)"
-            )
         self.llm = llm
         self.embedding_model = embedding_model
         self.prompt_template = prompt_template
         self.index_options = index_options
         self._dense = VectorSearchPipeline(
             catalog, name=f"{name}__dense", embedding_model=embedding_model,
-            index_options=index_options, device=device,
+            index_options=index_options, device=device, mesh=mesh,
         )
         super().__init__(catalog, name)
 
@@ -101,5 +96,6 @@ class HyDEConfig(BasePipelineConfig):
             embedding_model=context.load_embedding(self.embedding_model),
             prompt_template=self.prompt_template,
             index_options=self.index_options,
+            mesh=context.mesh,
             device=context.device,
         )

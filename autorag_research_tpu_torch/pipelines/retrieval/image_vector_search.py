@@ -27,6 +27,7 @@ class ImageVectorSearchPipeline(VectorSearchPipeline):
         search_mode: str = "single",
         embedding_model=None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         super().__init__(
             catalog,
@@ -35,6 +36,7 @@ class ImageVectorSearchPipeline(VectorSearchPipeline):
             embedding_model=embedding_model,
             table="image_chunk",
             device=device,
+            mesh=mesh,
         )
 
     def _get_pipeline_config(self) -> dict[str, Any]:
@@ -58,4 +60,5 @@ class ImageVectorSearchConfig(BasePipelineConfig):
             search_mode=self.search_mode,
             embedding_model=context.load_embedding(self.embedding_model),
             device=context.device,
+            mesh=context.mesh,
         )

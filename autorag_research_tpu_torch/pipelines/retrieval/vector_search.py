@@ -15,6 +15,11 @@ Counterpart of ``autorag_research_tpu/pipelines/retrieval/vector_search.py``:
   MaxSim / n_query_vectors. ``maxsim_prefilter`` opts into the two-stage
   proxy prefilter plus exact rerank.
 
+With a ``mesh`` (``BuildContext(mesh=)``) the index is placed over it on
+first use (``index/registry.py::shard``): dense and multi-vector indexes
+row-sharded, IVF as per-shard sub-indexes; ``ivf_contiguous`` has no sharded
+form and is refused at its first search.
+
 The batch path scores every pending query of a page in one search.
 """
 
@@ -58,6 +63,7 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
         index_options: dict | None = None,
         maxsim_prefilter: int | None = None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         if search_mode not in ("single", "multi"):
             raise ValueError(f"unknown search_mode: {search_mode}")
@@ -71,6 +77,7 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
         # multi mode only: two-stage search over k * maxsim_prefilter candidates
         self.maxsim_prefilter = maxsim_prefilter
         self.device = torch.device(device)
+        self.mesh = mesh
         # result persistence routes by the searched table
         self.retrieval_unit = "image_chunk" if table == "image_chunk" else "chunk"
         super().__init__(catalog, name)
@@ -96,7 +103,7 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
         options = dict(self.index_options)
         if kind == "ivf_contiguous" and "device" in options:
             options["placement"] = placement_of(options.pop("device"))
-        return registry.get_or_build(
+        idx = registry.get_or_build(
             self.catalog,
             kind,
             self.table,
@@ -104,6 +111,11 @@ class VectorSearchPipeline(BaseRetrievalPipeline):
             device=self.device,
             **{str(k): str(v) for k, v in sorted(options.items())},
         )
+        if self.mesh is None:
+            return idx
+        if kind == "ivf_contiguous":  # its JAX to_device takes no mesh either
+            raise ValueError("ivf_contiguous has no mesh-sharded form; run it without a mesh")
+        return registry.shard(idx, self.mesh)
 
     # ----------------------------------------------------------------- search
     def _query_embeddings(self, query_ids: list[Any]):
@@ -208,4 +220,5 @@ class VectorSearchConfig(BasePipelineConfig):
             index_options=self.index_options,
             maxsim_prefilter=self.maxsim_prefilter,
             device=context.device,
+            mesh=context.mesh,
         )

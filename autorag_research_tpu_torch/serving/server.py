@@ -607,7 +607,9 @@ def serve_workspace(
     device: str = "cuda",
 ) -> ServingHandle:
     """Build pipelines from the config tree on ``device`` and serve a
-    workspace."""
+    workspace; ``mesh=True`` shards the indexes over
+    ``parallel/mesh.py::device_corpus_mesh(device)`` (every visible card for
+    ``cuda``; one device runs unsharded)."""
     from pathlib import Path
 
     from autorag_research_tpu_torch.cli.config_resolver import ConfigResolver
@@ -616,22 +618,24 @@ def serve_workspace(
     from autorag_research_tpu_torch.pipelines.loader import PipelineLoader
     from autorag_research_tpu_torch.store.catalog import Catalog
 
-    if mesh:
-        raise NotImplementedError(
-            "serving over a mesh is ported with the multi-GPU slice (ROADMAP.md queue 1, item 6)"
-        )
     path = Path(db)
     catalog = Catalog(path / "catalog.db" if path.is_dir() or not path.suffix else path)
     resolver = ConfigResolver(config_path)
     retrieval = retrieval or resolver.all_pipeline_names("retrieval")[:1]
     generation = generation or []
 
+    mesh_obj = None
+    if mesh:
+        from autorag_research_tpu_torch.parallel.mesh import device_corpus_mesh
+
+        mesh_obj = device_corpus_mesh(device)
     configs = {}
     for kind, names in (("retrieval", retrieval), ("generation", generation)):
         for name in names:
             configs[name] = resolver.resolve_pipeline(kind, name)
     context = BuildContext(
-        device=device, models=ModelRegistry(config_path, device=device), pipeline_configs=configs
+        device=device, models=ModelRegistry(config_path, device=device), pipeline_configs=configs,
+        mesh=mesh_obj,
     )
     loader = PipelineLoader(catalog, context)
     # one dependency-resolution implementation (ConfigResolver) for both

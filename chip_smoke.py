@@ -6,7 +6,7 @@
 Drives the port's dense, MaxSim and BM25 (flat, packed, bucketed) retrieval
 paths (``autorag_research_tpu_torch``), the MaxSim pins, the int8 and approx
 serving modes, the hybrid and IVF pipelines through the ``Executor``, the CLI
-and HTTP serving layer, the IVF indexes at 1,000,000 x 768 and the generation
+and HTTP serving layer, the IVF indexes at 500,000 x 768 and the generation
 path (the causal decoder, ``basic_rag`` with ``torch_lm``) at full width,
 reranking and the LLM-driven retrieval wrappers, config #5 (ViDoRe pages:
 image MaxSim, ``heaven``, ``visrag_gen``) through the ``Executor`` and the
@@ -213,8 +213,8 @@ the trained weights), and fails (non-zero exit) on any fault:
     list equal to the pipeline's direct ``_retrieve_batch_by_texts([q],
     10)`` (scores within 1e-6 of max(1, |s|); near-ties of the encoder's
     batch-dependent sums aside), ``stop()`` leaving no thread behind;
-19. the IVF indexes at half ``scripts/bench_ann_scale.py``'s scale: 1,000,000
-    x 768 f32 rows around 2,000 centres (noise 0.3, unit norm) and 256
+19. the IVF indexes at a quarter of ``scripts/bench_ann_scale.py``'s scale:
+    500,000 x 768 f32 rows around 2,000 centres (noise 0.3, unit norm) and 256
     queries, drawn on the card from the seed and read back; the exact rows
     (k = 10) of a verified ``DenseIndex`` (#1, its launches printed), timed;
     ``IVFIndex`` and ``IVFContiguousIndex`` (256-row blocks) with their
@@ -391,6 +391,26 @@ the trained weights), and fails (non-zero exit) on any fault:
     beside the seeded untrained encoder's; ``train --model cross`` for 64
     steps, its ``.npz`` in ``TorchCrossEncoderReranker(params_path=)`` on 32
     queries' verified top-30, the card within ``RR_CE_TOL`` of the CPU.
+25. corpus-sharded retrieval (``parallel/*``) over a mesh of P shards of the
+    card (``corpus_mesh(n_corpus=P, devices=[cuda:0] * P)``; the cards
+    round-robin where the machine has several), each part beside the phase
+    whose data it reuses, every launch count at 0 just before each: (a)
+    after phase 4, a verified ``DenseIndex`` over phase 1's corpus at P = 4
+    and 3 (3 leaves pad rows), 1,024 queries at k = 10: ids equal to phase
+    3's unsharded index's but at sub-ulp near-ties, #1 once a shard a batch,
+    ms a batch beside the unsharded index's; int8 at P = 4 equal to
+    unsharded int8 and within ``INT8_AGREE_MIN`` of the verified ids; (b) at
+    the end of phase 10, its flat BM25 index sharded in place at P = 4: hits
+    equal to the unsharded search, #3 once a shard, no plain version; (c)
+    inside phase 22, ``image_vector_search`` multi and the verified
+    ``vector_search`` over the pages again through the ``Executor`` with
+    ``BuildContext(mesh=)`` at P = 4 (the registry's indexes sharded in
+    place): rows equal to the unsharded runs' (within the rounding term),
+    #9 / #10 once a shard a search, ms a page of 128 queries and the verified
+    ``n_fail``; (d) at the end of phase 19, an ``IVFIndex`` over its first
+    100,000 rows as 4 sub-indexes: recall@10 against an exact search beside
+    the unsharded index's. The kernels line gives each kernel's launches
+    here as ``launches_sharded``.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -473,12 +493,13 @@ SERVE_N, SERVE_Q = 50_000, 1000
 SERVE_PIPELINES = ("vector_search_verified", "bm25", "hybrid_rrf")
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BUCKET = (1, 32, 128), 128, 256
 SERVE_TIMEOUT = 120  # seconds for one HTTP request
-# phase 19: the IVF indexes at half scripts/bench_ann_scale.py's scale
-# (2,000,000 x 768 cut to 1,000,000 for the run's limit when phase 22 joined
-# it; 2,000 centres, noise 0.3, unit norm; 256 queries at k = 10), the JAX
+# phase 19: the IVF indexes at a quarter of scripts/bench_ann_scale.py's
+# scale (2,000,000 x 768 cut to 1,000,000 for the run's limit when phase 22
+# joined it, to 500,000 when phase 25 did; 2,000 centres, noise 0.3, unit
+# norm; 256 queries at k = 10), the JAX
 # test's recall floor (tests/test_ivf.py:38), 32 single-query searches for
 # the latency percentiles, and the determinism check's rebuild size
-IVF_N, IVF_Q, IVF_CENTERS, IVF_NOISE = 1_000_000, 256, 2000, 0.3
+IVF_N, IVF_Q, IVF_CENTERS, IVF_NOISE = 500_000, 256, 2000, 0.3
 IVF_RECALL_MIN, IVF_LAT_Q, IVF_DET_N = 0.9, 32, 200_000
 # phase 17: a prefix of its corpus built natively and by the numpy builder
 PREFIX_N = 50_000
@@ -583,6 +604,18 @@ TRAIN_LOSS_TOL, TRAIN_SGD_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-6, 1e-4
 E2E_FACTS, E2E_DISTRACTORS, E2E_SEQ, E2E_B, E2E_LR, E2E_EPOCHS = 64, 448, 288, 32, 2e-3, 400
 E2E_PROMPT, E2E_NEW = 448, 32
 BI_EPOCHS, BI_STEPS, BI_RESUMED, CROSS_STEPS, RR_TRAIN_Q, RR_TRAIN_K = 3, 150, 200, 64, 32, 30
+# phase 25: corpus-sharded retrieval (parallel/*) over a mesh of P shards on
+# the one card (distinct cards where the machine has several), each part
+# beside the phase whose data it reuses: (a) after phase 4, dense verified at
+# P = 4 and 3 (3 leaves pad rows) against phase 3's index and int8 at 4 over
+# phase 1's 500,000 x 768 corpus, 1,024 queries; (b) BM25 at 4 over phase 10's flat index; (c) config #5 at 4 over
+# phase 22's pages through the Executor; (d) IVF at 4 over the first 100,000
+# rows of phase 19's clustered corpus
+SHARD_P, SHARD_P_ODD, SHARD_IVF_N = 4, 3, 100_000
+# launches of each kernel in phase 25, by name: the kernels line's
+# "launches_sharded"
+SHARDED_LAUNCHES: dict[str, int] = {}
+CARD = ""  # the card's name and power limit (nvidia-smi), set by main
 
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, f32
@@ -656,6 +689,180 @@ def ids_agree(ids, scores, ref_ids, ref_scores) -> tuple[int, bool]:
     mism = ids != ref_ids
     diff = np.abs(scores[mism] - ref_scores[mism])
     return int(mism.sum()), bool((diff <= 4e-7 * (1 + np.abs(ref_scores[mism]))).all())
+
+
+def unit_rows_index(ids, rows: np.ndarray, **kw):
+    """A cosine ``DenseIndex`` over rows already of unit norm (phase 1's
+    corpus): built as ``"ip"``, which keeps the rows as they are (no second
+    normalizing pass, no host copy), then cosine for its queries, as
+    ``DenseIndex.load`` does with saved rows."""
+    from autorag_research_tpu_torch.index.dense import DenseIndex
+
+    idx = DenseIndex(ids, rows, metric="ip", **kw)
+    idx.metric = "cosine"
+    return idx
+
+
+def phase_mesh(p: int):
+    """Phase 25's mesh of P shards: the card listed P times, or the cards
+    round-robin where the machine has more than one."""
+    import torch
+
+    from autorag_research_tpu_torch.parallel.mesh import corpus_mesh
+
+    n = torch.cuda.device_count()
+    mesh = corpus_mesh(n_corpus=p, devices=[torch.device("cuda", i % n) for i in range(p)])
+    if n > 1:
+        log(f"sharded: {n} cards, the mesh over distinct cards: {mesh.corpus_devices()}")
+    return mesh
+
+
+def add_sharded(counts: dict) -> None:
+    for name, c in counts.items():
+        SHARDED_LAUNCHES[name] = SHARDED_LAUNCHES.get(name, 0) + c
+
+
+def sharded_dense_phase(seed: int, dev, corpus: np.ndarray, base) -> None:
+    """Phase 25 (a): a verified ``DenseIndex`` row-sharded over P = 4 and 3
+    shards of phase 1's corpus against ``base``, phase 3's unsharded one (ids
+    equal but at sub-ulp near-ties, as phase 3 holds verified against exact),
+    #1 once a shard a batch; int8 at P = 4 equal to unsharded int8 and within
+    ``INT8_AGREE_MIN`` of the verified ids."""
+    import torch
+
+    from autorag_research_tpu_torch.ops import dense as td
+
+    t_phase = time.perf_counter()
+    q = np.random.default_rng(seed + 250).standard_normal((Q_VERIFIED, DIM), dtype=np.float32)
+    ids = list(range(N_DOCS))
+    ref_s, ref_i = base.topk_rows(q, K)
+    base_ms = wall_ms(lambda: base.topk_rows(q, K), 5)
+    log(f"sharded (a): phase 3's unsharded verified DenseIndex {N_DOCS} x {DIM}, "
+        f"Q={Q_VERIFIED} host queries, k={K}: {base_ms:.3f} ms/batch ({CARD})")
+    for p in (SHARD_P, SHARD_P_ODD):
+        t0 = time.perf_counter()
+        idx = unit_rows_index(ids, corpus, mode="verified", device=dev).to_device(phase_mesh(p))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        rows = idx._device.shard_rows
+        td.reset_launch_counts()
+        s, i = idx.topk_rows(q, K)
+        launches = dict(td.LAUNCHES)
+        n_fail, covered = idx.last_stats
+        n_mism, explained = ids_agree(i, s, ref_i, ref_s)
+        ms = wall_ms(lambda: idx.topk_rows(q, K), 5)
+        log(f"sharded (a): verified DenseIndex over P={p} shards of {rows} rows "
+            f"({p * rows - N_DOCS} pad rows) built in {build_s:.2f} s, "
+            f"{idx.device_bytes() / 1e9:.3f} GB on the card; Q={Q_VERIFIED}, k={K}: {ms:.3f} "
+            f"ms/batch against {base_ms:.3f} unsharded ({CARD}); launches {json.dumps(launches)}; "
+            f"n_fail {n_fail}, covered {covered}; vs unsharded {n_mism}/{i.size} id mismatches "
+            f"(all sub-ulp: {explained}), max |d score| {float(np.abs(s - ref_s).max()):.3e}")
+        if launches["seg_stats_bf16"] != p or launches["dense_topk_stream"]:
+            fail(f"sharded verified search at P={p} launched {launches}, not #1 once a shard")
+        if not explained or not np.isfinite(s).all():
+            fail(f"sharded verified ids at P={p} differ from the unsharded search")
+        add_sharded({"seg_stats_bf16": launches["seg_stats_bf16"]})
+        del idx
+        torch.cuda.empty_cache()
+    base8 = unit_rows_index(ids, corpus, mode="int8", device=dev).to_device()
+    r8_s, r8_i = base8.topk_rows(q, K)
+    base8_ms = wall_ms(lambda: base8.topk_rows(q, K), 5)
+    del base8
+    idx8 = unit_rows_index(ids, corpus, mode="int8", device=dev).to_device(phase_mesh(SHARD_P))
+    s8, i8 = idx8.topk_rows(q, K)
+    ms8 = wall_ms(lambda: idx8.topk_rows(q, K), 5)
+    agree = float(np.mean([len(set(a) & set(b)) / K for a, b in zip(i8, ref_i)]))
+    same = bool(np.array_equal(i8, r8_i)) and bool(np.array_equal(s8, r8_s))
+    log(f"sharded (a): int8 DenseIndex over P={SHARD_P}: {ms8:.3f} ms/batch against {base8_ms:.3f} "
+        f"unsharded ({CARD}); ids and scores equal to unsharded int8: {same}; top-{K} agreement "
+        f"with the verified ids {agree:.4f} (at least {INT8_AGREE_MIN})")
+    if not same or agree < INT8_AGREE_MIN:
+        fail("sharded int8 differs from unsharded int8 or misses its agreement")
+    del idx8
+    torch.cuda.empty_cache()
+    log(f"sharded (a): {time.perf_counter() - t_phase:.1f} s")
+
+
+def sharded_bm25_phase(index, queries: list[str]) -> None:
+    """Phase 25 (b): phase 10's flat ``SparseIndex`` row-sharded in place over
+    P = 4 shards: hits equal to the unsharded v2 route's (and the pruned
+    route's), #3 once a shard, no plain version."""
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    t_phase = time.perf_counter()
+
+    def pairs(rows):
+        return [[(h.doc_id, h.score) for h in row] for row in rows]
+
+    ref = pairs(index.search(queries, K))
+    pruned_ms = wall_ms(lambda: index.search(queries, K), 3)
+    index.tile_skip = False
+    if pairs(index.search(queries, K)) != ref:
+        fail("phase 10's index: the v2 route's hits differ from the pruned route's")
+    v2_ms = wall_ms(lambda: index.search(queries, K), 3)
+    index.tile_skip = True
+    t0 = time.perf_counter()
+    index.to_device(phase_mesh(SHARD_P))
+    shard_s = time.perf_counter() - t0
+    for mod in (td, ts, tm):
+        mod.reset_launch_counts()
+    got = pairs(index.search(queries, K))
+    launches = {n: c for n, c in ts.LAUNCHES.items() if c}
+    plain = {n: c for n, c in {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS}.items() if c}
+    ms = wall_ms(lambda: index.search(queries, K), 3)
+    log(f"sharded (b): BM25 over P={SHARD_P} shards of {index._sharded[0].shard_rows} rows (placed "
+        f"in {shard_s:.2f} s); Q={len(queries)}, k={K}: {ms:.3f} ms/batch against {v2_ms:.3f} "
+        f"unsharded by v2 and {pruned_ms:.3f} by the pruned legs ({CARD}); launches "
+        f"{json.dumps(launches)}, plain calls {json.dumps(plain)}; hits equal: {got == ref}")
+    if set(launches) != {"bm25_topk_v2"} or launches["bm25_topk_v2"] % SHARD_P or plain:
+        fail("the sharded BM25 search did not launch #3 on every shard or took a plain route")
+    if got != ref:
+        fail("sharded BM25 hits differ from the unsharded search")
+    add_sharded(launches)
+    log(f"sharded (b): {time.perf_counter() - t_phase:.1f} s")
+
+
+def sharded_ivf_phase(dev, corpus: np.ndarray, queries: np.ndarray) -> None:
+    """Phase 25 (d): an ``IVFIndex`` over the first ``SHARD_IVF_N`` rows of
+    phase 19's corpus as P = 4 sub-indexes (each its own k-means, nprobe
+    cells a shard), recall@10 against an exact ``DenseIndex`` beside the
+    unsharded index's."""
+    import torch
+
+    from autorag_research_tpu_torch.index.dense import DenseIndex
+    from autorag_research_tpu_torch.index.ivf import IVFIndex
+
+    t_phase = time.perf_counter()
+    sub, ids = corpus[:SHARD_IVF_N], list(range(SHARD_IVF_N))
+    gt = DenseIndex(ids, sub, metric="ip", device=dev).to_device().topk_rows(queries, K)[1]
+
+    def recall(rows) -> float:
+        return float(np.mean([len(set(a) & set(b)) / K for a, b in zip(rows, gt)]))
+
+    t0 = time.perf_counter()
+    ivf = IVFIndex(ids, sub, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    r1 = recall(ivf.topk_rows(queries, K)[1])
+    ms1 = wall_ms(lambda: ivf.topk_rows(queries, K), 3)
+    t0 = time.perf_counter()
+    ivf.to_device(phase_mesh(SHARD_P))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    r4 = recall(ivf.topk_rows(queries, K)[1])
+    ms4 = wall_ms(lambda: ivf.topk_rows(queries, K), 3)
+    log(f"sharded (d): IVFIndex {SHARD_IVF_N} x {DIM} ({ivf.n_cells} cells, nprobe {ivf.nprobe}) "
+        f"built in {build_s:.2f} s, recall@{K} {r1:.4f}, {len(queries)}-query batch {ms1:.3f} ms; "
+        f"as {SHARD_P} sub-indexes of {ivf._shard_cells} cells (built in {shard_s:.2f} s, nprobe "
+        f"{min(ivf.nprobe, ivf._shard_cells)} a shard): recall@{K} {r4:.4f}, batch {ms4:.3f} ms "
+        f"({CARD})")
+    if r4 < IVF_RECALL_MIN:
+        fail(f"the sharded IVF index found {r4:.4f} of the exact top-{K} (at least {IVF_RECALL_MIN})")
+    del ivf
+    torch.cuda.empty_cache()
+    log(f"sharded (d): {time.perf_counter() - t_phase:.1f} s")
 
 
 def make_texts(rng, vocab: list[str], n: int, lo: int, hi: int) -> list[str]:
@@ -738,10 +945,11 @@ def mv_bound(q_lens, dlens, d: int, elt: int, out_bytes: int, peak_flops: float,
     return bound(flops, bytes_, peak_flops, peak_bw)
 
 
-def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> None:
+def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]):
     """The MaxSim path: kernels vs plain at text and page scale, the main
     path (encoder -> exact and verified ``MultiVectorIndex``) with its own
-    launch window, and a SciFact-size multi-vector catalog run."""
+    launch window, and a SciFact-size multi-vector catalog run. Returns the
+    text and page indexes (exact; verified) for phases 15-16."""
     import torch
 
     from autorag_research_tpu_torch.embeddings.torch_encoder import (
@@ -924,7 +1132,7 @@ def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -
                      lambda: index_text.topk_rows(q_mats, K))
     device_breakdown(f"MaxSim verified search, page scale, k={K}",
                      lambda: index_page.topk_rows(q_mats, K))
-    del index_text, index_page, docs_t, lens_t, docs_p, lens_p, side, docs_lo, es, ei
+    del docs_t, lens_t, docs_p, lens_p, side, docs_lo, es, ei
     torch.cuda.empty_cache()
 
     # ---- 8. SciFact-size multi-vector catalog run --------------------------
@@ -980,6 +1188,7 @@ def maxsim_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -
         fail("MaxSim catalog run diverged from the exact search or skipped the scores kernel")
     if not (0.0 <= recall <= 1.0 and 0.0 <= ndcg <= 1.0 and math.isfinite(ndcg)):
         fail(f"MaxSim metrics out of range: recall {recall}, ndcg {ndcg}")
+    return index_text, index_page
 
 
 def unique_rows(n: int, width: int, lo, span: int, gen, dev):
@@ -1492,7 +1701,8 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
                                    ("NQ-like", queries, (q_ids, q_w), BM25_K_LONG, False),
                                    ("rare-term lookups", lookups, (r_ids, r_w), K, True)):
         index.tile_skip = skip
-        ms = wall_ms(lambda: index.search(qs, k), 3)
+        # k = 1,000 builds a million hits on the host: one timed call
+        ms = wall_ms(lambda: index.search(qs, k), 1 if k == BM25_K_LONG else 3)
         if skip:
             route_ms = wall_ms(lambda: index._search_pruned(*qn, di, dw, k, "auto"), 3)
             what = "pruned legs incl. host bounds"
@@ -1587,7 +1797,11 @@ def bm25_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str]) -> 
         bm25_record(kernels, name, case, err, cuda_ms(kern, 5), plain_ms, cuda_ms(lambda: lib(K), 3),
                     *bm25_bound(peak, q_used, slots * 8, BM25_Q * K * 8, tiles=tiles_needed))
         kernels[-1]["launches"] = launches[name]
-    del index, ss, si, qi, qw, ri, rw, di, dw, bitmaps, lib_main, lib_rare, cand, count
+    # ---- 25 (b): the same index row-sharded over the mesh (in place: its
+    # last use) ----------------------------------------------------------
+    del ss, si, qi, qw, ri, rw, di, dw, bitmaps, lib_main, lib_rare, cand, count
+    sharded_bm25_phase(index, queries)
+    del index
     torch.cuda.empty_cache()
 
     # ---- 11. SciFact-size catalog runs through BM25Pipeline, flat and bucketed
@@ -1879,7 +2093,7 @@ def bm25_packed_phases(seed: int, dev, peak: dict, kernels: list) -> None:
                                ("NQ-like", queries, K, False), ("NQ-like", queries, BM25_K_LONG, True),
                                ("rare-term lookups", lookups, K, True)):
         index.tile_skip = skip
-        ms = wall_ms(lambda: index.search(qs, k), 3)
+        ms = wall_ms(lambda: index.search(qs, k), 1 if k == BM25_K_LONG else 3)
         log(f"BM25 short-doc search {label} Q={BM25_Q}, k={k}, tile_skip={skip}: {ms:.3f} ms/batch, "
             f"{BM25_Q / ms * 1e3:.1f} QPS")
     index.tile_skip = True
@@ -1988,11 +2202,14 @@ def bm25_packed_phases(seed: int, dev, peak: dict, kernels: list) -> None:
 
 
 def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[str],
-                       corpus: np.ndarray, query_texts: list[str]) -> None:
+                       corpus: np.ndarray, query_texts: list[str], index_text,
+                       index_page) -> None:
     """The last slice: kernels #11 and #12 beside #9 at the MaxSim shapes, the
     kernels at any k and any d (phase 15); the pins and the serving modes
     through the indexes in their own launch window (phase 16). The corpora,
-    queries and encoders are those of phases 1-7, remade from the same seeds."""
+    queries and encoders are those of phases 1-7: phase 5's text index and
+    (verified) page index, whose f32 tokens the page int8 index quantizes;
+    the rest remade from the same seeds."""
     import torch
 
     from autorag_research_tpu_torch.embeddings.torch_encoder import (
@@ -2000,7 +2217,6 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
         TorchEncoderMultiVectorEmbedding,
     )
     from autorag_research_tpu_torch.index.dense import (
-        DenseIndex,
         _l2_normalize_device,
         l2_normalize,
     )
@@ -2010,19 +2226,15 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     from autorag_research_tpu_torch.ops import maxsim as tm
 
     t0 = time.perf_counter()
-    text_mats, _ = mv_corpus(TEXT_N, TEXT_TD, seed + 10, dev)
-    index_text = MultiVectorIndex(list(range(TEXT_N)), text_mats, device=dev).to_device()
-    del text_mats
-    page_mats, _ = mv_corpus(PAGE_N, PAGE_TD, seed + 11, dev)
-    index_page = MultiVectorIndex(list(range(PAGE_N)), page_mats, device=dev).to_device()
+    page_mats = [m[:n] for m, n in zip(index_page._docs, index_page._lens)]
     index_page8 = MultiVectorIndex(list(range(PAGE_N)), page_mats, mode="int8", device=dev)
     index_page8.to_device()
     del page_mats
     doc_ids = list(range(N_DOCS))
-    index_e = DenseIndex(doc_ids, corpus, device=dev).to_device()
-    index_a = DenseIndex(doc_ids, corpus, mode="approx", device=dev).to_device()
-    index_8 = DenseIndex(doc_ids, corpus, mode="int8", device=dev).to_device()
-    index_8o = DenseIndex(doc_ids[:INT8_ODD_N], corpus[:INT8_ODD_N], mode="int8", device=dev)
+    index_e = unit_rows_index(doc_ids, corpus, device=dev).to_device()
+    index_a = unit_rows_index(doc_ids, corpus, mode="approx", device=dev).to_device()
+    index_8 = unit_rows_index(doc_ids, corpus, mode="int8", device=dev).to_device()
+    index_8o = unit_rows_index(doc_ids[:INT8_ODD_N], corpus[:INT8_ODD_N], mode="int8", device=dev)
     index_8o.to_device()
     mv_texts = make_texts(np.random.default_rng(seed + 12), vocab, MV_Q, 8, MV_TQ + 1)
     mv_embedder = TorchEncoderMultiVectorEmbedding(
@@ -2041,8 +2253,9 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     docs_p, lens_p = index_page._device
     docs_p16 = docs_p.to(torch.bfloat16)
     torch.cuda.synchronize()
-    log(f"slice corpora remade: text and page MultiVectorIndex (f32), page int8, DenseIndex "
-        f"exact / approx / int8 at {N_DOCS} x {DIM} ({time.perf_counter() - t0:.2f} s)")
+    log(f"slice corpora: phase 5's text and page MultiVectorIndex, page int8 from its tokens, "
+        f"DenseIndex exact / approx / int8 at {N_DOCS} x {DIM} remade "
+        f"({time.perf_counter() - t0:.2f} s)")
 
     # ---- 15. kernels #11 and #12 beside #9; any k, any d ------------------
     names = {"maxsim_topk_v1": ("maxsim_v1.cu", 125), "maxsim_topk_v3": ("maxsim_v3.cu", 572)}
@@ -2325,7 +2538,7 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     p8_ms = wall_ms(lambda: index_page8.topk_rows(q_mats, K), 2)
     log(f"MultiVectorIndex int8 page scale, k={K}: top-{K} agreement with exact f32 "
         f"{p8_agree:.4f}, {p8_ms:.3f} ms/batch; device bytes int8 {index_page8.device_bytes()} "
-        f"against f32 {index_page.device_bytes()}")
+        f"against f32 {docs_p.numel() * docs_p.element_size()}")
     if p8_agree < MV_INT8_AGREE_MIN or not np.isfinite(s_p8).all():
         fail(f"MaxSim int8 top-{K} agreement {p8_agree} below {MV_INT8_AGREE_MIN}")
     # the card's first MV_INT8_CPU_Q results against maxsim_topk_int8 on CPU
@@ -2347,7 +2560,7 @@ def pin_serving_phases(seed: int, dev, peak: dict, kernels: list, vocab: list[st
     if not ok:
         fail("the card's int8 MaxSim hits differ from the CPU's")
     del docs8, lens8
-    if not index_page8.device_bytes() * 3.5 < index_page.device_bytes():
+    if not index_page8.device_bytes() * 3.5 < docs_p.numel() * docs_p.element_size():
         fail("the int8 MaxSim index does not hold about 4x fewer device bytes")
     del index_text, index_page, index_page8, index_e, index_a, index_8, index_8o, docs_t, docs_p
     del emb
@@ -2817,8 +3030,8 @@ def ivf_search_report(label: str, idx, q_np, q_dev, gt_rows, probes: dict, host_
 
 
 def ivf_phase(seed: int, dev, n: int = IVF_N, q_cnt: int = IVF_Q, det_n: int = IVF_DET_N) -> None:
-    """Phase 19: the IVF indexes at half ``scripts/bench_ann_scale.py``'s
-    scale (1,000,000 x 768, clustered) on the card, against the exact rows of a
+    """Phase 19: the IVF indexes at a quarter of ``scripts/bench_ann_scale.py``'s
+    scale (500,000 x 768, clustered) on the card, against the exact rows of a
     verified ``DenseIndex`` (#1)."""
     import copy
 
@@ -2947,6 +3160,7 @@ def ivf_phase(seed: int, dev, n: int = IVF_N, q_cnt: int = IVF_Q, det_n: int = I
     if not (same_ivf and same_cc):
         fail("a second IVF build with the same seed differs")
     log("ivf phase 19: " + json.dumps(report, default=float))
+    sharded_ivf_phase(dev, corpus, queries)
 
 
 def load_level(port: int, pipeline: str, queries: list[str], clients: int, n: int) -> dict:
@@ -5251,6 +5465,59 @@ def page_phase(seed: int, dev, peak: dict, kernels: list, n: int = PAGES_N,
                 hits_equal(f"`run`'s {name} query {q}", cli_rows[q],
                            [{"doc_id": d, "score": s} for d, s in runs[name][0][q]])
         log("pages: every row of `run` equals the Executor's")
+
+        # ---- 25 (c): the exact and verified MaxSim pipelines again through the
+        # Executor with BuildContext(mesh=): the registry's indexes above are
+        # row-sharded in place over the mesh --------------------------------------
+        t_sh = time.perf_counter()
+        page_q = q_mats[:128]
+        unsharded_ms = {m: wall_ms(lambda: indexes[m].topk_rows(page_q, K), 3) for m in indexes}
+        mesh = phase_mesh(SHARD_P)
+        mesh_names = {"image_vector_search_multi": "exact", "vector_search_image_verified": "verified"}
+        for name in mesh_names:
+            with open(f"{cfg}/pipelines/retrieval/{name}.yaml") as f:
+                text = f.read()
+            with open(f"{cfg}/pipelines/retrieval/{name}_mesh.yaml", "w") as f:
+                f.write(text)
+        resolver = ConfigResolver(cfg)
+        mesh_configs = {f"{n_}_mesh": resolver.resolve_pipeline("retrieval", f"{n_}_mesh")
+                        for n_ in mesh_names}
+        ctx_mesh = BuildContext(device=dev.type, models=models, pipeline_configs=dict(mesh_configs),
+                                mesh=mesh)
+        for name, mode in mesh_names.items():
+            reset()
+            t0 = time.perf_counter()
+            result = Executor(cat, ExecutorConfig(
+                pipelines=[mesh_configs[f"{name}_mesh"]], metrics=ret_metrics, health_check=True,
+                health_check_queries=2), ctx_mesh).run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched, plain = counts()
+            if not result.success:
+                fail(f"{name} over the mesh failed: {result.report()}")
+            idx = indexes[mode]
+            if idx._mesh is not mesh:
+                fail(f"the {mode} page index was not sharded over the mesh")
+            kernel = "maxsim_topk_v2" if mode == "exact" else "maxsim_scores_v2"
+            searches = -(-q_cnt // 128) + 1  # the pages of 128 and the health check
+            n_launch = launched.get(kernel, 0)
+            got_s, got_i = as_arrays(persisted(f"{name}_mesh"), qids)
+            want_s, want_i = as_arrays(runs[name][0], qids)
+            n_mism, ok, err = mv_agree(got_s, got_i, want_s, want_i, tol_all)
+            stats = f", n_fail {idx.last_stats[0]}, covered {idx.last_stats[1]}" if mode == "verified" else ""
+            sharded_ms = wall_ms(lambda: idx.topk_rows(page_q, K), 3)
+            log(f"sharded (c): {name} over P={SHARD_P} shards of {idx._device[0].shard_rows} pages "
+                f"through the Executor: {secs:.2f} s; launches {json.dumps(launched)}, plain calls "
+                f"{json.dumps(plain)}; rows against the unsharded run's: {n_mism} id mismatches "
+                f"(all within the rounding term: {ok}), max |d score| {err:.3e}; a page of 128 "
+                f"queries {sharded_ms:.3f} ms against {unsharded_ms[mode]:.3f} unsharded{stats} "
+                f"({CARD})")
+            if plain or n_launch < SHARD_P * searches or n_launch % SHARD_P:
+                fail(f"{name} over the mesh: {kernel} not once a shard a search, or a plain route")
+            if not ok:
+                fail(f"{name} over the mesh: rows differ from the unsharded run's")
+            add_sharded(launched)
+        log(f"sharded (c): {time.perf_counter() - t_sh:.1f} s")
         cat.close()
     registry.invalidate()
     del indexes, docs, dlens, docs_lo, vlens, q_all
@@ -5844,12 +6111,14 @@ def main() -> int:
     from autorag_research_tpu_torch.store.catalog import Catalog
     from autorag_research_tpu_torch.store.gt import build_retrieval_gt_from_relations
 
+    global CARD
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    CARD = card
     kind = torch.cuda.get_device_name(0)
     log(card)
     log(f"device: {kind}, count {torch.cuda.device_count()}, torch {torch.__version__}, "
@@ -5881,8 +6150,8 @@ def main() -> int:
     corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
     doc_ids = list(range(N_DOCS))
     t0 = time.perf_counter()
-    index_v = DenseIndex(doc_ids, corpus, mode="verified", device=dev).to_device()
-    index_e = DenseIndex(doc_ids, corpus, mode="exact", device=dev).to_device()
+    index_v = unit_rows_index(doc_ids, corpus, mode="verified", device=dev).to_device()
+    index_e = unit_rows_index(doc_ids, corpus, mode="exact", device=dev).to_device()
     torch.cuda.synchronize()
     log(f"indexes on device: {N_DOCS} x {DIM} f32 + bf16 sidecar "
         f"({time.perf_counter() - t0:.2f} s)")
@@ -6184,14 +6453,19 @@ def main() -> int:
     if not (0.0 <= recall <= 1.0 and 0.0 <= ndcg <= 1.0 and math.isfinite(ndcg)):
         fail(f"metrics out of range: recall {recall}, ndcg {ndcg}")
 
+    # ---- 25 (a). dense verified and int8 row-sharded over a mesh -------------
+    t0 = time.perf_counter()
+    sharded_dense_phase(args.seed, dev, corpus, index_v)
+    log(f"phase 25 (a) (sharded dense): {time.perf_counter() - t0:.1f} s")
+
     del index_v, side, c_lo, q_lo, q_emb, q_norm, emb_v, embedder, chunk_emb
     torch.cuda.empty_cache()
 
-    log(f"phases 1-4: {time.perf_counter() - t_start:.1f} s")
+    log(f"phases 1-4 with 25 (a): {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5-8. the MaxSim path --------------------------------------------
     t0 = time.perf_counter()
-    maxsim_phases(args.seed, dev, peak, kernels, vocab)
+    mv_indexes = maxsim_phases(args.seed, dev, peak, kernels, vocab)
     log(f"phases 5-8: {time.perf_counter() - t0:.1f} s")
 
     # ---- 9-11. the BM25 path ----------------------------------------------
@@ -6206,8 +6480,10 @@ def main() -> int:
 
     # ---- 15-16. the MaxSim pins (#11, #12), any k and d, the serving modes ----
     t0 = time.perf_counter()
-    pin_serving_phases(args.seed, dev, peak, kernels, vocab, corpus, query_texts)
+    pin_serving_phases(args.seed, dev, peak, kernels, vocab, corpus, query_texts, *mv_indexes)
+    del mv_indexes
     log(f"phases 15-16: {time.perf_counter() - t0:.1f} s")
+
     del corpus
     torch.cuda.empty_cache()
 
@@ -6228,7 +6504,7 @@ def main() -> int:
         log(f"phase 18 (CLI and served workspace): {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
-        # ---- 19. the IVF indexes at 1,000,000 x 768 --------------------------
+        # ---- 19. the IVF indexes at 500,000 x 768 ----------------------------
         t0 = time.perf_counter()
         ivf_phase(args.seed, dev)
         log(f"phase 19 (IVF at {IVF_N} x {DIM}): {time.perf_counter() - t0:.1f} s")
@@ -6265,6 +6541,10 @@ def main() -> int:
     page_phase(args.seed, dev, peak, kernels)
     log(f"phase 22 (config #5 through the Executor and `run`): {time.perf_counter() - t0:.1f} s")
 
+    log(f"phase 25 launches (sharded, counts from 0 before each part): "
+        f"{json.dumps(SHARDED_LAUNCHES)}")
+    for entry in kernels:
+        entry["launches_sharded"] = SHARDED_LAUNCHES.get(entry["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,7 +14,8 @@ each with the same defaults).
 to near-ties within that) and equal metric averages; ``report`` prints the
 same leaderboard. ``health-check`` runs on the CPU; ``train`` writes weights
 that the JAX package's loaders read; ``--device cuda`` without a GPU is
-refused, and ``--mesh`` and the hub actions with their ROADMAP.md items.
+refused, and ``train --mesh`` and the hub actions with their ROADMAP.md
+items (``run --mesh`` and ``serve --mesh``: ``tests/test_torch_parallel.py``).
 """
 
 import importlib
@@ -285,13 +286,11 @@ def test_cuda_without_gpu_fails(workspaces, capsys, monkeypatch, argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["run", "--db", "ws", "--mesh"], "item 6"),
-    (["serve", "--db", "ws", "--mesh"], "item 6"),
-    (["train", "--db", "ws", "--out", "p.npz", "--mesh"], "item 6"),
+    (["train", "--db", "ws", "--out", "p.npz", "--mesh"], "item 6b"),
     (["data", "upload", "--db", "ws", "--ingestor", "local"], "item 7"),
     (["data", "download", "--db", "ws3", "--ingestor", "local"], "item 7"),
     (["show", "dumps", "--ingestor", "local"], "item 7"),
-], ids=["run-mesh", "serve-mesh", "train", "upload", "download", "show-dumps"])
+], ids=["train", "upload", "download", "show-dumps"])
 def test_refused_commands_name_their_item(workspaces, capsys, monkeypatch, argv, item):
     monkeypatch.chdir(workspaces[TORCH])
     capsys.readouterr()
@@ -372,12 +371,6 @@ def test_cli_train_command(tmp_path, capsys, model):
         with torch.no_grad():
             got = tlm.decoder(torch.from_numpy(ids).long(), torch.from_numpy(mask)).numpy()
         np.testing.assert_allclose(got, ref, atol=1e-5)
-
-
-def test_serve_workspace_mesh_raises(workspaces):
-    server = _mod(TORCH, "serving.server")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        server.serve_workspace(str(workspaces[TORCH] / "ws"), mesh=True, device="cpu")
 
 
 def test_python_dash_m_entry(tmp_path):

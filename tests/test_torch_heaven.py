@@ -254,10 +254,13 @@ def test_parameter_refusals_equal(tmp_path, kw, match):
 
 
 def test_mesh_refused_and_config_keys(tmp_path):
+    """A mesh is taken (stage 1 shards over it, as in the JAX package; the
+    search with a mesh is ``tests/test_torch_parallel.py``'s); the config
+    keys are the JAX package's."""
     cats = copies(tmp_path)
     heaven = _mod(TORCH, "pipelines.retrieval.heaven")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        heaven.HEAVENPipeline(cats[TORCH], mesh=object(), device="cpu")
+    mesh = _mod(TORCH, "parallel.mesh").corpus_mesh(devices=["cpu"] * 2)
+    assert heaven.HEAVENPipeline(cats[TORCH], mesh=mesh, device="cpu").mesh is mesh
     got = heaven.HEAVENPipeline(cats[TORCH], device="cpu")._get_pipeline_config()
     ref = _mod(JAX, "pipelines.retrieval.heaven").HEAVENPipeline(cats[JAX])._get_pipeline_config()
     assert got == ref

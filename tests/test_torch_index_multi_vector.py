@@ -96,7 +96,7 @@ def test_modes_and_refusals():
         MultiVectorIndex(ids, mats, device="cpu", mode="int8").search(queries, 5, prefilter=2)
     with pytest.raises(ValueError):
         MultiVectorIndex(ids, mats, mode="fast", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         MultiVectorIndex(ids, mats, device="cpu").to_device(mesh=object())
     with pytest.raises(ValueError):
         MultiVectorIndex(ids, mats, device="cpu", mode="verified").search(queries, 5, prefilter=2)

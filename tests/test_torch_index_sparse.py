@@ -294,15 +294,15 @@ def test_device_layout_pads_slots_to_a_multiple_of_four():
 
 
 def test_bucketize_and_mesh_raise():
-    # bucketize > 1 builds and searches (a one-bucket corpus here); only a
-    # mesh still raises
+    # bucketize > 1 builds and searches (a one-bucket corpus here); a mesh
+    # that is not a DeviceMesh raises (sharding: tests/test_torch_parallel.py)
     from autorag_research_tpu_torch.pipelines.retrieval.bm25 import BM25Pipeline
     from autorag_research_tpu_torch.store.catalog import Catalog
 
     idx = SparseIndex([0], ["a"], bucketize=3, device="cpu")
     assert [[h.doc_id for h in r] for r in idx.search(["a", "b"], 2)] == [[0], []]
     assert len(idx._device_buckets) == 1
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         SparseIndex([0], ["a"], device="cpu").to_device(mesh=object())
     cat = Catalog(":memory:")
     assert BM25Pipeline(cat, bucketize=2, device="cpu").bucketize == 2

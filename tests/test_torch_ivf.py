@@ -14,7 +14,8 @@ with the ``vector_search_ivf.yaml`` template, ``serve_workspace``).
 - A full probe equals the exact ``DenseIndex`` (ids equal, scores within
   1e-6 relative); recall@10 at 4 of 20 cells above the JAX test's 0.9.
 - No document is dropped or doubled, with small pad factors and a tiny
-  corpus; two builds with one seed are bitwise equal; a mesh is refused.
+  corpus; two builds with one seed are bitwise equal; a mesh that is not a
+  ``DeviceMesh`` is refused.
 - The Executor: the JAX and the port Executor over copies of one catalog
   retrieve the same ids; the CLI's ``run`` persists what a direct search
   returns; a served IVF workspace answers as the pipeline does.
@@ -213,7 +214,7 @@ def test_device_placement_and_mesh_refused(clustered):
     t = IVFIndex(ids, points, n_cells=8, device=CPU)
     assert all(x.device.type == "cpu" for x in t._device)
     assert t.device_bytes() == (len(ids) + 1) * 48 * 4 + 8 * 48 * 4 + t.members.size * 4
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # sharding: tests/test_torch_parallel.py
         t.to_device(mesh=object())
     if not torch.cuda.is_available():  # the default is the card, never the CPU in its place
         with pytest.raises((RuntimeError, AssertionError)):

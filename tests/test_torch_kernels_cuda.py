@@ -1684,3 +1684,78 @@ def test_device_fusers_on_the_card_match_their_cpu_results(cuda_device, pad):
                              ("dbsf", (None, None))):
             both(fuse_batch_cc, ids[0], scores[0], ids[1], scores[1], weight=0.5, top_k=top_k,
                  normalize_method=method, pipeline_1_min=mins[0], pipeline_2_min=mins[1])
+
+
+# ------------------------------------------------- corpus-sharded retrieval
+def _cuda_mesh(p):
+    from autorag_research_tpu_torch.parallel.mesh import corpus_mesh
+
+    return corpus_mesh(n_corpus=p, devices=[torch.device("cuda", 0)] * p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [2, 3, 4])
+@pytest.mark.parametrize("mode", ["exact", "verified", "int8"])
+def test_sharded_dense_index_on_repeated_card(cuda_device, mode, p):
+    """A ``DenseIndex`` over P shards of one card gives the unsharded
+    index's ids and scores; verified launches #1 once a shard that holds
+    rows (shards are whole 2,048-row blocks: at P = 4 the last of 5,000 rows
+    lies in shard 2, and shard 3 holds only padding)."""
+    rng = np.random.default_rng(70 + p)
+    emb = _eighths(rng, (5000, 96))
+    emb[4500] = emb[10]  # a tie across shards
+    q = _eighths(rng, (64, 96))
+    ids = list(range(5000))
+    ref = DenseIndex(ids, emb, mode=mode, device=cuda_device).topk_rows(q, 10)
+    idx = DenseIndex(ids, emb, mode=mode, device=cuda_device).to_device(_cuda_mesh(p))
+    before = td.LAUNCHES["seg_stats_bf16"]
+    got = idx.topk_rows(q, 10)
+    if mode == "verified":
+        rows = idx._device.shard_rows
+        assert td.LAUNCHES["seg_stats_bf16"] - before == sum(s * rows < 5000 for s in range(p))
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [2, 4])
+def test_sharded_bm25_on_repeated_card(cuda_device, p):
+    """A ``SparseIndex`` over P shards of one card: #3 once a shard, hits of
+    the unsharded index, no plain version."""
+    from autorag_research_tpu_torch.index.sparse import SparseIndex
+    from autorag_research_tpu_torch.ops import sparse as ts
+
+    rng = np.random.default_rng(90 + p)
+    vocab = [f"t{i}" for i in range(300)]
+    docs = [" ".join(rng.choice(vocab, size=int(rng.integers(70, 90)))) for _ in range(3001)]
+    queries = [" ".join(rng.choice(vocab, size=6)) for _ in range(40)]
+    ref = SparseIndex(list(range(3001)), docs, device=cuda_device).search(queries, 10, method="xla")
+    idx = SparseIndex(list(range(3001)), docs, device=cuda_device).to_device(_cuda_mesh(p))
+    before, plain = ts.LAUNCHES["bm25_topk_v2"], dict(ts.PLAIN_CALLS)
+    got = idx.search(queries, 10)
+    assert ts.LAUNCHES["bm25_topk_v2"] - before == p and dict(ts.PLAIN_CALLS) == plain
+    assert [[h.doc_id for h in r] for r in got] == [[h.doc_id for h in r] for r in ref]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,k", [("exact", 10), ("exact", 40), ("verified", 10)])
+def test_sharded_multi_vector_on_repeated_card(cuda_device, mode, k):
+    """A ``MultiVectorIndex`` over 4 shards of one card: #9 (k <= 16) or
+    #10 (k = 40, the verified prescreen) once a shard, the unsharded
+    index's ids."""
+    from autorag_research_tpu_torch.index.multi_vector import MultiVectorIndex
+    from autorag_research_tpu_torch.ops import maxsim as tm
+
+    rng = np.random.default_rng(11)
+    mats = [_eighths(rng, (int(rng.integers(20, 60)), 128)) for _ in range(301)]
+    mats[250] = mats[3]
+    queries = [_eighths(rng, (16, 128)) for _ in range(24)]
+    ids = list(range(301))
+    ref = MultiVectorIndex(ids, mats, mode=mode, device=cuda_device).topk_rows(queries, k)
+    idx = MultiVectorIndex(ids, mats, mode=mode, device=cuda_device).to_device(_cuda_mesh(4))
+    before = dict(tm.LAUNCHES)
+    got = idx.topk_rows(queries, k)
+    name = "maxsim_topk_v2" if (mode == "exact" and k <= 16) else "maxsim_scores_v2"
+    assert tm.LAUNCHES[name] - before[name] >= 4
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-6)

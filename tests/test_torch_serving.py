@@ -11,10 +11,8 @@ generation interface covers the generation batcher's grouping by ``top_k``
 in the port. Every wait on a batcher or an HTTP call has a timeout of a few
 seconds.
 
-Cases that wait, and why:
-
-- ``test_serving_with_mesh_sharded_index``: a mesh-sharded index, ROADMAP.md
-  queue 1, item 6 (``serve_workspace(mesh=True)`` raises until then).
+``test_serving_with_mesh_sharded_index`` serves a corpus sharded over 8
+virtual CPU devices (JAX) and over the CPU listed 8 times (the port).
 
 The generation cases (``test_generate_known_and_adhoc``,
 ``test_generate_batched_endpoint``, ``test_generate_batch_uses_batch_llm``,
@@ -285,6 +283,40 @@ def test_serving_multi_vector_pipeline(tmp_path):
                           rtol=1e-5)
         assert code == 200
         assert data["results"][0][0]["doc_id"] == 0 and data["results"][1][0]["doc_id"] == 2
+    finally:
+        for h in hs.values():
+            h.stop()
+
+
+def test_serving_with_mesh_sharded_index(tmp_path):
+    """``tests/test_serving.py``'s case: a dense corpus sharded over 8
+    devices behind the HTTP API, single and batched requests, the same hits
+    from both packages."""
+    def build(cat):
+        emb = _mod(TORCH, "embeddings").MockEmbedding(dim=16)
+        cat.embedding_dim = 16
+        docs = [f"unique document number {i}" for i in range(64)]
+        cat.add_chunks([{"id": i, "contents": d, "embedding": emb.embed_query(d)}
+                        for i, d in enumerate(docs)])
+
+    cats = copies(tmp_path, build)
+    meshes = {JAX: _mod(JAX, "parallel.mesh").corpus_mesh(n_corpus=8),
+              TORCH: _mod(TORCH, "parallel.mesh").corpus_mesh(devices=["cpu"] * 8)}
+    hs = {}
+    for pkg, cat in cats.items():
+        pipe = _mod(pkg, "pipelines.retrieval.vector_search").VectorSearchPipeline(
+            cat, "vs_mesh", embedding_model=_mod(pkg, "embeddings").MockEmbedding(dim=16),
+            mesh=meshes[pkg], **_kw(pkg))
+        hs[pkg] = serve(pkg, cat, {"vs": pipe}, batch_window_ms=10)
+    try:
+        code, data = both(hs, "/search", {"query": "unique document number 42", "top_k": 3},
+                          rtol=1e-5)
+        assert code == 200 and data["results"][0][0]["doc_id"] == 42
+        code, data = both(hs, "/search", {"queries": ["unique document number 1",
+                                                      "unique document number 60"], "top_k": 1},
+                          rtol=1e-5)
+        assert [r[0]["doc_id"] for r in data["results"]] == [1, 60]
+        assert hs[TORCH].retrieval_pipelines["vs"]._index()._sharded
     finally:
         for h in hs.values():
             h.stop()

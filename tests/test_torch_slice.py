@@ -159,6 +159,7 @@ ENTRY_MODULES = [
         "embeddings.openai_compat", "embeddings.infinity", "llm.openai_compat", "llm.providers",
         "pipelines.retrieval.heaven", "pipelines.generation.visrag_gen",
         "models.trainer", "models.lm_trainer", "embeddings.torch_encoder",
+        "parallel", "parallel.mesh", "parallel.sharded", "parallel.distributed",
         *(f"pipelines.generation.{g}" for g in (
             "ircot", "search_r1", "self_rag", "adaptive_rag", "question_decomposition",
             "dynamic_rag", "deep_rag", "hybrid_deep_searcher", "et2rag", "spd_rag", "main_rag",

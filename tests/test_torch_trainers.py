@@ -254,7 +254,7 @@ def test_resume_no_checkpoint_is_fresh_start(catalogs, tmp_path):
 
 
 def test_mesh_refused_naming_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         ttr.BiEncoderTrainer(EncoderConfig(**CK), mesh=object(), device="cpu")
 
 

@@ -181,8 +181,10 @@ def test_hyde_validation(tmp_path):
         with pytest.raises(ValueError, match="query"):
             _mod(pkg, "pipelines.retrieval.hyde").HyDEPipeline(
                 cats[pkg], prompt_template="no placeholder", **_kw(pkg))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _mod(TORCH, "pipelines.retrieval.hyde").HyDEPipeline(cats[TORCH], mesh=object(), device="cpu")
+    # a mesh goes to the dense search (sharded search: tests/test_torch_parallel.py)
+    mesh = _mod(TORCH, "parallel.mesh").corpus_mesh(devices=["cpu"] * 2)
+    pipe = _mod(TORCH, "pipelines.retrieval.hyde").HyDEPipeline(cats[TORCH], mesh=mesh, device="cpu")
+    assert pipe._dense.mesh is mesh
 
 
 # ---------------------------------------------------------- query rewrite
