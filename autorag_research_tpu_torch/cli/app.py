@@ -15,9 +15,10 @@ The port's copy of the JAX package's ``cli/app.py``. The global ``--device``
 asked for ``cuda`` on a machine with no GPU, they fail rather than run on the
 CPU. ``run --mesh`` and ``serve --mesh`` shard the indexes over every visible
 card (``parallel/mesh.py::device_corpus_mesh``; one card, or ``--device
-cpu``, runs unsharded). Refused until the port has what they need, each
-naming its ROADMAP.md item: ``train --mesh`` (item 6b), ``show dumps`` and
-the hub ``data`` actions ``upload`` / ``download`` (item 7).
+cpu``, runs unsharded); ``train --model bi --mesh`` trains over a ``(dp, tp)``
+mesh of them (``parallel/mesh.py::device_train_mesh``, the JAX CLI's rule).
+``show dumps`` and ``data upload`` / ``download`` reach the HF Hub
+(``data/hf_storage.py``).
 
 Entry point: ``python -m autorag_research_tpu_torch.cli ...``
 """
@@ -33,20 +34,12 @@ from pathlib import Path
 
 logger = logging.getLogger("AutoRAG-Research-TPU")
 
-ITEM_TRAIN_MESH = "ROADMAP.md queue 1, item 6b (training over a (dp, tp) mesh)"
-ITEM_HUB = "ROADMAP.md queue 1, item 7 (the hub dumps with data/hf_storage.py)"
-
 
 def _setup_logging(verbose: bool) -> None:
     logging.basicConfig(
         level=logging.DEBUG if verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
-
-
-def _refuse(what: str, item: str) -> int:
-    print(f"{what} is not in the PyTorch port yet: {item}", file=sys.stderr)
-    return 2
 
 
 def _check_device(device: str) -> str | None:
@@ -164,7 +157,23 @@ def cmd_show(args) -> int:
         for p in sorted(root.glob("**/catalog.db")):
             print(p.parent)
     elif what == "dumps":
-        return _refuse("show dumps", ITEM_HUB)
+        # prebuilt-workspace dumps on HF Hub (reference cli/commands/show.py:30-186)
+        import os
+
+        from autorag_research_tpu_torch.data.hf_storage import DEFAULT_ORG, list_dumps
+        from autorag_research_tpu_torch.data.registry import list_ingestors
+        from autorag_research_tpu_torch.exceptions import StoreError
+
+        names = [args.ingestor] if args.ingestor else [i.name for i in list_ingestors()]
+        token = os.environ.get("HF_TOKEN")
+        for name in names:
+            try:
+                dumps = list_dumps(name, org=args.org or DEFAULT_ORG, token=token)
+            except StoreError as exc:
+                print(f"{name:16s} <unavailable: {exc}>", file=sys.stderr)
+                continue
+            for d in dumps:
+                print(f"{name:16s} {d}")
     else:
         print(f"unknown 'show {what}'", file=sys.stderr)
         return 1
@@ -205,14 +214,57 @@ def _restore_tarball(src: Path, workspace: Path) -> int:
 
 
 def cmd_data(args) -> int:
-    """dump/restore locally (reference ``cli/commands/data.py:33-200``); the
-    hub actions wait for ``data/hf_storage.py``."""
+    """dump/restore locally; upload/download distribute dumps via HF Hub
+    dataset repos (reference ``cli/commands/data.py:33-200`` +
+    ``data/hf_storage.py:17-152``)."""
+    import os
+
+    from autorag_research_tpu_torch.exceptions import StoreError
+
     workspace = Path(args.db)
+    token = os.environ.get("HF_TOKEN")
     if args.action == "dump":
         return _dump_workspace(workspace, Path(args.file or f"{workspace.name}.dump.tar.gz"))
     if args.action == "restore":
         return _restore_tarball(Path(args.file), workspace)
-    return _refuse(f"data {args.action}", ITEM_HUB)
+    if args.action == "upload":
+        from autorag_research_tpu_torch.data.hf_storage import DEFAULT_ORG, upload_dump
+
+        ingestor = args.ingestor or workspace.name
+        dump = Path(args.file or f"{workspace.name}.dump.tar.gz")
+        if not dump.exists():
+            rc = _dump_workspace(workspace, dump)
+            if rc:
+                return rc
+        try:
+            ref = upload_dump(dump, ingestor, org=args.org or DEFAULT_ORG, token=token)
+        except StoreError as exc:
+            print(str(exc), file=sys.stderr)
+            return 1
+        print(f"uploaded {dump} -> hf://datasets/{ref}")
+        return 0
+    if args.action == "download":
+        import tempfile
+
+        from autorag_research_tpu_torch.data.hf_storage import DEFAULT_ORG, download_dump
+
+        if not args.ingestor:
+            print("data download requires --ingestor", file=sys.stderr)
+            return 1
+        if workspace.exists():
+            print(f"refusing to restore over existing {workspace}", file=sys.stderr)
+            return 1
+        dump_name = args.file or f"{workspace.name}.dump.tar.gz"
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                path = download_dump(
+                    args.ingestor, dump_name, tmp, org=args.org or DEFAULT_ORG, token=token
+                )
+            except StoreError as exc:
+                print(str(exc), file=sys.stderr)
+                return 1
+            return _restore_tarball(path, workspace)
+    return 0
 
 
 # ---------------------------------------------------------------------- drop
@@ -347,8 +399,6 @@ def cmd_train(args) -> int:
     (``params_path``) and ``torch_lm`` (``checkpoint``) load."""
     from autorag_research_tpu_torch.models.encoder import EncoderConfig
 
-    if args.mesh:
-        return _refuse("train --mesh", ITEM_TRAIN_MESH)
     catalog = _open_catalog(args.db)
     cfg_kwargs = {}
     if args.hidden:
@@ -386,9 +436,14 @@ def cmd_train(args) -> int:
     else:
         from autorag_research_tpu_torch.models.trainer import BiEncoderTrainer
 
+        mesh = None
+        if args.mesh:
+            from autorag_research_tpu_torch.parallel.mesh import device_train_mesh
+
+            mesh = device_train_mesh(args.device)
         trainer = BiEncoderTrainer(
             config, lr=args.lr, batch_size=args.batch_size,
-            optimizer=args.optimizer, device=args.device,
+            optimizer=args.optimizer, mesh=mesh, device=args.device,
         )
         report = trainer.train(
             catalog, epochs=args.epochs, max_steps=args.max_steps,
@@ -465,7 +520,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", choices=["sgd", "adamw"], default="adamw")
     p.add_argument("--hidden", type=int, default=None)
     p.add_argument("--layers", type=int, default=None)
-    p.add_argument("--mesh", action="store_true", help=f"refused until {ITEM_TRAIN_MESH}")
+    p.add_argument("--mesh", action="store_true", help="(bi) shard over a (dp, tp) mesh")
     p.add_argument("--checkpoint-dir", default=None, help="(bi) save / auto-resume dir")
     p.set_defaults(func=cmd_train, on_device=True)
 
@@ -487,16 +542,18 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["datasets", "ingestors", "pipelines", "metrics", "databases", "dumps"],
     )
     p.add_argument("--root", default=None)
-    p.add_argument("--ingestor", default=None, help=f"(dumps) refused until {ITEM_HUB}")
-    p.add_argument("--org", default=None, help=f"(dumps) refused until {ITEM_HUB}")
+    p.add_argument("--ingestor", default=None, help="(dumps) ingestor to list hub dumps for")
+    p.add_argument("--org", default=None, help="(dumps) HF org for dump repos")
     p.set_defaults(func=cmd_show)
 
     p = sub.add_parser("data", help="dump/restore workspace artifacts")
     p.add_argument("action", choices=["dump", "restore", "upload", "download"])
     p.add_argument("--db", required=True)
-    p.add_argument("--file", default=None, help="dump tarball path")
-    p.add_argument("--ingestor", default=None, help=f"(upload/download) refused until {ITEM_HUB}")
-    p.add_argument("--org", default=None, help=f"(upload/download) refused until {ITEM_HUB}")
+    p.add_argument("--file", default=None,
+                   help="dump tarball path (local) or dump filename (hub)")
+    p.add_argument("--ingestor", default=None,
+                   help="ingestor name keying the hub dump repo ({org}/{ingestor}-dumps)")
+    p.add_argument("--org", default=None, help="HF org for dump repos")
     p.set_defaults(func=cmd_data)
 
     p = sub.add_parser("drop", help="delete a workspace")

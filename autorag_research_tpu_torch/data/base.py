@@ -5,20 +5,22 @@ an ingestion service, loads a benchmark dataset, writes queries/chunks/GT into
 the catalog, and drives embedding (single-vector ``embed_all`` or
 late-interaction ``embed_all_late_interaction``).
 
-The port's copy of the JAX package's ``data/base.py``: the text base and the
-multimodal base (page images as ``image_chunk`` rows). The download cache
-``DATA_DIR`` waits with the network-bound text ingestors and the hub dumps
-(ROADMAP.md queue 1, item 7).
+The port's copy of the JAX package's ``data/base.py``: the text base, the
+multimodal base (page images as ``image_chunk`` rows) and ``DATA_DIR``, the
+download cache of the BEIR ingestor.
 """
 
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
+from pathlib import Path
 from typing import Literal
 
 from autorag_research_tpu_torch.store.ingestion import IngestionService
 
 RANDOM_SEED = 42  # gold-preserving subsampling seed, as in the reference
+
+DATA_DIR = Path.home() / ".cache" / "autorag_research_tpu" / "datasets"
 
 
 class DataIngestor(ABC):

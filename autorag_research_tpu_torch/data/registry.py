@@ -6,13 +6,10 @@ auto-extracted from ``__init__`` type hints (Literal -> choices); plugin
 ingestors are discovered from the ``autorag_research_tpu_torch.ingestors``
 entry-points group.
 
-The port's copy of the JAX package's ``data/registry.py``, with the offline
-ingestors (``local``, ``synthetic``) and the visual-document ones
-(``vidore``, ``vidorev2``, ``vidorev3``, ``visrag``, ``sds_kopub_vdr``,
-``kovidorev2``; they read a local ``datasets.save_to_disk`` snapshot or
-injected ``data=``). The network-bound text ingestors (BEIR, MTEB and the
-other hub text datasets) are ported with ROADMAP.md queue 1, item 7; until
-then :func:`get_ingestor` refuses them with its not-found error.
+The port's copy of the JAX package's ``data/registry.py``: it autoloads the
+same ingestor modules, the port's copies of them. Offline, the hub-backed
+ones read a local ``datasets.save_to_disk`` snapshot or injected ``data=``,
+and BEIR a local directory (``data_dir``).
 """
 
 from __future__ import annotations
@@ -28,8 +25,15 @@ _REGISTRY: dict[str, "IngestorInfo"] = {}
 _DATA_MODULES = (
     "autorag_research_tpu_torch.data.local",
     "autorag_research_tpu_torch.data.synthetic",
+    "autorag_research_tpu_torch.data.beir",
+    "autorag_research_tpu_torch.data.text_mteb",
+    "autorag_research_tpu_torch.data.ragbench",
+    "autorag_research_tpu_torch.data.mrtydi",
+    "autorag_research_tpu_torch.data.bright",
+    "autorag_research_tpu_torch.data.crag",
     "autorag_research_tpu_torch.data.vidore",
     "autorag_research_tpu_torch.data.visrag",
+    "autorag_research_tpu_torch.data.open_ragbench",
 )
 
 
@@ -127,8 +131,7 @@ def get_ingestor(name: str) -> IngestorInfo:
     _autoload()
     if name not in _REGISTRY:
         raise KeyError(
-            f"unknown ingestor '{name}'; available: {sorted(set(i.name for i in _REGISTRY.values()))} "
-            "(the network-bound text ingestors are ported with ROADMAP.md queue 1, item 7)"
+            f"unknown ingestor '{name}'; available: {sorted(set(i.name for i in _REGISTRY.values()))}"
         )
     return _REGISTRY[name]
 

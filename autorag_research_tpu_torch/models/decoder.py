@@ -14,7 +14,9 @@ causal transformer with KV-cache greedy / temperature decoding.
   the loop;
 - weights are tied (logits = x @ embed.T);
 - ``lm_train_step`` is one next-token cross-entropy SGD step by autograd (the
-  JAX step is ``jax.value_and_grad`` over plain XLA).
+  JAX step is ``jax.value_and_grad`` over plain XLA);
+- ``param_specs`` is the JAX spec tree, ``shard_params`` / ``gather_params``
+  place the weights on a ``(dp, tp)`` mesh and back (``parallel/train.py``).
 
 The numerics follow the JAX model: layer norm with eps 1e-6 over the biased
 variance (the encoder's ``_layer_norm``), a -1e30 attention mask under a
@@ -69,6 +71,43 @@ class DecoderConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden // self.heads
+
+
+def param_specs(config: DecoderConfig) -> dict:
+    """Spec tree over ("dp", "tp"), the JAX ``param_specs`` with each
+    ``PartitionSpec`` as a tuple: the encoder's, less ``out_proj`` (the
+    output product is tied to ``embed``)."""
+    block = {
+        "ln1": {"scale": (None,), "bias": (None,)},
+        "qkv": (None, "tp"),
+        "attn_out": ("tp", None),
+        "ln2": {"scale": (None,), "bias": (None,)},
+        "mlp_in": (None, "tp"),
+        "mlp_bias": ("tp",),
+        "mlp_out": ("tp", None),
+    }
+    return {
+        "embed": (None, "tp"),
+        "pos": (None, "tp"),
+        "final_ln": {"scale": (None,), "bias": (None,)},
+        "blocks": [block for _ in range(config.layers)],
+    }
+
+
+def shard_params(params, config: DecoderConfig, mesh):
+    """``params`` (a ``CausalDecoder`` or its flat state dict) placed on a
+    ``(dp, tp)`` mesh by :func:`param_specs` (``parallel/train.py``)."""
+    from autorag_research_tpu_torch.parallel.train import shard_tree
+
+    return shard_tree(params, param_specs(config), mesh, config)
+
+
+def gather_params(sharded) -> dict[str, torch.Tensor]:
+    """The flat CPU state dict of a sharded tree (the ``.npz`` keys of
+    ``JaxLM.save``)."""
+    from autorag_research_tpu_torch.parallel.train import gather_tree
+
+    return gather_tree(sharded)
 
 
 class CausalDecoder(nn.Module):
@@ -214,10 +253,16 @@ def next_token_nll(logits: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor)
     """Mean next-token cross-entropy of [B, T, V] logits over the positions
     where ``valid`` [B, T] holds; position p predicts ``ids[:, p + 1]``
     (``roll(ids, -1)``, as the JAX losses take it)."""
+    nll = token_nll(logits, ids)
+    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1)
+
+
+def token_nll(logits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """[B, T] cross-entropy of each position's logits against the next
+    token (``roll(ids, -1)`` along the row)."""
     targets = torch.roll(ids.long(), -1, dims=1)
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1)
+    return -torch.gather(logp, -1, targets[..., None])[..., 0]
 
 
 def lm_loss(decoder: CausalDecoder, batch: dict) -> torch.Tensor:

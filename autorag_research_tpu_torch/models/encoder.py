@@ -10,6 +10,10 @@ transformer bi-encoder.
   every parameter, by autograd (the JAX step is ``jax.value_and_grad`` over
   plain XLA: no Pallas kernel has a backward).
 
+``param_specs`` is the JAX spec tree (a spec a tuple of mesh axis names or
+None); ``shard_params`` / ``gather_params`` place the weights on a ``(dp, tp)``
+mesh and back (``parallel/train.py``).
+
 Weights keep the JAX package's layout, ``[in, out]`` used as ``x @ W``, and
 the module's ``state_dict`` keys are the JAX package's flattened parameter
 names (``embed``, ``blocks.0.qkv``, ``final_ln.scale``, ...), so
@@ -44,6 +48,43 @@ class EncoderConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden // self.heads
+
+
+def param_specs(config: EncoderConfig) -> dict:
+    """Spec tree: hidden-dim tensor parallelism over axis 'tp' (the JAX
+    ``param_specs``, each ``PartitionSpec`` as a tuple)."""
+    block = {
+        "ln1": {"scale": (None,), "bias": (None,)},
+        "qkv": (None, "tp"),
+        "attn_out": ("tp", None),
+        "ln2": {"scale": (None,), "bias": (None,)},
+        "mlp_in": (None, "tp"),
+        "mlp_bias": ("tp",),
+        "mlp_out": ("tp", None),
+    }
+    return {
+        "embed": (None, "tp"),
+        "pos": (None, "tp"),
+        "out_proj": (None, None),
+        "final_ln": {"scale": (None,), "bias": (None,)},
+        "blocks": [block for _ in range(config.layers)],
+    }
+
+
+def shard_params(params, config: EncoderConfig, mesh):
+    """``params`` (a ``RetrievalEncoder`` or its flat state dict) placed on a
+    ``(dp, tp)`` mesh by :func:`param_specs` (``parallel/train.py``)."""
+    from autorag_research_tpu_torch.parallel.train import shard_tree
+
+    return shard_tree(params, param_specs(config), mesh, config)
+
+
+def gather_params(sharded) -> dict[str, torch.Tensor]:
+    """The flat CPU state dict of a sharded tree: what ``from_jax_params``
+    gives, and, as numpy, what ``encoder_params_to_jax`` gives."""
+    from autorag_research_tpu_torch.parallel.train import gather_tree
+
+    return gather_tree(sharded)
 
 
 class _LayerNorm(nn.Module):
@@ -128,15 +169,21 @@ class RetrievalEncoder(nn.Module):
             y = nn.functional.gelu(y @ blk.mlp_in + blk.mlp_bias, approximate="tanh")
             x = x + y @ blk.mlp_out
         x = self.final_ln(x)
-        tokens = x @ self.out_proj
-        if cfg.multi_vector:
-            tokens = tokens * mask[..., None]
-            norms = torch.linalg.vector_norm(tokens, dim=-1, keepdim=True)
-            return tokens / torch.where(norms == 0, 1.0, norms)
-        maskf = mask.to(tokens.dtype)[..., None]
-        pooled = (tokens * maskf).sum(1) / torch.clamp(maskf.sum(1), min=1.0)
-        norms = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
-        return pooled / torch.where(norms == 0, 1.0, norms)
+        return pool_tokens(x @ self.out_proj, mask, cfg.multi_vector)
+
+
+def pool_tokens(tokens: torch.Tensor, mask: torch.Tensor, multi_vector: bool) -> torch.Tensor:
+    """The encoder's head over projected [B, T, out_dim] tokens: masked and
+    L2-normalized per token (multi-vector), else masked mean pool then L2
+    norm."""
+    if multi_vector:
+        tokens = tokens * mask[..., None]
+        norms = torch.linalg.vector_norm(tokens, dim=-1, keepdim=True)
+        return tokens / torch.where(norms == 0, 1.0, norms)
+    maskf = mask.to(tokens.dtype)[..., None]
+    pooled = (tokens * maskf).sum(1) / torch.clamp(maskf.sum(1), min=1.0)
+    norms = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return pooled / torch.where(norms == 0, 1.0, norms)
 
 
 def info_nce_loss(q_emb: torch.Tensor, d_emb: torch.Tensor, temperature: float = 0.05):

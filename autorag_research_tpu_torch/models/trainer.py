@@ -6,7 +6,11 @@ Counterpart of ``autorag_research_tpu/models/trainer.py``. The trainer:
    query paired with one gold chunk; in-batch negatives);
 2. runs ``contrastive_train_step`` (plain SGD) or the same loss under
    ``torch.optim.AdamW`` (b1 0.9, b2 0.999, eps 1e-8, decay on the old
-   parameter: the update ``optax.adamw`` computes) on one device;
+   parameter: the update ``optax.adamw`` computes) on one device, or, given
+   a ``(dp, tp)`` mesh (``parallel/mesh.py::train_mesh``), the same step over
+   the mesh (``parallel/train.py``): the weights and the AdamW state sharded
+   by ``param_specs``, the batch rows over ``dp``, the batch size aligned
+   down to a multiple of ``dp`` as in the JAX trainer;
 3. checkpoints under ``directory/step_<N>`` and resumes from the latest;
 4. saves the trained weights as the flat ``.npz`` that
    ``TorchEncoderEmbedding(params_path=...)`` (and the JAX package's
@@ -15,11 +19,13 @@ Counterpart of ``autorag_research_tpu/models/trainer.py``. The trainer:
 A checkpoint is a directory of two files: ``params.npz``, the flat parameter
 names of ``save_params``, and ``state.pt``, ``torch.save`` of the step and
 the optimizer's state dict (``None`` under SGD). A restore gives back both
-bitwise. The JAX trainer writes orbax checkpoints instead; the two formats
-do not read each other.
+bitwise. Under a mesh both are gathered into the unsharded form first (the
+AdamW state keyed by the unsharded parameter order), so a checkpoint resumes
+with or without a mesh, of any shape; in several processes rank 0 writes it.
+The JAX trainer writes orbax checkpoints instead; the two formats do not
+read each other.
 
-Training over a ``(dp, tp)`` mesh is not ported: ``mesh=`` raises (ROADMAP.md
-queue 1, item 6b, the training half of item 6). The data order is the JAX trainer's (numpy ``default_rng((seed,
+The data order is the JAX trainer's (numpy ``default_rng((seed,
 start_step))``), so both packages see the same batches.
 """
 
@@ -40,8 +46,17 @@ from autorag_research_tpu_torch.models.encoder import (
     RetrievalEncoder,
     contrastive_loss,
     contrastive_train_step,
-    encoder_params_to_jax,
+    gather_params,
     hash_tokenize,
+    shard_params,
+)
+from autorag_research_tpu_torch.parallel.mesh import process_rank
+from autorag_research_tpu_torch.parallel.train import (
+    adamw,
+    gather_tree,
+    place,
+    sharded_contrastive_train_step,
+    tp_slice,
 )
 
 logger = logging.getLogger("AutoRAG-Research-TPU")
@@ -80,8 +95,11 @@ def build_pairs(catalog) -> list[tuple[str, str]]:
 class BiEncoderTrainer:
     """``encoder`` (a ``RetrievalEncoder`` on ``device``, ``"cuda"`` unless
     the caller asks for another) holds the weights, with gradients on: the
-    trainer owns it. ``from_jax_params`` loads another package's weights
-    into it."""
+    trainer owns it. With ``mesh`` (a ``(dp, tp)`` ``DeviceMesh``) the
+    weights live in ``sharded`` instead (``encoder`` is None) and ``device``
+    is the first device of this process's first dp row. :meth:`load_params`
+    loads a flat state dict (``from_jax_params`` of another package's
+    weights) either way."""
 
     def __init__(
         self,
@@ -95,34 +113,63 @@ class BiEncoderTrainer:
         weight_decay: float = 0.01,
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "bi-encoder training over a (dp, tp) mesh is not in the port yet "
-                "(ROADMAP.md queue 1, item 6b)"
-            )
         if optimizer not in ("sgd", "adamw"):
             raise ValueError(f"unknown optimizer '{optimizer}' (sgd | adamw)")
         self.config = config or EncoderConfig()
-        self.encoder = RetrievalEncoder(self.config, device=device, seed=seed).requires_grad_(True)
-        self.device = self.encoder.embed.device
+        self.mesh = mesh
+        self.sharded = None
+        if mesh is None:
+            self.encoder = RetrievalEncoder(self.config, device=device, seed=seed).requires_grad_(True)
+            self.device = self.encoder.embed.device
+        else:
+            # the seeded init is drawn on the CPU on every device, so the
+            # sharded weights are the unsharded trainer's
+            self.encoder = None
+            init = RetrievalEncoder(self.config, device="cpu", seed=seed)
+            self.sharded = shard_params(init, self.config, mesh)
+            self.device = mesh.grid[self.sharded.rows[0]][0]
+            # the unsharded optimizer's parameter order, which keys a
+            # checkpoint's AdamW state
+            self._param_names = [name for name, _ in init.named_parameters()]
         self.lr = lr
         self.temperature = temperature
         self.batch_size = batch_size
         self.seed = seed
         self.optimizer = optimizer
         self.weight_decay = weight_decay
-        self._opt = (
-            torch.optim.AdamW(self.encoder.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                              weight_decay=weight_decay)
-            if optimizer == "adamw" else None
-        )
+        self._opt = self._make_optimizer() if optimizer == "adamw" else None
+
+    def _make_optimizer(self) -> torch.optim.AdamW:
+        if self.sharded is not None:
+            return adamw(self.sharded, self.lr, self.weight_decay)
+        return torch.optim.AdamW(self.encoder.parameters(), lr=self.lr, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=self.weight_decay)
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """The weights as one flat state dict (gathered under a mesh)."""
+        if self.sharded is not None:
+            return gather_params(self.sharded)
+        return self.encoder.state_dict()
+
+    def load_params(self, flat: dict) -> None:
+        """Load a flat state dict (tensors or arrays) into the weights;
+        under a mesh it is sharded anew and the optimizer starts over."""
+        if self.sharded is None:
+            self.encoder.load_state_dict({k: v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+                                          for k, v in flat.items()})
+            return
+        self.sharded = shard_params(flat, self.config, self.mesh)
+        if self._opt is not None:
+            self._opt = self._make_optimizer()
 
     def _make_batch(self, pairs: list[tuple[str, str]]) -> dict[str, torch.Tensor]:
         queries, docs = zip(*pairs)
         cfg = self.config
         q_ids, q_mask = hash_tokenize(list(queries), cfg.vocab_size, cfg.max_len)
         d_ids, d_mask = hash_tokenize(list(docs), cfg.vocab_size, cfg.max_len)
-        dev = self.device
+        # under a mesh the batch stays on the host: the step sends each dp
+        # row's block to its tp group
+        dev = self.device if self.sharded is None else torch.device("cpu")
         return {
             "q_ids": torch.from_numpy(q_ids).to(dev, torch.int64),
             "q_mask": torch.from_numpy(q_mask).to(dev),
@@ -132,6 +179,10 @@ class BiEncoderTrainer:
 
     def step(self, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step on ``batch``; the loss stays on the device."""
+        if self.sharded is not None:
+            return sharded_contrastive_train_step(self.sharded, batch, lr=self.lr,
+                                                  temperature=self.temperature,
+                                                  optimizer=self._opt)
         if self._opt is None:
             return contrastive_train_step(self.encoder, batch, lr=self.lr,
                                           temperature=self.temperature)
@@ -150,16 +201,54 @@ class BiEncoderTrainer:
         written beside it first and renamed into place, so a checkpoint that
         exists is whole."""
         path = Path(directory).resolve() / f"step_{step}"
+        params = {k: v.detach().cpu().numpy() for k, v in self.state_dict().items()}
+        opt_state = self._optimizer_state()
+        if process_rank() != 0:
+            return path
         tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir(parents=True)
-        np.savez(tmp / "params.npz", **encoder_params_to_jax(self.encoder))
-        torch.save({"step": int(step),
-                    "optimizer": None if self._opt is None else self._opt.state_dict()},
-                   tmp / "state.pt")
+        np.savez(tmp / "params.npz", **params)
+        torch.save({"step": int(step), "optimizer": opt_state}, tmp / "state.pt")
         shutil.rmtree(path, ignore_errors=True)
         tmp.rename(path)
         return path
+
+    def _optimizer_state(self) -> dict | None:
+        """The optimizer's state dict in the unsharded form: under a mesh
+        each state tensor is gathered like its parameter and keyed by the
+        unsharded module's parameter order."""
+        if self._opt is None or self.sharded is None:
+            return None if self._opt is None else self._opt.state_dict()
+        sp, opt = self.sharded, self._opt
+        group = {k: v for k, v in opt.state_dict()["param_groups"][0].items() if k != "params"}
+        names = self._param_names
+        state = {}
+        first = sp.shards[sp.rows[0]][0]
+        if opt.state.get(first[names[0]]):
+            for key in ("exp_avg", "exp_avg_sq"):
+                full = gather_tree(sp, pick=lambda t, key=key: opt.state[t][key])
+                for idx, name in enumerate(names):
+                    state.setdefault(idx, {"step": opt.state[first[name]]["step"].clone()})
+                    state[idx][key] = full[name]
+        return {"state": state, "param_groups": [{**group, "params": list(range(len(names)))}]}
+
+    def _load_optimizer_state(self, saved: dict) -> None:
+        if self.sharded is None:
+            self._opt.load_state_dict(saved)
+            return
+        sp, opt = self.sharded, self._opt
+        names = self._param_names
+        for i, j, name, t in sp.entries():
+            entry = saved["state"].get(names.index(name))
+            if entry is None:
+                continue
+            spec = sp.specs[name]
+            opt.state[t] = {
+                "step": entry["step"].clone(),
+                **{key: place(tp_slice(entry[key], spec, j, sp.tp, name), t.device)
+                   for key in ("exp_avg", "exp_avg_sq")},
+            }
 
     @staticmethod
     def latest_checkpoint(directory: str | Path) -> Path | None:
@@ -184,12 +273,12 @@ class BiEncoderTrainer:
         path = self.latest_checkpoint(directory)
         if path is None:
             return 0
-        self.encoder.load_state_dict(load_params(path / "params.npz"))
+        self.load_params(load_params(path / "params.npz"))
         state = torch.load(path / "state.pt", map_location=self.device, weights_only=True)
         if self._opt is not None:
             if state["optimizer"] is None:
                 raise ValueError(f"{path} holds no optimizer state (written under sgd)")
-            self._opt.load_state_dict(state["optimizer"])
+            self._load_optimizer_state(state["optimizer"])
         return int(state["step"])
 
     # ------------------------------------------------------------------ train
@@ -218,6 +307,15 @@ class BiEncoderTrainer:
         report = TrainReport()
         start = time.perf_counter()
         bsz = min(self.batch_size, len(pairs))
+        if self.mesh is not None:
+            dp = self.mesh.shape.get("dp", 1)
+            if len(pairs) < dp:
+                raise ValueError(
+                    f"need at least dp={dp} training pairs for this mesh, have {len(pairs)}"
+                )
+            bsz = max(dp, bsz - bsz % dp)
+            # bsz started <= len(pairs) and dp <= len(pairs) is enforced
+            # above, so the dp alignment keeps bsz <= len(pairs)
         global_step = start_step
         done = max_steps is not None and global_step >= max_steps
         for _ in range(epochs):
@@ -246,9 +344,10 @@ class BiEncoderTrainer:
         return report
 
     def save(self, path: str | Path) -> None:
-        from autorag_research_tpu_torch.embeddings.torch_encoder import save_params
-
-        save_params(self.encoder, path)
+        """The flat ``.npz`` of ``save_params`` (gathered under a mesh; in
+        several processes rank 0 writes it)."""
+        if process_rank() == 0:
+            np.savez(path, **{k: v.detach().cpu().numpy() for k, v in self.state_dict().items()})
 
     def as_embedding(self, batch_size: int = 256):
         """Wrap the trained weights as an embedding adapter for indexing, on
@@ -260,5 +359,5 @@ class BiEncoderTrainer:
 
         cls = TorchEncoderMultiVectorEmbedding if self.config.multi_vector else TorchEncoderEmbedding
         emb = cls(self.config, batch_size=batch_size, seed=self.seed, device=self.device)
-        emb.encoder.load_state_dict(self.encoder.state_dict())
+        emb.encoder.load_state_dict(self.state_dict())
         return emb

@@ -1,11 +1,14 @@
-"""Multi-process initialization for corpus-sharded retrieval.
+"""Multi-process initialization for corpus-sharded retrieval and training.
 
 The port's copy of the JAX package's ``parallel/distributed.py``.
 ``torch.distributed`` joins the processes (one a host, or one a card), the
 corpus axis of :func:`global_corpus_mesh` spans every process's devices
 host-major, and ``parallel/sharded.py`` all-gathers each process's per-shard
 ``[Q, k]`` candidate lists over the process group before the one merge: only
-those lists cross hosts.
+those lists cross hosts. For training, :func:`global_train_mesh` lays the
+``(dp, tp)`` grid over every process's devices host-major, so each process
+holds whole dp rows (``parallel/train.py`` all-gathers the embeddings and
+all-reduces the gradients).
 
 Nothing on a machine tells a program of a cluster: the address, the number
 of processes and this process's rank come from the arguments or from
@@ -20,7 +23,12 @@ import os
 
 import torch
 
-from autorag_research_tpu_torch.parallel.mesh import DeviceMesh, corpus_mesh, visible_devices
+from autorag_research_tpu_torch.parallel.mesh import (
+    DeviceMesh,
+    corpus_mesh,
+    train_mesh,
+    visible_devices,
+)
 
 logger = logging.getLogger("AutoRAG-Research-TPU")
 
@@ -95,3 +103,13 @@ def global_corpus_mesh(n_dp: int = 1, local_devices=None) -> DeviceMesh:
     passes its own ``local_devices`` (default: its visible CUDA devices)."""
     devices, ranks = gather_devices(local_devices)
     return corpus_mesh(n_dp=n_dp, devices=devices, ranks=ranks)
+
+
+def global_train_mesh(tp: int | None = None, local_devices=None) -> DeviceMesh:
+    """A ``(dp, tp)`` mesh over every process's devices, host-major (call
+    :func:`initialize_distributed` first in every process): with as many
+    devices in each process as a multiple of ``tp``, each process holds
+    whole dp rows; a tp group that spans processes is refused when the
+    parameters are sharded over it."""
+    devices, ranks = gather_devices(local_devices)
+    return train_mesh(devices=devices, tp=tp, ranks=ranks)

@@ -1,9 +1,13 @@
-"""Device meshes for corpus-sharded retrieval.
+"""Device meshes for corpus-sharded retrieval and sharded training.
 
 The port's copy of the JAX package's ``parallel/mesh.py``. A mesh is an
-ordered ``(dp, corpus)`` grid of ``torch.device``s: the corpus dimension of
-an index shards over the ``"corpus"`` axis, one shard a grid device, and
-``mesh.shape`` is the JAX mesh's ``{"dp": ..., "corpus": ...}``. The engines
+ordered two-axis grid of ``torch.device``s. For retrieval the axes are
+``(dp, corpus)``: the corpus dimension of an index shards over the
+``"corpus"`` axis, one shard a grid device, and ``mesh.shape`` is the JAX
+mesh's ``{"dp": ..., "corpus": ...}``. For training they are ``(dp, tp)``
+(:func:`train_mesh`, the JAX CLI's ``train --mesh`` rule): batch rows over
+``dp``, the tensor-parallel slices of ``param_specs`` over ``tp``
+(``parallel/train.py``). The retrieval engines
 of ``parallel/sharded.py`` run in one process over the grid, as JAX's
 ``shard_map`` does (single controller), and merge the shards' top-k lists on
 the first device of the row they search.
@@ -25,6 +29,7 @@ import torch
 
 CORPUS_AXIS = "corpus"
 DP_AXIS = "dp"
+TP_AXIS = "tp"
 
 _default_mesh: "DeviceMesh | None" = None
 
@@ -39,10 +44,12 @@ def process_rank() -> int:
 
 
 class DeviceMesh:
-    """An ordered ``(dp, corpus)`` grid of devices, each with the rank of the
+    """An ordered grid of devices over two named axes, ``(dp, corpus)``
+    unless ``axis_names`` says otherwise, each entry with the rank of the
     process that holds it (0 for every entry in one process)."""
 
-    def __init__(self, grid: Sequence[Sequence], ranks: Sequence[Sequence[int]] | None = None):
+    def __init__(self, grid: Sequence[Sequence], ranks: Sequence[Sequence[int]] | None = None,
+                 axis_names: tuple[str, str] = (DP_AXIS, CORPUS_AXIS)):
         self.grid = [[torch.device(d) for d in row] for row in grid]
         n_dp = len(self.grid)
         n_corpus = len(self.grid[0]) if n_dp else 0
@@ -51,12 +58,14 @@ class DeviceMesh:
         self.ranks = [list(r) for r in ranks] if ranks is not None else [[0] * n_corpus for _ in range(n_dp)]
         if [len(r) for r in self.ranks] != [n_corpus] * n_dp:
             raise ValueError("ranks must have the grid's shape")
-        self.shape = {DP_AXIS: n_dp, CORPUS_AXIS: n_corpus}
-        self.axis_names = (DP_AXIS, CORPUS_AXIS)
+        if len(axis_names) != 2 or axis_names[0] == axis_names[1]:
+            raise ValueError(f"a mesh has two distinct axis names, not {axis_names}")
+        self.axis_names = tuple(axis_names)
+        self.shape = {axis_names[0]: n_dp, axis_names[1]: n_corpus}
 
     @property
     def size(self) -> int:
-        return self.shape[DP_AXIS] * self.shape[CORPUS_AXIS]
+        return len(self.grid) * len(self.grid[0])
 
     def _row(self) -> int:
         """The dp row this process searches: the first that holds one of its
@@ -95,6 +104,8 @@ def check_mesh(mesh) -> DeviceMesh:
     """``mesh`` itself if it is a :class:`DeviceMesh`, else a TypeError."""
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"expected a DeviceMesh (parallel/mesh.py::corpus_mesh), got {type(mesh).__name__}")
+    if CORPUS_AXIS not in mesh.shape:
+        raise ValueError(f"a retrieval mesh has a {CORPUS_AXIS!r} axis, not {mesh.axis_names}")
     return mesh
 
 
@@ -132,6 +143,22 @@ def corpus_mesh(
     )
 
 
+def train_mesh(devices=None, tp: int | None = None, ranks: Sequence[int] | None = None) -> DeviceMesh:
+    """A ``(dp, tp)`` mesh for sharded training over ``devices`` (default:
+    every visible card), by the JAX CLI's rule: ``tp = 2`` when the device
+    count is even and above 1, else 1, and ``dp = n // tp``. ``devices`` may
+    repeat a device (one card, or the CPU, standing in for several);
+    ``ranks`` (one a device) names the process holding each."""
+    devices = list(devices if devices is not None else visible_devices())
+    n = len(devices)
+    if tp is None:
+        tp = 2 if n % 2 == 0 and n > 1 else 1
+    if tp < 1 or n % tp:
+        raise ValueError(f"tp={tp} does not divide {n} devices")
+    mesh = corpus_mesh(n_corpus=tp, n_dp=n // tp, devices=devices, ranks=ranks)
+    return DeviceMesh(mesh.grid, mesh.ranks, axis_names=(DP_AXIS, TP_AXIS))
+
+
 def device_corpus_mesh(device) -> DeviceMesh:
     """The mesh a command builds on ``device`` (the CLI's ``--mesh``, a
     server's ``mesh=True``): every visible card for ``cuda``, else that one
@@ -140,6 +167,15 @@ def device_corpus_mesh(device) -> DeviceMesh:
     if device.type == "cuda" and device.index is None:
         return corpus_mesh()
     return corpus_mesh(devices=[device])
+
+
+def device_train_mesh(device) -> DeviceMesh:
+    """The mesh ``train --mesh`` builds on ``device``: :func:`train_mesh` of
+    every visible card for ``cuda``, else of that one device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return train_mesh()
+    return train_mesh(devices=[device])
 
 
 def hybrid_corpus_mesh(n_slices: int | None = None, devices=None) -> DeviceMesh:

@@ -23,8 +23,8 @@ retrieval + one batched decode.
 
 The port's copy of the JAX package's ``serving/server.py``. Pipelines build
 on the ``device`` of :func:`serve_workspace` (``"cuda"`` unless the caller
-asks for another); a mesh waits for the multi-GPU slice (ROADMAP.md queue 1,
-item 6). Batches run in up to ``max_inflight`` threads on the default CUDA
+asks for another), their indexes sharded over a mesh with ``mesh=True``.
+Batches run in up to ``max_inflight`` threads on the default CUDA
 stream, so their device work runs one batch at a time while the host work of
 the others (tokenization, readback, result lists) overlaps it. ``/generate``
 serves ``basic_rag`` (one batched retrieval and one batched ``TorchLM``

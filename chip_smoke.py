@@ -10,9 +10,10 @@ and HTTP serving layer, the IVF indexes at 500,000 x 768 and the generation
 path (the causal decoder, ``basic_rag`` with ``torch_lm``) at full width,
 reranking and the LLM-driven retrieval wrappers, config #5 (ViDoRe pages:
 image MaxSim, ``heaven``, ``visrag_gen``) through the ``Executor`` and the
-CLI, the 15 agentic generation pipelines, and training (the train steps,
+CLI, the 15 agentic generation pipelines, training (the train steps,
 the CLI's ``train`` of the bi-encoder, cross-encoder and LM, then serving
-the trained weights), and fails (non-zero exit) on any fault:
+the trained weights), the BEIR ingestor, training over a ``(dp, tp)`` mesh
+and the multi-device dry run, and fails (non-zero exit) on any fault:
 
 1. the card's name and power limit, then a parallel build of every CUDA
    kernel from ``autorag_research_tpu_torch/csrc`` (one ``nvcc`` per source)
@@ -410,7 +411,22 @@ the trained weights), and fails (non-zero exit) on any fault:
     ``n_fail``; (d) at the end of phase 19, an ``IVFIndex`` over its first
     100,000 rows as 4 sub-indexes: recall@10 against an exact search beside
     the unsharded index's. The kernels line gives each kernel's launches
-    here as ``launches_sharded``.
+    here as ``launches_sharded``;
+26. the last modules of the port (no kernel of their own), right after phase
+    24 in phase 18's workspace, every launch count at 0 just before each
+    part: (a) a seeded BEIR directory at SciFact's published shape (5,183
+    passages, 300 test queries) through the CLI's ``ingest --name beir``
+    (embedded by phase 18's encoder) and ``run`` of ``vector_search_verified``
+    (#1) and ``bm25``, its rows equal to a CPU ingest's, and a hotpotqa
+    directory (``and_all``); (b) ``contrastive_train_step`` at phase 3's
+    encoder and the SFT step at phase 20's decoder over a (2, 2) ``(dp, tp)``
+    grid of the card (``parallel/train.py``) against the unsharded steps,
+    timed, with the bytes a grid entry holds, ``KernelTimer`` and ``trace``
+    (``utils/profiling.py``) on the sharded step, then ``train --model bi
+    --mesh`` against the unsharded ``train`` on phase 18's workspace, loss by
+    loss, each ``.npz`` served in a verified ``DenseIndex`` (#1) with equal
+    ids but at near-ties; (c) ``entry.dryrun_multichip(4)`` on the card
+    repeated 4 times. The launches print on a line of their own.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing neither, without a CUDA device or without
@@ -612,6 +628,30 @@ BI_EPOCHS, BI_STEPS, BI_RESUMED, CROSS_STEPS, RR_TRAIN_Q, RR_TRAIN_K = 3, 150, 2
 # phase 22's pages through the Executor; (d) IVF at 4 over the first 100,000
 # rows of phase 19's clustered corpus
 SHARD_P, SHARD_P_ODD, SHARD_IVF_N = 4, 3, 100_000
+# phase 26: the last modules of the port (no kernel of their own), right
+# after phase 24 in phase 18's `serve_root`, every launch count at 0 before
+# each part. (a) BEIR at SciFact's published shape (5,183 passages of a title
+# and 100-300 Zipf words, 300 test queries, 1-3 positives each plus score-0
+# rows) through the CLI's `ingest --name beir` with phase 18's
+# torch_encoder_768, then `run` of vector_search_verified (#1) and bm25; a
+# CPU ingest of the same directory; a 1,000-passage hotpotqa directory
+# (and_all). (b) The contrastive step at ENCODER (B = 32) and the SFT step at
+# GEN_LM (B = 16, seq 256) over a (2, 2) grid of the card (cards
+# round-robin) against the unsharded steps from the same seeded weights, SGD
+# at lr 1e-3: losses within MESH_LOSS_TOL relative, weights within
+# MESH_W_TOL; then `train --model bi --mesh` (the visible devices stood in by
+# the grid's 4 entries) against the unsharded `train`, 16 AdamW steps each on
+# phase 18's workspace: losses within MESH_CLI_LOSS_TOL relative step by step
+# (AdamW moves a weight whose gradient is within reduction noise of 0 by up
+# to lr, phase 24's note), and each `.npz` served by
+# `TorchEncoderEmbedding(params_path=)` in a verified DenseIndex at k = 10
+# (#1): ids equal but where two scores of a row lie within MESH_TIE. (c)
+# `entry.dryrun_multichip(4)` on the card repeated 4 times.
+BEIR_DOCS, BEIR_QUERIES, BEIR_WORDS, BEIR_HOTPOT_DOCS = 5183, 300, (100, 300), 1000
+MESH_GRID, MESH_B, MESH_LM_B, MESH_LM_SEQ, MESH_STEPS = (2, 2), 32, 16, 256, 16
+MESH_LOSS_TOL, MESH_W_TOL, MESH_CLI_LOSS_TOL, MESH_TIE = 1e-5, 1e-5, 1e-4, 1e-5
+# launches of phase 26's parts, by part and kernel name
+PHASE26_LAUNCHES: dict[str, dict[str, int]] = {}
 # launches of each kernel in phase 25, by name: the kernels line's
 # "launches_sharded"
 SHARDED_LAUNCHES: dict[str, int] = {}
@@ -6080,6 +6120,320 @@ def training_phase(seed: int, dev, root: str) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def write_beir_dir(path: str, seed: int, n_docs: int, n_queries: int,
+                   words_range: tuple[int, int]) -> int:
+    """A seeded BEIR directory (corpus.jsonl, queries.jsonl, qrels/test.tsv
+    with its header): ``n_docs`` passages of a 3-12-word title and a Zipf
+    text, ``n_queries`` queries of 12 words of their first positive, 1-3
+    positives a query (score 1) and a score-0 row for every fifth query.
+    Returns the positive qrels."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(30_000)]
+    texts = zipf_texts(rng, words, n_docs, *words_range)
+    titles = zipf_texts(rng, words, n_docs, 3, 12)
+    os.makedirs(f"{path}/qrels", exist_ok=True)
+    with open(f"{path}/corpus.jsonl", "w") as f:
+        f.writelines(json.dumps({"_id": str(i), "title": titles[i], "text": texts[i]}) + "\n"
+                     for i in range(n_docs))
+    lines, queries, n_pos = ["query-id\tcorpus-id\tscore"], [], 0
+    for j in range(n_queries):
+        gold = rng.choice(n_docs, size=int(rng.integers(1, 4)), replace=False)
+        queries.append({"_id": str(100_000 + j),
+                        "text": " ".join(rng.choice(texts[gold[0]].split(), size=12))})
+        lines += [f"{100_000 + j}\t{g}\t1" for g in gold]
+        n_pos += len(gold)
+        if j % 5 == 0:
+            lines.append(f"{100_000 + j}\t{int(rng.integers(n_docs))}\t0")
+    with open(f"{path}/queries.jsonl", "w") as f:
+        f.writelines(json.dumps(q) + "\n" for q in queries)
+    with open(f"{path}/qrels/test.tsv", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return n_pos
+
+
+def catalog_rows(db: str) -> dict[str, list[tuple]]:
+    """Every row of the chunk, query and retrieval_relation tables, the
+    embedding columns left out."""
+    import sqlite3
+
+    out = {}
+    with sqlite3.connect(db) as conn:
+        for table in ("chunk", "query", "retrieval_relation"):
+            cols = [r[1] for r in conn.execute(f"PRAGMA table_info({table})")
+                    if "embedding" not in r[1]]
+            out[table] = conn.execute(f"SELECT {', '.join(cols)} FROM {table} ORDER BY rowid").fetchall()
+    return out
+
+
+def port_completion_phase(seed: int, dev, root: str) -> None:
+    """Phase 26: the text ingestors, training over a (dp, tp) mesh and the
+    dry run, on the card (see the constants' note above)."""
+    import shutil
+
+    import torch
+
+    from autorag_research_tpu_torch.cli.app import main as cli
+    from autorag_research_tpu_torch.embeddings.torch_encoder import TorchEncoderEmbedding
+    from autorag_research_tpu_torch.entry import dryrun_multichip
+    from autorag_research_tpu_torch.index.dense import DenseIndex
+    from autorag_research_tpu_torch.models import decoder as tdec
+    from autorag_research_tpu_torch.models import encoder as tenc
+    from autorag_research_tpu_torch.models.lm_trainer import _sft_loss, encode_sft
+    from autorag_research_tpu_torch.models.trainer import BiEncoderTrainer
+    from autorag_research_tpu_torch.ops import dense as td
+    from autorag_research_tpu_torch.ops import maxsim as tm
+    from autorag_research_tpu_torch.ops import sparse as ts
+    from autorag_research_tpu_torch.parallel import mesh as mesh_mod
+    from autorag_research_tpu_torch.parallel import train as pt
+    from autorag_research_tpu_torch.reporting.service import ReportingService
+    from autorag_research_tpu_torch.store.catalog import Catalog
+    from autorag_research_tpu_torch.utils.profiling import KernelTimer, trace
+
+    def reset():
+        for mod in (td, ts, tm):
+            mod.reset_launch_counts()
+
+    def counts(part: str):
+        launched = {k: v for k, v in {**td.LAUNCHES, **ts.LAUNCHES, **tm.LAUNCHES}.items() if v}
+        plain = {k: v for k, v in {**ts.PLAIN_CALLS, **tm.PLAIN_CALLS}.items() if v}
+        PHASE26_LAUNCHES[part] = launched
+        return launched, plain
+
+    def run_cli(cfg: str, device: str, *argv: str) -> float:
+        t0 = time.perf_counter()
+        rc = cli(["--config-path", cfg, "--device", device, *argv])
+        if rc != 0:
+            fail(f"the port's CLI `{' '.join(argv)}` exited {rc}")
+        return time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    work = f"{root}/phase26"
+    os.makedirs(work)
+
+    # ---- (a) BEIR at SciFact's shape through `ingest` and `run` ------------
+    t0 = time.perf_counter()
+    beir = f"{work}/scifact"
+    n_pos = write_beir_dir(beir, seed + 26, BEIR_DOCS, BEIR_QUERIES, BEIR_WORDS)
+    cfg = f"{work}/configs"
+    shutil.copytree(f"{root}/configs", cfg)
+    pipes = ("vector_search_verified", "bm25")
+    with open(f"{cfg}/experiment.yaml", "w") as f:
+        f.write("pipelines:\n  retrieval:\n" + "".join(f"    - {p}\n" for p in pipes)
+                + "  generation: []\nmetrics:\n  retrieval:\n    - recall\n    - ndcg\n"
+                "  generation: []\nexecutor:\n  health_check: true\n  health_check_queries: 2\n")
+    gen_s = time.perf_counter() - t0
+    ws, ws_cpu = f"{work}/ws_beir", f"{work}/ws_beir_cpu"
+    extra = ["--extra", "dataset_name=scifact", "--extra", f"data_dir={beir}"]
+    reset()
+    ingest_s = run_cli(cfg, dev.type, "ingest", "--name", "beir", "--db", ws, *extra,
+                       "--embedding-model", "torch_encoder_768")
+    cpu_s = run_cli(cfg, "cpu", "ingest", "--name", "beir", "--db", ws_cpu, *extra)
+    card_rows, cpu_rows = catalog_rows(f"{ws}/catalog.db"), catalog_rows(f"{ws_cpu}/catalog.db")
+    sizes = {t: len(r) for t, r in card_rows.items()}
+    log(f"beir: (a) a seeded SciFact-shape directory ({BEIR_DOCS} passages of a title and "
+        f"{BEIR_WORDS[0]}-{BEIR_WORDS[1]} Zipf words, {BEIR_QUERIES} queries, {n_pos} positive "
+        f"qrels) written in {gen_s:.2f} s; `ingest --name beir` with torch_encoder_768 on the "
+        f"card {ingest_s:.2f} s, rows {json.dumps(sizes)}; the CPU ingest (no embedding) "
+        f"{cpu_s:.2f} s, its chunks, queries and relations equal: {card_rows == cpu_rows}")
+    if sizes != {"chunk": BEIR_DOCS, "query": BEIR_QUERIES, "retrieval_relation": n_pos}:
+        fail(f"the BEIR catalog's counts {sizes} are not the files'")
+    if card_rows != cpu_rows:
+        fail("the card's BEIR ingest wrote other rows than the CPU's")
+    cat = Catalog(f"{ws}/catalog.db")
+    missing = {t: cat.count_unembedded(t) for t in ("chunk", "query")}
+    cat.close()
+    if any(missing.values()):
+        fail(f"the BEIR ingest left rows unembedded: {missing}")
+    reset()
+    run_s = run_cli(cfg, dev.type, "run", "--db", ws)
+    torch.cuda.synchronize()
+    launched, plain = counts("a: beir run")
+    cat = Catalog(f"{ws}/catalog.db")
+    qids = cat.get_all_query_ids()
+    empty = {p: sum(1 for q in qids if not cat.get_retrieved(q, cat.get_pipeline(p)["id"]))
+             for p in pipes}
+    cat.close()
+    board = ReportingService([ws]).leaderboard()
+    scores = {row.pipeline: (row.recall, row.ndcg) for row in board.itertuples()}
+    log(f"beir: (a) `run` of {', '.join(pipes)} on the card {run_s:.2f} s: launches "
+        f"{json.dumps(launched)}, plain calls {json.dumps(plain)}; queries without a row "
+        f"{json.dumps(empty)}; recall@{K} / ndcg@{K} {json.dumps(scores)}")
+    if (not launched.get("seg_stats_bf16") or not any(k.startswith("bm25_topk") for k in launched)
+            or plain or any(empty.values())):
+        fail("the BEIR run skipped #1 or the BM25 kernels, took a plain route or left a query "
+             "without rows")
+    hot = f"{work}/hotpotqa"
+    write_beir_dir(hot, seed + 27, BEIR_HOTPOT_DOCS, 100, (20, 72))
+    run_cli(cfg, dev.type, "ingest", "--name", "beir", "--db", f"{work}/ws_hotpot", "--extra",
+            "dataset_name=hotpotqa", "--extra", f"data_dir={hot}")
+    rel = catalog_rows(f"{work}/ws_hotpot/catalog.db")["retrieval_relation"]
+    cat = Catalog(f"{work}/ws_hotpot/catalog.db")
+    groups = [(len(rows), len({r["group_index"] for r in rows}))
+              for rows in (cat.get_relations_by_query(q) for q in cat.get_all_query_ids())]
+    cat.close()
+    log(f"beir: (a) hotpotqa ({BEIR_HOTPOT_DOCS} passages, 100 queries): {len(rel)} relations, "
+        f"every gold passage its own and_all group: {all(n == g for n, g in groups)}; "
+        f"(a) {time.perf_counter() - t0:.1f} s")
+    if not groups or not all(n == g for n, g in groups) or all(n == 1 for n, _ in groups):
+        fail("the hotpotqa relations are not and_all")
+
+    # ---- (b) training over a (2, 2) grid of the card -------------------------
+    t0 = time.perf_counter()
+    reset()
+    cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+             if dev.type == "cuda" else [dev])
+    grid = [cards[i % len(cards)] for i in range(MESH_GRID[0] * MESH_GRID[1])]
+    mesh = mesh_mod.train_mesh(grid, tp=MESH_GRID[1])
+    rng = np.random.default_rng(seed + 26)
+    words = [f"w{i}" for i in range(20000)]
+
+    def compare(label, sp, ref, sharded_step, step, batch, tokens):
+        full = sum(t.numel() * t.element_size() for t in ref.parameters())
+        held = [sp.entry_bytes(i, j) for i in range(sp.dp) for j in range(sp.tp)]
+        loss_s, loss_u = float(sharded_step()), float(step())
+        got, want = pt.gather_tree(sp), ref.state_dict()
+        err, where = max(((got[k] - want[k].cpu()).abs().max().item(), k) for k in want)
+        ms_s, host_s = event_and_host_ms(sharded_step, TRAIN_REPS)
+        ms_u, host_u = event_and_host_ms(step, TRAIN_REPS)
+        with tempfile.TemporaryDirectory() as tdir, trace(tdir) as prof:
+            sharded_step()
+            torch.cuda.synchronize()
+        dev_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA"))
+        log(f"mesh: (b) {label} over a {MESH_GRID} grid of {[str(d) for d in grid]}: loss "
+            f"{loss_s:.6f} sharded, {loss_u:.6f} unsharded; weights after one SGD step (lr "
+            f"{TRAIN_LR}): max |sharded - unsharded| {err:.3e} at {where} (tol {MESH_W_TOL:.0e}); "
+            f"a step {ms_s:.3f} ms sharded ({host_s:.3f} ms host clock), {ms_u:.3f} ms unsharded "
+            f"({host_u:.3f} ms host); utils.profiling.trace of one sharded step: "
+            f"{dev_us / 1e3:.3f} ms device time; parameter bytes a grid entry {held} of "
+            f"{full} unsharded; {tokens} real tokens a step")
+        if not (math.isfinite(loss_s) and abs(loss_s - loss_u) <= MESH_LOSS_TOL * abs(loss_u)
+                and err <= MESH_W_TOL):
+            fail(f"mesh: the sharded {label} differs from the unsharded step")
+        return ms_s
+
+    cfg_e = tenc.EncoderConfig(**ENCODER)
+    ref = tenc.RetrievalEncoder(cfg_e, device=dev, seed=seed)
+    sp = tenc.shard_params(ref, cfg_e, mesh)
+    texts = make_texts(rng, words, 2 * MESH_B, 8, 121)
+    q_ids, q_mask = tenc.hash_tokenize(texts[:MESH_B], cfg_e.vocab_size, cfg_e.max_len)
+    d_ids, d_mask = tenc.hash_tokenize(texts[MESH_B:], cfg_e.vocab_size, cfg_e.max_len)
+    batch = {"q_ids": torch.from_numpy(q_ids).to(dev, torch.int64), "q_mask": torch.from_numpy(q_mask).to(dev),
+             "d_ids": torch.from_numpy(d_ids).to(dev, torch.int64), "d_mask": torch.from_numpy(d_mask).to(dev)}
+    compare(f"contrastive_train_step at {ENCODER}, B={MESH_B}", sp, ref,
+            lambda: pt.sharded_contrastive_train_step(sp, batch, lr=TRAIN_LR),
+            lambda: tenc.contrastive_train_step(ref, batch, lr=TRAIN_LR), batch,
+            int(q_mask.sum() + d_mask.sum()))
+    stacked = {k: v.expand(3, *v.shape) for k, v in batch.items()}
+    kt = KernelTimer(reps=3).measure(
+        lambda b: pt.sharded_contrastive_train_step(sp, b, lr=TRAIN_LR), stacked)
+    log(f"mesh: (b) utils.profiling.KernelTimer(3) of the sharded contrastive step: "
+        f"{kt * 1e3:.3f} ms a step (CUDA events)")
+    del ref, sp, batch, stacked
+    cfg_d = tdec.DecoderConfig(**GEN_LM)
+    ref = tdec.CausalDecoder(cfg_d, device=dev, seed=seed)
+    sp = tdec.shard_params(ref, cfg_d, mesh)
+    examples = [(" ".join(rng.choice(words, size=int(rng.integers(20, 60)))),
+                 " ".join(rng.choice(words, size=int(rng.integers(1, 6)))))
+                for _ in range(MESH_LM_B)]
+    data = encode_sft(examples, MESH_LM_SEQ)
+    lm_batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    lm_batch["ids"] = lm_batch["ids"].long()
+    compare(f"SFT step at {GEN_LM}, B={MESH_LM_B}, seq {MESH_LM_SEQ}", sp, ref,
+            lambda: pt.sharded_lm_train_step(sp, lm_batch, lr=TRAIN_LR),
+            lambda: tenc.sgd_step(ref, lambda: _sft_loss(ref, lm_batch), TRAIN_LR), lm_batch,
+            int(data["mask"].sum()))
+    del ref, sp, lm_batch
+    torch.cuda.empty_cache()
+
+    # `train --model bi --mesh` against the unsharded `train`, phase 18's workspace
+    serve_cfg, serve_ws = f"{root}/configs", f"{root}/ws"
+    reports = []
+    train_fn, visible = BiEncoderTrainer.train, mesh_mod.visible_devices
+
+    def recorded(self, *a, **kw):
+        report = train_fn(self, *a, **kw)
+        reports.append((self.mesh, report))
+        return report
+
+    BiEncoderTrainer.train, mesh_mod.visible_devices = recorded, lambda: list(grid)
+    base = ["--config-path", serve_cfg, "--device", dev.type]
+    npz = {"mesh": f"{work}/bi_mesh.npz", "unsharded": f"{work}/bi_unsharded.npz"}
+    try:
+        mesh_run, _ = cli_trained(cli, [*base, "train", "--db", serve_ws, "--model", "bi", "--out",
+                                        npz["mesh"], "--max-steps", str(MESH_STEPS), "--mesh"])
+        one_run, _ = cli_trained(cli, [*base, "train", "--db", serve_ws, "--model", "bi", "--out",
+                                       npz["unsharded"], "--max-steps", str(MESH_STEPS)])
+    finally:
+        BiEncoderTrainer.train, mesh_mod.visible_devices = train_fn, visible
+    (m_mesh, m_rep), (u_mesh, u_rep) = reports[-2:]
+    losses_m, losses_u = np.array(m_rep.losses), np.array(u_rep.losses)
+    rel = float(np.max(np.abs(losses_m - losses_u) / np.abs(losses_u))) if len(losses_u) else math.inf
+    log(f"mesh: (b) `train --model bi --mesh` (adamw, batch 32, {tenc.EncoderConfig()}) over "
+        f"{m_mesh.shape if m_mesh else None}: {mesh_run['steps']} steps in "
+        f"{mesh_run['seconds']:.2f} s; unsharded {one_run['steps']} steps in "
+        f"{one_run['seconds']:.2f} s; losses step by step: largest relative difference "
+        f"{rel:.3e} (tol {MESH_CLI_LOSS_TOL:.0e}), first {losses_m[0]:.6f} / {losses_u[0]:.6f}, "
+        f"last {losses_m[-1]:.6f} / {losses_u[-1]:.6f}")
+    if (m_mesh is None or u_mesh is not None or len(losses_m) != MESH_STEPS
+            or len(losses_u) != MESH_STEPS or not rel <= MESH_CLI_LOSS_TOL):
+        fail("mesh: `train --mesh` did not train over the mesh, or its losses differ from the "
+             "unsharded `train`'s")
+    with np.load(npz["mesh"]) as a, np.load(npz["unsharded"]) as b:
+        w_err = max(float(np.abs(a[k] - b[k]).max()) for k in b.files)
+    cat = Catalog(f"{serve_ws}/catalog.db")
+    rows = cat.connect().execute("SELECT id, contents FROM chunk ORDER BY id").fetchall()
+    q_texts = [cat.get_query_text(q) for q in cat.get_all_query_ids()]
+    cat.close()
+    bi_cfg = tenc.EncoderConfig()
+    c_tok = tenc.hash_tokenize([r[1] for r in rows], bi_cfg.vocab_size, bi_cfg.max_len)
+    q_tok = tenc.hash_tokenize(q_texts, bi_cfg.vocab_size, bi_cfg.max_len)
+
+    def embed(emb, tok):
+        ids, mask = tok
+        out = []
+        with torch.inference_mode():
+            for lo in range(0, len(ids), 2048):
+                out.append(emb.encoder(torch.from_numpy(ids[lo:lo + 2048]).to(dev, torch.int64),
+                                       torch.from_numpy(mask[lo:lo + 2048]).to(dev)))
+        return torch.cat(out).float().cpu().numpy()
+
+    reset()
+    found = {}
+    for name, path in npz.items():
+        emb = TorchEncoderEmbedding(bi_cfg, params_path=path, device=dev)
+        idx = DenseIndex(list(range(len(rows))), embed(emb, c_tok), mode="verified", device=dev)
+        found[name] = idx.topk_rows(embed(emb, q_tok), K)
+        del emb, idx
+    launched, plain = counts("b: mesh-trained search")
+    (s_m, i_m), (s_u, i_u) = found["mesh"], found["unsharded"]
+    rows_differ = np.any(i_m != i_u, axis=1)
+    # a row may differ only where its scores lie within MESH_TIE of each other
+    # at the positions that differ
+    gap = np.abs(s_m - s_u)
+    explained = bool(np.all(gap[rows_differ] <= MESH_TIE)) if rows_differ.any() else True
+    log(f"mesh: (b) the `.npz`s served by TorchEncoderEmbedding(params_path=) in a verified "
+        f"DenseIndex over phase 18's {len(rows)} passages, {len(q_texts)} queries, k={K}: "
+        f"launches {json.dumps(launched)}, plain {json.dumps(plain)}; weights max |mesh - "
+        f"unsharded| {w_err:.3e}; rows whose ids differ {int(rows_differ.sum())} (scores there "
+        f"within {MESH_TIE:.0e}: {explained}; largest score difference {float(gap.max()):.3e}); "
+        f"(b) {time.perf_counter() - t0:.1f} s")
+    if not launched.get("seg_stats_bf16") or plain or not explained:
+        fail("mesh: the mesh-trained search skipped #1, took a plain route or found other ids")
+
+    # ---- (c) the dry run on the card repeated 4 times -------------------------
+    t0 = time.perf_counter()
+    reset()
+    line = dryrun_multichip(4, dev)
+    launched, plain = counts("c: dryrun_multichip(4)")
+    log(f"mesh: (c) dryrun_multichip(4) on {dev} repeated: launches {json.dumps(launched)}, "
+        f"plain {json.dumps(plain)}; {time.perf_counter() - t0:.1f} s")
+    if not line.startswith("dryrun_multichip ok: 4 devices") or plain:
+        fail("the dry run did not finish on the card")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6536,6 +6890,12 @@ def main() -> int:
         log(f"phase 24 (training): {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
+        # ---- 26. the text ingestors, training over a mesh, the dry run -------
+        t0 = time.perf_counter()
+        port_completion_phase(args.seed, dev, serve_root)
+        log(f"phase 26 (BEIR, mesh training, the dry run): {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
     # ---- 22. config #5 (ViDoRe pages) through the Executor and `run` ---------
     t0 = time.perf_counter()
     page_phase(args.seed, dev, peak, kernels)
@@ -6543,6 +6903,7 @@ def main() -> int:
 
     log(f"phase 25 launches (sharded, counts from 0 before each part): "
         f"{json.dumps(SHARDED_LAUNCHES)}")
+    log(f"phase 26 launches (counts from 0 before each part): {json.dumps(PHASE26_LAUNCHES)}")
     for entry in kernels:
         entry["launches_sharded"] = SHARDED_LAUNCHES.get(entry["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s; card {card}")

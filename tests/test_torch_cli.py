@@ -14,13 +14,16 @@ each with the same defaults).
 to near-ties within that) and equal metric averages; ``report`` prints the
 same leaderboard. ``health-check`` runs on the CPU; ``train`` writes weights
 that the JAX package's loaders read; ``--device cuda`` without a GPU is
-refused, and ``train --mesh`` and the hub actions with their ROADMAP.md
-items (``run --mesh`` and ``serve --mesh``: ``tests/test_torch_parallel.py``).
+refused; ``train --mesh`` and the hub actions (``data upload`` /
+``download``, ``show dumps``, against a stand-in ``huggingface_hub``) run
+(``run --mesh`` and ``serve --mesh``: ``tests/test_torch_parallel.py``).
 """
 
 import importlib
 import json
+import re
 import sqlite3
+import tarfile
 
 import numpy as np
 import pytest
@@ -286,18 +289,55 @@ def test_cuda_without_gpu_fails(workspaces, capsys, monkeypatch, argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--db", "ws", "--out", "p.npz", "--mesh"], "item 6b"),
+    (["train", "--db", "ws", "--out", "p.npz", "--mesh", "--epochs", "2", "--hidden", "32",
+      "--layers", "1"], "item 6b"),
     (["data", "upload", "--db", "ws", "--ingestor", "local"], "item 7"),
     (["data", "download", "--db", "ws3", "--ingestor", "local"], "item 7"),
     (["show", "dumps", "--ingestor", "local"], "item 7"),
 ], ids=["train", "upload", "download", "show-dumps"])
-def test_refused_commands_name_their_item(workspaces, capsys, monkeypatch, argv, item):
-    monkeypatch.chdir(workspaces[TORCH])
-    capsys.readouterr()
-    assert MAINS[TORCH](argv) == 2
-    err = capsys.readouterr().err
-    assert item in err and "ROADMAP.md" in err
-    assert not (workspaces[TORCH] / "ws3").exists()
+def test_refused_commands_name_their_item(workspaces, capsys, monkeypatch, tmp_path, argv, item):
+    """The commands that ROADMAP.md items 6b and 7 once kept out of the port
+    now run: ``train --mesh`` trains over a (dp, tp) mesh of ``--device``
+    and writes weights the JAX loader reads; the hub actions do what the
+    JAX CLI's do against one stand-in ``huggingface_hub`` (``hub_stub.py``):
+    the same calls, output lines and restored workspace."""
+    import sys
+
+    from hub_stub import StubHub
+
+    monkeypatch.delenv("HF_TOKEN", raising=False)
+    if argv[0] == "train":
+        from autorag_research_tpu.embeddings.jax_encoder import load_params
+        from autorag_research_tpu.models.encoder import EncoderConfig, RetrievalEncoder
+
+        monkeypatch.chdir(workspaces[TORCH])
+        capsys.readouterr()
+        assert MAINS[TORCH](argv) == 0
+        assert "saved params to p.npz" in capsys.readouterr().out
+        template = RetrievalEncoder(EncoderConfig(hidden=32, layers=1, out_dim=16)).init(0)
+        load_params(template, workspaces[TORCH] / "p.npz")
+        return
+    outs, calls = {}, {}
+    for pkg, root in workspaces.items():
+        hub = StubHub(tmp_path / f"hub_{pkg}")
+        monkeypatch.setitem(sys.modules, "huggingface_hub", hub.module())
+        monkeypatch.chdir(root)
+        with tarfile.open(tmp_path / f"{pkg}.tar.gz", "w:gz") as tar:
+            tar.add(root / "ws", arcname="ws")
+        hub.put("autorag-research-tpu/local-dumps", tmp_path / f"{pkg}.tar.gz", "ws3.dump.tar.gz")
+        capsys.readouterr()
+        assert MAINS[pkg](argv) == 0
+        # a download restores from a temporary directory of its own
+        outs[pkg] = re.sub(r"\S*/(\S+\.dump\.tar\.gz)", r"<dir>/\1", capsys.readouterr().out)
+        calls[pkg] = hub.calls
+    assert outs[TORCH] == outs[JAX] and calls[TORCH] == calls[JAX] and calls[JAX]
+    if argv[1] == "download":
+        assert _rows(workspaces[TORCH] / "ws3" / "catalog.db") == _rows(
+            workspaces[TORCH] / "ws" / "catalog.db")
+    if argv[1] == "upload":
+        assert (tmp_path / f"hub_{TORCH}" / "autorag-research-tpu/local-dumps/ws.dump.tar.gz").exists()
+    if argv[0] == "show":
+        assert outs[TORCH].split() == ["local", "ws3.dump.tar.gz"]
 
 
 @pytest.mark.parametrize("model", ["bi", "cross", "lm"])

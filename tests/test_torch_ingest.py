@@ -9,11 +9,11 @@ catalogs are equal row for row at ``scripts/parity_run.py``'s smoke scale
 (300 docs, 20 queries) for three seeds. Embedding blobs written from the
 same float32 vectors are byte-identical; the port's ``torch_encoder`` on the
 JAX encoder's weights (carried over with ``params_path``) writes vectors
-within 1e-5 of ``jax_encoder``'s. The BEIR cases wait for the network-bound
-text ingestors (ROADMAP.md queue 1, item 7): the port's registry refuses them;
-their embedding cases run here on the same fixture through ``local``. The
-visual-document ingestors are held against the JAX package in
-``tests/test_torch_mm_ingestors.py``.
+within 1e-5 of ``jax_encoder``'s. The embedding cases of the JAX BEIR tests
+run here on the same fixture through ``local``; every other ingestor of the
+JAX registry resolves to the port's own class. The text ingestors are held
+against the JAX package in ``tests/test_torch_text_ingestors.py``, the
+visual-document ones in ``tests/test_torch_mm_ingestors.py``.
 """
 
 import importlib
@@ -324,9 +324,13 @@ def test_encoder_embed_all_matches_jax_encoder(tmp_path):
 
 
 def test_registry_params_and_listing():
+    """The port lists every ingestor of the JAX registry (the text ones
+    since the port of ROADMAP.md item 7)."""
     infos = {i.name for i in _mod(TORCH, "data.registry").list_ingestors()}
-    assert infos == {"local", "synthetic", "vidore", "vidorev2", "vidorev3", "visrag",
-                     "sds_kopub_vdr", "kovidorev2"}
+    assert infos == {i.name for i in _mod(JAX, "data.registry").list_ingestors()} == {
+        "local", "synthetic", "vidore", "vidorev2", "vidorev3", "visrag", "sds_kopub_vdr",
+        "kovidorev2", "beir", "text_mteb", "ragbench", "mrtydi", "bright", "crag",
+        "open_ragbench"}
     local = _mod(TORCH, "data.registry").get_ingestor("local")
     assert {p.name for p in local.params} == {"data_dir"}
     jsyn = _mod(JAX, "data.registry").get_ingestor("synthetic")
@@ -336,19 +340,16 @@ def test_registry_params_and_listing():
     ]
 
 
-VISUAL = ("kovidorev2", "sds_kopub_vdr", "vidore", "vidorev2", "vidorev3", "visrag")
-
-
 @pytest.mark.parametrize("name", ["beir", "bright", "crag", "kovidorev2", "mrtydi",
                                   "open_ragbench", "ragbench", "sds_kopub_vdr", "text_mteb",
                                   "vidore", "vidorev2", "vidorev3", "visrag"])
 def test_network_ingestors_refused(name):
-    if name in VISUAL:  # ported since: it resolves to the port's class
-        info = _mod(TORCH, "data.registry").get_ingestor(name)
-        assert info.name == name and info.cls.__module__.startswith(f"{TORCH}.data.")
-        return
-    with pytest.raises(KeyError, match="item 7"):
-        _mod(TORCH, "data.registry").get_ingestor(name)
+    """Once refused (ROADMAP.md items 7 and 8), every one is ported now: it
+    resolves to the port's own class, with the JAX ingestor's parameters."""
+    info = _mod(TORCH, "data.registry").get_ingestor(name)
+    ref = _mod(JAX, "data.registry").get_ingestor(name)
+    assert info.name == name and info.cls.__module__.startswith(f"{TORCH}.data.")
+    assert [p.name for p in info.params] == [p.name for p in ref.params]
 
 
 def test_fetch_unembedded_after_id_walks_from_the_cursor(tmp_path):

@@ -113,10 +113,11 @@ sys.modules["jaxlib"] = None
 # nor on the JAX trainers' optimizer and checkpoint libraries
 sys.modules["optax"] = None
 sys.modules["orbax"] = None
-# nor on what the card's machine lacks: the page images' and datasets'
+# nor on what the card's machine lacks: the page images', datasets' and hub
 # libraries are imported where they are used
 sys.modules["PIL"] = None
 sys.modules["datasets"] = None
+sys.modules["huggingface_hub"] = None
 
 
 class _RefuseJaxPackage:
@@ -160,6 +161,9 @@ ENTRY_MODULES = [
         "pipelines.retrieval.heaven", "pipelines.generation.visrag_gen",
         "models.trainer", "models.lm_trainer", "embeddings.torch_encoder",
         "parallel", "parallel.mesh", "parallel.sharded", "parallel.distributed",
+        "parallel.train", "entry", "utils.profiling", "data.hf_storage",
+        *(f"data.{d}" for d in (
+            "beir", "text_mteb", "ragbench", "mrtydi", "bright", "crag", "open_ragbench")),
         *(f"pipelines.generation.{g}" for g in (
             "ircot", "search_r1", "self_rag", "adaptive_rag", "question_decomposition",
             "dynamic_rag", "deep_rag", "hybrid_deep_searcher", "et2rag", "spd_rag", "main_rag",

@@ -6,7 +6,7 @@ and per-step losses of ``BiEncoderTrainer`` (sgd, adamw),
 checkpoints (the counterparts of ``tests/test_trainer_checkpoint.py``), the
 full train-then-serve loop through the port's ``Executor`` (the counterpart
 of ``tests/test_lm_trainer.py::test_full_loop_trained_lm_beats_no_retrieval``)
-and the mesh refusal. Everything runs on the CPU (``device="cpu"``).
+and a (2, 2) mesh run. Everything runs on the CPU (``device="cpu"``).
 
 Tolerance: per-step losses within ``LOSS_TOL`` = 1e-4 relative. The packages
 reduce in different f32 orders (one step's loss within 2.3e-7, its weights
@@ -253,9 +253,19 @@ def test_resume_no_checkpoint_is_fresh_start(catalogs, tmp_path):
     assert ttr.BiEncoderTrainer.latest_checkpoint(tmp_path / "new").name == "step_8"
 
 
-def test_mesh_refused_naming_item_6():
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        ttr.BiEncoderTrainer(EncoderConfig(**CK), mesh=object(), device="cpu")
+def test_mesh_refused_naming_item_6(catalogs):
+    """ROADMAP.md item 6b is in: ``BiEncoderTrainer(mesh=)`` trains over a
+    (dp, tp) mesh, here (2, 2) on the CPU, to the unsharded trainer's losses
+    (``tests/test_torch_mesh_training.py`` holds it against JAX)."""
+    from autorag_research_tpu_torch.parallel.mesh import train_mesh
+
+    _, tcat = catalogs
+    mesh = train_mesh([torch.device("cpu")] * 4)
+    meshed = ttr.BiEncoderTrainer(EncoderConfig(**CK), batch_size=8, mesh=mesh, device="cpu")
+    plain = ttr.BiEncoderTrainer(EncoderConfig(**CK), batch_size=8, device="cpu")
+    got, ref = meshed.train(tcat, epochs=2), plain.train(tcat, epochs=2)
+    assert got.steps == ref.steps == 8
+    np.testing.assert_allclose(got.losses, ref.losses, rtol=1e-5)
 
 
 # ------------------------------------------------------- trained -> serving
